@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Full-width run of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA GPU: the quickest proof that the port builds, agrees with its plain
+versions, and serves.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each:
+  build    build every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
+  kernels  each kernel against its plain PyTorch version on the card at the
+           serving path's shapes (and edge cases), with its time, the plain
+           version's, one PyTorch library call's and the card's bound
+  serve    multi-tenant LLaMA-7B decode at full width and depth (bf16,
+           random weights): 16 requests from 8 users through 8 slots; every
+           request must finish and every step must launch both kernels
+  profile  device time by kernel and device idle share over a few steps
+  oracle   the same width in f32 at 2 layers: ServeEngine tokens must equal
+           the merged-weights serve_naive tokens request for request
+Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
+the result line.  Exits non-zero, printing no result, on any failure and
+when no CUDA device is present.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2,
+                                                               atol=2e-2)}
+ATTN_SRC = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
+GEMV_SRC = "src/repro_torch/kernels/decode_attention/csrc/grouped_gemv.cu"
+ATTN_TPU = "src/repro/kernels/decode_attention/decode_attention.py:57"
+GEMV_TPU = "src/repro/kernels/decode_attention/grouped.py:67"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+class Failure(Exception):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise Failure(what)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, inputs, iters: int = 60) -> float:
+    """Device time of one ``fn(*inputs[i])`` call, cycling through
+    ``inputs`` (copies that together exceed the 50 MB L2, so each call reads
+    its operands from device memory as the serving path does).  A sleep
+    kernel holds the stream while the host enqueues every call, so the
+    events time the device and not the host's launch rate."""
+    for i in range(3):
+        fn(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(60_000_000)               # ~30 ms at H100 clocks
+    start.record()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies_for(nbytes: int) -> int:
+    return max(2, math.ceil(160e6 / max(nbytes, 1)))
+
+
+def compare(torch, got, want, dtype_name):
+    err = (got.float() - want.float()).abs()
+    tol = TOL[dtype_name]
+    bad = err > tol["atol"] + tol["rtol"] * want.float().abs()
+    return float(err.max()), int(bad.sum())
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build(build):
+    t0 = time.perf_counter()
+    built = build.build_all()
+    info = {}
+    for name, b in built.items():
+        regs = [ln.split("Used ")[1].split(",")[0] for ln in b.log.splitlines()
+                if "Used " in ln]
+        spills = [ln for ln in b.log.splitlines()
+                  if "spill" in ln and not ln.strip().startswith("0 bytes")
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        info[name] = {"seconds": round(b.seconds, 3), "registers": regs,
+                      "spill_lines": spills}
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "kernels": info})
+
+
+def attn_cases(torch, ops, ref, dev):
+    """Kernel vs plain version: LLaMA-7B width and 12/4 GQA, f32 and bf16,
+    ragged idx with a masked row, a wrapped ring, a scalar idx."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    worst = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for (b, h, kh, hd, ring, idx) in (
+                (8, 32, 32, 128, 160, [5, 200, -1, 159, 0, 77, 100, 158]),
+                (8, 32, 32, 128, 160, 37),
+                (4, 12, 4, 64, 100, [5, 140, -1, 99])):
+            def rn(*s):
+                return torch.randn(s, generator=g, device=dev).to(dt)
+            q, k, v = rn(b, 1, h, hd), rn(b, ring, kh, hd), rn(b, ring, kh, hd)
+            idx_t = torch.tensor(idx, dtype=torch.int32, device=dev)
+            got = ops.decode_attention(q, k, v, idx_t)
+            torch.cuda.synchronize()
+            want = ref.decode_attention_ref(q, k, v, idx_t)
+            err, nbad = compare(torch, got, want, dt_name)
+            masked = [i for i, x in enumerate(torch.atleast_1d(idx_t).tolist())
+                      if x < 0]
+            zero = all(bool((got[i] == 0).all()) for i in masked)
+            case = dict(b=b, h=h, kh=kh, hd=hd, ring=ring,
+                        idx=idx if isinstance(idx, int) else "ragged")
+            emit({"phase": "kernels", "kernel": "decode_attention",
+                  "dtype": dt_name, **case, "max_abs_err": err,
+                  "n_out_of_tol": nbad, "masked_rows_zero": zero,
+                  "tol": TOL[dt_name]})
+            require(nbad == 0 and zero,
+                    f"decode_attention disagrees with its plain version: "
+                    f"{case} {dt_name} err={err} bad={nbad} zero={zero}")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+    return worst
+
+
+def gemv_cases(torch, ops, ref, dev):
+    """Kernel vs plain version at the serving widths (K=N=4096, and
+    K=11008), ragged K/N (odd N, 20 rows) and 40 rows (two 32-row groups)
+    — r=8, m=8 bank rows."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    worst = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for (kk, n, rows) in ((4096, 4096, [0, 2, -1, 1, 7, 7, 3, 5]),
+                              (11008, 4096, [0, 2, -1, 1, 7, 7, 3, 5]),
+                              (300, 71, [3, -1, 0, 1, 2, 4, 5, 6, 7, 0] * 2),
+                              (4096, 4096, [3, -1, 0, 1, 2, 4, 5, 6, 7, 0] * 4)):
+            m, r = 8, 8
+            x = torch.randn((len(rows), kk), generator=g, device=dev).to(dt)
+            w = (torch.randn((kk, n), generator=g, device=dev)
+                 / math.sqrt(kk)).to(dt)
+            a = torch.randn((m, kk, r), generator=g, device=dev) / math.sqrt(r)
+            c = torch.eye(r, device=dev) + 0.1 * torch.randn(
+                (m, r, r), generator=g, device=dev)
+            bb = 0.02 * torch.randn((m, r, n), generator=g, device=dev)
+            rows_t = torch.tensor(rows, dtype=torch.int32, device=dev)
+            got = ops.grouped_dense(rows_t, x, w, a, c, bb, scaling=2.0)
+            torch.cuda.synchronize()
+            want = ref.grouped_gemv_ref(rows_t, x, w, a, c, bb, scaling=2.0)
+            err, nbad = compare(torch, got, want, dt_name)
+            zero = bool((got[rows_t < 0] == 0).all())
+            case = dict(rows=len(rows), k=kk, n=n, r=r, m=m)
+            emit({"phase": "kernels", "kernel": "grouped_gemv",
+                  "dtype": dt_name, **case, "max_abs_err": err,
+                  "n_out_of_tol": nbad, "masked_rows_zero": zero,
+                  "tol": TOL[dt_name]})
+            require(nbad == 0 and zero,
+                    f"grouped_gemv disagrees with its plain version: {case} "
+                    f"{dt_name} err={err} bad={nbad} zero={zero}")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+    return worst
+
+
+def time_attention(torch, F, ops, ref, bounds, dev):
+    """The serving path's call: B=8 slots, H=K=32, hd=128, ring 160, bf16,
+    every ring full (the most a step of the serve phase reads)."""
+    b, h, kh, hd, ring = 8, 32, 32, 128, 160
+    g = torch.Generator(device=dev).manual_seed(3)
+    kv_bytes = 2 * b * ring * kh * hd * 2
+    sets = []
+    for _ in range(copies_for(kv_bytes)):
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+                   for s in ((b, 1, h, hd), (b, ring, kh, hd),
+                             (b, ring, kh, hd)))
+        idx = torch.full((b,), ring - 1, dtype=torch.int32, device=dev)
+        valid = (torch.arange(ring, device=dev)[None, :] <= idx[:, None]) | \
+            (idx[:, None] >= ring)
+        sets.append((q, k, v, idx, valid[:, None, None, :]))
+    q, k, v, idx, _ = sets[0]
+    err = float((ops.decode_attention(q, k, v, idx).float()
+                 - ref.decode_attention_ref(q, k, v, idx).float()).abs().max())
+
+    def lib(q, k, v, idx, mask):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask)
+
+    n_valid = sum(min(int(i) + 1, ring) for i in idx.tolist())
+    return dict(
+        name="decode_attention", route="cuda", source=ATTN_SRC,
+        replaces=ATTN_TPU, max_abs_err=err,
+        ms=time_ms(torch, lambda q, k, v, i, m: ops.decode_attention(
+            q, k, v, i), sets),
+        plain_ms=time_ms(torch, lambda q, k, v, i, m: ref.decode_attention_ref(
+            q, k, v, i), sets),
+        library_ms=time_ms(torch, lib, sets),
+        **bound(bounds.decode_attention(b, h, kh, hd, n_valid, "bfloat16")))
+
+
+def time_gemv(torch, ops, ref, bounds, dev):
+    """The serving path's call: the bank GEMV of ``wq`` at LLaMA-7B width —
+    8 slots of 8 distinct users, K=N=4096 bf16, r=8, m=8."""
+    bsz, kk, n, r, m = 8, 4096, 4096, 8, 8
+    g = torch.Generator(device=dev).manual_seed(4)
+    sets = []
+    for _ in range(copies_for(kk * n * 2)):
+        x = torch.randn((bsz, kk), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((kk, n), generator=g, device=dev)
+             / math.sqrt(kk)).to(torch.bfloat16)
+        a = torch.randn((m, kk, r), generator=g, device=dev) / math.sqrt(r)
+        c = torch.eye(r, device=dev) + 0.1 * torch.randn(
+            (m, r, r), generator=g, device=dev)
+        b = 0.02 * torch.randn((m, r, n), generator=g, device=dev)
+        rows = torch.arange(bsz, dtype=torch.int32, device=dev)
+        sets.append((rows, x, w, a, c, b))
+    err = float((ops.grouped_dense(*sets[0], scaling=2.0).float()
+                 - ref.grouped_gemv_ref(*sets[0], scaling=2.0).float()
+                 ).abs().max())
+    users = len(set(sets[0][0].tolist()))
+    return dict(
+        name="grouped_gemv", route="cuda", source=GEMV_SRC,
+        replaces=GEMV_TPU, max_abs_err=err,
+        ms=time_ms(torch, lambda *t: ops.grouped_dense(*t, scaling=2.0), sets),
+        plain_ms=time_ms(torch, lambda *t: ref.grouped_gemv_ref(
+            *t, scaling=2.0), sets),
+        library_ms=time_ms(torch, lambda rows, x, w, *_: x @ w, sets),
+        **bound(bounds.grouped_gemv(bsz, kk, n, r, users, "bfloat16")))
+
+
+def bound(b) -> dict:
+    """The card's least time for this run's inputs (kernels/bounds.py)."""
+    return {"bound_ms": b.ms, "bound_by": b.by, "bytes": b.nbytes,
+            "flops": b.flops}
+
+
+def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
+    """LLaMA-7B at full width and depth, bf16, random weights."""
+    cfg = get_config("celora-llama-7b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = model.init_params(cfg, gen)
+        bank = random_bank(cfg, 8, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    from repro_torch.tree import tree_leaves
+    n_weights = sum(t.numel() for t in tree_leaves(params["base"]))
+    reqs = serve.make_requests(bank, 16, prompt_len=128, gen=32,
+                               vocab=cfg.vocab_size, seed=0)
+    eng = serve.ServeEngine(cfg, params["base"], bank, slots=8, max_len=160,
+                            device=dev)
+    step_ms = []
+    step = eng._step
+
+    def timed_step(*args):                    # the engine syncs each step
+        t = time.perf_counter()               # anyway (it reads the tokens)
+        out = step(*args)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    eng._step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                      # counts of the main path only
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    srt = sorted(step_ms)
+    launches = dict(ops.LAUNCHES)
+    steps = eng.steps
+    n_layers, n_targets = cfg.n_layers, len(cfg.lora_targets)
+    lens = sorted({len(v) for v in done.values()})
+    new_tokens = sum(r.gen for r in reqs)
+    emit({"phase": "serve", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "layers": n_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "weights": n_weights,
+          "weight_gb": round(n_weights * 2 / 1e9, 3), "users": 8,
+          "requests": len(reqs), "finished": len(done), "token_lengths": lens,
+          "slots": 8, "prompt_len": 128, "gen": 32, "steps": steps,
+          "wall_s": wall, "ms_per_step": 1e3 * wall / steps,
+          "step_ms_p50": srt[len(srt) // 2],
+          "step_ms_p95": srt[int(0.95 * (len(srt) - 1))],
+          "step_ms_max": srt[-1], "first_step_ms": step_ms[0],
+          "tok_per_s": new_tokens / wall,
+          "slot_tokens_per_s": steps * 8 / wall, "init_s": init_s,
+          "launches": launches,
+          "expected_launches": {"grouped_gemv": n_targets * n_layers * steps,
+                                "decode_attention": n_layers * steps},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    require(len(done) == len(reqs) and lens == [160],
+            f"serve finished {len(done)}/{len(reqs)} requests, lengths {lens}")
+    require(launches["grouped_gemv"] == n_targets * n_layers * steps
+            and launches["decode_attention"] == n_layers * steps,
+            f"launch counts {launches} over {steps} steps")
+    require(all(bool(((v >= 0) & (v < cfg.vocab_size)).all())
+                for v in done.values()), "token ids out of range")
+    return launches, (cfg, params, bank, eng)
+
+
+def phase_profile(torch, state, dev):
+    """Device time by kernel over 3 steps of the serve engine with all 8
+    slots active at position 120, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, params, bank, eng = state
+    from repro_torch.models import model
+    cache = model.init_decode_cache(cfg, 8, 160, device=dev)
+    tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+    rows = torch.arange(8, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        for p in range(118, 120):             # warm
+            eng._step(cache, tok, torch.full((8,), p, dtype=torch.int32,
+                                             device=dev), rows)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for p in range(120, 123):
+                eng._step(cache, tok, torch.full((8,), p, dtype=torch.int32,
+                                                 device=dev), rows)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for e in prof.events():                   # device-side kernel events
+        if getattr(e.device_type, "name", "") != "CUDA":
+            continue
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    rows_out = sorted(((k, us, n) for k, (us, n) in by_name.items()),
+                      key=lambda r: -r[1])
+    dev_total = sum(us for _, us, _ in rows_out)
+    emit({"phase": "profile", "steps": 3, "wall_us": wall_us,
+          "device_us": dev_total if rows_out else None,
+          "device_idle_share": (1 - dev_total / wall_us) if rows_out else None,
+          "top": [{"kernel": k[:80], "us": round(t, 1), "count": n}
+                  for k, t, n in rows_out[:14]]})
+
+
+def phase_oracle(torch, ops, serve, random_bank, get_config, model, dev):
+    """f32, full width, 2 layers: ServeEngine ≡ serve_naive per request."""
+    cfg = get_config("celora-llama-7b").with_overrides(
+        n_layers=2, param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.inference_mode():
+        params = model.init_params(cfg, gen)
+        bank = random_bank(cfg, 4, gen)
+    reqs = serve.make_requests(bank, 8, prompt_len=16, gen=8,
+                               vocab=cfg.vocab_size, seed=1)
+    ops.reset_launches()
+    eng = serve.ServeEngine(cfg, params["base"], bank, slots=4, max_len=24,
+                            device=dev)
+    got = eng.run(reqs)
+    engine_launches = dict(ops.LAUNCHES)
+    want = serve.serve_naive(cfg, params["base"], bank, reqs, device=dev)
+    same = [bool(np_equal(got[r.rid], want[r.rid])) for r in reqs]
+    emit({"phase": "oracle", "arch": cfg.name, "dtype": "float32",
+          "layers": 2, "d_model": cfg.d_model, "users": 4,
+          "requests": len(reqs), "slots": 4, "prompt_len": 16, "gen": 8,
+          "engine_steps": eng.steps, "engine_launches": engine_launches,
+          "token_identical": sum(same),
+          "sample": [int(t) for t in got[reqs[0].rid][-8:]]})
+    require(all(same) and len(got) == len(reqs),
+            f"ServeEngine diverged from serve_naive on "
+            f"{[r.rid for r, s in zip(reqs, same) if not s]}")
+
+
+def np_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def card_line() -> str:
+    run = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    require(run.returncode == 0, f"nvidia-smi failed: {run.stderr}")
+    return run.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from "
+              f"a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.nn.functional as F
+
+    from repro_torch.core.adapter_bank import random_bank
+    from repro_torch.kernels import bounds, build
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.models.config import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    try:
+        phase_build(build)
+        attn_err = attn_cases(torch, ops, ref, dev)
+        gemv_err = gemv_cases(torch, ops, ref, dev)
+        rows = [time_attention(torch, F, ops, ref, bounds, dev),
+                time_gemv(torch, ops, ref, bounds, dev)]
+        for r in rows:
+            emit({"phase": "kernels", "timing": r["name"],
+                  "kernel_ms": r["ms"], **{k: v for k, v in r.items()
+                                           if k not in ("name", "ms")}})
+        launches, state = phase_serve(torch, ops, serve, model, random_bank,
+                                      get_config, dev)
+        phase_profile(torch, state, dev)
+        del state
+        torch.cuda.empty_cache()
+        phase_oracle(torch, ops, serve, random_bank, get_config, model, dev)
+        card = card_line()
+    except Exception:                       # report, print no result, fail
+        traceback.print_exc()
+        return 1
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    emit({"phase": "summary", "max_abs_err_by_dtype": {
+        "decode_attention": attn_err, "grouped_gemv": gemv_err}})
+    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,180 @@
+"""Shared neural-net layers: norms, rotary embeddings, MLPs, adapted dense.
+
+PyTorch port of ``repro.models.layers``.  Params are plain nested dicts of
+tensors with the JAX package's key paths; matmuls run in the param dtype,
+norms / rope angles / activations in f32.  The JAX package's sharding
+hints have no counterpart here: the port runs on one device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import tri_lora
+from repro_torch.kernels.decode_attention import ops as decode_ops
+
+
+# ---------------------------------------------------------------------------
+# dense projection with optional tri-LoRA adapter
+# ---------------------------------------------------------------------------
+
+def dense(x: torch.Tensor, w: torch.Tensor, *,
+          bias: Optional[torch.Tensor] = None, adapter=None,
+          lora_scaling: float = 1.0,
+          adapter_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``adapter_rows`` switches the adapter to grouped/bank mode:
+    ``adapter`` then holds STACKED (m, …) factors and each batch row ``i``
+    applies bank row ``adapter_rows[i]`` (-1 = no delta).
+
+    On CUDA the grouped mode runs the grouped GEMV kernel, which computes
+    x·W and the delta in one f32 accumulation and writes an exactly-zero
+    row for a masked slot (the plain path keeps x·W there and drops only
+    the delta; serving discards masked rows either way)."""
+    if adapter is not None and adapter_rows is not None and x.is_cuda:
+        lead = x.shape[:-1]
+        if math.prod(lead[1:]) != 1:
+            raise ValueError(f"the grouped kernel takes one token per "
+                             f"sequence (decode); got x {tuple(x.shape)}")
+        y = decode_ops.grouped_dense(
+            adapter_rows.to(torch.int32),
+            x.reshape(-1, x.shape[-1]).contiguous(), w, adapter["A"],
+            adapter["C"], adapter["B"], scaling=lora_scaling)
+        y = y.reshape(*lead, w.shape[-1])
+        return y if bias is None else y + bias
+    y = x @ w
+    if bias is not None:
+        y = y + bias
+    if adapter is not None:
+        if adapter_rows is not None:
+            delta = tri_lora.apply_tri_lora_grouped(x, adapter, lora_scaling,
+                                                    adapter_rows)
+        else:
+            delta = tri_lora.apply_tri_lora(x, adapter, lora_scaling)
+        y = y + delta.to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def norm(x: torch.Tensor, params: dict, norm_type: str) -> torch.Tensor:
+    if norm_type == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params["bias"])
+
+
+def init_norm(d: int, norm_type: str, dtype, device) -> dict:
+    if norm_type == "rmsnorm":   # (1 + scale) convention
+        return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings (half-split)
+# ---------------------------------------------------------------------------
+
+def _rope_angles(positions: torch.Tensor, head_dim: int,
+                 theta: float) -> torch.Tensor:
+    """positions (..., S) -> angles (..., S, head_dim//2), f32."""
+    half = head_dim // 2
+    inv_freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                       device=positions.device) / half)
+    return positions.float()[..., None] * inv_freq
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S)."""
+    ang = _rope_angles(positions, x.shape[-1], theta)         # (B,S,half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def _normal(generator: torch.Generator, shape, std: float, dtype):
+    return (torch.randn(shape, generator=generator, device=generator.device,
+                        dtype=torch.float32) * std).to(dtype)
+
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
+             mlp_type: str, dtype) -> dict:
+    s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    if mlp_type == "swiglu":
+        return {"w_gate": _normal(generator, (d_model, d_ff), s_in, dtype),
+                "w_up": _normal(generator, (d_model, d_ff), s_in, dtype),
+                "w_down": _normal(generator, (d_ff, d_model), s_out, dtype)}
+    return {"w_in": _normal(generator, (d_model, d_ff), s_in, dtype),
+            "w_out": _normal(generator, (d_ff, d_model), s_out, dtype)}
+
+
+def mlp(x: torch.Tensor, params: dict, mlp_type: str, *, adapters=None,
+        lora_scaling: float = 1.0,
+        adapter_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    ad = adapters or {}
+    kw = dict(lora_scaling=lora_scaling, adapter_rows=adapter_rows)
+    if mlp_type == "swiglu":
+        g = dense(x, params["w_gate"], adapter=ad.get("w_gate"), **kw)
+        u = dense(x, params["w_up"], adapter=ad.get("w_up"), **kw)
+        h = F.silu(g.float()).to(x.dtype) * u
+        return dense(h, params["w_down"], adapter=ad.get("w_down"), **kw)
+    h = dense(x, params["w_in"], adapter=ad.get("w_in"), **kw)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return dense(h, params["w_out"], adapter=ad.get("w_out"), **kw)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+def init_embedding(generator: torch.Generator, vocab: int, d_model: int,
+                   dtype) -> torch.Tensor:
+    return _normal(generator, (vocab, d_model), 0.02, dtype)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor,
+            true_vocab: int = 0) -> torch.Tensor:
+    """Tied LM head; logits in f32.  If the table is padded beyond
+    ``true_vocab``, pad logits are set to -1e30 (softmax-exact)."""
+    x2, t = x.reshape(-1, x.shape[-1]), table.to(x.dtype).T
+    if x.is_cuda and x.dtype != torch.float32:
+        # operands in the param dtype, f32 accumulation AND f32 output (a
+        # bf16 product would round the logits before the argmax)
+        logits = torch.mm(x2, t, out_dtype=torch.float32)
+    else:
+        logits = x2.float() @ t.float()
+    logits = logits.reshape(*x.shape[:-1], table.shape[0])
+    if true_vocab and table.shape[0] > true_vocab:
+        logits[..., true_vocab:] = -1e30
+    return logits

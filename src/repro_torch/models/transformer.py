@@ -1,0 +1,184 @@
+"""Block assembly for dense attention stacks: init and one-token decode.
+
+Layer stacking follows the config's ``layer_pattern`` exactly as in the JAX
+package: ``q = n_layers // len(pattern)`` repetitions of the pattern with
+parameters stacked on a leading group axis, plus an unrolled remainder
+("tail").  The trees therefore match the JAX ones key for key and shape for
+shape; a Python loop over the group axis stands in for ``lax.scan``.
+Caches mirror the same (groups, tail) structure.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.core import tri_lora
+from repro_torch.models import attention, layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
+
+
+def _check_kind(cfg: ModelConfig, kind: str) -> None:
+    if kind != "attn" or cfg.is_moe or cfg.enc_dec:
+        raise NotImplementedError(
+            f"the port so far builds dense 'attn' blocks only; {cfg.name!r} "
+            f"needs kind={kind!r} moe={cfg.is_moe} enc_dec={cfg.enc_dec}")
+
+
+# ---------------------------------------------------------------------------
+# per-block init
+# ---------------------------------------------------------------------------
+
+def _adapter_shapes(cfg: ModelConfig, kind: str) -> dict:
+    _check_kind(cfg, kind)
+    d, hd, h, k, f = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    shapes = {"wq": (d, h * hd), "wk": (d, k * hd),
+              "wv": (d, k * hd), "wo": (h * hd, d)}
+    out = {"attn": {t: shapes[t] for t in cfg.lora_targets if t in shapes}}
+    if cfg.lora_mlp:
+        if cfg.mlp_type == "swiglu":
+            out["mlp"] = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+        else:
+            out["mlp"] = {"w_in": (d, f), "w_out": (f, d)}
+    return out
+
+
+def init_block_adapters(generator: torch.Generator, cfg: ModelConfig,
+                        kind: str) -> dict:
+    return {m: {t: tri_lora.init_adapter(generator, din, dout, cfg.lora_rank,
+                                         torch.float32)
+                for t, (din, dout) in ts.items()}
+            for m, ts in _adapter_shapes(cfg, kind).items()}
+
+
+def init_block(generator: torch.Generator, cfg: ModelConfig,
+               kind: str) -> dict:
+    _check_kind(cfg, kind)
+    d, nt, dev = cfg.d_model, cfg.norm_type, generator.device
+    return {"ln1": layers.init_norm(d, nt, cfg.dtype, dev),
+            "attn": attention.init_attn(generator, cfg),
+            "ln2": layers.init_norm(d, nt, cfg.dtype, dev),
+            "mlp": layers.init_mlp(generator, d, cfg.d_ff, cfg.mlp_type,
+                                   cfg.dtype)}
+
+
+# ---------------------------------------------------------------------------
+# per-block decode (one token, carries the cache)
+# ---------------------------------------------------------------------------
+
+def block_decode(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
+                 cache: dict, x: torch.Tensor, positions,
+                 adapter_rows: Optional[torch.Tensor] = None):
+    _check_kind(cfg, kind)
+    ad = ad or {}
+    nt = cfg.norm_type
+    h = layers.norm(x, p["ln1"], nt)
+    y, new_cache = attention.decode_self_attention(
+        cfg, p["attn"], h, cache, positions, ad.get("attn"),
+        adapter_rows=adapter_rows)
+    x = x + y
+    h = layers.norm(x, p["ln2"], nt)
+    y = layers.mlp(h, p["mlp"], cfg.mlp_type, adapters=ad.get("mlp"),
+                   lora_scaling=cfg.lora_alpha / cfg.lora_rank,
+                   adapter_rows=adapter_rows)
+    return x + y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# stack init: (groups stacked on a leading axis, tail unrolled)
+# ---------------------------------------------------------------------------
+
+def _stacked(n: int, make: Callable[[int], Any]) -> Any:
+    """Tree whose leaves are (n, …) tensors with ``[i]`` equal to the leaves
+    of ``make(i)``; filled one slice at a time so that a full-size model
+    never holds two copies of its weights."""
+    first = make(0)
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+
+    def put(i, tree):
+        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+
+    put(0, first)
+    del first
+    for i in range(1, n):
+        put(i, make(i))
+    return out
+
+
+def init_stack(generator: torch.Generator, cfg: ModelConfig) -> tuple:
+    """Returns (groups_params, tail_params) following cfg.stack_plan()."""
+    q, pattern, rem = cfg.stack_plan()
+    groups = _stacked(q, lambda _: {str(i): init_block(generator, cfg, kind)
+                                    for i, kind in enumerate(pattern)}) \
+        if q else None
+    tail = tuple(init_block(generator, cfg, kind) for kind in rem)
+    return groups, tail
+
+
+def init_stack_adapters(generator: torch.Generator, cfg: ModelConfig) -> tuple:
+    q, pattern, rem = cfg.stack_plan()
+    groups = _stacked(q, lambda _: {
+        str(i): init_block_adapters(generator, cfg, kind)
+        for i, kind in enumerate(pattern)}) if q else None
+    tail = tuple(init_block_adapters(generator, cfg, kind) for kind in rem)
+    return groups, tail
+
+
+def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
+                     device) -> tuple:
+    q, pattern, rem = cfg.stack_plan()
+    for kind in pattern:
+        _check_kind(cfg, kind)
+
+    def block_cache():
+        return attention.init_kv_cache(cfg, batch, seq_len, device=device)
+
+    groups = ({str(i): tree_map(
+        lambda t: t.new_zeros((q,) + tuple(t.shape)), block_cache())
+        for i in range(len(pattern))} if q else None)
+    tail = tuple(block_cache() for _ in rem)
+    return groups, tail
+
+
+# ---------------------------------------------------------------------------
+# stack decode
+# ---------------------------------------------------------------------------
+
+def _at(tree: Any, i: int) -> Any:
+    return tree_map(lambda t: t[i], tree)
+
+
+def run_stack_decode(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
+                     groups_cache, tail_cache, x: torch.Tensor, positions,
+                     adapter_rows=None):
+    """One-token decode through the stack; returns (x, new caches).
+
+    With ``adapter_rows`` (B,) the adapter trees carry a stacked bank axis
+    — groups leaves (q, m, …), tail leaves (m, …), see
+    ``AdapterBank.decode_tree`` — and each batch row applies its own bank
+    row.  K/V buffers are written in place (see
+    ``attention.decode_self_attention``)."""
+    q, pattern, rem = cfg.stack_plan()
+    new_groups_cache = None
+    if groups_p is not None:
+        new_idx: dict = {str(i): [] for i in range(len(pattern))}
+        for layer in range(q):
+            for i, kind in enumerate(pattern):
+                key = str(i)
+                gad = groups_ad[key] if groups_ad is not None else None
+                x, c = block_decode(cfg, kind, _at(groups_p[key], layer),
+                                    _at(gad, layer),
+                                    _at(groups_cache[key], layer), x,
+                                    positions, adapter_rows=adapter_rows)
+                new_idx[key].append(c["idx"])
+        new_groups_cache = {key: {"k": groups_cache[key]["k"],
+                                  "v": groups_cache[key]["v"],
+                                  "idx": torch.stack(new_idx[key])}
+                            for key in groups_cache}
+    new_tail = []
+    for i, kind in enumerate(rem):
+        x, c = block_decode(cfg, kind, tail_p[i], tail_ad[i], tail_cache[i],
+                            x, positions, adapter_rows=adapter_rows)
+        new_tail.append(c)
+    return x, new_groups_cache, tuple(new_tail)
