@@ -1,27 +1,43 @@
 #!/usr/bin/env python3
 """Full-width run of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA GPU: the quickest proof that the port builds, agrees with its plain
-versions, and serves.
+versions, serves and trains.
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
-  build    build every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
-  kernels  each kernel against its plain PyTorch version on the card at the
-           serving path's shapes (and edge cases), with its time, the plain
-           version's, one PyTorch library call's and the card's bound
-  serve    multi-tenant LLaMA-7B decode at full width and depth (bf16,
-           random weights): 16 requests from 8 users through 8 slots; every
-           request must finish and every step must launch both kernels
-  profile  device time by kernel and device idle share over a few steps
-  oracle   the same width in f32 at 2 layers: ServeEngine tokens must equal
-           the merged-weights serve_naive tokens request for request
+Phases, one JSON line each (several for the case phases):
+  build        build every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
+  kernels      the decode kernels against their plain PyTorch versions on
+               the card at the serving path's shapes (and edge cases), with
+               their times, the plain versions', one PyTorch library call's
+               and the card's bound
+  flash_cases  the flash forward (out, lse) and backward (dq, dk, dv)
+               kernels against the plain version: f32/bf16, causal /
+               window 64 / non-causal, GQA 12/4 and 32/32, hd 64/128,
+               S 256/512 and ragged 200
+  flash_timing forward and forward+backward at the train shape (B=8, S=256,
+               H=12, K=4, hd=64, f32) and at S=512, beside the bound, the
+               plain version and scaled_dot_product_attention
+  serve        multi-tenant LLaMA-7B decode at full width and depth (bf16,
+               random weights): 16 requests from 8 users through 8 slots;
+               every request must finish and every step must launch both
+               kernels
+  profile      device time by kernel and device idle share over a few steps
+  oracle       the same width in f32 at 2 layers: ServeEngine tokens must
+               equal the merged-weights serve_naive tokens request for
+               request
+  train        CE-LoRA ``run_federated`` on fed-100m at full width and
+               depth (f32, random backbone): 4 clients, 3 rounds of 5 local
+               steps of batch 8 at sequence 256, attn_impl="flash"; exact
+               flash launch counts, a profile window, and the same job with
+               attn_impl="ref" on the card as its reference
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the result line.  Exits non-zero, printing no result, on any failure and
 when no CUDA device is present.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -37,6 +53,23 @@ ATTN_SRC = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 GEMV_SRC = "src/repro_torch/kernels/decode_attention/csrc/grouped_gemv.cu"
 ATTN_TPU = "src/repro/kernels/decode_attention/decode_attention.py:57"
 GEMV_TPU = "src/repro/kernels/decode_attention/grouped.py:67"
+FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_TPU = {name: f"src/repro/kernels/flash_attention/flash_attention.py:{n}"
+             for name, n in (("flash_fwd", 124), ("flash_dq", 176),
+                             ("flash_dkv", 214))}
+#: (B, S, H, K, hd, causal, window) of the flash kernel cases
+FLASH_CASES = (
+    (4, 256, 12, 4, 64, True, 0),       # the train phase's shape
+    (2, 512, 12, 4, 64, True, 64),      # sliding window
+    (4, 200, 12, 4, 64, True, 0),       # ragged: no multiple of the tile
+    (2, 256, 12, 4, 64, False, 0),      # non-causal
+    (2, 200, 12, 4, 64, False, 0),      # non-causal ragged: keys masked
+    (2, 256, 32, 32, 128, True, 0),     # LLaMA-7B heads
+    (1, 512, 32, 32, 128, True, 64),
+    (2, 200, 32, 32, 128, False, 0),
+)
+#: the train phase's attention shape and the kernel table's bound shape
+FLASH_TIMED = ((8, 256, 12, 4, 64), (8, 512, 12, 4, 64))
 
 
 def emit(obj) -> None:
@@ -246,6 +279,155 @@ def time_gemv(torch, ops, ref, bounds, dev):
         **bound(bounds.grouped_gemv(bsz, kk, n, r, users, "bfloat16")))
 
 
+# ---------------------------------------------------------------------------
+# flash attention: cases and timing
+# ---------------------------------------------------------------------------
+
+def flash_inputs(torch, dev, b, s, h, kh, hd, dtype, gen):
+    return [torch.randn(sh, generator=gen, device=dev).to(dtype)
+            for sh in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd),
+                       (b, s, h, hd))]
+
+
+def flash_cases(torch, fa_ops, fa_ref, dev):
+    """Kernels vs plain version: out and lse of the forward, dq/dk/dv of
+    the backward, per case and dtype.  lse is f32 in both dtypes and is
+    held to the f32 tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for (b, s, h, kh, hd, causal, window) in FLASH_CASES:
+            q, k, v, do = flash_inputs(torch, dev, b, s, h, kh, hd, dt, gen)
+            kw = dict(causal=causal, window=window)
+            out, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+            grads = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            want_out, want_lse = fa_ref.flash_attention_fwd_ref(q, k, v,
+                                                                **kw)
+            want_grads = fa_ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+            errs, bad = {}, 0
+            for name, got, want, tol_dt in (
+                    ("out", out, want_out, dt_name),
+                    ("lse", lse, want_lse, "float32"),
+                    *((n, g, w, dt_name) for n, g, w in
+                      zip(("dq", "dk", "dv"), grads, want_grads))):
+                errs[name], nbad = compare(torch, got, want, tol_dt)
+                bad += nbad
+            case = dict(b=b, s=s, h=h, kh=kh, hd=hd, causal=causal,
+                        window=window)
+            emit({"phase": "flash_cases", "dtype": dt_name, **case,
+                  "max_abs_err": errs, "n_out_of_tol": bad,
+                  "tol": TOL[dt_name], "lse_tol": TOL["float32"]})
+            require(bad == 0, f"flash kernels disagree with the plain "
+                    f"version: {case} {dt_name} errors {errs}")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), *errs.values())
+    return worst
+
+
+def time_flash(torch, F, fa_ops, fa_ref, bounds, dev):
+    """f32 causal at the train phase's shape and at S=512: each kernel, the
+    forward and forward+backward, the plain version and SDPA
+    (``is_causal=True, enable_gqa=True`` on the model-layout tensors,
+    transposed views).  Returns the kernel-table rows at the train
+    shape."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = None
+    for (b, s, h, kh, hd) in FLASH_TIMED:
+        one = 4 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
+        sets = []
+        for _ in range(copies_for(one)):
+            q, k, v, do = flash_inputs(torch, dev, b, s, h, kh, hd,
+                                       torch.float32, gen)
+            out, lse = fa_ops.flash_attention_fwd(q, k, v)
+            delta = fa_ops.softmax_delta(out, do)
+            sets.append((q, k, v, do, out, lse, delta))
+        q, k, v, do, out, lse, delta = sets[0]
+        want_out, _ = fa_ref.flash_attention_fwd_ref(q, k, v)
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, do)
+        dq = fa_ops.flash_attention_dq(q, k, v, do, lse, delta)
+        dk, dv = fa_ops.flash_attention_dkv(q, k, v, do, lse, delta)
+        err = {"flash_fwd": float((out - want_out).abs().max()),
+               "flash_dq": float((dq - want[0]).abs().max()),
+               "flash_dkv": max(float((dk - want[1]).abs().max()),
+                                float((dv - want[2]).abs().max()))}
+
+        def plain_graph(q, k, v, do, *_):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            return leaves, fa_ref.flash_attention_ref(*leaves), do
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+
+        def sdpa_graph(q, k, v, do, *_):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            return leaves, sdpa(*leaves), do.transpose(1, 2)
+
+        def grad_of(graphs):
+            def run(leaves, y, dy):
+                torch.autograd.grad(y, leaves, dy, retain_graph=True)
+            return run
+
+        plain_graphs = [plain_graph(*t) for t in sets[:4]]
+        sdpa_graphs = [sdpa_graph(*t) for t in sets]
+        t = {
+            "flash_fwd": time_ms(torch, lambda q, k, v, *_:
+                                 fa_ops.flash_attention_fwd(q, k, v), sets),
+            "flash_dq": time_ms(torch, lambda q, k, v, do, o, lse, delta:
+                                fa_ops.flash_attention_dq(q, k, v, do, lse,
+                                                          delta), sets),
+            "flash_dkv": time_ms(torch, lambda q, k, v, do, o, lse, delta:
+                                 fa_ops.flash_attention_dkv(q, k, v, do, lse,
+                                                            delta), sets),
+            "fwd_bwd": time_ms(torch, lambda q, k, v, do, *_:
+                               fa_ops.flash_attention_bwd(
+                                   q, k, v, *fa_ops.flash_attention_fwd(
+                                       q, k, v), do), sets),
+            "plain_fwd": time_ms(torch, lambda q, k, v, *_:
+                                 fa_ref.flash_attention_fwd_ref(q, k, v),
+                                 sets, iters=20),
+            "plain_bwd": time_ms(torch, grad_of(plain_graphs), plain_graphs,
+                                 iters=20),
+            "plain_fwd_bwd": time_ms(torch, lambda q, k, v, do, *_:
+                                     fa_ref.flash_attention_bwd_ref(
+                                         q, k, v, do), sets, iters=20),
+            "sdpa_fwd": time_ms(torch, lambda q, k, v, *_: sdpa(q, k, v),
+                                sets),
+            "sdpa_bwd": time_ms(torch, grad_of(sdpa_graphs), sdpa_graphs),
+        }
+        del plain_graphs, sdpa_graphs
+        bd = {"flash_fwd": bounds.flash_fwd(b, h, kh, s, hd, "float32"),
+              "flash_dq": bounds.flash_dq(b, h, kh, s, hd, "float32"),
+              "flash_dkv": bounds.flash_dkv(b, h, kh, s, hd, "float32"),
+              "fwd_bwd_ms": (bounds.flash_fwd(b, h, kh, s, hd, "float32").ms
+                             + bounds.flash_bwd(b, h, kh, s, hd,
+                                                "float32").ms)}
+        emit({"phase": "flash_timing", "b": b, "s": s, "h": h, "kh": kh,
+              "hd": hd, "dtype": "float32", "causal": True,
+              "kernel_ms": {n: t[n] for n in ("flash_fwd", "flash_dq",
+                                              "flash_dkv", "fwd_bwd")},
+              "bound_ms": {n: bd[n].ms for n in ("flash_fwd", "flash_dq",
+                                                 "flash_dkv")}
+              | {"fwd_bwd": bd["fwd_bwd_ms"]},
+              "plain_ms": {"fwd": t["plain_fwd"], "bwd": t["plain_bwd"],
+                           "fwd_bwd": t["plain_fwd_bwd"]},
+              "sdpa_ms": {"fwd": t["sdpa_fwd"], "bwd": t["sdpa_bwd"]},
+              "max_abs_err": err})
+        if rows is None:          # the train phase's shape
+            rows = [dict(name=n, route="cuda", source=FLASH_SRC,
+                         replaces=FLASH_TPU[n], max_abs_err=err[n], ms=t[n],
+                         plain_ms=t["plain_fwd" if n == "flash_fwd"
+                                    else "plain_bwd"],
+                         library_ms=t["sdpa_fwd"] if n == "flash_fwd"
+                         else None, **bound(bd[n]))
+                    for n in ("flash_fwd", "flash_dq", "flash_dkv")]
+        del sets
+        torch.cuda.empty_cache()
+    return rows
+
+
 def bound(b) -> dict:
     """The card's least time for this run's inputs (kernels/bounds.py)."""
     return {"bound_ms": b.ms, "bound_by": b.by, "bytes": b.nbytes,
@@ -384,6 +566,140 @@ def phase_oracle(torch, ops, serve, random_bank, get_config, model, dev):
             f"{[r.rid for r, s in zip(reqs, same) if not s]}")
 
 
+# ---------------------------------------------------------------------------
+# train: CE-LoRA federated rounds on fed-100m
+# ---------------------------------------------------------------------------
+
+#: the train phase's job: 4 clients, 3 rounds of 5 local steps of batch 8
+#: at sequence 256, 64 train and 32 test sequences per client, 4 classes.
+#: lr 1e-3: at 5e-3 AdamW's steps overshoot on the random full-width
+#: backbone and the rounds amplify rounding differences (flash and ref then
+#: part by ~0.1 in loss by round 1, on the card and with plain PyTorch on
+#: both sides on the CPU alike)
+TRAIN = dict(clients=4, rounds=3, local_steps=5, batch=8, seq=256,
+             n_train=64, n_test=32, classes=4, lr=1e-3)
+
+
+def train_job(torch, cfg, dev, attn_impl: str, job: dict = TRAIN):
+    """``run_federated`` (celora, loop path, eager engine) on ``cfg`` with
+    a random backbone; returns (result, wall seconds)."""
+    from repro_torch.core.fed_model import FedTask
+    from repro_torch.core.federated import FedConfig, run_federated
+    from repro_torch.data import synthetic
+
+    ctrain, ctest, _ = synthetic.make_federated_classification(
+        0, job["clients"], job["n_train"], job["n_test"], job["seq"],
+        cfg.vocab_size, job["classes"], drift=0.5)
+    task = FedTask.create(torch.Generator(device=dev).manual_seed(0), cfg,
+                          job["classes"])
+    fed = FedConfig(method="celora", n_clients=job["clients"],
+                    rounds=job["rounds"], local_steps=job["local_steps"],
+                    batch_size=job["batch"], lr=job["lr"], seed=0,
+                    client_parallelism="loop", attn_impl=attn_impl)
+    t0 = time.perf_counter()
+    out = run_federated(task, fed, ctrain, ctest, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_profile(torch, cfg, dev, job: dict = TRAIN):
+    """Device time by kernel and the device's idle share over one client's
+    local fit of 3 steps and its eval batch (``lora_loc``: no server
+    work), run through ``run_federated`` with attn_impl="flash"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.fed_model import FedTask
+    from repro_torch.core.federated import FedConfig, run_federated
+    from repro_torch.data import synthetic
+
+    ctrain, ctest, _ = synthetic.make_federated_classification(
+        1, 1, job["n_train"], job["n_test"], job["seq"], cfg.vocab_size,
+        job["classes"])
+    task = FedTask.create(torch.Generator(device=dev).manual_seed(1), cfg,
+                          job["classes"])
+    fed = FedConfig(method="lora_loc", n_clients=1, rounds=1, local_steps=3,
+                    batch_size=job["batch"], attn_impl="flash")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_federated(task, fed, ctrain, ctest, device=dev)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for e in prof.events():                   # device-side kernel events
+        if getattr(e.device_type, "name", "") != "CUDA":
+            continue
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    rows_out = sorted(((k, us, n) for k, (us, n) in by_name.items()),
+                      key=lambda r: -r[1])
+    dev_total = sum(us for _, us, _ in rows_out)
+    return {"window": "lora_loc, 1 client, 3 local steps + 1 eval batch",
+            "wall_us": wall_us,
+            "device_us": dev_total if rows_out else None,
+            "device_idle_share": (1 - dev_total / wall_us)
+            if rows_out else None,
+            "top": [{"kernel": k[:80], "us": round(t, 1), "count": n}
+                    for k, t, n in rows_out[:12]]}
+
+
+def phase_train(torch, fa_ops, get_config, dev):
+    """fed-100m at full width and depth through the flash kernels, then the
+    same job through the plain reference attention on the card."""
+    cfg = get_config("fed-100m")
+    job = TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()                   # counts of the main path only
+    out, wall = train_job(torch, cfg, dev, "flash")
+    launches = dict(fa_ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["history"]
+    steps = sum(len(r.sampled) for r in hist) * job["local_steps"]
+    evals = sum(r.evaluated for r in hist) * job["clients"]
+    layers = cfg.n_layers
+    expected = {"flash_fwd": layers * (steps + evals + job["clients"]),
+                "flash_dq": layers * steps, "flash_dkv": layers * steps}
+    tokens = steps * job["batch"] * job["seq"]
+    rounds = [{"round": r.round, "wall_s": r.wall_s,
+               "train_loss": r.train_loss, "mean_acc": r.mean_acc,
+               "uplink_bytes": r.uplink_bytes,
+               "downlink_bytes": r.downlink_bytes} for r in hist]
+    prof = train_profile(torch, cfg, dev, job)
+    ref, ref_wall = train_job(torch, cfg, dev, "ref")
+    emit({"phase": "train", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "layers": layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "lora_rank": cfg.lora_rank,
+          "method": "celora", "attn_impl": "flash", **job,
+          "rounds_detail": rounds, "wall_s": wall,
+          "trained_tokens": tokens, "trained_tok_per_s": tokens / wall,
+          "round_wall_s_sum": sum(r.wall_s for r in hist),
+          "peak_mem_gb": peak, "launches": launches,
+          "expected_launches": expected, "profile": prof,
+          "ref": {"attn_impl": "ref", "wall_s": ref_wall,
+                  "train_loss": [r.train_loss for r in ref["history"]],
+                  "mean_acc": [r.mean_acc for r in ref["history"]]}})
+    require(launches == expected,
+            f"flash launches {launches} != expected {expected}")
+    for a, b in zip(hist, ref["history"]):
+        require((a.sampled, a.participants, a.dropped, a.uplink_bytes,
+                 a.downlink_bytes, a.uplink_elems)
+                == (b.sampled, b.participants, b.dropped, b.uplink_bytes,
+                    b.downlink_bytes, b.uplink_elems),
+                f"round {a.round}: the flash and ref ledgers differ")
+        require(abs(a.train_loss - b.train_loss)
+                <= 1e-3 + 1e-3 * abs(b.train_loss),
+                f"round {a.round}: flash loss {a.train_loss} vs ref "
+                f"{b.train_loss}")
+        require(max(abs(x - y) for x, y in zip(a.accs, b.accs)) <= 0.05,
+                f"round {a.round}: flash accs {a.accs} vs ref {b.accs}")
+    losses = [r.train_loss for r in hist]
+    require(all(b < a for a, b in zip(losses, losses[1:])),
+            f"train loss did not decrease over the rounds: {losses}")
+    return launches
+
 def np_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
@@ -412,6 +728,8 @@ def main() -> int:
     from repro_torch.core.adapter_bank import random_bank
     from repro_torch.kernels import bounds, build
     from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.launch import serve
     from repro_torch.models import model
     from repro_torch.models.config import get_config
@@ -423,8 +741,10 @@ def main() -> int:
         phase_build(build)
         attn_err = attn_cases(torch, ops, ref, dev)
         gemv_err = gemv_cases(torch, ops, ref, dev)
+        flash_err = flash_cases(torch, fa_ops, fa_ref, dev)
         rows = [time_attention(torch, F, ops, ref, bounds, dev),
                 time_gemv(torch, ops, ref, bounds, dev)]
+        flash_rows = time_flash(torch, F, fa_ops, fa_ref, bounds, dev)
         for r in rows:
             emit({"phase": "kernels", "timing": r["name"],
                   "kernel_ms": r["ms"], **{k: v for k, v in r.items()
@@ -433,18 +753,23 @@ def main() -> int:
                                       get_config, dev)
         phase_profile(torch, state, dev)
         del state
+        gc.collect()          # the timed engine sits in a reference cycle
         torch.cuda.empty_cache()
         phase_oracle(torch, ops, serve, random_bank, get_config, model, dev)
+        torch.cuda.empty_cache()
+        launches.update(phase_train(torch, fa_ops, get_config, dev))
         card = card_line()
     except Exception:                       # report, print no result, fail
         traceback.print_exc()
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows += flash_rows
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"phase": "summary", "max_abs_err_by_dtype": {
-        "decode_attention": attn_err, "grouped_gemv": gemv_err}})
+        "decode_attention": attn_err, "grouped_gemv": gemv_err,
+        "flash_attention": flash_err}})
     emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

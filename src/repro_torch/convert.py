@@ -1,4 +1,5 @@
-"""Move parameter and adapter-bank trees from numpy into the port.
+"""Move parameter, adapter-bank and federated-task trees from numpy into
+the port.
 
 The JAX package's trees become numpy trees with
 ``jax.tree.map(np.asarray, tree)``; these helpers turn such a tree into the
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.adapter_bank import AdapterBank
+from repro_torch.core.fed_model import FedTask
 from repro_torch.core.tri_lora import is_adapter
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -43,3 +45,11 @@ def bank_from_numpy(tree: dict, *, users: Dict[str, int], device,
     m = int(ads[0]["A"].shape[0])
     r = int(ads[0]["C"].shape[-1]) if rank is None else int(rank)
     return AdapterBank(tree=t, n_clients=m, rank=r, users=dict(users))
+
+
+def fed_task_from_numpy(cfg, base: dict, n_classes: int, device) -> FedTask:
+    """A :class:`FedTask` around a numpy backbone tree (the JAX
+    ``FedTask.base`` after ``np.asarray``); ``cfg`` is the port's
+    :class:`~repro_torch.models.config.ModelConfig` of the same name."""
+    return FedTask(cfg, params_from_numpy(base, device), n_classes)
+

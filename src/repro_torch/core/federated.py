@@ -1,0 +1,515 @@
+"""Federated fine-tuning runtime (paper Algorithm 1): PyTorch port of
+``repro.core.federated``, the eager engine's reference ``loop`` path.
+
+One server, m clients.  Per round: each sampled client locally fine-tunes
+its tri-LoRA (strategy-dependent factors) on private data (Alg. 1 line 3);
+the participants uplink their payload (C for CE-LoRA — §III-B/D; A/B or B
+for the baselines); the server aggregates — personalized, eqn (3), for
+CE-LoRA, FedAvg otherwise — and downlinks; participants install (lines
+7–9).  The one-shot dataset similarity S^data (eqns 5–6) is computed before
+round 0 and the model similarity S^model (eqns 7–9, CKA over the
+transmitted C) each round; their sum (eqn 4) drives the personalized
+weights.  Communication is accounted exactly in bytes from the real
+payload trees (:mod:`.comm`).
+
+Clients train one after another (``client_parallelism="loop"``, the port's
+default; the JAX package defaults to its batched ``"vmap"`` mode, which it
+holds equal to ``"loop"`` in its tests).  The options whose machinery is
+not ported yet — vectorized or sharded clients, the scan and async
+engines, host or sharded client stores, uplink codecs, fault injection and
+admission control — raise ``NotImplementedError``; nothing falls back to
+another path.
+
+The random draws the JAX package takes from ``jax.random`` — client init,
+the CKA probe batch and the GMM initial means — come from
+``torch.Generator``s seeded from ``fed.seed``, or ready-made from the
+caller (``init_clients``, ``cka_probes``, ``gmm_init``), so that a test can
+hand the port the JAX package's draws.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import aggregation, comm, sampling, tri_lora
+from repro_torch.core.baselines import Strategy, get_strategy
+from repro_torch.core.fed_model import FedTask
+from repro_torch.core.similarity import cka, gmm, ot
+from repro_torch.data.pipeline import Loader
+from repro_torch.device import check_on, resolve_device
+from repro_torch.models import attention
+from repro_torch.optim import adamw, apply_updates
+from repro_torch.tree import tree_leaves, tree_map
+
+PARALLELISM_MODES = ("loop", "vmap", "shard")
+ENGINES = ("eager", "scan", "async")
+STORE_BACKENDS = ("device", "sharded", "host")
+CODECS = ("none", "bf16", "int8", "int4")
+ADMISSION_MODES = ("none", "norm")
+FAULT_RATES = ("fault_crash", "fault_loss", "fault_corrupt",
+               "fault_divergent")
+
+_NOT_PORTED = ("is not ported yet (ROADMAP, Queue 1 item {item}); the port "
+               "runs {what}")
+
+
+@dataclasses.dataclass
+class FedConfig:
+    """Every field of the JAX package's ``FedConfig``, with its default,
+    except ``client_parallelism``: the port's default is the reference
+    ``"loop"``, its only ported mode."""
+    method: str = "celora"
+    n_clients: int = 10
+    rounds: int = 30
+    local_steps: int = 10
+    batch_size: int = 16
+    lr: float = 5e-3
+    seed: int = 0
+    # --- client dispatch: "loop" (reference) | "vmap" | "shard" ------------
+    client_parallelism: str = "loop"
+    # --- population residency ---------------------------------------------
+    client_store: str = "device"      # "device" | "sharded" | "host"
+    # --- round dispatch -----------------------------------------------------
+    engine: str = "eager"             # "eager" | "scan" | "async"
+    chunk_rounds: int = 8             # scan: rounds fused per dispatch
+    checkpoint_path: Optional[str] = None  # scan: state file, chunk cadence
+    resume: bool = False              # scan: restore checkpoint_path first
+    scan_donate: bool = True          # scan: donate the carry buffers
+    scan_prefetch: bool = True        # scan: overlapped chunk prefetch
+    eval_every: int = 1               # eval cadence: every k-th round + last;
+    #                                   off-cadence rounds report the LAST
+    #                                   evaluated accuracies
+    # --- asynchronous buffered runtime --------------------------------------
+    buffer_size: int = 0
+    async_concurrency: int = 0
+    staleness_decay: float = 1.0
+    latency: str = "uniform"
+    latency_scale: float = 1.0
+    latency_sigma: float = 0.5
+    # --- uplink compression ------------------------------------------------
+    uplink_codec: str = "none"        # "none" | "bf16" | "int8" | "int4"
+    # --- attention backend (models.attention.select_impl) -------------------
+    attn_impl: Optional[str] = None   # None -> inherit task.cfg.attn_impl
+    # --- partial participation (core.sampling) -----------------------------
+    participation: float = 1.0        # fraction of clients sampled per round
+    sampler: str = "uniform"          # "uniform" | "weighted" | "round_robin"
+    straggler_frac: float = 0.0       # sampled clients dropped after local fit
+    # --- CE-LoRA similarity knobs (§III-C) ---------------------------------
+    gmm_components: int = 2
+    gmm_iters: int = 15
+    feature_samples: int = 128        # per-client GMM feature budget
+    sinkhorn_eps: float = 0.05
+    use_data_sim: bool = True
+    use_model_sim: bool = True
+    cka_probes: int = 64
+    self_weight: float = 0.0          # beyond-paper λ self-mixing (0=paper)
+    # --- pFedMe -------------------------------------------------------------
+    pfedme_eta: float = 0.5
+    # --- fault injection ----------------------------------------------------
+    fault_crash: float = 0.0
+    fault_loss: float = 0.0
+    fault_corrupt: float = 0.0
+    fault_corrupt_mode: str = "nan"   # "nan" | "inf" | "bitflip"
+    fault_divergent: float = 0.0
+    fault_divergent_scale: float = 1e4
+    # --- server-side uplink admission ---------------------------------------
+    admission: str = "none"           # "none" | "norm"
+    admission_norm_mult: float = 10.0
+    admission_window: int = 8
+    # --- async retry/timeout/backoff ----------------------------------------
+    dispatch_timeout: float = 0.0
+    retry_backoff: float = 1.0
+    retry_cap: int = 3
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    round: int
+    train_loss: float     # mean local loss over the SAMPLED clients
+    accs: list            # per-client test accuracy (all m, every round)
+    uplink_bytes: int     # exact payload bytes up this round (participants)
+    downlink_bytes: int   # exact payload bytes down this round
+    wall_s: float
+    participants: list = dataclasses.field(default_factory=list)
+    sampled: list = dataclasses.field(default_factory=list)
+    dropped: list = dataclasses.field(default_factory=list)
+    uplink_elems: int = 0  # dtype-blind element count
+    host_s: float = 0.0    # not measured by the loop path
+    device_s: float = 0.0  # not measured by the loop path
+    evaluated: bool = True  # False: accs carried from the last eval round
+    rejected: list = dataclasses.field(default_factory=list)
+    failed: list = dataclasses.field(default_factory=list)
+
+    @property
+    def mean_acc(self):
+        return float(np.mean(self.accs))
+
+    @property
+    def min_acc(self):
+        return float(np.min(self.accs))
+
+    @property
+    def max_acc(self):
+        return float(np.max(self.accs))
+
+
+# ---------------------------------------------------------------------------
+# S^data — one-shot GMM + OT dataset similarity (paper §III-C.1)
+# ---------------------------------------------------------------------------
+
+GmmInit = Callable[[int, int, int], Any]   # (client, category, n) -> (G,) idx
+
+
+def default_gmm_init(fed: FedConfig, device) -> GmmInit:
+    """Initial-mean indices of client ``ci``'s category ``k`` drawn from a
+    generator seeded ``fed.seed + 31·ci + k`` (the JAX package keys its
+    draw the same way)."""
+    def draw(ci: int, k: int, n: int):
+        g = torch.Generator(device=device).manual_seed(fed.seed + 31 * ci + k)
+        return gmm.draw_init_idx(g, n, fed.gmm_components)
+    return draw
+
+
+@torch.no_grad()
+def data_similarity(task: FedTask, fed: FedConfig, client_train: list,
+                    *, gmm_init: Optional[GmmInit] = None) -> torch.Tensor:
+    """One-shot S^data (m, m) on the task's device: per-(client, category)
+    GMMs on frozen-backbone features (§III-C.1), all pairwise OT dataset
+    distances (eqns 5–6) in one batched solve, and distance → affinity.
+    The feature subsample and the padding of sparse categories follow the
+    JAX package's numpy stream exactly."""
+    dev = tree_leaves(task.base)[0].device
+    gmm_init = gmm_init or default_gmm_init(fed, dev)
+    g = fed.gmm_components
+    m, k_cls = len(client_train), task.n_classes
+    fits, counts = [], []
+    rng = np.random.default_rng(fed.seed + 11)
+    for ci, data in enumerate(client_train):
+        toks, labs = data["tokens"], data["labels"]
+        take = rng.permutation(len(labs))[:fed.feature_samples]
+        f = task.features(torch.as_tensor(toks[take], device=dev))
+        lab = labs[take]
+        per_k = []
+        for k in range(k_cls):
+            fk = f[torch.as_tensor(np.nonzero(lab == k)[0], device=dev)]
+            if fk.shape[0] < max(2 * g, 4):           # pad sparse categories
+                pad = f[torch.as_tensor(
+                    rng.integers(0, f.shape[0], max(2 * g, 4)), device=dev)]
+                fk = torch.cat([fk, pad]) if fk.numel() else pad
+            idx = torch.as_tensor(gmm_init(ci, k, int(fk.shape[0])),
+                                  device=dev)
+            per_k.append(gmm.fit_gmm(idx, fk, g, fed.gmm_iters))
+        fits.append(gmm.GMM(*(torch.stack(t) for t in zip(*per_k))))
+        counts.append([float((labs == k).sum()) for k in range(k_cls)])
+    bank = gmm.GMM(*(torch.stack(t) for t in zip(*fits)))   # (m, K, G, …)
+    cnt = torch.tensor(counts, dtype=torch.float32, device=dev)
+    iu, ju = (torch.as_tensor(a, device=dev) for a in np.triu_indices(m, 1))
+    vals = ot.dataset_distance(gmm.GMM(*(t[iu] for t in bank)), cnt[iu],
+                               gmm.GMM(*(t[ju] for t in bank)), cnt[ju],
+                               fed.sinkhorn_eps)
+    dist = torch.zeros((m, m), dtype=vals.dtype, device=dev)
+    dist[iu, ju] = vals
+    return ot.distance_to_affinity(dist + dist.T)
+
+
+# ---------------------------------------------------------------------------
+# validation
+# ---------------------------------------------------------------------------
+
+def _not_ported(option: str, item: str, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{option} " + _NOT_PORTED.format(item=item, what=what))
+
+
+def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
+    mode = fed.client_parallelism
+    if mode not in PARALLELISM_MODES:
+        raise ValueError(f"client_parallelism={mode!r}; "
+                         f"expected one of {PARALLELISM_MODES}")
+    if mode != "loop":
+        raise _not_ported(f"client_parallelism={mode!r}",
+                          "'vectorized clients'", "client_parallelism='loop'")
+    if fed.sampler not in sampling.SAMPLERS:
+        raise ValueError(f"sampler={fed.sampler!r}; "
+                         f"expected one of {sampling.SAMPLERS}")
+    if fed.engine not in ENGINES:
+        raise ValueError(f"engine={fed.engine!r}; expected one of {ENGINES}")
+    if fed.engine != "eager":
+        raise _not_ported(f"engine={fed.engine!r}", "'scan / async engines'",
+                          "engine='eager'")
+    if fed.chunk_rounds < 1:
+        raise ValueError(f"chunk_rounds must be >= 1; got {fed.chunk_rounds}")
+    if fed.checkpoint_path or fed.resume:
+        raise ValueError("checkpoint_path/resume require engine='scan' or "
+                         "'async' (the eager engine does not checkpoint)")
+    if fed.eval_every < 1:
+        raise ValueError(f"eval_every must be >= 1; got {fed.eval_every}")
+    if fed.client_store not in STORE_BACKENDS:
+        raise ValueError(f"client_store={fed.client_store!r}; expected one "
+                         f"of {STORE_BACKENDS}")
+    if fed.client_store != "device":
+        raise _not_ported(f"client_store={fed.client_store!r}",
+                          "'host / sharded client stores'",
+                          "client_store='device'")
+    sampling.n_sampled(fed.n_clients, fed.participation)   # validates
+    if not 0.0 <= fed.straggler_frac < 1.0:
+        raise ValueError(f"straggler_frac must be in [0, 1); "
+                         f"got {fed.straggler_frac}")
+    if n_train != fed.n_clients:
+        raise ValueError(f"n_clients={fed.n_clients} but {n_train} client "
+                         f"training sets were provided")
+    if fed.uplink_codec not in CODECS:
+        raise ValueError(f"unknown uplink_codec {fed.uplink_codec!r}; "
+                         f"known: {list(CODECS)}")
+    if fed.uplink_codec != "none":
+        raise _not_ported(f"uplink_codec={fed.uplink_codec!r}",
+                          "'uplink codecs'", "uplink_codec='none'")
+    for name in FAULT_RATES:
+        rate = getattr(fed, name)
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"{name} must be in [0, 1]; got {rate}")
+        if rate > 0.0:
+            raise _not_ported(f"{name}={rate}", "'faults and admission'",
+                              "without fault injection")
+    if fed.admission not in ADMISSION_MODES:
+        raise ValueError(f"admission={fed.admission!r}; expected one of "
+                         f"{ADMISSION_MODES}")
+    if fed.admission != "none":
+        raise _not_ported(f"admission={fed.admission!r}",
+                          "'faults and admission'", "admission='none'")
+    if fed.dispatch_timeout < 0:
+        raise ValueError(f"dispatch_timeout must be >= 0; "
+                         f"got {fed.dispatch_timeout}")
+    if fed.dispatch_timeout > 0:
+        raise ValueError("dispatch_timeout is the async engine's upload "
+                         "timeout; engine='eager' has no virtual clock")
+    if fed.retry_backoff <= 0:
+        raise ValueError(f"retry_backoff must be > 0; got {fed.retry_backoff}")
+    if fed.retry_cap < 0:
+        raise ValueError(f"retry_cap must be >= 0; got {fed.retry_cap}")
+
+
+# ---------------------------------------------------------------------------
+# runner
+# ---------------------------------------------------------------------------
+
+def run_federated(task: FedTask, fed: FedConfig, client_train: list,
+                  client_test: list, *, device="cuda",
+                  init_clients: Optional[Sequence[dict]] = None,
+                  cka_probes: Optional[torch.Tensor] = None,
+                  gmm_init: Optional[GmmInit] = None,
+                  verbose: bool = False) -> dict:
+    """Run Algorithm 1 for ``fed.rounds`` rounds on ``device``; returns the
+    history plus the final per-client states, as the JAX package does.
+
+    ``task.base`` must lie on ``device``.  ``init_clients`` (m dicts of
+    {'adapter', 'head'} as :meth:`FedTask.init_client` makes them),
+    ``cka_probes`` ((fed.cka_probes, r) f32) and ``gmm_init`` (a callable
+    (client, category, n) → G distinct row indices) replace the default
+    draws from generators seeded with ``fed.seed``."""
+    strategy = get_strategy(fed.method)
+    _validate(fed, strategy, len(client_train))
+    dev = resolve_device(device)
+    check_on(task.base, dev, "task.base")
+    m = fed.n_clients
+    impl = fed.attn_impl if fed.attn_impl is not None else task.cfg.attn_impl
+    if impl not in attention.IMPLS:
+        raise ValueError(f"attn_impl={impl!r}; "
+                         f"expected one of {attention.IMPLS}")
+    fed = dataclasses.replace(fed, attn_impl=impl)
+    if task.cfg.attn_impl != impl:
+        task = task._replace(cfg=task.cfg.with_overrides(attn_impl=impl))
+
+    if init_clients is None:
+        gen = torch.Generator(device=dev).manual_seed(fed.seed)
+        init_clients = [task.init_client(gen) for _ in range(m)]
+    if len(init_clients) != m:
+        raise ValueError(f"{len(init_clients)} initial clients for "
+                         f"n_clients={m}")
+    for c in init_clients:
+        check_on(c, dev, "init_clients")
+    states = [strategy.init_state(dict(c)) for c in init_clients]
+    loaders = [Loader(client_train[i], fed.batch_size, seed=fed.seed + i)
+               for i in range(m)]
+    sample_counts = [len(d["labels"]) for d in client_train]
+    opt = adamw(lr=fed.lr)
+
+    partial = fed.participation < 1.0 or fed.straggler_frac > 0.0
+    plans = [sampling.build_plan(fed.sampler, m, fed.participation,
+                                 fed.straggler_frac, rnd, fed.seed,
+                                 sample_counts) if partial
+             else sampling.full_plan(m, rnd)
+             for rnd in range(fed.rounds)]
+
+    def local_fit(trainable: dict, w_ref: Any, toks: torch.Tensor,
+                  labs: torch.Tensor):
+        """``fed.local_steps`` AdamW steps (a fresh optimizer state per
+        round, as in the JAX package) over the stacked (steps, B, T)
+        batches; gradients only for the strategy's trainable factors."""
+        mask = strategy.grad_mask(trainable)
+        opt_state = opt.init(trainable)
+        losses = []
+        for step in range(toks.shape[0]):
+            tr = tree_map(lambda t, on: t.detach().requires_grad_(on),
+                          trainable, mask)
+            loss, _ = task.loss({"adapter": strategy.effective_adapter(tr),
+                                 "head": tr["head"]}, toks[step], labs[step])
+            if strategy.prox:
+                loss = loss + strategy.local_penalty(tr, {"w": w_ref})
+            wrt = [t for t in tree_leaves(tr) if t.requires_grad]
+            grads = dict(zip(map(id, wrt), torch.autograd.grad(loss, wrt)))
+            upd, opt_state = opt.update(
+                tree_map(lambda t: grads.get(id(t)), tr), opt_state,
+                trainable)
+            trainable = apply_updates(trainable, upd)
+            losses.append(loss.detach())
+        return trainable, torch.stack(losses).mean()
+
+    pad_to = max(-(-len(d["labels"]) // 32) * 32 for d in client_test)
+    seq_lens = {d["tokens"].shape[1] for d in client_test}
+    if len(seq_lens) != 1:
+        raise ValueError(
+            "run_federated requires one shared test sequence length across "
+            f"clients (the eval batch stacks to (m, pad, T)); got {seq_lens}")
+    seq_len = seq_lens.pop()
+    tk = np.zeros((m, pad_to, seq_len), np.int32)
+    lb = np.full((m, pad_to), -1, np.int32)
+    for i, d in enumerate(client_test):
+        n = len(d["labels"])
+        tk[i, :n] = d["tokens"]
+        lb[i, :n] = d["labels"]
+    test_toks = torch.as_tensor(tk, device=dev)
+    test_labs = torch.as_tensor(lb, device=dev)
+
+    @torch.no_grad()
+    def eval_one(trainable: dict, toks: torch.Tensor,
+                 labs: torch.Tensor) -> float:
+        """Accuracy over one client's padded test set (label -1 = pad)."""
+        logits = task.logits(strategy.effective_adapter(trainable),
+                             trainable["head"], toks)
+        w = (labs >= 0).float()
+        correct = (torch.argmax(logits, -1) == labs).float() * w
+        return float(correct.sum() / w.sum().clamp_min(1.0))
+
+    s_data = None
+    if strategy.aggregate == "personalized" and fed.use_data_sim:
+        s_data = data_similarity(task, fed, client_train, gmm_init=gmm_init)
+
+    if strategy.aggregate == "personalized" and fed.use_model_sim:
+        if cka_probes is None:
+            cka_probes = cka.draw_probes(
+                torch.Generator(device=dev).manual_seed(fed.seed + 97),
+                fed.cka_probes, task.cfg.lora_rank)
+        cka_probes = torch.as_tensor(cka_probes, dtype=torch.float32,
+                                     device=dev)
+    s_model_prev: list = [None]
+
+    def model_sim(cs: torch.Tensor, plan) -> torch.Tensor:
+        """S^model: only the sampled clients' rows/columns are refreshed;
+        unsampled pairs keep their cached CKA (both Cs frozen)."""
+        s_model_prev[0] = cka.refresh_pairwise_cka(
+            s_model_prev[0], cs, plan.sampled, cka_probes)
+        return s_model_prev[0]
+
+    def personalized(plan, participants) -> torch.Tensor:
+        """Eqn (3) weights from S = S^data (+ S^model this round)."""
+        sims = []
+        if fed.use_data_sim and s_data is not None:
+            sims.append(s_data)
+        if fed.use_model_sim:
+            sims.append(model_sim(cka.stack_client_cs(
+                [tri_lora.tree_payload(s["adapter"]) for s in states]),
+                plan))
+        if not sims:
+            raise ValueError(
+                f"celora needs at least one similarity term; got "
+                f"use_data_sim={fed.use_data_sim}, "
+                f"use_model_sim={fed.use_model_sim}")
+        return aggregation.personalized_weights(sum(sims), fed.self_weight,
+                                                participants)
+
+    history: list[RoundRecord] = []
+    accs = [0.0] * m        # replaced on round 0 (always an eval round)
+    for rnd in range(fed.rounds):
+        plan = plans[rnd]
+        t0 = time.perf_counter()
+        in_sample = plan.mask(m, which="sampled")
+        losses = []
+        for i in range(m):
+            # ALWAYS draw: keeps the per-client data streams aligned with
+            # the JAX package's paths and across participation rates
+            bt = list(loaders[i].batches(fed.local_steps))
+            if not in_sample[i]:
+                continue                    # unsampled: frozen this round
+            toks = torch.as_tensor(np.stack([b["tokens"] for b in bt]),
+                                   device=dev)
+            labs = torch.as_tensor(np.stack([b["labels"] for b in bt]),
+                                   device=dev)
+            tr, loss = local_fit(strategy.trainable(states[i]),
+                                 states[i].get("w", {}), toks, labs)
+            states[i].update(tr)
+            states[i] = strategy.after_local(states[i], fed.pfedme_eta)
+            losses.append(float(loss))
+
+        cmask = (torch.as_tensor(plan.mask(m), device=dev) if partial
+                 else None)
+        payloads = [strategy.uplink(s) for s in states]
+        rc = comm.round_comm_payloads(
+            [payloads[i] for i in plan.participants])
+        weights = None
+        if strategy.aggregate == "personalized":
+            weights = personalized(plan, cmask)
+        downs = strategy.server(payloads, sample_counts=sample_counts,
+                                weights=weights, participants=cmask)
+        for i in plan.participants:
+            states[i] = strategy.install(states[i], downs[i])
+
+        evaluated = _do_eval(rnd, fed)
+        if evaluated:
+            accs = [eval_one(strategy.trainable(states[i]), test_toks[i],
+                             test_labs[i]) for i in range(m)]
+        history.append(_round_record(rnd, losses, accs, rc, plan, t0,
+                                     evaluated=evaluated))
+        if verbose:
+            _print_round(strategy, history[-1])
+
+    return {
+        "method": strategy.name,
+        "history": history,
+        "final_accs": history[-1].accs,
+        "mean_acc": history[-1].mean_acc,
+        "min_acc": history[-1].min_acc,
+        "max_acc": history[-1].max_acc,
+        "uplink_floats_per_round": history[-1].uplink_elems,
+        "uplink_bytes_per_round": history[-1].uplink_bytes,
+        "downlink_bytes_per_round": history[-1].downlink_bytes,
+        "states": states,
+    }
+
+
+def _do_eval(rnd: int, fed: FedConfig) -> bool:
+    """Eval cadence: every ``eval_every``-th round plus the last."""
+    return rnd % fed.eval_every == 0 or rnd == fed.rounds - 1
+
+
+def _round_record(rnd: int, losses, accs: list, rc: comm.RoundComm,
+                  plan: sampling.ParticipationPlan, t0: float,
+                  evaluated: bool = True) -> RoundRecord:
+    return RoundRecord(
+        rnd, float(np.mean(losses)), accs,
+        uplink_bytes=rc.uplink_bytes, downlink_bytes=rc.downlink_bytes,
+        wall_s=time.perf_counter() - t0,
+        participants=plan.participants.tolist(),
+        sampled=plan.sampled.tolist(), dropped=plan.dropped.tolist(),
+        uplink_elems=rc.uplink_elems, evaluated=evaluated)
+
+
+def _print_round(strategy: Strategy, rec: RoundRecord) -> None:
+    print(f"[{strategy.name}] round {rec.round:3d} loss {rec.train_loss:.4f}"
+          f" acc {rec.mean_acc:.3f} (min {rec.min_acc:.3f}"
+          f" max {rec.max_acc:.3f}) up {rec.uplink_bytes}B"
+          f" ({len(rec.participants)}/{len(rec.accs)} clients)")

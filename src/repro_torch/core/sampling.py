@@ -1,0 +1,118 @@
+"""Client sampling + participation planning (partial-participation FL).
+
+The numpy-only planning half of ``repro.core.sampling``, copied: the same
+``(round, seed, config)`` gives the same :class:`ParticipationPlan` in both
+packages.  Each round the server samples a client subset; a deterministic
+straggler model may drop some of them after local fit.
+
+Samplers (``FedConfig.sampler``):
+
+* ``"uniform"`` — k clients uniformly without replacement.
+* ``"weighted"`` — without replacement, inclusion probability proportional
+  to the client's local sample count.
+* ``"round_robin"`` — deterministic sliding window of k consecutive client
+  ids (mod m).
+
+Straggler model (``FedConfig.straggler_frac``): after local fit,
+``floor(frac·k)`` of the sampled clients are dropped (uniformly, from a
+round-keyed RNG stream independent of the sampler's), capped so at least
+one client always completes.
+
+All randomness is derived from ``np.random.default_rng((seed, round, tag))``.
+The async engine's ``LatencyModel`` and the scan engine's ``PlanStack``
+come with those engines.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+
+SAMPLERS = ("uniform", "weighted", "round_robin")
+
+_SAMPLE_TAG = 0x5A17
+_STRAGGLE_TAG = 0xD209
+
+
+@dataclasses.dataclass(frozen=True)
+class ParticipationPlan:
+    """One round's participation outcome (all arrays sorted client ids)."""
+    round: int
+    sampled: np.ndarray       # ids sampled at round start (train locally)
+    dropped: np.ndarray       # sampled but straggled (no upload/downlink)
+    participants: np.ndarray  # sampled minus dropped (complete the round)
+
+    @property
+    def n_participants(self) -> int:
+        return int(self.participants.size)
+
+    def mask(self, m: int, *, which: str = "participants") -> np.ndarray:
+        """Boolean (m,) membership mask (``which`` ∈ plan field names)."""
+        out = np.zeros(m, bool)
+        out[getattr(self, which)] = True
+        return out
+
+
+def n_sampled(m: int, participation: float) -> int:
+    """Clients sampled per round: round(participation·m), clamped to [1, m]."""
+    if not 0.0 < participation <= 1.0:
+        raise ValueError(f"participation must be in (0, 1]; got {participation}")
+    return max(1, min(m, int(round(participation * m))))
+
+
+def sample_clients(sampler: str, m: int, k: int, rnd: int, seed: int,
+                   sample_counts: Optional[Sequence[int]] = None
+                   ) -> np.ndarray:
+    """Sample ``k`` of ``m`` client ids for round ``rnd`` (sorted, unique)."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"sampler={sampler!r}; expected one of {SAMPLERS}")
+    if sampler == "round_robin":
+        start = (rnd * k) % m
+        return np.sort(np.arange(start, start + k) % m)
+    rng = np.random.default_rng((seed, rnd, _SAMPLE_TAG))
+    if sampler == "weighted":
+        if sample_counts is None:
+            raise ValueError("weighted sampler needs sample_counts")
+        p = np.asarray(sample_counts, np.float64)
+        if p.shape != (m,) or np.any(p < 0) or p.sum() <= 0:
+            raise ValueError(f"bad sample_counts for weighted sampler: {p}")
+        return np.sort(rng.choice(m, size=k, replace=False, p=p / p.sum()))
+    return np.sort(rng.choice(m, size=k, replace=False))
+
+
+def drop_stragglers(sampled: np.ndarray, straggler_frac: float, rnd: int,
+                    seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Split ``sampled`` into (participants, dropped): ``floor(frac·k)``
+    uniform drops, always leaving ≥ 1 participant.  Deterministic in
+    (seed, rnd); independent of the sampler's RNG stream."""
+    if not 0.0 <= straggler_frac < 1.0:
+        raise ValueError(f"straggler_frac must be in [0, 1); got {straggler_frac}")
+    k = sampled.size
+    n_drop = min(int(straggler_frac * k), k - 1)
+    if n_drop == 0:
+        return sampled, np.empty(0, sampled.dtype)
+    rng = np.random.default_rng((seed, rnd, _STRAGGLE_TAG))
+    drop_pos = rng.choice(k, size=n_drop, replace=False)
+    keep = np.ones(k, bool)
+    keep[drop_pos] = False
+    return sampled[keep], np.sort(sampled[~keep])
+
+
+def build_plan(sampler: str, m: int, participation: float,
+               straggler_frac: float, rnd: int, seed: int,
+               sample_counts: Optional[Sequence[int]] = None
+               ) -> ParticipationPlan:
+    """The round's full participation outcome (sample, then straggle)."""
+    k = n_sampled(m, participation)
+    sampled = sample_clients(sampler, m, k, rnd, seed, sample_counts)
+    participants, dropped = drop_stragglers(sampled, straggler_frac, rnd, seed)
+    return ParticipationPlan(rnd, sampled, dropped, participants)
+
+
+def full_plan(m: int, rnd: int) -> ParticipationPlan:
+    """The degenerate everyone-participates plan (participation=1, no
+    stragglers) — what the runtime uses on its legacy full-participation
+    fast path."""
+    ids = np.arange(m)
+    return ParticipationPlan(rnd, ids, np.empty(0, ids.dtype), ids)

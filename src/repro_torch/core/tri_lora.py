@@ -17,6 +17,8 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.tree import tree_leaves, tree_map
+
 Adapter = Dict[str, torch.Tensor]  # {'A': (d,r), 'C': (r,r), 'B': (r,k)}
 
 
@@ -70,5 +72,70 @@ def merge(w: torch.Tensor, adapter: Adapter, scaling: float) -> torch.Tensor:
     return (w.float() + adapter_delta(adapter, scaling).float()).to(w.dtype)
 
 
+def comm_payload(adapter: Adapter) -> torch.Tensor:
+    """What CE-LoRA sends over the wire each round: C only."""
+    return adapter["C"]
+
+
+def load_payload(adapter: Adapter, c_bar: torch.Tensor) -> Adapter:
+    """Install the server's personalized aggregate C̄_i (paper §III-D)."""
+    return {**adapter, "C": c_bar.to(adapter["C"].dtype)}
+
+
+# ---------------------------------------------------------------------------
+# Tree-level helpers: an "adapter tree" is any tree whose leaves are adapter
+# dicts (recognized by their {'A','B','C'} keys).
+# ---------------------------------------------------------------------------
+
 def is_adapter(node: Any) -> bool:
     return isinstance(node, dict) and set(node.keys()) == {"A", "B", "C"}
+
+
+def adapters_of(adapter_tree: Any) -> list:
+    """The adapter dicts of a tree, in tree order."""
+    return [a for a in tree_leaves(adapter_tree, is_leaf=is_adapter)
+            if is_adapter(a)]
+
+
+def tree_payload(adapter_tree: Any) -> Any:
+    """Extract the C-matrix tree (the full federated payload)."""
+    return tree_map(comm_payload, adapter_tree, is_leaf=is_adapter)
+
+
+def tree_load_payload(adapter_tree: Any, c_tree: Any) -> Any:
+    """Install one C per adapter; ``c_tree`` has the structure of
+    :func:`tree_payload`'s result."""
+    return tree_map(lambda a, c: load_payload(a, c), adapter_tree, c_tree,
+                    is_leaf=is_adapter)
+
+
+def payload_num_params(adapter_tree: Any) -> int:
+    """Floats transmitted per round by CE-LoRA (Σ r² over adapted modules)."""
+    return sum(a["C"].numel() for a in adapters_of(adapter_tree))
+
+
+def combine_adapters(a1: Adapter, a2: Adapter) -> Adapter:
+    """Express the SUM of two tri-LoRA adapters as one rank-(r1+r2) adapter:
+    A = [A1 A2], C = blockdiag(C1, C2), B = [B1; B2].  Used by the FDLoRA
+    baseline (dual global+local LoRA modules) so the model forward stays
+    single-adapter."""
+    c1, c2 = a1["C"], a2["C"]
+    r1, r2 = c1.shape[-1], c2.shape[-1]
+    lead = tuple(c1.shape[:-2])
+    z12 = c1.new_zeros(lead + (r1, r2))
+    z21 = c1.new_zeros(lead + (r2, r1))
+    top = torch.cat([c1, z12], dim=-1)
+    bot = torch.cat([z21, c2.to(c1.dtype)], dim=-1)
+    return {"A": torch.cat([a1["A"], a2["A"]], dim=-1),
+            "C": torch.cat([top, bot], dim=-2),
+            "B": torch.cat([a1["B"], a2["B"]], dim=-2)}
+
+
+def tree_combine(t1: Any, t2: Any) -> Any:
+    return tree_map(combine_adapters, t1, t2, is_leaf=is_adapter)
+
+
+def full_lora_num_params(adapter_tree: Any) -> int:
+    """Floats FedPETuning would transmit (A and B)."""
+    return sum(a["A"].numel() + a["B"].numel()
+               for a in adapters_of(adapter_tree))

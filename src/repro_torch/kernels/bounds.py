@@ -107,6 +107,26 @@ def flash_bwd(b: int, h: int, kh: int, sq: int, hd: int,
     return Bound(nbytes, 10 * b * h * _causal_pairs(sq) * hd, dtype)
 
 
+def flash_dq(b: int, h: int, kh: int, sq: int, hd: int,
+             dtype: str) -> Bound:
+    """dq alone from q, k, v, dO, lse and delta: scores and dO·vᵀ
+    recomputed, then ds·k — 3 products of the forward's size."""
+    s = SIZE[dtype]
+    nbytes = (3 * b * h * sq * hd * s + 2 * b * kh * sq * hd * s
+              + 2 * b * h * sq * F32)
+    return Bound(nbytes, 6 * b * h * _causal_pairs(sq) * hd, dtype)
+
+
+def flash_dkv(b: int, h: int, kh: int, sq: int, hd: int,
+              dtype: str) -> Bound:
+    """dk and dv from q, k, v, dO, lse and delta: scores and dO·vᵀ
+    recomputed, then pᵀ·dO and dsᵀ·q — 4 products of the forward's size."""
+    s = SIZE[dtype]
+    nbytes = (2 * b * h * sq * hd * s + 4 * b * kh * sq * hd * s
+              + 2 * b * h * sq * F32)
+    return Bound(nbytes, 8 * b * h * _causal_pairs(sq) * hd, dtype)
+
+
 def wkv6(bh: int, t: int, hd: int, dtype: str) -> Bound:
     """The WKV6 recurrence: per token and head the (hd, hd) f32 state is
     decayed and updated (3·hd² ops) and read out (2·hd² ops)."""

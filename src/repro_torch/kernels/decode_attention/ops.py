@@ -10,66 +10,23 @@ launch reports an error.  ``LAUNCHES`` counts kernel launches per wrapper.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import ffi
 from repro_torch.kernels.decode_attention import ref
 
 #: Kernel launches per wrapper; incremented only where a kernel is launched.
 LAUNCHES = {"decode_attention": 0, "grouped_gemv": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ATTN_HEAD_DIMS = (64, 128)
 GEMV_MAX_RANK = 32
 
-_VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_VP, _I, _LL, _F = ffi.VP, ffi.I, ffi.LL, ffi.F
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _fn(lib_name: str, fn_name: str, argtypes):
-    lib = build.load(lib_name)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(lib_name: str, code: int) -> None:
-    if code != 0:
-        err = getattr(build.load(lib_name), f"{lib_name}_error_string")
-        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-        msg = err(code)
-        raise RuntimeError(f"{lib_name} kernel launch failed: CUDA error "
-                           f"{code} ({msg.decode()})")
-
-
-def _require(cond: bool, what: str) -> None:
-    if not cond:
-        raise ValueError(what)
-
-
-def _on_cuda(*ts: torch.Tensor) -> bool:
-    """False when every tensor lies on the CPU (plain path), True when all
-    lie on one CUDA device; anything else raises."""
-    devs = {t.device for t in ts}
-    if all(d.type == "cpu" for d in devs):
-        return False
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
-        raise ValueError(f"decode kernels need all operands on one CUDA "
-                         f"device (or all on the CPU); got {sorted(map(str, devs))}")
-    return True
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -83,36 +40,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Slots ``s <= idx`` are valid until the ring wraps (``idx >= R``), then
     all are.  → (B,1,H,hd) in q.dtype."""
     idx = torch.as_tensor(idx, dtype=torch.int32, device=q.device)
-    if not _on_cuda(q, k_cache, v_cache, idx):
+    if not ffi.on_cuda(q, k_cache, v_cache, idx):
         return ref.decode_attention_ref(q, k_cache, v_cache, idx)
     b, one, h, hd = q.shape
-    _require(one == 1, f"decode attention takes one query token, got {one}")
-    _require(k_cache.dim() == 4 and k_cache.shape == v_cache.shape
-             and k_cache.shape[0] == b and k_cache.shape[3] == hd,
-             f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} "
-             f"do not match q {tuple(q.shape)}")
+    ffi.require(one == 1,
+                f"decode attention takes one query token, got {one}")
+    ffi.require(k_cache.dim() == 4 and k_cache.shape == v_cache.shape
+                and k_cache.shape[0] == b and k_cache.shape[3] == hd,
+                f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} "
+                f"do not match q {tuple(q.shape)}")
     ring, kh = k_cache.shape[1], k_cache.shape[2]
-    _require(kh >= 1 and h % kh == 0, f"{h} query heads over {kh} KV heads")
-    _require(hd in _ATTN_HEAD_DIMS, f"head_dim {hd} not in {_ATTN_HEAD_DIMS}")
-    _require(q.dtype in _DTYPE_CODE and k_cache.dtype == q.dtype
-             and v_cache.dtype == q.dtype,
-             f"dtypes q={q.dtype} k={k_cache.dtype} v={v_cache.dtype}; the "
-             f"kernel takes one of {list(_DTYPE_CODE)} for all three")
-    _require(q.is_contiguous(), "q must be contiguous")
-    _require(k_cache.stride(3) == 1 and v_cache.stride(3) == 1,
-             "cache channels must be contiguous (unit stride)")
-    _require(idx.dim() == 0 or tuple(idx.shape) == (b,),
-             f"idx shape {tuple(idx.shape)} is neither () nor ({b},)")
+    ffi.require(kh >= 1 and h % kh == 0,
+                f"{h} query heads over {kh} KV heads")
+    ffi.require(hd in _ATTN_HEAD_DIMS,
+                f"head_dim {hd} not in {_ATTN_HEAD_DIMS}")
+    ffi.require(q.dtype in ffi.DTYPE_CODE and k_cache.dtype == q.dtype
+                and v_cache.dtype == q.dtype,
+                f"dtypes q={q.dtype} k={k_cache.dtype} v={v_cache.dtype}; the "
+                f"kernel takes one of {list(ffi.DTYPE_CODE)} for all three")
+    ffi.require(q.is_contiguous(), "q must be contiguous")
+    ffi.require(k_cache.stride(3) == 1 and v_cache.stride(3) == 1,
+                "cache channels must be contiguous (unit stride)")
+    ffi.require(idx.dim() == 0 or tuple(idx.shape) == (b,),
+                f"idx shape {tuple(idx.shape)} is neither () nor ({b},)")
     idx = idx.contiguous()
     out = torch.empty_like(q)
-    fn = _fn("decode_attention", "decode_attention_launch",
-             [_I, _I, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _I, _I,
-              _LL, _LL, _LL, _LL, _LL, _LL, _F, _VP])
-    code = fn(_DTYPE_CODE[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(),
+    fn = ffi.fn("decode_attention", "decode_attention_launch",
+                [_I, _I, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _I, _I,
+                 _LL, _LL, _LL, _LL, _LL, _LL, _F, _VP])
+    code = fn(ffi.DTYPE_CODE[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(),
               v_cache.data_ptr(), idx.data_ptr(), 0 if idx.dim() == 0 else 1,
               out.data_ptr(), b, h, kh, ring, *k_cache.stride()[:3],
-              *v_cache.stride()[:3], float(hd) ** -0.5, _stream())
-    _check("decode_attention", code)
+              *v_cache.stride()[:3], float(hd) ** -0.5, ffi.stream())
+    ffi.check("decode_attention", code)
     LAUNCHES["decode_attention"] += 1
     return out
 
@@ -131,43 +91,44 @@ def grouped_dense(rows, x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     would cost a host sync): the kernel clamps it to m-1; callers pass rows
     from :meth:`AdapterBank.lookup`, which are in range."""
     rows = torch.as_tensor(rows, dtype=torch.int32, device=x.device)
-    if not _on_cuda(rows, x, w, a, c, b):
+    if not ffi.on_cuda(rows, x, w, a, c, b):
         return ref.grouped_gemv_ref(rows, x, w, a, c, b, scaling=scaling)
-    _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
-             f"x {tuple(x.shape)} @ w {tuple(w.shape)}")
+    ffi.require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
+                f"x {tuple(x.shape)} @ w {tuple(w.shape)}")
     bsz, k = x.shape
     n = w.shape[1]
-    _require(a.dim() == 3 and c.dim() == 3 and b.dim() == 3,
-             "bank factors must be stacked (m, …) 3-D tensors")
+    ffi.require(a.dim() == 3 and c.dim() == 3 and b.dim() == 3,
+                "bank factors must be stacked (m, …) 3-D tensors")
     m, r = a.shape[0], a.shape[2]
-    _require(tuple(a.shape) == (m, k, r) and tuple(c.shape) == (m, r, r)
-             and tuple(b.shape) == (m, r, n),
-             f"bank shapes A{tuple(a.shape)} C{tuple(c.shape)} "
-             f"B{tuple(b.shape)} do not fit x {tuple(x.shape)} @ w "
-             f"{tuple(w.shape)}")
-    _require(tuple(rows.shape) == (bsz,), f"rows shape {tuple(rows.shape)} "
-             f"!= ({bsz},)")
-    _require(bsz >= 1, "the kernel takes at least one row")
-    _require(1 <= r <= GEMV_MAX_RANK,
-             f"rank {r}; the kernel takes 1..{GEMV_MAX_RANK}")
-    _require(x.dtype in _DTYPE_CODE and w.dtype == x.dtype,
-             f"x {x.dtype} / w {w.dtype}: the kernel takes one of "
-             f"{list(_DTYPE_CODE)} for both")
-    _require(a.dtype == c.dtype == b.dtype == torch.float32,
-             f"the bank must be float32, got {a.dtype}/{c.dtype}/{b.dtype}")
+    ffi.require(tuple(a.shape) == (m, k, r) and tuple(c.shape) == (m, r, r)
+                and tuple(b.shape) == (m, r, n),
+                f"bank shapes A{tuple(a.shape)} C{tuple(c.shape)} "
+                f"B{tuple(b.shape)} do not fit x {tuple(x.shape)} @ w "
+                f"{tuple(w.shape)}")
+    ffi.require(tuple(rows.shape) == (bsz,),
+                f"rows shape {tuple(rows.shape)} != ({bsz},)")
+    ffi.require(bsz >= 1, "the kernel takes at least one row")
+    ffi.require(1 <= r <= GEMV_MAX_RANK,
+                f"rank {r}; the kernel takes 1..{GEMV_MAX_RANK}")
+    ffi.require(x.dtype in ffi.DTYPE_CODE and w.dtype == x.dtype,
+                f"x {x.dtype} / w {w.dtype}: the kernel takes one of "
+                f"{list(ffi.DTYPE_CODE)} for both")
+    ffi.require(a.dtype == c.dtype == b.dtype == torch.float32,
+                f"the bank must be float32, got "
+                f"{a.dtype}/{c.dtype}/{b.dtype}")
     for name, t in (("rows", rows), ("x", x), ("w", w), ("A", a), ("C", c),
                     ("B", b)):
-        _require(t.is_contiguous(), f"{name} must be contiguous")
+        ffi.require(t.is_contiguous(), f"{name} must be contiguous")
     out = torch.empty((bsz, n), dtype=x.dtype, device=x.device)
     p = torch.empty((bsz, r), dtype=torch.float32, device=x.device)
-    fn = _fn("grouped_gemv", "grouped_gemv_launch",
-             [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-              _F, _VP])
-    code = fn(_DTYPE_CODE[x.dtype], rows.data_ptr(), x.data_ptr(),
+    fn = ffi.fn("grouped_gemv", "grouped_gemv_launch",
+                [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                 _I, _F, _VP])
+    code = fn(ffi.DTYPE_CODE[x.dtype], rows.data_ptr(), x.data_ptr(),
               w.data_ptr(), a.data_ptr(), c.data_ptr(), b.data_ptr(),
               p.data_ptr(), out.data_ptr(), bsz, k, n, r, m, float(scaling),
-              _stream())
-    _check("grouped_gemv", code)
+              ffi.stream())
+    ffi.check("grouped_gemv", code)
     LAUNCHES["grouped_gemv"] += 1
     return out
 

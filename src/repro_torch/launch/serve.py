@@ -33,25 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.adapter_bank import AdapterBank, random_bank
+from repro_torch.device import check_on, resolve_device
 from repro_torch.models import model
 from repro_torch.models.config import get_config
-from repro_torch.tree import tree_leaves
-
-
-def resolve_device(device) -> torch.device:
-    """The device to run on; a CUDA request without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            f"False; pass device='cpu' to run the plain PyTorch path")
-    return dev
-
-
-def _check_on(tree, dev: torch.device, what: str) -> None:
-    for t in tree_leaves(tree):
-        if t.device.type != dev.type:
-            raise ValueError(f"{what} lies on {t.device}, not on {dev}")
 
 
 @torch.inference_mode()
@@ -61,7 +45,7 @@ def generate(cfg, params: dict, prompts, gen: int, *,
     on ``device``.  The prompt is fed one token per step, as in the JAX
     package."""
     dev = resolve_device(device)
-    _check_on(params, dev, "params")
+    check_on(params, dev, "params")
     if not isinstance(prompts, torch.Tensor):
         prompts = torch.from_numpy(np.asarray(prompts))
     prompts = prompts.to(device=dev, dtype=torch.int32)
@@ -134,8 +118,8 @@ class ServeEngine:
     def __init__(self, cfg, base: dict, bank: AdapterBank, *, slots: int = 8,
                  max_len: int = 128, device="cuda"):
         self.device = resolve_device(device)
-        _check_on(base, self.device, "base params")
-        _check_on(bank.tree, self.device, "adapter bank")
+        check_on(base, self.device, "base params")
+        check_on(bank.tree, self.device, "adapter bank")
         self.cfg, self.base, self.bank = cfg, base, bank
         self.slots, self.max_len = slots, max_len
         self._bank_dec = bank.decode_tree()

@@ -1,11 +1,18 @@
-"""Attention: GQA params, q/k/v projection, the reference SDPA, and
-one-token decode against a ring-buffered KV cache.
+"""Attention: GQA params, q/k/v projection, full-sequence self-attention
+with a backend registry, and one-token decode against a ring-buffered KV
+cache.
 
-PyTorch port of the decode half of ``repro.models.attention``.  Decode
-attention runs through :func:`repro_torch.kernels.decode_attention.ops.
-decode_attention`: the hand-written kernel on CUDA, its plain version on
-the CPU.  Prefill, flash and blockwise attention come with the training
-slice.
+PyTorch port of ``repro.models.attention`` (self-attention and decode;
+cross-attention comes with the encoder-decoder family).  Every
+self-attention call resolves its backend through :func:`select_impl`
+(explicit ``impl=`` > ``cfg.attn_impl`` > "auto"), as in the JAX package:
+``"ref"`` is :func:`sdpa`, ``"blockwise"`` the online-softmax
+:func:`blockwise_sdpa`, and ``"flash"`` runs
+:func:`repro_torch.kernels.flash_attention.ops.flash_attention` — the
+hand-written forward and backward kernels on CUDA, their plain version on
+the CPU.  Decode attention runs through
+:func:`repro_torch.kernels.decode_attention.ops.decode_attention` the same
+way.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention import ref as decode_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -104,6 +112,138 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# blockwise SDPA: online softmax over KV chunks, O(bq·bk) logits at a time
+# ---------------------------------------------------------------------------
+
+def blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0, bq: int = 256,
+                   bk: int = 256) -> torch.Tensor:
+    """The same function as :func:`sdpa` (causal rows are the last ``Sq``
+    of the ``Skv``-long sequence), computed a (bq, bk) logits tile at a
+    time; KV tiles outside the causal/window band are skipped.  Plain
+    PyTorch; autograd keeps each tile's intermediates for the backward."""
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    bq, bk = min(bq, sq), min(bk, skv)
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, sq, kh, g, hd).permute(0, 2, 3, 1, 4).float()
+    kt = k.permute(0, 2, 1, 3).float()                    # (B,K,Skv,hd)
+    vt = v.permute(0, 2, 1, 3).float()
+    off = skv - sq
+    chunks = []
+    for q0 in range(0, sq, bq):
+        qc = qg[:, :, :, q0:q0 + bq] * scale               # (B,K,G,bq,hd)
+        n = qc.shape[3]
+        qpos = torch.arange(q0, q0 + n, device=q.device) + off
+        m_run = torch.full((b, kh, g, n), NEG_INF, device=q.device)
+        l_run = torch.zeros((b, kh, g, n), device=q.device)
+        acc = torch.zeros((b, kh, g, n, hd), device=q.device)
+        for k0 in range(0, skv, bk):
+            k1 = min(k0 + bk, skv)
+            if causal and (k0 > q0 + off + n - 1 or (
+                    window and k1 - 1 <= q0 + off - window)):
+                continue                                    # outside the band
+            kpos = torch.arange(k0, k1, device=q.device)
+            mask = torch.ones((n, k1 - k0), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= kpos[None, :] <= qpos[:, None]
+                if window:
+                    mask &= kpos[None, :] > qpos[:, None] - window
+            s = torch.einsum("bkgqd,bksd->bkgqs", qc, kt[:, :, k0:k1])
+            s = torch.where(mask, s, torch.full((), NEG_INF,
+                                                device=q.device))
+            m_new = torch.maximum(m_run, s.amax(-1))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                            torch.zeros((), device=q.device))
+            l_run = alpha * l_run + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bksd->bkgqd", p, vt[:, :, k0:k1])
+            m_run = m_new
+        chunks.append(acc / l_run.clamp_min(1e-30)[..., None])
+    out = torch.cat(chunks, dim=3)                         # (B,K,G,Sq,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# backend registry: every entry point resolves its implementation here
+# ---------------------------------------------------------------------------
+
+#: Valid values for ``ModelConfig.attn_impl`` / per-call ``impl=`` overrides.
+IMPLS = ("auto", "ref", "blockwise", "blockwise_hp", "blockwise_cv", "flash")
+
+#: "auto" self-attention: materialized-logits reference up to this length,
+#: blockwise (online-softmax) beyond it.
+AUTO_REF_MAX_SEQ = 2048
+
+#: cross-attention tiles its (Sq, Skv) logits once the product exceeds this
+#: (4M f32 entries = 16 MiB of materialized logits per head pair).
+CROSS_TILE_THRESHOLD = 4_194_304
+
+
+def select_impl(cfg: Optional[ModelConfig], seq_len: int, *,
+                impl: Optional[str] = None, kv_len: Optional[int] = None,
+                kv_valid: bool = False) -> str:
+    """Resolve the attention backend for one call site.
+
+    Precedence: explicit ``impl`` kwarg > ``cfg.attn_impl`` > "auto".  The
+    returned name is concrete (never "auto").  ``kv_len`` marks the
+    non-causal cross-attention path (tile above CROSS_TILE_THRESHOLD);
+    ``kv_valid`` marks decode/ring-cache calls whose validity masks only the
+    reference SDPA supports.  The same resolution as the JAX package's.
+    """
+    chosen = impl if impl is not None else (
+        cfg.attn_impl if cfg is not None else "auto")
+    if chosen not in IMPLS:
+        raise ValueError(
+            f"unknown attn_impl {chosen!r}; valid: {', '.join(IMPLS)}")
+    if kv_valid:
+        return "ref"
+    if kv_len is not None:
+        if chosen in ("ref", "blockwise"):
+            return chosen
+        return ("blockwise" if seq_len * kv_len > CROSS_TILE_THRESHOLD
+                else "ref")
+    if chosen == "auto":
+        return "ref" if seq_len <= AUTO_REF_MAX_SEQ else "blockwise"
+    if chosen in ("blockwise_hp", "blockwise_cv") \
+            and seq_len <= AUTO_REF_MAX_SEQ:
+        return "ref"            # tiling overhead not worth it at short seq
+    return chosen
+
+
+def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
+                   adapters=None, *, window: int = 0,
+                   impl: Optional[str] = None) -> torch.Tensor:
+    """Causal self-attention of a full sequence x (B,S,D) → (B,S,D).
+    ``impl`` (None defers to ``cfg.attn_impl``) resolves through
+    :func:`select_impl`: 'ref', 'blockwise' or 'flash'.  The JAX package's
+    mesh-specific 'blockwise_hp' and custom-VJP 'blockwise_cv' variants are
+    not ported (they resolve to 'ref' up to AUTO_REF_MAX_SEQ)."""
+    q, k, v = _project_qkv(cfg, p, x, adapters)
+    q = _rope(cfg, q, positions)
+    k = _rope(cfg, k, positions)
+    impl = select_impl(cfg, q.shape[1], impl=impl)
+    if impl == "flash":
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+    elif impl == "blockwise":
+        out = blockwise_sdpa(q, k, v, causal=True, window=window)
+    elif impl == "ref":
+        out = sdpa(q, k, v, causal=True, window=window)
+    else:
+        raise NotImplementedError(
+            f"attn_impl={impl!r} beyond {AUTO_REF_MAX_SEQ} tokens is not "
+            f"ported (ROADMAP Queue 1, 'blockwise_hp / blockwise_cv')")
+    b, s = x.shape[:2]
+    sc = cfg.lora_alpha / cfg.lora_rank
+    ad = adapters or {}
+    return layers.dense(out.reshape(b, s, -1), p["wo"], adapter=ad.get("wo"),
+                        lora_scaling=sc)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,11 @@
-"""Top-level model API of the port: init and one-token decode (dense).
+"""Top-level model API of the port: init, the full-sequence forward and
+loss, and one-token decode (dense decoders).
 
 params = {'base': …frozen…, 'adapter': …tri-LoRA…}, with the JAX package's
 key paths and shapes (``repro_torch.convert`` moves a JAX tree across).
 
+batch:   {'tokens': (B,S) int, 'labels': (B,S) int (-1 = ignore)}, optional
+         'positions' (B,S).
 decode:  {'token': (B,1) int, 'positions': (B,1) int} + the cache tree from
 :func:`init_decode_cache`.
 """
@@ -38,6 +41,75 @@ def _none_adapters_like(cfg: ModelConfig, has_groups: bool):
     _, pattern, rem = cfg.stack_plan()
     groups = {str(i): None for i in range(len(pattern))} if has_groups else None
     return groups, tuple(None for _ in rem)
+
+
+def no_adapter(cfg: ModelConfig) -> dict:
+    """An adapter tree that adapts nothing (the frozen backbone)."""
+    groups, tail = _none_adapters_like(cfg, cfg.stack_plan()[0] > 0)
+    return {"groups": groups, "tail": tail}
+
+
+def forward_hidden(cfg: ModelConfig, base: dict, adapter: dict, batch: dict,
+                   *, attn_impl: str | None = None):
+    """Embeddings → stack → final norm.  Returns (hidden (B,S,D), aux,
+    n_prefix = 0) as the JAX package does.  ``attn_impl=None`` defers to
+    ``cfg.attn_impl`` (``attention.select_impl``)."""
+    if cfg.enc_dec or cfg.vision_patches or cfg.pos_type == "mrope":
+        raise NotImplementedError(
+            f"{cfg.name!r}: only decoder-only text models are ported so far")
+    tokens = batch["tokens"]
+    x = layers.embed(tokens, base["embed"])
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device).expand(tokens.shape)
+    if cfg.pos_type == "learned":
+        x = x + base["pos_embed"][positions.long()]
+    x, aux = transformer.run_stack(
+        cfg, base["groups"], base["tail"], adapter["groups"], adapter["tail"],
+        x, positions, attn_impl=attn_impl)
+    x = layers.norm(x, base["final_norm"], cfg.norm_type)
+    return x, aux, 0
+
+
+def forward(cfg: ModelConfig, base: dict, adapter: dict, batch: dict,
+            pad_vocab: bool = False, **kw) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Returns (logits f32 (B,S,vocab) — (B,S,padded_vocab) with -1e30 pad
+    logits when ``pad_vocab`` — and the aux loss)."""
+    x, aux, _ = forward_hidden(cfg, base, adapter, batch, **kw)
+    logits = layers.unembed(x, base["embed"], cfg.vocab_size)
+    if not pad_vocab and cfg.padded_vocab != cfg.vocab_size:
+        logits = logits[..., :cfg.vocab_size]
+    return logits, aux
+
+
+def _ce_stats(cfg: ModelConfig, hidden: torch.Tensor, table: torch.Tensor,
+              labels: torch.Tensor) -> tuple:
+    """(Σ nll·w, Σ correct·w, Σ w) over labels >= 0 for one hidden chunk."""
+    logits = layers.unembed(hidden, table, cfg.vocab_size)    # (B, s, Vp)
+    weights = (labels >= 0).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp_min(0).long()[..., None])[
+        ..., 0]
+    correct = (torch.argmax(logits, -1) == labels).float() * weights
+    return (nll * weights).sum(), correct.sum(), weights.sum()
+
+
+def loss_fn(cfg: ModelConfig, adapter: dict, base: dict, batch: dict,
+            **kw) -> tuple[torch.Tensor, dict]:
+    """Causal-LM cross entropy over labels >= 0; returns (loss, {'ce',
+    'aux', 'acc'}).  Adapter-first as in the JAX package.  The JAX package
+    splits the loss into 512-token chunks above S·V = 2^28 to keep the
+    logits out of memory; the port computes it in one piece (the sums are
+    the same)."""
+    hidden, aux, _ = forward_hidden(cfg, base, adapter, batch, **kw)
+    nll_sum, corr_sum, w_sum = _ce_stats(cfg, hidden, base["embed"],
+                                         batch["labels"])
+    denom = w_sum.clamp_min(1.0)
+    ce = nll_sum / denom
+    loss = ce + cfg.router_aux_weight * aux
+    return loss, {"ce": ce, "aux": aux, "acc": corr_sum / denom}
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, *,

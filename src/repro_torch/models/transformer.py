@@ -1,4 +1,5 @@
-"""Block assembly for dense attention stacks: init and one-token decode.
+"""Block assembly for dense attention stacks: init, the full-sequence
+forward (training) and one-token decode.
 
 Layer stacking follows the config's ``layer_pattern`` exactly as in the JAX
 package: ``q = n_layers // len(pattern)`` repetitions of the pattern with
@@ -61,6 +62,26 @@ def init_block(generator: torch.Generator, cfg: ModelConfig,
             "ln2": layers.init_norm(d, nt, cfg.dtype, dev),
             "mlp": layers.init_mlp(generator, d, cfg.d_ff, cfg.mlp_type,
                                    cfg.dtype)}
+
+
+# ---------------------------------------------------------------------------
+# per-block apply (train)
+# ---------------------------------------------------------------------------
+
+def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
+                x: torch.Tensor, positions, *, attn_impl=None) -> tuple:
+    """One pre-norm block over a full sequence; returns (x, aux) with the
+    MoE auxiliary loss aux = 0 for the dense blocks ported so far."""
+    _check_kind(cfg, kind)
+    ad = ad or {}
+    nt = cfg.norm_type
+    h = layers.norm(x, p["ln1"], nt)
+    x = x + attention.self_attention(cfg, p["attn"], h, positions,
+                                     ad.get("attn"), impl=attn_impl)
+    h = layers.norm(x, p["ln2"], nt)
+    y = layers.mlp(h, p["mlp"], cfg.mlp_type, adapters=ad.get("mlp"),
+                   lora_scaling=cfg.lora_alpha / cfg.lora_rank)
+    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -142,11 +163,36 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
 
 
 # ---------------------------------------------------------------------------
-# stack decode
+# stack apply and decode
 # ---------------------------------------------------------------------------
 
 def _at(tree: Any, i: int) -> Any:
     return tree_map(lambda t: t[i], tree)
+
+
+def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
+              x: torch.Tensor, positions, *, attn_impl=None) -> tuple:
+    """Train-time forward through the whole stack.  Returns (x, aux_sum).
+    ``attn_impl=None`` defers the backend choice to ``cfg.attn_impl``
+    (``attention.select_impl``).  A Python loop over the group axis stands
+    in for ``lax.scan``; autograd keeps every layer's activations (the JAX
+    package's ``remat`` has no counterpart here)."""
+    q, pattern, rem = cfg.stack_plan()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if groups_p is not None:
+        for layer in range(q):
+            for i, kind in enumerate(pattern):
+                key = str(i)
+                gad = groups_ad[key] if groups_ad is not None else None
+                x, a = block_apply(cfg, kind, _at(groups_p[key], layer),
+                                   _at(gad, layer), x, positions,
+                                   attn_impl=attn_impl)
+                aux = aux + a
+    for i, kind in enumerate(rem):
+        x, a = block_apply(cfg, kind, tail_p[i], tail_ad[i], x, positions,
+                           attn_impl=attn_impl)
+        aux = aux + a
+    return x, aux
 
 
 def run_stack_decode(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,

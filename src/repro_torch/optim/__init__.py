@@ -1,0 +1,2 @@
+from repro_torch.optim.adamw import (Optimizer, adamw,  # noqa: F401
+                                    apply_updates, global_norm, sgd)

@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.core.adapter_bank import random_bank
 from repro_torch.kernels.decode_attention import ops, ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.launch import serve
 from repro_torch.models import layers, model
 from repro_torch.models.config import ModelConfig
@@ -147,3 +149,133 @@ def test_engine_on_the_card_matches_naive_and_counts_launches(cuda, n, slots):
     want = serve.serve_naive(cfg, params["base"], bank, reqs, device=cuda)
     for r in reqs:
         np.testing.assert_array_equal(got[r.rid], want[r.rid])
+
+
+# ---------------------------------------------------------------------------
+# flash attention: forward (out, lse) and backward (dq, dk, dv)
+# ---------------------------------------------------------------------------
+
+#: (B, S, H, K, hd, causal, window): GQA 12/4 at fed-100m width, 32/32 at
+#: LLaMA-7B width, window 64, non-causal, and ragged lengths (200, 77) that
+#: are no multiple of the 64-row tile
+FLASH_CASES = [
+    (2, 256, 12, 4, 64, True, 0),
+    (1, 512, 12, 4, 64, True, 64),
+    (2, 200, 12, 4, 64, True, 0),
+    (2, 256, 32, 32, 128, True, 0),
+    (1, 200, 32, 32, 128, True, 64),
+    (2, 256, 12, 4, 64, False, 0),
+    (2, 77, 8, 2, 128, False, 0),
+]
+
+
+def _flash_inputs(dev, b, s, h, kh, hd, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(dtype)
+                   for sh in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd),
+                              (b, s, h, hd)))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(cuda, b, s, h, kh, hd, causal, window,
+                                   dtype):
+    """Forward output and lse, and dq/dk/dv, against the plain version on
+    the same card inputs."""
+    q, k, v, do = _flash_inputs(cuda, b, s, h, kh, hd, dtype, s + h + hd)
+    fa_ops.reset_launches()
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+    dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                            causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    want_out, want_lse = fa_ref.flash_attention_fwd_ref(
+        q, k, v, causal=causal, window=window)
+    _close(out, want_out, dtype)
+    _close(lse, want_lse, torch.float32)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                          window=window)
+    for got_g, want_g in zip((dq, dk, dv), want):
+        _close(got_g, want_g, dtype)
+
+
+def test_flash_autograd_matches_plain_grads(cuda):
+    """The autograd Function: one forward and one dq + one dk/dv launch per
+    backward, gradients equal to the plain version's."""
+    q, k, v, do = _flash_inputs(cuda, 2, 128, 12, 4, 64, torch.float32, 7)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa_ops.reset_launches()
+    out = fa_ops.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, do, causal=True)
+    for leaf, want_g in zip(leaves, want):
+        _close(leaf.grad, want_g, torch.float32)
+
+
+def test_flash_non_causal_ragged_masks_by_real_length(cuda):
+    """Non-causal attention at a length that is no tile multiple: the kernel
+    masks the keys beyond the real length itself, so its output equals
+    attention over exactly the real keys (the JAX wrapper pads k and masks
+    padded keys only under causality, flash_attention/ops.py:79-81)."""
+    q, k, v, _ = _flash_inputs(cuda, 2, 77, 8, 2, 64, torch.float32, 11)
+    out, _ = fa_ops.flash_attention_fwd(q, k, v, causal=False)
+    # the plain softmax over the 77 real keys, in float64
+    qg = q.double().reshape(2, 77, 2, 4, 64)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.double()) / 8.0
+    want = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(logits, -1),
+                        v.double()).reshape(2, 77, 8, 64)
+    _close(out, want, torch.float32)
+
+
+def test_flash_wrapper_refuses_what_the_kernels_cannot_take(cuda):
+    q = torch.zeros((1, 16, 4, 64), device=cuda)
+    k = torch.zeros((1, 16, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q[..., :32], k[..., :32], k[..., :32])
+    with pytest.raises(ValueError, match="dtypes"):
+        fa_ops.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError, match="query heads"):
+        fa_ops.flash_attention(q[:, :, :3], k, k)
+    with pytest.raises(ValueError, match="unit stride"):
+        fa_ops.flash_attention(q, k.transpose(1, 3).contiguous()
+                               .transpose(1, 3)[..., :64], k)
+
+
+def test_fed_task_grads_through_flash_kernels_match_ref(cuda):
+    """A small model (hd 64) on the card: FedTask.loss and its adapter and
+    head gradients through the flash kernels equal those through the plain
+    reference attention; one forward and one dq + dk/dv launch per layer."""
+    from repro_torch.core.fed_model import FedTask
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = ModelConfig(name="tiny-gpu", family="dense", n_layers=2,
+                      d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                      d_ff=512, vocab_size=512, param_dtype="float32",
+                      lora_rank=4, lora_targets=("wq", "wk", "wv", "wo"))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    task = FedTask.create(g, cfg, 3)
+    client = task.init_client(g)
+    client["adapter"] = tree_map(lambda t: t + 0.05 * torch.randn(
+        t.shape, generator=g, device=cuda), client["adapter"])
+    toks = torch.randint(0, 512, (4, 200), generator=g, device=cuda)
+    labels = torch.tensor([0, 2, 1, 2], device=cuda)
+    out = {}
+    for impl in ("flash", "ref"):
+        tr = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      client)
+        fa_ops.reset_launches()
+        loss, _ = task._replace(cfg=cfg.with_overrides(attn_impl=impl)).loss(
+            tr, toks, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[impl] = (loss.item(), [t.grad for t in tree_leaves(tr)],
+                     dict(fa_ops.LAUNCHES))
+    assert out["flash"][2] == {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}
+    assert out["ref"][2] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    np.testing.assert_allclose(out["flash"][0], out["ref"][0], rtol=1e-5)
+    for a, b in zip(out["flash"][1], out["ref"][1]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)

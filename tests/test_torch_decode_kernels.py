@@ -188,11 +188,16 @@ def test_cpu_path_counts_no_launches():
 
 def test_kernel_sources_are_listed_for_the_build():
     srcs = build.sources()
-    assert set(srcs) == {"decode_attention", "grouped_gemv"}
+    launches = {"decode_attention": ["decode_attention"],
+                "grouped_gemv": ["grouped_gemv"],
+                "flash_attention": ["flash_fwd", "flash_dq", "flash_dkv"]}
+    assert set(srcs) == set(launches)
     for name, path in srcs.items():
         text = path.read_text()
         assert "Replaces:" in text and "bounds it" in text, name
-        assert f'extern "C" int {name}_launch' in text, name
+        for fn in launches[name]:
+            assert f'extern "C" int {fn}_launch' in text, name
+        assert f'extern "C" const char* {name}_error_string' in text, name
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
