@@ -26,11 +26,28 @@ Phases, one JSON line each (several for the case phases):
   oracle       the same width in f32 at 2 layers: ServeEngine tokens must
                equal the merged-weights serve_naive tokens request for
                request
+  tri_lora_cases  the tri-LoRA forward, dx and dW kernels and the rank-r
+               grads through autograd against the plain forward and the
+               analytic backward: f32/bf16, the JAX kernel-test shapes, the
+               training shapes (2048x768x768 and x256, r=8), ragged
+               77x100x130 r=16, decode M=1 and 8 at K=N=4096 (bf16)
+  tri_lora_timing each kernel at the training shape of wq (M=2048,
+               K=N=768, r=8, f32) beside the bound, the plain version and
+               one torch call (addmm / x.T@g), with x@w alone as a floor
   train        CE-LoRA ``run_federated`` on fed-100m at full width and
                depth (f32, random backbone): 4 clients, 3 rounds of 5 local
                steps of batch 8 at sequence 256, attn_impl="flash"; exact
-               flash launch counts, a profile window, and the same job with
-               attn_impl="ref" on the card as its reference
+               flash and tri-LoRA launch counts, a profile window, and the
+               same job with attn_impl="ref" on the card as its reference
+  lm_train     the causal-LM driver ``launch.train.run`` on fed-100m at full
+               width and depth: 4 clients, 3 rounds of 5 local steps of
+               8x256, celora, int8 uplink, flash; exact launch counts, a
+               falling loss, the byte ledger, a checkpoint that verifies and
+               restores, and a profile window of train.local_fit
+  pretrain     ``FedTask.create`` with two 8x256 warm-up batches: the
+               backbone trains, so every projection runs the dW kernel too
+  card_vs_cpu  one loss and its adapter gradients at full width and depth
+               on the card (all kernels) and on the CPU (plain versions)
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the result line.  Exits non-zero, printing no result, on any failure and
 when no CUDA device is present.
@@ -70,6 +87,19 @@ FLASH_CASES = (
 )
 #: the train phase's attention shape and the kernel table's bound shape
 FLASH_TIMED = ((8, 256, 12, 4, 64), (8, 512, 12, 4, 64))
+TRI_LORA_SRC = "src/repro_torch/kernels/tri_lora/csrc/tri_lora.cu"
+TRI_LORA_TPU = {name: f"src/repro/kernels/tri_lora/tri_lora.py:{n}"
+                for name, n in (("tri_lora_fwd", 55), ("tri_lora_dx", 107),
+                                ("tri_lora_dw", 154))}
+#: (M, K, N, r) of the tri-LoRA cases: the JAX package's kernel-test shapes,
+#: the training shapes of fed-100m wq/wo and wk/wv, a ragged shape; the
+#: decode shapes (LLaMA-7B width, bf16 only) follow
+TRI_LORA_CASES = ((64, 64, 64, 4), (96, 160, 130, 8), (32, 256, 64, 16),
+                  (128, 64, 192, 2), (2048, 768, 768, 8),
+                  (2048, 768, 256, 8), (77, 100, 130, 16))
+TRI_LORA_DECODE = ((1, 4096, 4096, 8), (8, 4096, 4096, 8))
+#: the training shape of wq, at which the kernels are timed
+TRI_LORA_TIMED = (2048, 768, 768, 8)
 
 
 def emit(obj) -> None:
@@ -428,6 +458,122 @@ def time_flash(torch, F, fa_ops, fa_ref, bounds, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# tri-LoRA projection: cases and timing
+# ---------------------------------------------------------------------------
+
+def tri_lora_inputs(torch, dev, m, k, n, r, dtype, gen):
+    """x, W, A, C, B and the cotangent at the JAX package's kernel-test
+    scales (tests/test_kernels.py)."""
+    def rn(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+    return (rn((m, k)), rn((k, n), 0.05), rn((k, r), 0.2), rn((r, r), 0.2),
+            rn((r, n), 0.2), rn((m, n)))
+
+
+def tri_lora_cases(torch, tl_ops, tl_ref, dev):
+    """The op on the card (forward kernel; dx and dW kernels and the rank-r
+    grads through autograd) against the plain forward and the analytic
+    backward on the same inputs.  The forward is held to the kernel
+    tolerance; each gradient to it with the absolute part scaled by the
+    gradient's largest entry (tests/test_kernels.py)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    s = 2.0
+    worst = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for (m, k, n, r) in TRI_LORA_CASES + (
+                TRI_LORA_DECODE if dt_name == "bfloat16" else ()):
+            x, w, a, c, b, ct = tri_lora_inputs(torch, dev, m, k, n, r, dt,
+                                                gen)
+            leaves = [t.detach().requires_grad_(True) for t in (x, w, a, c, b)]
+            before = dict(tl_ops.LAUNCHES)
+            y = tl_ops.tri_lora_matmul(*leaves, s)
+            grads = torch.autograd.grad(y, leaves, ct)
+            torch.cuda.synchronize()
+            launched = {key: tl_ops.LAUNCHES[key] - before[key]
+                        for key in before}
+            want_y = tl_ref.tri_lora_matmul_ref(x, w, a, c, b, s)
+            want = tl_ref.tri_lora_bwd_ref(x, w, a, c, b, ct, s)
+            errs, bad = {}, 0
+            errs["y"], bad = compare(torch, y.detach(), want_y, dt_name)
+            tol = TOL[dt_name]["rtol"]
+            for name, got, ref_g in zip(("dx", "dw", "da", "dc", "db"),
+                                        grads, want):
+                scale = max(1.0, float(ref_g.float().abs().max()))
+                err = (got.float() - ref_g.float()).abs()
+                errs[name] = float(err.max())
+                bad += int((err > tol * scale
+                            + tol * ref_g.float().abs()).sum())
+            case = dict(m=m, k=k, n=n, r=r)
+            emit({"phase": "tri_lora_cases", "dtype": dt_name, **case,
+                  "max_abs_err": errs, "n_out_of_tol": bad, "tol": tol,
+                  "launches": launched})
+            require(bad == 0, f"tri-LoRA kernels disagree with the plain "
+                    f"version: {case} {dt_name} errors {errs}")
+            require(launched == {"tri_lora_fwd": 1, "tri_lora_dx": 1,
+                                 "tri_lora_dw": 1},
+                    f"tri-LoRA launches {launched} for one forward and "
+                    f"backward")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), *errs.values())
+    return worst
+
+
+def time_tri_lora(torch, tl_ops, bounds, dev):
+    """f32 at the training shape of wq (M=2048, K=N=768, r=8): each kernel
+    beside its plain version (the same products, f32 accumulation), one
+    PyTorch library call and the bound; ``x@w`` alone as a floor.  Returns
+    the kernel-table rows."""
+    m, k, n, r = TRI_LORA_TIMED
+    gen = torch.Generator(device=dev).manual_seed(9)
+    s = 2.0
+    sets = []
+    for _ in range(copies_for(4 * (m * k + k * n + m * n))):
+        x, w, a, c, b, g = tri_lora_inputs(torch, dev, m, k, n, r,
+                                           torch.float32, gen)
+        p = s * (x @ a) @ c
+        q = s * (g @ b.T) @ c.T
+        sets.append((x, w, a, b, p, q, g))
+    kernel = {
+        "tri_lora_fwd": lambda x, w, a, b, p, q, g: tl_ops.tri_lora_fwd(
+            x, w, p, b),
+        "tri_lora_dx": lambda x, w, a, b, p, q, g: tl_ops.tri_lora_dx(
+            g, w, q, a),
+        "tri_lora_dw": lambda x, w, a, b, p, q, g: tl_ops.tri_lora_dw(x, g)}
+    plain = {
+        "tri_lora_fwd": lambda x, w, a, b, p, q, g: x @ w + p @ b,
+        "tri_lora_dx": lambda x, w, a, b, p, q, g: g @ w.T + q @ a.T,
+        "tri_lora_dw": lambda x, w, a, b, p, q, g: x.T @ g}
+    library = {
+        "tri_lora_fwd": lambda x, w, a, b, p, q, g: torch.addmm(p @ b, x, w),
+        "tri_lora_dx": lambda x, w, a, b, p, q, g: torch.addmm(q @ a.T, g,
+                                                               w.T),
+        "tri_lora_dw": lambda x, w, a, b, p, q, g: x.T @ g}
+    bd = {"tri_lora_fwd": bounds.tri_lora_matmul(m, k, n, r, "float32"),
+          "tri_lora_dx": bounds.tri_lora_dx(m, k, n, r, "float32"),
+          "tri_lora_dw": bounds.tri_lora_dw(m, k, n, "float32")}
+    rows, line = [], {}
+    for name in ("tri_lora_fwd", "tri_lora_dx", "tri_lora_dw"):
+        err = float((kernel[name](*sets[0]) - plain[name](*sets[0]))
+                    .abs().max())
+        t = {"kernel": time_ms(torch, kernel[name], sets),
+             "plain": time_ms(torch, plain[name], sets),
+             "library": time_ms(torch, library[name], sets)}
+        line[name] = {**{f"{key}_us": 1e3 * v for key, v in t.items()},
+                      "bound_us": 1e3 * bd[name].ms, "max_abs_err": err}
+        rows.append(dict(name=name, route="cuda", source=TRI_LORA_SRC,
+                         replaces=TRI_LORA_TPU[name], max_abs_err=err,
+                         ms=t["kernel"], plain_ms=t["plain"],
+                         library_ms=t["library"], **bound(bd[name])))
+    floor_us = 1e3 * time_ms(torch, lambda x, w, *_: x @ w, sets)
+    emit({"phase": "tri_lora_timing", "m": m, "k": k, "n": n, "r": r,
+          "dtype": "float32", **line, "x_at_w_floor_us": floor_us})
+    del sets
+    torch.cuda.empty_cache()
+    return rows
+
+
 def bound(b) -> dict:
     """The card's least time for this run's inputs (kernels/bounds.py)."""
     return {"bound_ms": b.ms, "bound_by": b.by, "bytes": b.nbytes,
@@ -499,6 +645,26 @@ def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
     return launches, (cfg, params, bank, eng)
 
 
+def device_split(prof, wall_us: float, top: int) -> dict:
+    """Device time by kernel name over a profiled window, the window's
+    wall time and the device's idle share in it."""
+    by_name: dict = {}
+    for e in prof.events():                   # device-side kernel events
+        if getattr(e.device_type, "name", "") != "CUDA":
+            continue
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    rows_out = sorted(((k, us, n) for k, (us, n) in by_name.items()),
+                      key=lambda r: -r[1])
+    dev_total = sum(us for _, us, _ in rows_out)
+    return {"wall_us": wall_us,
+            "device_us": dev_total if rows_out else None,
+            "device_idle_share": (1 - dev_total / wall_us)
+            if rows_out else None,
+            "top": [{"kernel": k[:80], "us": round(t, 1), "count": n}
+                    for k, t, n in rows_out[:top]]}
+
+
 def phase_profile(torch, state, dev):
     """Device time by kernel over 3 steps of the serve engine with all 8
     slots active at position 120, and the device's idle share."""
@@ -522,20 +688,7 @@ def phase_profile(torch, state, dev):
                                                  device=dev), rows)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
-    for e in prof.events():                   # device-side kernel events
-        if getattr(e.device_type, "name", "") != "CUDA":
-            continue
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    rows_out = sorted(((k, us, n) for k, (us, n) in by_name.items()),
-                      key=lambda r: -r[1])
-    dev_total = sum(us for _, us, _ in rows_out)
-    emit({"phase": "profile", "steps": 3, "wall_us": wall_us,
-          "device_us": dev_total if rows_out else None,
-          "device_idle_share": (1 - dev_total / wall_us) if rows_out else None,
-          "top": [{"kernel": k[:80], "us": round(t, 1), "count": n}
-                  for k, t, n in rows_out[:14]]})
+    emit({"phase": "profile", "steps": 3, **device_split(prof, wall_us, 14)})
 
 
 def phase_oracle(torch, ops, serve, random_bank, get_config, model, dev):
@@ -627,40 +780,33 @@ def train_profile(torch, cfg, dev, job: dict = TRAIN):
         run_federated(task, fed, ctrain, ctest, device=dev)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
-    for e in prof.events():                   # device-side kernel events
-        if getattr(e.device_type, "name", "") != "CUDA":
-            continue
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    rows_out = sorted(((k, us, n) for k, (us, n) in by_name.items()),
-                      key=lambda r: -r[1])
-    dev_total = sum(us for _, us, _ in rows_out)
     return {"window": "lora_loc, 1 client, 3 local steps + 1 eval batch",
-            "wall_us": wall_us,
-            "device_us": dev_total if rows_out else None,
-            "device_idle_share": (1 - dev_total / wall_us)
-            if rows_out else None,
-            "top": [{"kernel": k[:80], "us": round(t, 1), "count": n}
-                    for k, t, n in rows_out[:12]]}
+            **device_split(prof, wall_us, 12)}
 
 
-def phase_train(torch, fa_ops, get_config, dev):
-    """fed-100m at full width and depth through the flash kernels, then the
-    same job through the plain reference attention on the card."""
+def phase_train(torch, fa_ops, tl_ops, get_config, dev):
+    """fed-100m at full width and depth through the flash and tri-LoRA
+    kernels, then the same job through the plain reference attention on
+    the card (its projections still run the tri-LoRA kernels)."""
     cfg = get_config("fed-100m")
     job = TRAIN
     torch.cuda.reset_peak_memory_stats()
     fa_ops.reset_launches()                   # counts of the main path only
+    tl_ops.reset_launches()
     out, wall = train_job(torch, cfg, dev, "flash")
-    launches = dict(fa_ops.LAUNCHES)
+    launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 1e9
     hist = out["history"]
     steps = sum(len(r.sampled) for r in hist) * job["local_steps"]
     evals = sum(r.evaluated for r in hist) * job["clients"]
-    layers = cfg.n_layers
+    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    # the S^data feature batches (one per client) run the frozen backbone
+    # with no adapter: flash, but plain x@W projections.  Layer 0's q/k/v
+    # inputs come from the frozen embedding and need no gradient.
     expected = {"flash_fwd": layers * (steps + evals + job["clients"]),
-                "flash_dq": layers * steps, "flash_dkv": layers * steps}
+                "flash_dq": layers * steps, "flash_dkv": layers * steps,
+                "tri_lora_fwd": proj * (steps + evals),
+                "tri_lora_dx": (proj - 3) * steps, "tri_lora_dw": 0}
     tokens = steps * job["batch"] * job["seq"]
     rounds = [{"round": r.round, "wall_s": r.wall_s,
                "train_loss": r.train_loss, "mean_acc": r.mean_acc,
@@ -682,7 +828,7 @@ def phase_train(torch, fa_ops, get_config, dev):
                   "train_loss": [r.train_loss for r in ref["history"]],
                   "mean_acc": [r.mean_acc for r in ref["history"]]}})
     require(launches == expected,
-            f"flash launches {launches} != expected {expected}")
+            f"train launches {launches} != expected {expected}")
     for a, b in zip(hist, ref["history"]):
         require((a.sampled, a.participants, a.dropped, a.uplink_bytes,
                  a.downlink_bytes, a.uplink_elems)
@@ -699,6 +845,183 @@ def phase_train(torch, fa_ops, get_config, dev):
     require(all(b < a for a, b in zip(losses, losses[1:])),
             f"train loss did not decrease over the rounds: {losses}")
     return launches
+
+
+#: the lm_train phase's job: the causal-LM driver's call at full width and
+#: depth, through the flash kernels, with the int8 uplink codec
+LM_TRAIN = dict(arch="fed-100m", clients=4, rounds=3, local_steps=5,
+                batch=8, seq=256, method="celora", uplink_codec="int8",
+                attn_impl="flash")
+
+
+def phase_lm_train(torch, fa_ops, tl_ops, get_config, dev):
+    """``launch.train.run`` on fed-100m: exact kernel launches, a falling
+    loss, the int8 byte ledger, a checkpoint that verifies and restores;
+    then the device-time split of one client's local steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    from repro_torch import checkpoint
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    job = LM_TRAIN
+    cfg = get_config(job["arch"])
+    path = ROOT / "build" / "chip_smoke" / "lm_train.npz"
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()                   # counts of the main path only
+    tl_ops.reset_launches()
+    t0 = time.perf_counter()
+    out = train.run(**job, ckpt=str(path), verbose=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["history"]
+    steps = sum(len(r["participants"]) for r in hist) * job["local_steps"]
+    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    expected = {"flash_fwd": layers * steps, "flash_dq": layers * steps,
+                "flash_dkv": layers * steps, "tri_lora_fwd": proj * steps,
+                "tri_lora_dx": (proj - 3) * steps, "tri_lora_dw": 0}
+    tokens = steps * job["batch"] * job["seq"]
+    restored = checkpoint.restore(str(path),
+                                  {"adapter_client0": out["adapters"][0]})
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(restored["adapter_client0"]),
+        tree_leaves(out["adapters"][0])))
+
+    # train.local_fit of client 0, 3 steps, inside the profiler
+    from repro_torch.data import synthetic
+    from repro_torch.optim import adamw
+    batches = synthetic.lm_batches(synthetic.make_lm_data(
+        0, 20_000, cfg.vocab_size), job["batch"], job["seq"])
+    drawn = [next(batches) for _ in range(3)]
+    toks, labs = (torch.as_tensor(np.stack([b[k] for b in drawn]),
+                                  device=dev) for k in ("tokens", "labels"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        train.local_fit(out["cfg"], out["base"], adamw(lr=3e-3),
+                        out["adapters"][0], toks, labs)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t1) * 1e6
+    emit({"phase": "lm_train", **job, "layers": layers,
+          "d_model": cfg.d_model, "rounds_detail": hist, "wall_s": wall,
+          "round_wall_s": [r["wall_s"] for r in hist],
+          "trained_tokens": tokens, "trained_tok_per_s": tokens / wall,
+          "peak_mem_gb": peak, "launches": launches,
+          "expected_launches": expected, "checkpoint_restored": same,
+          "checkpoint_meta": checkpoint.metadata(str(path)),
+          "profile": {"window": "train.local_fit, 1 client, 3 steps",
+                      **device_split(prof, window_us, 12)}})
+    require(launches == expected,
+            f"lm_train launches {launches} != expected {expected}")
+    require(hist[-1]["loss"] < hist[0]["loss"],
+            f"lm_train loss did not fall: {[r['loss'] for r in hist]}")
+    # per client: 4 stacked C leaves of 8 layers x 8x8 = 512 int8 codes and
+    # 8 bf16 tile scales (528 B) up, 512 f32 (2048 B) down
+    require(all(r["uplink_bytes"] == 8448 and r["downlink_bytes"] == 32768
+                for r in hist),
+            f"lm_train bytes {[(r['uplink_bytes'], r['downlink_bytes']) for r in hist]}")
+    require(same, "the checkpoint did not restore client 0's adapter")
+    return launches
+
+
+def phase_pretrain(torch, tl_ops, get_config, dev):
+    """``FedTask.create`` with two warm-up batches of 8×256 at full width:
+    the backbone trains, so every projection runs the forward, dx and dW
+    kernels."""
+    from repro_torch.core.fed_model import FedTask
+    from repro_torch.data import synthetic
+    from repro_torch.models import model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("fed-100m")
+    data = synthetic.make_classification_data(12, 16, 256, cfg.vocab_size, 4)
+    batches = [{"tokens": data.tokens[i:i + 8], "labels": data.labels[i:i + 8]}
+               for i in (0, 8)]
+    tl_ops.reset_launches()                   # counts of the path only
+    t0 = time.perf_counter()
+    task = FedTask.create(torch.Generator(device=dev).manual_seed(12), cfg,
+                          4, pretrain_batches=batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(tl_ops.LAUNCHES)
+    init = model.init_params(cfg, torch.Generator(device=dev).manual_seed(12))
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(task.base), tree_leaves(init["base"])))
+    finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(task.base))
+    per_step = cfg.n_layers * len(cfg.lora_targets)
+    expected = {k: per_step * len(batches) for k in launches}
+    emit({"phase": "pretrain", "arch": cfg.name, "batches": [2, 8, 256],
+          "wall_s": wall, "launches": launches, "expected_launches": expected,
+          "base_leaves_moved": moved, "finite": finite})
+    require(launches == expected,
+            f"pretrain launches {launches} != expected {expected}")
+    require(finite and moved > 0, "the warm-up did not train the backbone")
+    return launches
+
+
+def phase_card_vs_cpu(torch, tl_ops, model, get_config, dev):
+    """One ``loss_fn`` and its adapter gradients on fed-100m at full width
+    and depth (f32, a batch of 2×256): on the card through the tri-LoRA and
+    flash kernels, on the CPU through their plain versions.  C and B are
+    moved off their zero-delta init (C = I + 0.05·N, B = 0.01·N, a delta
+    of a few percent of x·W, as after some training) so that dA and dC are
+    not zero.  A delta as large as x·W itself (B = 0.05·N with A shifted
+    too) saturates the random backbone's attention, and there f32 on the
+    CPU alone is 6e-4 of the largest entry away from f64 at 4 layers."""
+    import numpy as np
+
+    from repro_torch.core.tri_lora import is_adapter
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("fed-100m")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    params = model.init_params(cfg, gen)
+
+    def noise(t, scale):
+        return scale * torch.randn(t.shape, generator=gen, device=dev)
+
+    params["adapter"] = tree_map(
+        lambda a: {"A": a["A"], "C": a["C"] + noise(a["C"], 0.05),
+                   "B": noise(a["B"], 0.01)},
+        params["adapter"], is_leaf=is_adapter)
+    toks = np.random.default_rng(10).integers(0, cfg.vocab_size, (2, 257))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def loss_and_grads(where):
+        base = tree_map(lambda t: t.to(where), params["base"])
+        ad = tree_map(lambda t: t.detach().to(where).requires_grad_(True),
+                      params["adapter"])
+        b = {key: torch.as_tensor(v, device=where) for key, v in
+             batch.items()}
+        loss, _ = model.loss_fn(cfg, ad, base, b, attn_impl="flash")
+        grads = torch.autograd.grad(loss, tree_leaves(ad))
+        return float(loss.detach()), [g.cpu() for g in grads]
+
+    tl_ops.reset_launches()
+    loss_card, grads_card = loss_and_grads(dev)
+    launched = dict(tl_ops.LAUNCHES)
+    loss_cpu, grads_cpu = loss_and_grads(torch.device("cpu"))
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(grads_card, grads_cpu)]
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    projections = cfg.n_layers * len(cfg.lora_targets)
+    emit({"phase": "card_vs_cpu", "arch": cfg.name, "batch": [2, 256],
+          "loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel_err": rel,
+          "grad_leaves": len(errs), "grad_max_err_over_max": max(errs),
+          "launches": launched})
+    require(rel <= 1e-4, f"card loss {loss_card} vs CPU {loss_cpu}")
+    require(max(errs) <= 1e-3,
+            f"adapter gradients differ by {max(errs)} of their largest entry")
+    require(launched["tri_lora_fwd"] == projections
+            and launched["tri_lora_dx"] == projections - 3
+            and launched["tri_lora_dw"] == 0,
+            f"one loss and gradient launched {launched}")
+
 
 def np_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
@@ -730,6 +1053,8 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.tri_lora import ops as tl_ops
+    from repro_torch.kernels.tri_lora import ref as tl_ref
     from repro_torch.launch import serve
     from repro_torch.models import model
     from repro_torch.models.config import get_config
@@ -742,9 +1067,11 @@ def main() -> int:
         attn_err = attn_cases(torch, ops, ref, dev)
         gemv_err = gemv_cases(torch, ops, ref, dev)
         flash_err = flash_cases(torch, fa_ops, fa_ref, dev)
+        tri_lora_err = tri_lora_cases(torch, tl_ops, tl_ref, dev)
         rows = [time_attention(torch, F, ops, ref, bounds, dev),
                 time_gemv(torch, ops, ref, bounds, dev)]
         flash_rows = time_flash(torch, F, fa_ops, fa_ref, bounds, dev)
+        tri_lora_rows = time_tri_lora(torch, tl_ops, bounds, dev)
         for r in rows:
             emit({"phase": "kernels", "timing": r["name"],
                   "kernel_ms": r["ms"], **{k: v for k, v in r.items()
@@ -757,19 +1084,27 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_oracle(torch, ops, serve, random_bank, get_config, model, dev)
         torch.cuda.empty_cache()
-        launches.update(phase_train(torch, fa_ops, get_config, dev))
+        launches.update(phase_train(torch, fa_ops, tl_ops, get_config, dev))
+        # this slice's paths: the LM driver (forward and dx) and the
+        # backbone warm-up (dW)
+        lm = phase_lm_train(torch, fa_ops, tl_ops, get_config, dev)
+        launches.update(tri_lora_fwd=lm["tri_lora_fwd"],
+                        tri_lora_dx=lm["tri_lora_dx"])
+        launches["tri_lora_dw"] = phase_pretrain(torch, tl_ops, get_config,
+                                                 dev)["tri_lora_dw"]
+        phase_card_vs_cpu(torch, tl_ops, model, get_config, dev)
         card = card_line()
     except Exception:                       # report, print no result, fail
         traceback.print_exc()
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    rows += flash_rows
+    rows += flash_rows + tri_lora_rows
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"phase": "summary", "max_abs_err_by_dtype": {
         "decode_attention": attn_err, "grouped_gemv": gemv_err,
-        "flash_attention": flash_err}})
+        "flash_attention": flash_err, "tri_lora": tri_lora_err}})
     emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,10 @@ tree a strategy uplinks, so a run's byte ledger equals the JAX package's
 for the same strategy, model and participation.  Per round each
 participant uplinks one payload and receives a downlink of the same
 structure; stragglers and strategies with ``aggregate="none"`` cost
-nothing.  The stacked and compressed forms come with the vectorized paths
-and the codecs.
+nothing.  Under an uplink codec (:mod:`.compress`) the uplink is priced on
+the ENCODED wire tree (codes and scales) and the downlink on the raw
+payload: the server broadcasts full-precision aggregates.  The stacked
+forms come with the vectorized paths.
 """
 from __future__ import annotations
 
@@ -57,3 +59,13 @@ def round_comm_payloads(payloads: Any) -> RoundComm:
     up_e = sum(tree_elems(p) for p in payloads if p is not None)
     return RoundComm(up_b, up_b, up_e)
 
+
+def round_comm_compressed_payloads(encs: Any, payloads: Any) -> RoundComm:
+    """Compressed-uplink accounting from per-participant trees: uplink
+    bytes and elements of the ENCODED wire trees ``encs``, downlink bytes of
+    the raw ``payloads``."""
+    if payloads is None:
+        return RoundComm.zero()
+    return RoundComm(sum(tree_bytes(e) for e in encs if e is not None),
+                     sum(tree_bytes(p) for p in payloads if p is not None),
+                     sum(tree_elems(e) for e in encs if e is not None))

@@ -16,15 +16,22 @@ Clients train one after another (``client_parallelism="loop"``, the port's
 default; the JAX package defaults to its batched ``"vmap"`` mode, which it
 holds equal to ``"loop"`` in its tests).  The options whose machinery is
 not ported yet — vectorized or sharded clients, the scan and async
-engines, host or sharded client stores, uplink codecs, fault injection and
-admission control — raise ``NotImplementedError``; nothing falls back to
-another path.
+engines, host or sharded client stores, fault injection and admission
+control — raise ``NotImplementedError``; nothing falls back to another
+path.
+
+Uplink codecs (:mod:`.compress`): each communicating client carries an
+error-feedback residual ``ef`` in its state; the round encodes every
+client's uplink, prices the participants' ENCODED trees, aggregates the
+dequantized payloads (S^model included) and advances the residual of the
+participants only.
 
 The random draws the JAX package takes from ``jax.random`` — client init,
-the CKA probe batch and the GMM initial means — come from
-``torch.Generator``s seeded from ``fed.seed``, or ready-made from the
-caller (``init_clients``, ``cka_probes``, ``gmm_init``), so that a test can
-hand the port the JAX package's draws.
+the CKA probe batch, the GMM initial means and the codec's stochastic
+rounding — come from generators seeded from ``fed.seed``, or ready-made
+from the caller (``init_clients``, ``cka_probes``, ``gmm_init``,
+``sr_uniforms``), so that a test can hand the port the JAX package's
+draws.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, comm, sampling, tri_lora
+from repro_torch.core import aggregation, comm, compress, sampling, tri_lora
 from repro_torch.core.baselines import Strategy, get_strategy
 from repro_torch.core.fed_model import FedTask
 from repro_torch.core.similarity import cka, gmm, ot
@@ -48,7 +55,6 @@ from repro_torch.tree import tree_leaves, tree_map
 PARALLELISM_MODES = ("loop", "vmap", "shard")
 ENGINES = ("eager", "scan", "async")
 STORE_BACKENDS = ("device", "sharded", "host")
-CODECS = ("none", "bf16", "int8", "int4")
 ADMISSION_MODES = ("none", "norm")
 FAULT_RATES = ("fault_crash", "fault_loss", "fault_corrupt",
                "fault_divergent")
@@ -262,12 +268,7 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
     if n_train != fed.n_clients:
         raise ValueError(f"n_clients={fed.n_clients} but {n_train} client "
                          f"training sets were provided")
-    if fed.uplink_codec not in CODECS:
-        raise ValueError(f"unknown uplink_codec {fed.uplink_codec!r}; "
-                         f"known: {list(CODECS)}")
-    if fed.uplink_codec != "none":
-        raise _not_ported(f"uplink_codec={fed.uplink_codec!r}",
-                          "'uplink codecs'", "uplink_codec='none'")
+    compress.get_codec(fed.uplink_codec)              # validates
     for name in FAULT_RATES:
         rate = getattr(fed, name)
         if not 0.0 <= rate <= 1.0:
@@ -302,15 +303,19 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
                   init_clients: Optional[Sequence[dict]] = None,
                   cka_probes: Optional[torch.Tensor] = None,
                   gmm_init: Optional[GmmInit] = None,
+                  sr_uniforms: Optional[Callable[[int, int],
+                                                 compress.Uniforms]] = None,
                   verbose: bool = False) -> dict:
     """Run Algorithm 1 for ``fed.rounds`` rounds on ``device``; returns the
     history plus the final per-client states, as the JAX package does.
 
     ``task.base`` must lie on ``device``.  ``init_clients`` (m dicts of
     {'adapter', 'head'} as :meth:`FedTask.init_client` makes them),
-    ``cka_probes`` ((fed.cka_probes, r) f32) and ``gmm_init`` (a callable
-    (client, category, n) → G distinct row indices) replace the default
-    draws from generators seeded with ``fed.seed``."""
+    ``cka_probes`` ((fed.cka_probes, r) f32), ``gmm_init`` (a callable
+    (client, category, n) → G distinct row indices) and ``sr_uniforms`` (a
+    callable (round, client) → the codec's uniforms,
+    :data:`compress.Uniforms`) replace the default draws from generators
+    seeded with ``fed.seed``."""
     strategy = get_strategy(fed.method)
     _validate(fed, strategy, len(client_train))
     dev = resolve_device(device)
@@ -333,6 +338,13 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
     for c in init_clients:
         check_on(c, dev, "init_clients")
     states = [strategy.init_state(dict(c)) for c in init_clients]
+    codec = compress.get_codec(fed.uplink_codec)
+    compressed = not codec.is_identity and strategy.aggregate != "none"
+    if compressed:
+        states = [dict(s, ef=compress.init_ef(strategy.uplink(s)))
+                  for s in states]
+        sr_uniforms = sr_uniforms or (
+            lambda rnd, i: compress.client_generator(fed.seed, rnd, i))
     loaders = [Loader(client_train[i], fed.batch_size, seed=fed.seed + i)
                for i in range(m)]
     sample_counts = [len(d["labels"]) for d in client_train]
@@ -415,15 +427,14 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
             s_model_prev[0], cs, plan.sampled, cka_probes)
         return s_model_prev[0]
 
-    def personalized(plan, participants) -> torch.Tensor:
-        """Eqn (3) weights from S = S^data (+ S^model this round)."""
+    def personalized(plan, participants, c_trees: list) -> torch.Tensor:
+        """Eqn (3) weights from S = S^data (+ S^model this round over the
+        Cs the server holds, ``c_trees``)."""
         sims = []
         if fed.use_data_sim and s_data is not None:
             sims.append(s_data)
         if fed.use_model_sim:
-            sims.append(model_sim(cka.stack_client_cs(
-                [tri_lora.tree_payload(s["adapter"]) for s in states]),
-                plan))
+            sims.append(model_sim(cka.stack_client_cs(c_trees), plan))
         if not sims:
             raise ValueError(
                 f"celora needs at least one similarity term; got "
@@ -458,12 +469,30 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
         cmask = (torch.as_tensor(plan.mask(m), device=dev) if partial
                  else None)
         payloads = [strategy.uplink(s) for s in states]
-        rc = comm.round_comm_payloads(
-            [payloads[i] for i in plan.participants])
+        if compressed:
+            # encode all m (the JAX package keys every client's draw), price
+            # the participants' ENCODED trees, aggregate the dequantized
+            # payloads, advance the residual of delivered uploads only
+            encoded = [compress.encode_client(codec, payloads[i],
+                                              states[i]["ef"],
+                                              sr_uniforms(rnd, i))
+                       for i in range(m)]
+            served = [e[1] for e in encoded]
+            rc = comm.round_comm_compressed_payloads(
+                [encoded[i][0] for i in plan.participants],
+                [payloads[i] for i in plan.participants])
+            for i in plan.participants:
+                states[i] = dict(states[i], ef=encoded[i][2])
+        else:
+            served = payloads
+            rc = comm.round_comm_payloads(
+                [payloads[i] for i in plan.participants])
         weights = None
         if strategy.aggregate == "personalized":
-            weights = personalized(plan, cmask)
-        downs = strategy.server(payloads, sample_counts=sample_counts,
+            weights = personalized(
+                plan, cmask, served if compressed else
+                [tri_lora.tree_payload(s["adapter"]) for s in states])
+        downs = strategy.server(served, sample_counts=sample_counts,
                                 weights=weights, participants=cmask)
         for i in plan.participants:
             states[i] = strategy.install(states[i], downs[i])

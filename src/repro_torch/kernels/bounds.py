@@ -173,11 +173,27 @@ TABLE = (
 )
 
 
+#: The tri-LoRA kernels at the shapes the training paths run (fed-100m, f32,
+#: 8 sequences of 256 tokens, rank 8): wq/wo (K=N=768) and wk/wv (N=256).
+TRAINING = tuple(
+    row for proj, n in (("wq/wo", 768), ("wk/wv", 256))
+    for row in (
+        ("tri_lora_matmul_kernel", TABLE[0][1],
+         f"fed-100m {proj}, M=2048 K=768 N={n} r=8, f32",
+         tri_lora_matmul(2048, 768, n, 8, "float32")),
+        ("tri_lora_dx_kernel", TABLE[1][1],
+         f"fed-100m {proj}, M=2048 K=768 N={n} r=8, f32",
+         tri_lora_dx(2048, 768, n, 8, "float32")),
+        ("tri_lora_dw_kernel", TABLE[2][1],
+         f"fed-100m {proj}, M=2048 K=768 N={n}, f32",
+         tri_lora_dw(2048, 768, n, "float32"))))
+
+
 def main() -> None:
     print("| kernel | TPU source | shape | MB moved | GFLOP | bound µs | "
           "bound by |")
     print("|---|---|---|---|---|---|---|")
-    for name, src, shape, bd in TABLE:
+    for name, src, shape, bd in TABLE + TRAINING:
         print(f"| `{name}` | `{src}` | {shape} | {bd.nbytes / 1e6:.2f} | "
               f"{bd.flops / 1e9:.3f} | {bd.ms * 1e3:.2f} | {bd.by} |")
 

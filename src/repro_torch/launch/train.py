@@ -1,0 +1,322 @@
+"""Federated training driver (the end-to-end launcher): PyTorch port of
+``repro.launch.train``, the eager engine's ``loop`` path.
+
+Runs CE-LoRA federated fine-tuning of a causal-LM backbone on synthetic
+Zipf-Markov data split across simulated clients:
+
+    python -m repro_torch.launch.train --arch fed-100m --reduced \\
+        --clients 3 --rounds 2 --local-steps 3 --batch 4 --seq 64 \\
+        --device cpu                                  # tiny, plain path
+    python -m repro_torch.launch.train --arch fed-100m --clients 4 \\
+        --rounds 3 --local-steps 5 --batch 8 --seq 256 --attn-impl flash
+                                                      # full width, the card
+
+Per round each sampled client runs ``local_steps`` AdamW steps on its own
+stream (a fresh optimizer state per round, as in the JAX package); the
+participants uplink their payload — C for CE-LoRA, the whole adapter for
+FedAvg, nothing for ``local`` — optionally through an uplink codec with
+error feedback (:mod:`repro_torch.core.compress`); the server mixes by
+eqn (3) over CKA similarities (CE-LoRA) or averages (FedAvg), and the
+participants install the result.  Bytes are exact: the ENCODED uplink and
+the raw downlink.  With ``ckpt`` the run ends by saving client 0's adapter
+(:mod:`repro_torch.checkpoint`, the JAX package's file layout).
+
+On CUDA every adapted projection runs the tri-LoRA kernels
+(``models.layers.dense``) and ``attn_impl="flash"`` the flash kernels.
+Clients train one after another (``client_parallelism="loop"``, the
+port's default; the JAX package defaults to ``"vmap"``).  The vectorized
+clients, the scan and async engines, the host and sharded client stores
+and ``resume`` are not ported and raise ``NotImplementedError``.
+
+The random draws the JAX package takes from ``jax.random`` — the backbone
+(``key(seed)``), client ``i``'s adapter (``key(seed + i)``), the CKA probes
+(``key(seed + 99)``) and the stochastic rounding (``client_key``) — come
+from generators seeded the same way, or ready-made from the caller
+(``base``, ``init_adapters``, ``cka_probes``, ``sr_uniforms``).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import save
+from repro_torch.core import aggregation, comm, compress, sampling, tri_lora
+from repro_torch.core.similarity import cka
+from repro_torch.data import synthetic
+from repro_torch.device import check_on, resolve_device
+from repro_torch.models import attention, model, transformer
+from repro_torch.models.config import get_config
+from repro_torch.optim import adamw, apply_updates
+from repro_torch.tree import tree_leaves, tree_map
+
+METHODS = ("celora", "fedavg", "local")
+CKA_PROBES = 32
+
+
+def _not_ported(option: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{option} is not ported yet (ROADMAP, Queue 1 item {item}); the "
+        f"port's LM driver runs the eager engine's client_parallelism="
+        f"'loop' path on the device store")
+
+
+def _validate(clients: int, participation: float, straggler_frac: float,
+              method: str, client_parallelism: str, engine: str,
+              client_store: str, resume: bool) -> None:
+    if client_parallelism not in ("loop", "vmap"):
+        raise ValueError(f"client_parallelism={client_parallelism!r}; "
+                         f"expected 'loop' or 'vmap'")
+    if client_parallelism == "vmap":
+        raise _not_ported("client_parallelism='vmap'",
+                          "'vectorized clients'")
+    if engine not in ("eager", "scan", "async"):
+        raise ValueError(f"engine={engine!r}; "
+                         f"expected 'eager', 'scan', or 'async'")
+    if engine != "eager":
+        raise _not_ported(f"engine={engine!r}", "'scan / async engines'")
+    if client_store not in ("device", "sharded", "host"):
+        raise ValueError(f"client_store={client_store!r}; expected one of "
+                         f"('device', 'sharded', 'host')")
+    if client_store != "device":
+        raise _not_ported(f"client_store={client_store!r}",
+                          "'host / sharded client stores'")
+    if resume:
+        raise _not_ported("resume", "12 (the scan engine's resumable state)")
+    if method not in METHODS:
+        raise ValueError(f"method={method!r}; expected one of {METHODS}")
+    sampling.n_sampled(clients, participation)       # validates
+    if not 0.0 <= straggler_frac < 1.0:
+        raise ValueError(f"straggler_frac must be in [0, 1); "
+                         f"got {straggler_frac}")
+
+
+def local_fit(cfg, base: dict, opt, adapter: dict, toks: torch.Tensor,
+              labs: torch.Tensor):
+    """One client's local fit: an AdamW step (a fresh optimizer state, as
+    in the JAX package) per (B, S) batch of the stacked ``toks`` /
+    ``labs``, the causal-LM loss on the frozen ``base``.  Returns the
+    adapter and each step's loss."""
+    state = opt.init(adapter)
+    losses = []
+    for step in range(toks.shape[0]):
+        ad = tree_map(lambda t: t.detach().requires_grad_(True), adapter)
+        loss, _ = model.loss_fn(cfg, ad, base, {"tokens": toks[step],
+                                                "labels": labs[step]})
+        leaves = tree_leaves(ad)
+        grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+        upd, state = opt.update(tree_map(lambda t: grads[id(t)], ad), state,
+                                adapter)
+        adapter = apply_updates(adapter, upd)
+        losses.append(loss.detach())
+    return adapter, torch.stack(losses)
+
+
+def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
+        local_steps: int = 20, batch: int = 8, seq: int = 256,
+        lr: float = 3e-3, seed: int = 0, method: str = "celora",
+        ckpt: str | None = None, verbose: bool = True,
+        reduced: bool = False, client_parallelism: str = "loop",
+        participation: float = 1.0, sampler: str = "uniform",
+        straggler_frac: float = 0.0, engine: str = "eager",
+        chunk_rounds: int = 8, resume: bool = False,
+        uplink_codec: str = "none", scan_donate: bool = True,
+        scan_prefetch: bool = True, client_store: str = "device",
+        buffer_size: int = 0, async_concurrency: int = 0,
+        staleness_decay: float = 1.0, latency: str = "uniform",
+        latency_scale: float = 1.0, latency_sigma: float = 0.5,
+        attn_impl: str | None = None, *, device="cuda",
+        base: Optional[dict] = None,
+        init_adapters: Optional[Sequence[dict]] = None,
+        cka_probes: Optional[torch.Tensor] = None,
+        sr_uniforms: Optional[Callable[[int, int],
+                                       compress.Uniforms]] = None) -> dict:
+    """The JAX package's ``run`` with its signature (the scan and async
+    engines' knobs are accepted and unused, as they are there on the eager
+    path), on ``device``.  Returns {"history", "adapters", "cfg",
+    "base"}."""
+    _validate(clients, participation, straggler_frac, method,
+              client_parallelism, engine, client_store, resume)
+    codec = compress.get_codec(uplink_codec)
+    dev = resolve_device(device)
+    partial = participation < 1.0 or straggler_frac > 0.0
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if attn_impl is not None:
+        if attn_impl not in attention.IMPLS:
+            raise ValueError(f"attn_impl={attn_impl!r}; "
+                             f"expected one of {attention.IMPLS}")
+        cfg = cfg.with_overrides(attn_impl=attn_impl)
+    if base is None:
+        base = model.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed))["base"]
+    check_on(base, dev, "base")
+
+    # per-client Zipf-Markov LM streams with client-specific transitions
+    streams = [synthetic.make_lm_data(seed + 17 * i, 200_000,
+                                      cfg.vocab_size) for i in range(clients)]
+    iters = [synthetic.lm_batches(s, batch, seq, seed=seed + i)
+             for i, s in enumerate(streams)]
+    if init_adapters is None:
+        init_adapters = []
+        for i in range(clients):
+            groups, tail = transformer.init_stack_adapters(
+                torch.Generator(device=dev).manual_seed(seed + i), cfg)
+            init_adapters.append({"groups": groups, "tail": tail})
+    if len(init_adapters) != clients:
+        raise ValueError(f"{len(init_adapters)} initial adapters for "
+                         f"{clients} clients")
+    adapters = list(init_adapters)
+    for a in adapters:
+        check_on(a, dev, "init_adapters")
+    opt = adamw(lr=lr)
+
+    compressed = not codec.is_identity and method in ("celora", "fedavg")
+    payload_of = tri_lora.tree_payload if method == "celora" else (
+        lambda t: t)
+    if compressed:
+        ef = [compress.init_ef(payload_of(a)) for a in adapters]
+        sr_uniforms = sr_uniforms or (
+            lambda rnd, i: compress.client_generator(seed, rnd, i))
+    if method == "celora":
+        if cka_probes is None:
+            cka_probes = cka.draw_probes(
+                torch.Generator(device=dev).manual_seed(seed + 99),
+                CKA_PROBES, cfg.lora_rank)
+        cka_probes = torch.as_tensor(cka_probes, dtype=torch.float32,
+                                     device=dev)
+
+    def draw(i: int):
+        bs = [next(iters[i]) for _ in range(local_steps)]
+        return (torch.as_tensor(np.stack([b["tokens"] for b in bs]),
+                                device=dev),
+                torch.as_tensor(np.stack([b["labels"] for b in bs]),
+                                device=dev))
+
+    # per-round participation plans, deterministic in the seed (weighted
+    # sampling sees the equal per-client stream sizes)
+    stream_sizes = [len(s) for s in streams]
+    plans = [(sampling.build_plan(sampler, clients, participation,
+                                  straggler_frac, rnd, seed,
+                                  sample_counts=stream_sizes)
+              if partial else sampling.full_plan(clients, rnd))
+             for rnd in range(rounds)]
+
+    history = []
+    for rnd in range(rounds):
+        t0 = time.perf_counter()
+        plan = plans[rnd]
+        smask = plan.mask(clients, which="sampled")
+        cmask = (torch.as_tensor(plan.mask(clients), device=dev) if partial
+                 else None)
+        losses = []
+        for i in range(clients):
+            toks, labs = draw(i)          # ALWAYS draw: stream alignment
+            if not smask[i]:
+                continue                  # unsampled: frozen this round
+            adapters[i], ls = local_fit(cfg, base, opt, adapters[i], toks,
+                                        labs)
+            losses.append(float(ls[-1]))
+
+        rc = comm.RoundComm.zero()
+        if compressed:
+            # bytes priced on the ENCODED trees, the server consumes the
+            # dequantized payloads, EF advances for delivered uploads only
+            payloads = [payload_of(a) for a in adapters]
+            encoded = [compress.encode_client(codec, payloads[i], ef[i],
+                                              sr_uniforms(rnd, i))
+                       for i in range(clients)]
+            rc = comm.round_comm_compressed_payloads(
+                [encoded[i][0] for i in plan.participants],
+                [payloads[i] for i in plan.participants])
+            served = [e[1] for e in encoded]
+            for i in plan.participants:
+                ef[i] = encoded[i][2]
+        if method == "celora":
+            if not compressed:
+                served = [tri_lora.tree_payload(a) for a in adapters]
+                rc = comm.round_comm_payloads(
+                    [served[i] for i in plan.participants])
+            s_model = cka.pairwise_model_similarity(served, cka_probes)
+            w = aggregation.personalized_weights(s_model, participants=cmask)
+            downs = aggregation.aggregate_payloads(served, w)
+            for i in plan.participants:
+                adapters[i] = tri_lora.tree_load_payload(adapters[i],
+                                                         downs[i])
+        elif method == "fedavg":
+            if not compressed:
+                served = adapters
+                rc = comm.round_comm_payloads(
+                    [served[i] for i in plan.participants])
+            g = aggregation.fedavg(served, [1] * clients, cmask)
+            for i in plan.participants:
+                adapters[i] = g
+
+        rec = {"round": rnd, "loss": float(np.mean(losses)),
+               "uplink_floats": rc.uplink_elems,
+               "uplink_bytes": rc.uplink_bytes,
+               "downlink_bytes": rc.downlink_bytes,
+               "participants": plan.participants.tolist(),
+               "wall_s": time.perf_counter() - t0}
+        history.append(rec)
+        if verbose:
+            print(f"round {rnd:3d}  loss {rec['loss']:.4f}  "
+                  f"uplink {rc.uplink_bytes}B "
+                  f"({plan.n_participants}/{clients} clients)  "
+                  f"{rec['wall_s']:.1f}s", flush=True)
+
+    if ckpt:
+        save(ckpt, {"adapter_client0": adapters[0]},
+             metadata={"arch": arch, "rounds": rounds, "method": method})
+        if verbose:
+            print(f"saved adapter checkpoint -> {ckpt}")
+    return {"history": history, "adapters": adapters, "cfg": cfg,
+            "base": base}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="fed-100m")
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--local-steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--method", default="celora", choices=list(METHODS))
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's tiny variant (2 layers, width 256)")
+    ap.add_argument("--participation", type=float, default=1.0,
+                    help="fraction of clients sampled per round (0, 1]")
+    ap.add_argument("--sampler", default="uniform",
+                    choices=list(sampling.SAMPLERS))
+    ap.add_argument("--straggler-frac", type=float, default=0.0,
+                    help="fraction of sampled clients dropped after local fit")
+    ap.add_argument("--uplink-codec", default="none",
+                    choices=list(compress.CODECS),
+                    help="quantized uplink compression with error feedback")
+    ap.add_argument("--attn-impl", default=None, choices=attention.IMPLS,
+                    help="attention backend; default: the arch config's")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    out = run(arch=args.arch, clients=args.clients, rounds=args.rounds,
+              local_steps=args.local_steps, batch=args.batch, seq=args.seq,
+              lr=args.lr, seed=args.seed, method=args.method,
+              ckpt=args.ckpt, reduced=args.reduced,
+              participation=args.participation, sampler=args.sampler,
+              straggler_frac=args.straggler_frac,
+              uplink_codec=args.uplink_codec, attn_impl=args.attn_impl,
+              device=args.device)
+    first, last = out["history"][0]["loss"], out["history"][-1]["loss"]
+    print(f"loss {first:.4f} -> {last:.4f} over {args.rounds} rounds")
+    return out
+
+
+if __name__ == "__main__":
+    main()

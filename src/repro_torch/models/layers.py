@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import tri_lora
 from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.tri_lora import ops as tri_lora_ops
 
 
 # ---------------------------------------------------------------------------
@@ -32,7 +33,19 @@ def dense(x: torch.Tensor, w: torch.Tensor, *,
     On CUDA the grouped mode runs the grouped GEMV kernel, which computes
     x·W and the delta in one f32 accumulation and writes an exactly-zero
     row for a masked slot (the plain path keeps x·W there and drops only
-    the delta; serving discards masked rows either way)."""
+    the delta; serving discards masked rows either way).
+
+    On CUDA a single adapter runs the tri-LoRA kernels (the forward, and
+    dx / dW in the backward where x / W need a gradient), then the bias.
+    In f32 the two paths take the same sums in another order.  In bf16 the
+    kernel rounds P = s·(x·A)·C to x's dtype and adds P·B inside its f32
+    accumulation, as the JAX package's kernel op does, where the plain path
+    (like the JAX ``dense``) rounds the delta on its own and adds it to the
+    rounded x·W: the two agree within bf16 tolerance."""
+    if adapter is not None and adapter_rows is None and x.is_cuda:
+        y = tri_lora_ops.tri_lora_matmul(x, w, adapter["A"], adapter["C"],
+                                         adapter["B"], lora_scaling)
+        return y if bias is None else y + bias
     if adapter is not None and adapter_rows is not None and x.is_cuda:
         lead = x.shape[:-1]
         if math.prod(lead[1:]) != 1:

@@ -29,3 +29,18 @@ def tree_leaves(tree: Any,
     out: list = []
     tree_map(lambda x: out.append(x), tree, is_leaf=is_leaf)
     return out
+
+
+def tree_map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """``fn(path, leaf)`` for every leaf of ``tree``; ``path`` is the tuple
+    of dict keys and sequence indices that leads to the leaf.  ``None``
+    stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)

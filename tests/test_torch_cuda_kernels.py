@@ -20,6 +20,8 @@ from repro_torch.core.adapter_bank import random_bank
 from repro_torch.kernels.decode_attention import ops, ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.tri_lora import ops as tl_ops
+from repro_torch.kernels.tri_lora import ref as tl_ref
 from repro_torch.launch import serve
 from repro_torch.models import layers, model
 from repro_torch.models.config import ModelConfig
@@ -279,3 +281,110 @@ def test_fed_task_grads_through_flash_kernels_match_ref(cuda):
     for a, b in zip(out["flash"][1], out["ref"][1]):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# tri-LoRA projection: forward, dx and dW kernels
+# ---------------------------------------------------------------------------
+
+def _tri_lora_inputs(dev, m, k, n, r, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+    return (rn((m, k)), rn((k, n), 0.05), rn((k, r), 0.2), rn((r, r), 0.2),
+            rn((r, n), 0.2), rn((m, n)))
+
+
+@pytest.mark.parametrize("m,k,n,r", [
+    (64, 64, 64, 2), (96, 160, 130, 8), (77, 100, 130, 16),  # ragged edges
+    (2048, 768, 256, 8), (1, 4096, 4096, 8), (8, 300, 70, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tri_lora_kernels_match_plain(cuda, m, k, n, r, dtype):
+    """The op's forward kernel, and the dx and dW kernels with the rank-r
+    grads through autograd, against the plain forward and the analytic
+    backward; gradients at the JAX kernel tests' magnitude-scaled
+    tolerance; one launch of each kernel."""
+    x, w, a, c, b, ct = _tri_lora_inputs(cuda, m, k, n, r, dtype, m + k + r)
+    leaves = [t.detach().requires_grad_(True) for t in (x, w, a, c, b)]
+    tl_ops.reset_launches()
+    y = tl_ops.tri_lora_matmul(*leaves, 2.0)
+    grads = torch.autograd.grad(y, leaves, ct)
+    torch.cuda.synchronize()
+    assert tl_ops.LAUNCHES == {"tri_lora_fwd": 1, "tri_lora_dx": 1,
+                               "tri_lora_dw": 1}
+    _close(y.detach(), tl_ref.tri_lora_matmul_ref(x, w, a, c, b, 2.0), dtype)
+    tol = TOL[dtype]["rtol"]
+    for got, want in zip(grads, tl_ref.tri_lora_bwd_ref(x, w, a, c, b, ct,
+                                                        2.0)):
+        assert got.dtype == want.dtype
+        scale = max(1.0, float(want.float().abs().max()))
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=tol,
+                                   atol=tol * scale)
+
+
+def test_tri_lora_kernels_read_by_strides(cuda):
+    """A row slice of a wider buffer (row stride > K) and a weight slice of
+    a stacked (layers, K, N) tensor give the contiguous copies' answers."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    wide = torch.randn((40, 96), generator=g, device=cuda)
+    x = wide[:, 16:80]                                  # stride (96, 1)
+    w = torch.randn((3, 64, 48), generator=g, device=cuda)[1] * 0.1
+    a = torch.randn((64, 4), generator=g, device=cuda)
+    c = torch.eye(4, device=cuda)
+    b = torch.randn((4, 48), generator=g, device=cuda) * 0.1
+    p = 1.5 * (x @ a) @ c
+    _close(tl_ops.tri_lora_fwd(x, w, p, b),
+           tl_ops.tri_lora_fwd(x.contiguous(), w.contiguous(), p, b),
+           torch.float32)
+    gy = torch.randn((40, 48), generator=g, device=cuda)
+    _close(tl_ops.tri_lora_dw(x, gy), x.contiguous().T @ gy, torch.float32)
+
+
+def test_tri_lora_mixed_dtypes_and_rank_limits(cuda):
+    """A bf16 model with f32 adapters (the serving decode path) runs the
+    kernels; ranks outside 1..64 and non-unit inner strides raise."""
+    x, w, _, _, _, _ = _tri_lora_inputs(cuda, 8, 256, 128, 8,
+                                        torch.bfloat16, 5)
+    _, _, a, c, b, _ = _tri_lora_inputs(cuda, 8, 256, 128, 8, torch.float32,
+                                        6)
+    y = tl_ops.tri_lora_matmul(x, w, a, c, b, 2.0)
+    assert y.dtype == torch.bfloat16
+    _close(y, tl_ref.tri_lora_matmul_ref(x, w, a, c, b, 2.0), torch.bfloat16)
+    with pytest.raises(ValueError, match="rank"):
+        tl_ops.tri_lora_fwd(x, w, torch.zeros((8, 65), device=cuda,
+                                              dtype=x.dtype),
+                            torch.zeros((65, 128), device=cuda))
+    with pytest.raises(ValueError, match="unit"):
+        tl_ops.tri_lora_dw(x.T.contiguous().T, torch.zeros(
+            (8, 128), device=cuda, dtype=x.dtype))
+
+
+def test_dense_on_the_card_runs_the_tri_lora_kernels(cuda):
+    """``layers.dense`` with one adapter on CUDA launches the forward
+    kernel, and in the backward dx only where x needs a gradient and dW
+    only where W does; the result matches the CPU's plain dense."""
+    x, w, a, c, b, _ = _tri_lora_inputs(cuda, 24, 64, 48, 4, torch.float32,
+                                        7)
+    bias = torch.randn(48, device=cuda)
+    ad = {"A": a.requires_grad_(True), "C": c.requires_grad_(True),
+          "B": b.requires_grad_(True)}
+    tl_ops.reset_launches()
+    y = layers.dense(x.reshape(2, 12, 64), w, bias=bias, adapter=ad,
+                     lora_scaling=2.0)
+    torch.autograd.grad(y.sum(), list(ad.values()))
+    assert tl_ops.LAUNCHES == {"tri_lora_fwd": 1, "tri_lora_dx": 0,
+                               "tri_lora_dw": 0}
+    want = layers.dense(x.cpu().reshape(2, 12, 64), w.cpu(),
+                        bias=bias.cpu(),
+                        adapter={k: v.detach().cpu() for k, v in ad.items()},
+                        lora_scaling=2.0)
+    _close(y.detach().cpu(), want, torch.float32)
+    xg = x.detach().requires_grad_(True)
+    wg = w.detach().requires_grad_(True)
+    tl_ops.reset_launches()
+    y = layers.dense(xg, wg, adapter=ad, lora_scaling=2.0)
+    torch.autograd.grad(y.sum(), [xg, wg])
+    assert tl_ops.LAUNCHES == {"tri_lora_fwd": 1, "tri_lora_dx": 1,
+                               "tri_lora_dw": 1}

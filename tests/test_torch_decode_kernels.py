@@ -190,7 +190,8 @@ def test_kernel_sources_are_listed_for_the_build():
     srcs = build.sources()
     launches = {"decode_attention": ["decode_attention"],
                 "grouped_gemv": ["grouped_gemv"],
-                "flash_attention": ["flash_fwd", "flash_dq", "flash_dkv"]}
+                "flash_attention": ["flash_fwd", "flash_dq", "flash_dkv"],
+                "tri_lora": ["tri_lora_fwd", "tri_lora_dx", "tri_lora_dw"]}
     assert set(srcs) == set(launches)
     for name, path in srcs.items():
         text = path.read_text()
