@@ -48,6 +48,24 @@ Phases, one JSON line each (several for the case phases):
                backbone trains, so every projection runs the dW kernel too
   card_vs_cpu  one loss and its adapter gradients at full width and depth
                on the card (all kernels) and on the CPU (plain versions)
+  wkv6_cases   the wkv6 kernel (y and final state) against the plain scan:
+               the JAX kernel-test shapes, T = 1, ragged T, extreme decay,
+               the rwkv6-1.6b prefill shape in bf16/f32, strided views of
+               one (B,T,3D) buffer; one launch per call
+  wkv6_timing  the kernel at B=8 T=512 H=32 hd=64 beside the corrected
+               bound and the plain versions (no PyTorch call computes it)
+  rwkv_prefill rwkv6-1.6b at full width and depth (bf16, random weights):
+               model.forward over 8x512 tokens with use_rwkv_kernel=True,
+               exactly 24 wkv6 and 96 tri-LoRA forward launches, every
+               wkv6 call against wkv6_ref on its own inputs, the same
+               weights in f32 within 2e-2 of the plain path's logits, and
+               a profile window
+  rwkv_decode  serve.generate at full width and depth: 8 prompts of 32
+               tokens and 32 new ones, 96 tri-LoRA forward and 0 wkv6
+               launches every step
+  rwkv_oracle  the same width in f32 at 2 layers (B=2, T=200): card vs CPU
+               logits within 1e-4 of the largest, token-by-token decode on
+               the card vs the forward at 2e-3
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the result line.  Exits non-zero, printing no result, on any failure and
 when no CUDA device is present.
@@ -100,6 +118,22 @@ TRI_LORA_CASES = ((64, 64, 64, 4), (96, 160, 130, 8), (32, 256, 64, 16),
 TRI_LORA_DECODE = ((1, 4096, 4096, 8), (8, 4096, 4096, 8))
 #: the training shape of wq, at which the kernels are timed
 TRI_LORA_TIMED = (2048, 768, 768, 8)
+WKV6_SRC = "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu"
+WKV6_TPU = "src/repro/kernels/rwkv6/rwkv6.py:79"
+#: (B, T, H, hd) of the wkv6 cases in f32 with a non-zero state: the JAX
+#: package's kernel-test shapes (tests/test_kernels.py), T = 1, and hd 64
+#: at a T that is no multiple of the 32-step chunk
+WKV6_CASES = ((2, 64, 2, 16), (2, 80, 2, 16), (2, 33, 1, 8),
+              (2, 128, 4, 32), (2, 1, 2, 64), (2, 77, 3, 64))
+#: the rwkv6-1.6b prefill shape (bf16 r/k/v/u, f32 w), at which the
+#: kernel is checked and timed
+WKV6_FULL = (8, 512, 32, 64)
+#: the rwkv phases' jobs: a prefill of 8 sequences of 512 tokens, a decode
+#: of 8 prompts of 32 tokens and 32 new ones, and the f32 oracle at 2
+#: layers over 2 sequences of 200 tokens (ragged against 32 and 64)
+RWKV_PREFILL = dict(batch=8, seq=512)
+RWKV_DECODE = dict(batch=8, prompt_len=32, gen=32)
+RWKV_ORACLE = dict(layers=2, batch=2, seq=200)
 
 
 def emit(obj) -> None:
@@ -574,6 +608,440 @@ def time_tri_lora(torch, tl_ops, bounds, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# wkv6: cases and timing
+# ---------------------------------------------------------------------------
+
+def wkv6_inputs(torch, dev, b, t, h, hd, dtype, gen, s_scale=0.1):
+    """r, k, v, u in ``dtype``; w = sigmoid(2·N) in f32; state 0.1·N f32
+    (the JAX package's kernel-test distributions)."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    r, k, v = (rn(b, t, h, hd).to(dtype) for _ in range(3))
+    w = torch.sigmoid(2 * rn(b, t, h, hd))
+    u = (0.5 * rn(h, hd)).to(dtype)
+    return r, k, v, w, u, s_scale * rn(b, h, hd, hd)
+
+
+def wkv6_check(torch, wkv_ops, wkv_ref, ins, plain_ins=None):
+    """One op call against ``wkv6_ref`` (on ``plain_ins`` if given: the
+    same values laid out contiguously): errors of y and the final state,
+    each held to rtol = atol = 1e-4 with the absolute part scaled by the
+    reference's largest entry, and the launches of the call."""
+    n0 = wkv_ops.LAUNCHES["wkv6"]
+    y, s = wkv_ops.wkv6(*ins)
+    torch.cuda.synchronize()
+    launched = wkv_ops.LAUNCHES["wkv6"] - n0
+    want = wkv_ref.wkv6_ref(*(plain_ins or ins))
+    errs, bad = {}, 0
+    for name, got, ref_t in (("y", y, want[0]), ("state", s, want[1])):
+        scale = max(1.0, float(ref_t.abs().max()))
+        err = (got - ref_t).abs()
+        errs[name] = float(err.max())
+        bad += int((err > 1e-4 * scale + 1e-4 * ref_t.abs()).sum())
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    return errs, bad, launched, finite
+
+
+def wkv6_cases(torch, wkv_ops, wkv_ref, dev):
+    """The kernel against the plain scan on the card: the JAX test shapes,
+    T = 1 and a ragged T in f32 with a non-zero state; extreme decay
+    (w = 1e-6); the full prefill shape in the model's types; r, k and v
+    as strided views of one (B, T, 3·D) buffer."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cases = [(f"f32 B={b} T={t} H={h} hd={hd}",
+              wkv6_inputs(torch, dev, b, t, h, hd, torch.float32, gen), None)
+             for (b, t, h, hd) in WKV6_CASES]
+    b, t, h, hd = 1, 64, 1, 8
+    cases.append(("extreme decay w=1e-6", (
+        torch.full((b, t, h, hd), 0.5, device=dev),
+        torch.full((b, t, h, hd), 0.5, device=dev),
+        torch.ones((b, t, h, hd), device=dev),
+        torch.full((b, t, h, hd), 1e-6, device=dev),
+        torch.zeros((h, hd), device=dev),
+        torch.zeros((b, h, hd, hd), device=dev)), None))
+    b, t, h, hd = WKV6_FULL
+    cases.append((f"bf16 r/k/v/u, f32 w: B={b} T={t} H={h} hd={hd}",
+                  wkv6_inputs(torch, dev, b, t, h, hd, torch.bfloat16, gen),
+                  None))
+    b, t, h, hd = 2, 100, 4, 64
+    wide = torch.randn((b, t, 3 * h * hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    r, k, v = (wide[..., i * h * hd:(i + 1) * h * hd].view(b, t, h, hd)
+               for i in range(3))
+    _, _, _, w, u, s0 = wkv6_inputs(torch, dev, b, t, h, hd, torch.bfloat16,
+                                    gen)
+    cases.append(("strided views of a (B,T,3D) bf16 buffer",
+                  (r, k, v, w, u, s0),
+                  (r.contiguous(), k.contiguous(), v.contiguous(), w, u, s0)))
+    worst = 0.0
+    for name, ins, plain in cases:
+        errs, bad, launched, finite = wkv6_check(torch, wkv_ops, wkv_ref,
+                                                 ins, plain)
+        emit({"phase": "wkv6_cases", "case": name,
+              "strides": list(ins[0].stride()), "max_abs_err": errs,
+              "n_out_of_tol": bad, "launches": launched, "finite": finite,
+              "tol": "rtol=atol=1e-4, atol scaled by the largest entry"})
+        require(bad == 0 and finite, f"wkv6 disagrees with wkv6_ref: {name} "
+                f"errors {errs}, {bad} out of tolerance, finite={finite}")
+        require(launched == 1, f"wkv6 launched {launched} kernels in one "
+                f"call ({name})")
+        worst = max(worst, *errs.values())
+    return worst
+
+
+def time_wkv6(torch, wkv_ops, wkv_ref, rwkv, bounds, dev, card: str):
+    """The kernel at the rwkv6-1.6b prefill shape (B=8, T=512, H=32,
+    hd=64; bf16 r/k/v/u, f32 w and state) beside the corrected bound, the
+    op's plain version (the chunk-32 log-space recurrence, what the CPU
+    runs) and the plain scan it is held to.  No single PyTorch call
+    computes WKV6.  Returns the kernel-table row."""
+    b, t, h, hd = WKV6_FULL
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bd = bounds.wkv6(b, h, t, hd, "bfloat16")
+    sets = [wkv6_inputs(torch, dev, b, t, h, hd, torch.bfloat16, gen)
+            for _ in range(copies_for(bd.nbytes))]
+    y, _ = wkv_ops.wkv6(*sets[0])
+    err = float((y - wkv_ref.wkv6_ref(*sets[0])[0]).abs().max())
+    ms = time_ms(torch, wkv_ops.wkv6, sets)
+    chunked_ms = time_ms(torch, lambda *a: rwkv.wkv_chunked(*a, chunk=32),
+                         sets, iters=5)
+    scan_ms = time_ms(torch, wkv_ref.wkv6_ref, sets, iters=3)
+    scaling = {}                  # the kernel's time against its block count
+    for bb in (1, 32):
+        ins = wkv6_inputs(torch, dev, bb, t, h, hd, torch.bfloat16, gen)
+        scaling[f"b{bb}_blocks{bb * h}_us"] = 1e3 * time_ms(
+            torch, wkv_ops.wkv6, [ins])
+    emit({"phase": "wkv6_timing", "card": card, "b": b, "t": t, "h": h,
+          "hd": hd, "dtypes": "r/k/v/u bf16, w/state/y f32",
+          "kernel_us": 1e3 * ms, "bound_us": 1e3 * bd.ms,
+          "bound_by": bd.by, "x_bound": ms / bd.ms,
+          "plain_chunked32_us": 1e3 * chunked_ms,
+          "plain_scan_us": 1e3 * scan_ms, "kernel_by_batch": scaling,
+          "library": "no single PyTorch call computes WKV6",
+          "max_abs_err": err})
+    del sets
+    torch.cuda.empty_cache()
+    return dict(name="wkv6", route="cuda", source=WKV6_SRC,
+                replaces=WKV6_TPU, max_abs_err=err, ms=ms,
+                plain_ms=chunked_ms, library_ms=None, **bound(bd))
+
+
+# ---------------------------------------------------------------------------
+# the RWKV-6 family: prefill, decode, oracle
+# ---------------------------------------------------------------------------
+
+def rwkv_params(torch, model, cfg, dev, seed, *, perturb_base: bool):
+    """Random params drawn on the card from a seeded generator, with the
+    adapters moved off their zero-delta init (B = 0.01·N, C = I + 0.05·N).
+    With ``perturb_base`` every backbone parameter JAX initialises to zero
+    or a constant is moved off it too: the ddlerp lerps and low-rank B,
+    the decay base and its low-rank B, the bonus u, so the data-dependent
+    decay and the bonus term run."""
+    from repro_torch.tree import tree_map_with_path
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def noise(t, scale):
+        return (scale * torch.randn(t.shape, generator=gen, device=dev)).to(
+            t.dtype)
+
+    def move(path, t):
+        name = path[-1]
+        if name == "B":
+            return noise(t, 0.01)
+        if name == "C":
+            return t + noise(t, 0.05)
+        if not perturb_base:
+            return t
+        if name in ("mu_x", "mu", "u", "mu_k", "mu_r"):
+            return t + noise(t, 0.5)
+        if name in ("mix_b", "w_b"):
+            return t + noise(t, 0.1)
+        if name == "w0":
+            return (torch.rand(t.shape, generator=gen, device=dev) * 4.5
+                    - 4.0).to(t.dtype)
+        return t
+
+    with torch.inference_mode():
+        params = model.init_params(cfg, gen)
+        return tree_map_with_path(move, params)
+
+
+def phase_rwkv_prefill(torch, wkv_ops, wkv_ref, tl_ops, model, get_config,
+                       dev):
+    """rwkv6-1.6b at full width and depth, bf16, random weights with
+    adapters B ≠ 0: ``model.forward`` over 8×512 tokens with
+    ``use_rwkv_kernel=True`` (24 wkv6 and 96 tri-LoRA forward launches),
+    the plain path (``wkv_chunked``) on the same tokens, and a profile
+    window of one kernel forward.
+
+    Checks: the launches; every wkv6 call of that forward against
+    ``wkv6_ref`` on its own inputs (the real activations of all 24
+    layers), y and state within 1e-4 with the absolute part scaled by the
+    largest entry; and the same weights in f32, where the kernel path's
+    logits must match the plain path's within 2e-2 of the largest logit.
+    The bf16 logits of the two paths are reported but not held to each
+    other: the random bf16 model turns any difference of an f32 sum's
+    order into bf16 rounding flips that grow over 24 layers (the plain
+    scan and the plain chunked recurrence part by ~50 % of the largest
+    logit in bf16, and each bf16 path by ~60 % from the f32 logits).  To
+    show that spread on every run, the plain scan also runs the forward
+    (``wkv_scan`` in place of ``wkv_chunked``) in f32 and bf16, and its
+    distance from the chunked path is reported beside the kernel's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    from repro_torch.models import rwkv
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("rwkv6-1.6b")
+    job = RWKV_PREFILL
+    t0 = time.perf_counter()
+    params = rwkv_params(torch, model, cfg, dev, 16, perturb_base=False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_weights = sum(t.numel() for t in tree_leaves(params["base"]))
+    toks = torch.as_tensor(np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (job["batch"], job["seq"])), device=dev)
+
+    def fwd(kernel, p=params, c=cfg):
+        return model.forward(c, p["base"], p["adapter"], {"tokens": toks},
+                             use_rwkv_kernel=kernel)[0]
+
+    def scan_fwd(p, c):
+        """The plain path with the per-step scan in place of the chunked
+        recurrence (both plain versions of the same function)."""
+        chunked = rwkv.wkv_chunked
+        rwkv.wkv_chunked = lambda *a, chunk=64: rwkv.wkv_scan(*a)
+        try:
+            return fwd(False, p, c)
+        finally:
+            rwkv.wkv_chunked = chunked
+
+    calls, kernel = [], wkv_ops.wkv6
+
+    def recorded(*ins):                       # keep each call's operands
+        out = kernel(*ins)
+        calls.append((ins, out))
+        return out
+
+    with torch.inference_mode():
+        wkv_ops.reset_launches()              # counts of the main path only
+        tl_ops.reset_launches()
+        wkv_ops.wkv6 = recorded
+        try:
+            t0 = time.perf_counter()
+            logits = fwd(True)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        finally:
+            wkv_ops.wkv6 = kernel
+        launches = {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES}
+        call_errs, call_bad = [], 0
+        for ins, out in calls:
+            want = wkv_ref.wkv6_ref(*ins)
+            for got, ref_t in zip(out, want):
+                scale_c = max(1.0, float(ref_t.abs().max()))
+                e = (got - ref_t).abs()
+                call_errs.append(float(e.max()) / scale_c)
+                call_bad += int((e > 1e-4 * scale_c + 1e-4 * ref_t.abs()).sum())
+        del calls, ins, out, want, got, ref_t, e
+        torch.cuda.reset_peak_memory_stats()  # without the recorded calls
+        t0 = time.perf_counter()
+        fwd(True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        wkv_ops.reset_launches()
+        plain = fwd(False)
+        torch.cuda.synchronize()
+        plain_launches = dict(wkv_ops.LAUNCHES)
+        t0 = time.perf_counter()
+        fwd(False)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fwd(True)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        cfg32 = cfg.with_overrides(param_dtype="float32")
+        p32 = tree_map(lambda a: a.float(), params)
+        ref32 = fwd(False, p32, cfg32)
+        kern32 = fwd(True, p32, cfg32)
+        scan32 = scan_fwd(p32, cfg32)
+        del p32
+        scan16 = scan_fwd(params, cfg)
+    scale = float(ref32.abs().max())
+    err32 = float((kern32 - ref32).abs().max())
+    scan_err32 = float((scan32 - ref32).abs().max())
+    scan_err16 = float((scan16 - plain).abs().max())
+    err = float((logits - ref32).abs().max())
+    plain_err = float((plain - ref32).abs().max())
+    del kern32, ref32, scan32, scan16
+    finite = bool(torch.isfinite(logits).all())
+    tokens = job["batch"] * job["seq"]
+    expected = {"wkv6": cfg.n_layers, "tri_lora_fwd": 4 * cfg.n_layers,
+                "tri_lora_dx": 0, "tri_lora_dw": 0}
+    emit({"phase": "rwkv_prefill", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "hd": cfg.hd, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "weights": n_weights,
+          "weight_gb": n_weights * 2 / 1e9, **job, "init_s": init_s,
+          "first_wall_s": first_s, "wall_s": wall, "tok_per_s": tokens / wall,
+          "plain_wall_s": plain_wall, "plain_tok_per_s": tokens / plain_wall,
+          "peak_mem_gb": peak, "launches": launches,
+          "expected_launches": expected, "plain_wkv6_launches": plain_launches,
+          "wkv6_calls_checked": len(call_errs) // 2,
+          "wkv6_calls_max_err_over_max": max(call_errs),
+          "wkv6_calls_n_out_of_tol": call_bad,
+          "logits_max_abs": scale,
+          "f32_kernel_vs_plain_over_max": err32 / scale,
+          "f32_scan_vs_plain_over_max": scan_err32 / scale,
+          "bf16_scan_vs_plain_over_max": scan_err16 / scale,
+          "bf16_kernel_vs_f32_over_max": err / scale,
+          "bf16_plain_vs_f32_over_max": plain_err / scale,
+          "bf16_kernel_vs_bf16_plain_over_max":
+              float((logits - plain).abs().max()) / scale,
+          "finite": finite,
+          "profile": {"window": "one forward, use_rwkv_kernel=True",
+                      **device_split(prof, window_us, 12)}})
+    require(launches == expected,
+            f"rwkv_prefill launches {launches} != expected {expected}")
+    require(plain_launches == {"wkv6": 0},
+            f"the plain path launched {plain_launches}")
+    require(finite and tuple(logits.shape) == (job["batch"], job["seq"],
+                                               cfg.vocab_size),
+            f"prefill logits {tuple(logits.shape)}, finite={finite}")
+    require(len(call_errs) == 2 * cfg.n_layers and call_bad == 0,
+            f"wkv6 disagrees with wkv6_ref on the forward's own inputs: "
+            f"{call_bad} entries out of tolerance over {len(call_errs) // 2} "
+            f"calls, worst {max(call_errs)} of the largest entry")
+    require(err32 <= 2e-2 * scale, f"f32 kernel and plain logits differ by "
+            f"{err32} (largest logit {scale})")
+    return launches, params
+
+
+def phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, params,
+                      dev):
+    """``serve.generate`` at full width and depth, bf16: 8 prompts of 32
+    tokens and 32 new ones.  Every decode step must launch exactly 96
+    tri-LoRA forward kernels and no wkv6 kernel (decode runs the one-step
+    recurrence)."""
+    import numpy as np
+
+    cfg = get_config("rwkv6-1.6b")
+    job = RWKV_DECODE
+    prompts = np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (job["batch"], job["prompt_len"]))
+    per_step, step_ms = [], []
+    decode_step = serve.model.decode_step
+
+    def counted(*args, **kw):
+        before = {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES}
+        t = time.perf_counter()
+        out = decode_step(*args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        per_step.append({k: v - before[k] for k, v in
+                         {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES}.items()})
+        return out
+
+    wkv_ops.reset_launches()                  # counts of the main path only
+    tl_ops.reset_launches()
+    serve.model.decode_step = counted
+    try:
+        t0 = time.perf_counter()
+        out = serve.generate(cfg, params, prompts, job["gen"], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        serve.model.decode_step = decode_step
+    launches = {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES}
+    steps = len(per_step)
+    want_step = {"wkv6": 0, "tri_lora_fwd": 4 * cfg.n_layers,
+                 "tri_lora_dx": 0, "tri_lora_dw": 0}
+    srt = sorted(step_ms)
+    emit({"phase": "rwkv_decode", "arch": cfg.name, **job, "steps": steps,
+          "out_shape": list(out.shape), "wall_s": wall,
+          "ms_per_step": 1e3 * wall / steps, "step_ms_p50": srt[steps // 2],
+          "step_ms_p95": srt[int(0.95 * (steps - 1))],
+          "first_step_ms": step_ms[0],
+          "tok_per_s": job["batch"] * job["gen"] / wall,
+          "launches": launches, "launches_per_step": want_step,
+          "sample": out[0, -8:].tolist()})
+    require(tuple(out.shape) == (job["batch"], job["prompt_len"] + job["gen"])
+            and steps == job["prompt_len"] + job["gen"] - 1,
+            f"generate returned {tuple(out.shape)} after {steps} steps")
+    require(all(p == want_step for p in per_step),
+            f"decode steps launched {[p for p in per_step if p != want_step][:3]}"
+            f" (each step must launch {want_step})")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            "token ids out of range")
+
+
+def phase_rwkv_oracle(torch, wkv_ops, model, get_config, dev):
+    """rwkv6-1.6b's full width in f32 at 2 layers, B=2, T=200: the card's
+    forward (wkv6 and tri-LoRA kernels) against the CPU's (plain versions)
+    on the same parameters within 1e-4 of the largest logit, then
+    token-by-token decode on the card against that forward at rtol = atol
+    = 2e-3 (tests/test_decode_consistency.py)."""
+    import numpy as np
+
+    from repro_torch.tree import tree_map
+
+    job = RWKV_ORACLE
+    cfg = get_config("rwkv6-1.6b").with_overrides(n_layers=job["layers"],
+                                                  param_dtype="float32")
+    params = rwkv_params(torch, model, cfg, dev, 18, perturb_base=True)
+    b, t = job["batch"], job["seq"]
+    toks = np.random.default_rng(18).integers(0, cfg.vocab_size, (b, t))
+
+    def fwd(where):
+        p = tree_map(lambda a: a.to(where), params)
+        with torch.inference_mode():
+            return model.forward(cfg, p["base"], p["adapter"],
+                                 {"tokens": torch.as_tensor(toks,
+                                                            device=where)},
+                                 use_rwkv_kernel=True)[0].cpu()
+
+    wkv_ops.reset_launches()
+    card = fwd(dev)
+    card_launches = dict(wkv_ops.LAUNCHES)
+    cpu = fwd(torch.device("cpu"))
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max())
+    with torch.inference_mode():
+        cache = model.init_decode_cache(cfg, b, t, device=dev)
+        tok_d = torch.as_tensor(toks, device=dev)
+        steps = []
+        for i in range(t):
+            lg, cache = model.decode_step(
+                cfg, params["base"], params["adapter"], cache,
+                {"token": tok_d[:, i:i + 1],
+                 "positions": torch.full((b, 1), i, dtype=torch.int32,
+                                         device=dev)})
+            steps.append(lg[:, 0].cpu())
+    dec = torch.stack(steps, dim=1)
+    dec_err = (dec - card).abs()
+    dec_bad = int((dec_err > 2e-3 + 2e-3 * card.abs()).sum())
+    emit({"phase": "rwkv_oracle", "arch": cfg.name, "dtype": "float32",
+          **job, "d_model": cfg.d_model, "card_wkv6_launches": card_launches,
+          "card_vs_cpu_max_abs_err": err, "logits_max_abs": scale,
+          "card_vs_cpu_over_max": err / scale,
+          "decode_vs_forward_max_abs_err": float(dec_err.max()),
+          "decode_n_out_of_tol": dec_bad, "decode_tol": "rtol=atol=2e-3"})
+    require(card_launches == {"wkv6": job["layers"]},
+            f"the card's forward launched {card_launches}")
+    require(err <= 1e-4 * scale, f"card vs CPU logits differ by {err} "
+            f"(largest logit {scale})")
+    require(dec_bad == 0, f"decode differs from the forward: "
+            f"{float(dec_err.max())}, {dec_bad} out of tolerance")
+
+
 def bound(b) -> dict:
     """The card's least time for this run's inputs (kernels/bounds.py)."""
     return {"bound_ms": b.ms, "bound_by": b.by, "bytes": b.nbytes,
@@ -1035,6 +1503,9 @@ def card_line() -> str:
     return run.stdout.strip().splitlines()[0]
 
 
+START = time.perf_counter()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1053,10 +1524,12 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
     from repro_torch.kernels.tri_lora import ops as tl_ops
     from repro_torch.kernels.tri_lora import ref as tl_ref
     from repro_torch.launch import serve
-    from repro_torch.models import model
+    from repro_torch.models import model, rwkv
     from repro_torch.models.config import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1068,10 +1541,13 @@ def main() -> int:
         gemv_err = gemv_cases(torch, ops, ref, dev)
         flash_err = flash_cases(torch, fa_ops, fa_ref, dev)
         tri_lora_err = tri_lora_cases(torch, tl_ops, tl_ref, dev)
+        wkv6_err = wkv6_cases(torch, wkv_ops, wkv_ref, dev)
+        card = card_line()
         rows = [time_attention(torch, F, ops, ref, bounds, dev),
                 time_gemv(torch, ops, ref, bounds, dev)]
         flash_rows = time_flash(torch, F, fa_ops, fa_ref, bounds, dev)
         tri_lora_rows = time_tri_lora(torch, tl_ops, bounds, dev)
+        wkv6_row = time_wkv6(torch, wkv_ops, wkv_ref, rwkv, bounds, dev, card)
         for r in rows:
             emit({"phase": "kernels", "timing": r["name"],
                   "kernel_ms": r["ms"], **{k: v for k, v in r.items()
@@ -1093,18 +1569,30 @@ def main() -> int:
         launches["tri_lora_dw"] = phase_pretrain(torch, tl_ops, get_config,
                                                  dev)["tri_lora_dw"]
         phase_card_vs_cpu(torch, tl_ops, model, get_config, dev)
-        card = card_line()
+        # this slice's paths: the RWKV-6 prefill (wkv6 and tri-LoRA
+        # forward), its decode and the f32 oracle
+        gc.collect()
+        torch.cuda.empty_cache()
+        rwkv_launches, rwkv_p = phase_rwkv_prefill(
+            torch, wkv_ops, wkv_ref, tl_ops, model, get_config, dev)
+        launches["wkv6"] = rwkv_launches["wkv6"]
+        phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, rwkv_p,
+                          dev)
+        del rwkv_p
+        torch.cuda.empty_cache()
+        phase_rwkv_oracle(torch, wkv_ops, model, get_config, dev)
     except Exception:                       # report, print no result, fail
         traceback.print_exc()
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    rows += flash_rows + tri_lora_rows
+    rows += flash_rows + tri_lora_rows + [wkv6_row]
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"phase": "summary", "max_abs_err_by_dtype": {
         "decode_attention": attn_err, "grouped_gemv": gemv_err,
-        "flash_attention": flash_err, "tri_lora": tri_lora_err}})
+        "flash_attention": flash_err, "tri_lora": tri_lora_err,
+        "wkv6": wkv6_err}, "wall_s": time.perf_counter() - START})
     emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -40,13 +40,20 @@ def adapter_delta(adapter: Adapter, scaling: float) -> torch.Tensor:
     return (scaling * acb.float()).to(adapter["A"].dtype)
 
 
+def _promoted(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Both operands in their promoted type, as ``jnp`` promotes a product
+    of a bf16 activation and an f32 adapter factor to f32."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
 def apply_tri_lora(x: torch.Tensor, adapter: Adapter,
                    scaling: float) -> torch.Tensor:
     """Low-rank path: scaling · ((x·A)·C)·B, ordered so the intermediate is
-    always (..., r)."""
-    p = x @ adapter["A"]
-    p = p @ adapter["C"]
-    return scaling * (p @ adapter["B"])
+    always (..., r); computed in the promoted type of x and the factors."""
+    p = torch.matmul(*_promoted(x, adapter["A"]))
+    p = torch.matmul(*_promoted(p, adapter["C"]))
+    return scaling * torch.matmul(*_promoted(p, adapter["B"]))
 
 
 def apply_tri_lora_grouped(x: torch.Tensor, bank: Adapter, scaling: float,
@@ -60,9 +67,9 @@ def apply_tri_lora_grouped(x: torch.Tensor, bank: Adapter, scaling: float,
     """
     safe = rows.long().clamp(min=0)
     a, c, b = bank["A"][safe], bank["C"][safe], bank["B"][safe]
-    p = torch.einsum("b...d,bdr->b...r", x, a)
-    p = torch.einsum("b...r,brs->b...s", p, c)
-    y = scaling * torch.einsum("b...r,brk->b...k", p, b)
+    p = torch.einsum("b...d,bdr->b...r", *_promoted(x, a))
+    p = torch.einsum("b...r,brs->b...s", *_promoted(p, c))
+    y = scaling * torch.einsum("b...r,brk->b...k", *_promoted(p, b))
     mask = (rows >= 0).reshape((-1,) + (1,) * (y.dim() - 1))
     return torch.where(mask, y, torch.zeros((), dtype=y.dtype, device=y.device))
 

@@ -127,20 +127,25 @@ def flash_dkv(b: int, h: int, kh: int, sq: int, hd: int,
     return Bound(nbytes, 8 * b * h * _causal_pairs(sq) * hd, dtype)
 
 
-def wkv6(bh: int, t: int, hd: int, dtype: str) -> Bound:
-    """The WKV6 recurrence: per token and head the (hd, hd) f32 state is
-    decayed and updated (3·hd² ops) and read out (2·hd² ops)."""
-    s = SIZE[dtype]
-    nbytes = (4 * bh * t * hd * s + bh * hd * s + 2 * bh * hd * hd * F32
-              + bh * t * hd * s)
-    return Bound(nbytes, 5 * bh * t * hd * hd, dtype)
+def wkv6(b: int, h: int, t: int, hd: int, dtype: str) -> Bound:
+    """The WKV6 recurrence as the model calls it: r, k, v (B,T,H,hd) and u
+    (H,hd) in ``dtype``; w in f32 (the model's exp(-exp(ŵ)) of an f32 ŵ);
+    y (B,T,H,hd) f32 out; the (B,H,hd,hd) f32 state read in and written
+    out.  u is read once as (H,hd), not per batch row.  Per token and head
+    the f32 state is decayed and updated (3·hd² ops) and read out (2·hd²
+    ops); the state is carried in f32 whatever the inputs' type, so the
+    operations count at the f32 rate."""
+    n = b * h * t * hd
+    nbytes = (3 * n * SIZE[dtype] + n * F32 + h * hd * SIZE[dtype]
+              + n * F32 + 2 * b * h * hd * hd * F32)
+    return Bound(nbytes, 5 * b * h * t * hd * hd, "float32")
 
 
 #: Every TPU kernel of the repository at the shape its path uses: the
 #: training path (fed-100m, f32, a batch of 8 sequences of 512 tokens,
 #: rank 8, the wq projection), the serving path (LLaMA-7B width, bf16, 8
-#: slots with full rings of 160, 8 users, rank 8), RWKV-6 1.6B (bf16,
-#: 8 sequences of 512 tokens, 32 heads of 64).
+#: slots with full rings of 160, 8 users, rank 8), the rwkv6-1.6b prefill
+#: (bf16, 8 sequences of 512 tokens, 32 heads of 64).
 TABLE = (
     ("tri_lora_matmul_kernel", "src/repro/kernels/tri_lora/tri_lora.py:55",
      "fed-100m wq, M=4096 K=N=768 r=8, f32",
@@ -168,8 +173,8 @@ TABLE = (
      "LLaMA-7B wq, 8 rows of 8 users, K=N=4096 r=8, bf16",
      grouped_gemv(8, 4096, 4096, 8, 8, "bfloat16")),
     ("wkv6_kernel", "src/repro/kernels/rwkv6/rwkv6.py:79",
-     "RWKV-6 1.6B, 8x32 heads, T=512 hd=64, bf16",
-     wkv6(8 * 32, 512, 64, "bfloat16")),
+     "rwkv6-1.6b, B=8 H=32 T=512 hd=64, r/k/v/u bf16, w/y/state f32",
+     wkv6(8, 32, 512, 64, "bfloat16")),
 )
 
 

@@ -8,8 +8,10 @@
 Three inference modes for paper eqn (10)'s per-client adapters:
 
 * :func:`generate` — single-adapter batched greedy decode (adapters stay
-  factored; every row shares one adapter tree).
-* :class:`ServeEngine` — the multi-tenant path: a seeded stream of requests
+  factored; every row shares one adapter tree); attention and RWKV-6
+  stacks alike, the latter carrying its recurrent state.
+* :class:`ServeEngine` — the multi-tenant path (attention stacks only, as
+  in the JAX package): a seeded stream of requests
   from DISTINCT users is decoded in one continuously-batched loop, each
   batch slot applying its own tri-LoRA row from an
   :class:`~repro_torch.core.adapter_bank.AdapterBank` (on CUDA through the
@@ -117,6 +119,11 @@ class ServeEngine:
 
     def __init__(self, cfg, base: dict, bank: AdapterBank, *, slots: int = 8,
                  max_len: int = 128, device="cuda"):
+        if set(cfg.kinds()) != {"attn"}:
+            raise NotImplementedError(
+                f"ServeEngine serves attention stacks only (grouped adapter "
+                f"banks need attention blocks); {cfg.name!r} has kinds "
+                f"{sorted(set(cfg.kinds()))}: use generate()")
         self.device = resolve_device(device)
         check_on(base, self.device, "base params")
         check_on(bank.tree, self.device, "adapter bank")

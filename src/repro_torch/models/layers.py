@@ -98,6 +98,18 @@ def norm(x: torch.Tensor, params: dict, norm_type: str) -> torch.Tensor:
     return layernorm(x, params["scale"], params["bias"])
 
 
+def group_rmsnorm(x: torch.Tensor, scale: torch.Tensor, n_groups: int,
+                  eps: float = 64e-5) -> torch.Tensor:
+    """Per-head GroupNorm used by RWKV's time-mix output (``ln_x``): mean
+    and variance per group in f32, the result in x's dtype."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, n_groups, d // n_groups)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf.reshape(*lead, d) * scale.float()).to(x.dtype)
+
+
 def init_norm(d: int, norm_type: str, dtype, device) -> dict:
     if norm_type == "rmsnorm":   # (1 + scale) convention
         return {"scale": torch.zeros((d,), dtype=dtype, device=device)}

@@ -1,5 +1,5 @@
 """Top-level model API of the port: init, the full-sequence forward and
-loss, and one-token decode (dense decoders).
+loss, and one-token decode (dense and RWKV-6 decoders).
 
 params = {'base': …frozen…, 'adapter': …tri-LoRA…}, with the JAX package's
 key paths and shapes (``repro_torch.convert`` moves a JAX tree across).
@@ -50,10 +50,13 @@ def no_adapter(cfg: ModelConfig) -> dict:
 
 
 def forward_hidden(cfg: ModelConfig, base: dict, adapter: dict, batch: dict,
-                   *, attn_impl: str | None = None):
+                   *, attn_impl: str | None = None,
+                   use_rwkv_kernel: bool = False):
     """Embeddings → stack → final norm.  Returns (hidden (B,S,D), aux,
     n_prefix = 0) as the JAX package does.  ``attn_impl=None`` defers to
-    ``cfg.attn_impl`` (``attention.select_impl``)."""
+    ``cfg.attn_impl`` (``attention.select_impl``); ``use_rwkv_kernel`` runs
+    the WKV recurrence of rwkv6 blocks through the forward-only wkv6
+    kernel (a gradient through it raises, as in the JAX package)."""
     if cfg.enc_dec or cfg.vision_patches or cfg.pos_type == "mrope":
         raise NotImplementedError(
             f"{cfg.name!r}: only decoder-only text models are ported so far")
@@ -67,7 +70,7 @@ def forward_hidden(cfg: ModelConfig, base: dict, adapter: dict, batch: dict,
         x = x + base["pos_embed"][positions.long()]
     x, aux = transformer.run_stack(
         cfg, base["groups"], base["tail"], adapter["groups"], adapter["tail"],
-        x, positions, attn_impl=attn_impl)
+        x, positions, attn_impl=attn_impl, use_rwkv_kernel=use_rwkv_kernel)
     x = layers.norm(x, base["final_norm"], cfg.norm_type)
     return x, aux, 0
 

@@ -1,12 +1,12 @@
-"""Block assembly for dense attention stacks: init, the full-sequence
-forward (training) and one-token decode.
+"""Block assembly for dense attention and RWKV-6 stacks: init, the
+full-sequence forward (training, prefill) and one-token decode.
 
 Layer stacking follows the config's ``layer_pattern`` exactly as in the JAX
 package: ``q = n_layers // len(pattern)`` repetitions of the pattern with
 parameters stacked on a leading group axis, plus an unrolled remainder
 ("tail").  The trees therefore match the JAX ones key for key and shape for
 shape; a Python loop over the group axis stands in for ``lax.scan``.
-Caches mirror the same (groups, tail) structure.
+Caches and recurrent state mirror the same (groups, tail) structure.
 """
 from __future__ import annotations
 
@@ -15,16 +15,17 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core import tri_lora
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rwkv
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_map
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind != "attn" or cfg.is_moe or cfg.enc_dec:
+    if kind not in ("attn", "rwkv6") or cfg.is_moe or cfg.enc_dec:
         raise NotImplementedError(
-            f"the port so far builds dense 'attn' blocks only; {cfg.name!r} "
-            f"needs kind={kind!r} moe={cfg.is_moe} enc_dec={cfg.enc_dec}")
+            f"the port so far builds dense 'attn' and 'rwkv6' blocks only; "
+            f"{cfg.name!r} needs kind={kind!r} moe={cfg.is_moe} "
+            f"enc_dec={cfg.enc_dec}")
 
 
 # ---------------------------------------------------------------------------
@@ -34,6 +35,10 @@ def _check_kind(cfg: ModelConfig, kind: str) -> None:
 def _adapter_shapes(cfg: ModelConfig, kind: str) -> dict:
     _check_kind(cfg, kind)
     d, hd, h, k, f = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    if kind == "rwkv6":
+        # the paper's attention attachment point does not exist; adapt the
+        # time-mix r/k/v/o projections instead, whatever lora_targets says
+        return {"tm": {t: (d, d) for t in ("wr", "wk", "wv", "wo")}}
     shapes = {"wq": (d, h * hd), "wk": (d, k * hd),
               "wv": (d, k * hd), "wo": (h * hd, d)}
     out = {"attn": {t: shapes[t] for t in cfg.lora_targets if t in shapes}}
@@ -57,6 +62,11 @@ def init_block(generator: torch.Generator, cfg: ModelConfig,
                kind: str) -> dict:
     _check_kind(cfg, kind)
     d, nt, dev = cfg.d_model, cfg.norm_type, generator.device
+    if kind == "rwkv6":
+        return {"ln1": layers.init_norm(d, nt, cfg.dtype, dev),
+                "tm": rwkv.init_time_mix(generator, cfg),
+                "ln2": layers.init_norm(d, nt, cfg.dtype, dev),
+                "cm": rwkv.init_channel_mix(generator, cfg)}
     return {"ln1": layers.init_norm(d, nt, cfg.dtype, dev),
             "attn": attention.init_attn(generator, cfg),
             "ln2": layers.init_norm(d, nt, cfg.dtype, dev),
@@ -69,19 +79,31 @@ def init_block(generator: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
-                x: torch.Tensor, positions, *, attn_impl=None) -> tuple:
+                x: torch.Tensor, positions, *, attn_impl=None,
+                use_rwkv_kernel: bool = False) -> tuple:
     """One pre-norm block over a full sequence; returns (x, aux) with the
-    MoE auxiliary loss aux = 0 for the dense blocks ported so far."""
+    MoE auxiliary loss aux = 0 for the blocks ported so far.
+    ``use_rwkv_kernel`` runs an rwkv6 block's WKV recurrence through the
+    forward-only wkv6 kernel (``rwkv.time_mix``)."""
     _check_kind(cfg, kind)
     ad = ad or {}
     nt = cfg.norm_type
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "rwkv6":
+        h = layers.norm(x, p["ln1"], nt)
+        y, _ = rwkv.time_mix(cfg, p["tm"], h, None, ad.get("tm"),
+                             use_kernel=use_rwkv_kernel)
+        x = x + y
+        h = layers.norm(x, p["ln2"], nt)
+        y, _ = rwkv.channel_mix(cfg, p["cm"], h, None)
+        return x + y, aux
     h = layers.norm(x, p["ln1"], nt)
     x = x + attention.self_attention(cfg, p["attn"], h, positions,
                                      ad.get("attn"), impl=attn_impl)
     h = layers.norm(x, p["ln2"], nt)
     y = layers.mlp(h, p["mlp"], cfg.mlp_type, adapters=ad.get("mlp"),
                    lora_scaling=cfg.lora_alpha / cfg.lora_rank)
-    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +116,17 @@ def block_decode(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
     _check_kind(cfg, kind)
     ad = ad or {}
     nt = cfg.norm_type
+    if kind == "rwkv6":
+        if adapter_rows is not None:
+            raise NotImplementedError(
+                f"grouped adapter banks only support attention blocks; got "
+                f"layer kind {kind!r}")
+        h = layers.norm(x, p["ln1"], nt)
+        y, tm = rwkv.time_mix(cfg, p["tm"], h, cache["tm"], ad.get("tm"))
+        x = x + y
+        h = layers.norm(x, p["ln2"], nt)
+        y, cm = rwkv.channel_mix(cfg, p["cm"], h, cache["cm"])
+        return x + y, {"tm": tm, "cm": cm}
     h = layers.norm(x, p["ln1"], nt)
     y, new_cache = attention.decode_self_attention(
         cfg, p["attn"], h, cache, positions, ad.get("attn"),
@@ -149,16 +182,17 @@ def init_stack_adapters(generator: torch.Generator, cfg: ModelConfig) -> tuple:
 def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                      device) -> tuple:
     q, pattern, rem = cfg.stack_plan()
-    for kind in pattern:
-        _check_kind(cfg, kind)
 
-    def block_cache():
+    def block_cache(kind):
+        _check_kind(cfg, kind)
+        if kind == "rwkv6":
+            return rwkv.init_state(cfg, batch, device=device)
         return attention.init_kv_cache(cfg, batch, seq_len, device=device)
 
     groups = ({str(i): tree_map(
-        lambda t: t.new_zeros((q,) + tuple(t.shape)), block_cache())
-        for i in range(len(pattern))} if q else None)
-    tail = tuple(block_cache() for _ in rem)
+        lambda t: t.new_zeros((q,) + tuple(t.shape)), block_cache(kind))
+        for i, kind in enumerate(pattern)} if q else None)
+    tail = tuple(block_cache(kind) for kind in rem)
     return groups, tail
 
 
@@ -171,13 +205,15 @@ def _at(tree: Any, i: int) -> Any:
 
 
 def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
-              x: torch.Tensor, positions, *, attn_impl=None) -> tuple:
+              x: torch.Tensor, positions, *, attn_impl=None,
+              use_rwkv_kernel: bool = False) -> tuple:
     """Train-time forward through the whole stack.  Returns (x, aux_sum).
     ``attn_impl=None`` defers the backend choice to ``cfg.attn_impl``
     (``attention.select_impl``).  A Python loop over the group axis stands
     in for ``lax.scan``; autograd keeps every layer's activations (the JAX
     package's ``remat`` has no counterpart here)."""
     q, pattern, rem = cfg.stack_plan()
+    kw = dict(attn_impl=attn_impl, use_rwkv_kernel=use_rwkv_kernel)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if groups_p is not None:
         for layer in range(q):
@@ -185,14 +221,23 @@ def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
                 key = str(i)
                 gad = groups_ad[key] if groups_ad is not None else None
                 x, a = block_apply(cfg, kind, _at(groups_p[key], layer),
-                                   _at(gad, layer), x, positions,
-                                   attn_impl=attn_impl)
+                                   _at(gad, layer), x, positions, **kw)
                 aux = aux + a
     for i, kind in enumerate(rem):
         x, a = block_apply(cfg, kind, tail_p[i], tail_ad[i], x, positions,
-                           attn_impl=attn_impl)
+                           **kw)
         aux = aux + a
     return x, aux
+
+
+def _restack(old: torch.Tensor, *new: torch.Tensor) -> torch.Tensor:
+    """The stacked (q, …) leaf of a new groups cache: ``old`` itself where
+    every layer's new value is its own slice of ``old`` (updated in place),
+    else the new values stacked."""
+    if all(n.data_ptr() == old[i].data_ptr() and n.shape == old[i].shape
+           for i, n in enumerate(new)):
+        return old
+    return torch.stack(new)
 
 
 def run_stack_decode(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
@@ -204,11 +249,13 @@ def run_stack_decode(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
     — groups leaves (q, m, …), tail leaves (m, …), see
     ``AdapterBank.decode_tree`` — and each batch row applies its own bank
     row.  K/V buffers are written in place (see
-    ``attention.decode_self_attention``)."""
+    ``attention.decode_self_attention``); every other leaf of the new
+    groups cache (ring positions, RWKV shift and WKV states) is restacked
+    from the layers' new values, so the tree equals the JAX package's."""
     q, pattern, rem = cfg.stack_plan()
     new_groups_cache = None
     if groups_p is not None:
-        new_idx: dict = {str(i): [] for i in range(len(pattern))}
+        new_layers: dict = {str(i): [] for i in range(len(pattern))}
         for layer in range(q):
             for i, kind in enumerate(pattern):
                 key = str(i)
@@ -217,10 +264,9 @@ def run_stack_decode(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
                                     _at(gad, layer),
                                     _at(groups_cache[key], layer), x,
                                     positions, adapter_rows=adapter_rows)
-                new_idx[key].append(c["idx"])
-        new_groups_cache = {key: {"k": groups_cache[key]["k"],
-                                  "v": groups_cache[key]["v"],
-                                  "idx": torch.stack(new_idx[key])}
+                new_layers[key].append(c)
+        new_groups_cache = {key: tree_map(_restack, groups_cache[key],
+                                          *new_layers[key])
                             for key in groups_cache}
     new_tail = []
     for i, kind in enumerate(rem):

@@ -8,7 +8,9 @@ on a GPU machine that has only PyTorch:
         tests/test_torch_cuda_kernels.py
 
 Tolerances are the JAX kernel tolerances, 2e-5 in f32 and 2e-2 in bf16
-(tests/test_kernels.py), with TF32 off.
+(tests/test_kernels.py), with TF32 off; 1e-4 for the WKV recurrence, with
+the absolute part scaled by the largest entry (its state grows over
+hundreds of steps).
 """
 import math
 
@@ -20,11 +22,14 @@ from repro_torch.core.adapter_bank import random_bank
 from repro_torch.kernels.decode_attention import ops, ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.kernels.tri_lora import ops as tl_ops
 from repro_torch.kernels.tri_lora import ref as tl_ref
 from repro_torch.launch import serve
 from repro_torch.models import layers, model
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, get_config
+from repro_torch.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -388,3 +393,137 @@ def test_dense_on_the_card_runs_the_tri_lora_kernels(cuda):
     torch.autograd.grad(y.sum(), [xg, wg])
     assert tl_ops.LAUNCHES == {"tri_lora_fwd": 1, "tri_lora_dx": 1,
                                "tri_lora_dw": 1}
+
+
+# ---------------------------------------------------------------------------
+# wkv6
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(cuda, b, t, h, hd, dtype, seed, w_dtype=torch.float32):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    r, k, v = (rn(b, t, h, hd).to(dtype) for _ in range(3))
+    w = torch.sigmoid(2 * rn(b, t, h, hd)).to(w_dtype)
+    return r, k, v, w, (0.5 * rn(h, hd)).to(dtype), 0.1 * rn(b, h, hd, hd)
+
+
+def _wkv_close(got, want):
+    for a, b in zip(got, want):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b.float(), rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("b,t,h,hd,dtype", [
+    (2, 64, 2, 16, torch.float32), (2, 80, 2, 16, torch.float32),
+    (2, 33, 1, 8, torch.float32), (2, 128, 4, 32, torch.float32),
+    (2, 1, 2, 64, torch.float32), (2, 77, 3, 64, torch.float32),
+    (8, 512, 32, 64, torch.bfloat16), (2, 40, 4, 64, torch.bfloat16),
+])
+def test_wkv6_kernel_matches_plain(cuda, b, t, h, hd, dtype):
+    """The JAX kernel-test shapes, T = 1, a T that is no multiple of the
+    32-step chunk, and the rwkv6-1.6b prefill shape with the model's types
+    (bf16 r/k/v/u, f32 w and state); one launch per call."""
+    ins = _wkv_inputs(cuda, b, t, h, hd, dtype, b * t + h)
+    wkv_ops.reset_launches()
+    got = wkv_ops.wkv6(*ins)
+    torch.cuda.synchronize()
+    assert wkv_ops.LAUNCHES == {"wkv6": 1}
+    assert all(x.dtype == torch.float32 for x in got)
+    assert got[0].shape == (b, t, h, hd) and got[1].shape == (b, h, hd, hd)
+    _wkv_close(got, wkv_ref.wkv6_ref(*ins))
+
+
+def test_wkv6_kernel_extreme_decay_and_mixed_types(cuda):
+    """w = 1e-6 forgets almost all of the state every step and stays
+    finite; w in bf16 and u in f32 beside bf16 r/k/v take their own
+    instantiations."""
+    b, t, h, hd = 1, 64, 1, 8
+    full = [torch.full((b, t, h, hd), x, device=cuda) for x in (0.5, 0.5, 1.0,
+                                                                1e-6)]
+    ins = (*full, torch.zeros((h, hd), device=cuda),
+           torch.zeros((b, h, hd, hd), device=cuda))
+    got = wkv_ops.wkv6(*ins)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _wkv_close(got, wkv_ref.wkv6_ref(*ins))
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 2, 50, 2, 64, torch.bfloat16, 3,
+                                    w_dtype=torch.bfloat16)
+    for ins in ((r, k, v, w, u, s0), (r, k, v, w.float(), u.float(), s0)):
+        _wkv_close(wkv_ops.wkv6(*ins), wkv_ref.wkv6_ref(*ins))
+
+
+def test_wkv6_kernel_reads_by_strides(cuda):
+    """r, k and v as views of one (B, T, 3·D) buffer, and a state that is a
+    slice of a stacked one, give the contiguous copies' answer."""
+    b, t, h, hd = 2, 45, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    wide = torch.randn((b, t, 3 * h * hd), generator=g, device=cuda).to(
+        torch.bfloat16)
+    r, k, v = (wide[..., i * h * hd:(i + 1) * h * hd].view(b, t, h, hd)
+               for i in range(3))
+    _, _, _, w, u, _ = _wkv_inputs(cuda, b, t, h, hd, torch.bfloat16, 6)
+    s0 = torch.randn((3, b, h, hd, hd), generator=g, device=cuda)[1]
+    assert not r.is_contiguous()
+    want = wkv_ref.wkv6_ref(r.contiguous(), k.contiguous(), v.contiguous(), w,
+                            u, s0.contiguous())
+    _wkv_close(wkv_ops.wkv6(r, k, v, w, u, s0), want)
+
+
+def test_wkv6_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    ins = list(_wkv_inputs(cuda, 1, 8, 2, 64, torch.float32, 7))
+    with pytest.raises(RuntimeError, match="no VJP"):
+        wkv_ops.wkv6(ins[0].requires_grad_(True), *ins[1:])
+    ins[0] = ins[0].detach()
+    big = _wkv_inputs(cuda, 1, 8, 1, 128, torch.float32, 8)
+    with pytest.raises(ValueError, match="head dims"):
+        wkv_ops.wkv6(*big)
+    with pytest.raises(ValueError, match="share one dtype"):
+        wkv_ops.wkv6(ins[0].to(torch.bfloat16), *ins[1:])
+    with pytest.raises(ValueError, match="float32"):
+        wkv_ops.wkv6(*ins[:5], ins[5].to(torch.bfloat16))
+    with pytest.raises(ValueError, match="unit"):
+        wkv_ops.wkv6(ins[0].transpose(2, 3).contiguous().transpose(2, 3),
+                     *ins[1:])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wkv_ops.wkv6(*ins[:4], ins[4].cpu(), ins[5])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv_forward_on_the_card_matches_plain_and_counts_launches(cuda,
+                                                                     dtype):
+    """rwkv6-1.6b reduced (4 heads of 64, 3 layers) on the card: with
+    ``use_rwkv_kernel=True`` exactly one wkv6 and four tri-LoRA forward
+    launches per layer; the logits match ``use_rwkv_kernel=False`` (plain
+    recurrence) on the card and the CPU's forward."""
+    cfg = get_config("rwkv6-1.6b").reduced(n_layers=3, param_dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    with torch.inference_mode():
+        params = model.init_params(cfg, g)
+        tm = params["base"]["groups"]["0"]["tm"]
+        for name, scale in (("u", 0.5), ("w_b", 0.1), ("mu", 0.5)):
+            tm[name] += scale * torch.randn(tm[name].shape, generator=g,
+                                            device=cuda).to(tm[name].dtype)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70), generator=g,
+                         device=cuda)
+    with torch.inference_mode():
+        wkv_ops.reset_launches()
+        tl_ops.reset_launches()
+        got, _ = model.forward(cfg, params["base"], params["adapter"],
+                               {"tokens": toks}, use_rwkv_kernel=True)
+        torch.cuda.synchronize()
+        assert wkv_ops.LAUNCHES == {"wkv6": 3}
+        assert tl_ops.LAUNCHES == {"tri_lora_fwd": 12, "tri_lora_dx": 0,
+                                   "tri_lora_dw": 0}
+        plain, _ = model.forward(cfg, params["base"], params["adapter"],
+                                 {"tokens": toks})
+        assert wkv_ops.LAUNCHES == {"wkv6": 3}
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        scale = float(plain.abs().max())
+        assert float((got - plain).abs().max()) <= tol * scale
+        if dtype == "float32":
+            cpu = tree_map(lambda a: a.cpu(), params)
+            want, _ = model.forward(cfg, cpu["base"], cpu["adapter"],
+                                    {"tokens": toks.cpu()},
+                                    use_rwkv_kernel=True)
+            assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale

@@ -191,7 +191,8 @@ def test_kernel_sources_are_listed_for_the_build():
     launches = {"decode_attention": ["decode_attention"],
                 "grouped_gemv": ["grouped_gemv"],
                 "flash_attention": ["flash_fwd", "flash_dq", "flash_dkv"],
-                "tri_lora": ["tri_lora_fwd", "tri_lora_dx", "tri_lora_dw"]}
+                "tri_lora": ["tri_lora_fwd", "tri_lora_dx", "tri_lora_dw"],
+                "wkv6": ["wkv6"]}
     assert set(srcs) == set(launches)
     for name, path in srcs.items():
         text = path.read_text()
@@ -204,8 +205,9 @@ def test_kernel_sources_are_listed_for_the_build():
 
 def test_bound_table_names_every_tpu_kernel():
     """Each row of the bound table points at the ``def`` of a Pallas kernel
-    function (one that reaches ``pl.pallas_call``), and the two serving
-    kernels are bound by bytes at their serving shapes."""
+    function (one that reaches ``pl.pallas_call``), the two serving
+    kernels are bound by bytes at their serving shapes, and wkv6 by its
+    f32 operations at the RWKV prefill's shape and types."""
     from pathlib import Path
 
     from repro_torch.kernels import bounds
@@ -222,3 +224,8 @@ def test_bound_table_names_every_tpu_kernel():
     assert attn.by == "bytes" and attn.nbytes == 21_102_624
     gemv = bounds.grouped_gemv(8, 4096, 4096, 8, 8, "bfloat16")
     assert gemv.by == "bytes" and gemv.nbytes > 4096 * 4096 * 2
+    # the rwkv6-1.6b prefill: r/k/v/u bf16, w/y/state f32, u read as (H, hd)
+    wkv = bounds.TABLE[7][3]
+    assert wkv == bounds.wkv6(8, 32, 512, 64, "bfloat16")
+    assert wkv.nbytes == 125_833_216 and wkv.flops == 2_684_354_560
+    assert wkv.by == "operations" and abs(wkv.ms * 1e3 - 40.06) < 0.01

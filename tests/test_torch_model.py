@@ -64,7 +64,7 @@ def _paths(tree, prefix=""):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["celora-roberta-base", "celora-llama-7b",
-                                  "fed-100m"])
+                                  "fed-100m", "rwkv6-1.6b"])
 def test_paper_configs_match_jax(name):
     ours, theirs = get_config(name), jget_config(name)
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
