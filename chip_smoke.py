@@ -30,10 +30,18 @@ Phases, one JSON line each (several for the case phases):
                grads through autograd against the plain forward and the
                analytic backward: f32/bf16, the JAX kernel-test shapes, the
                training shapes (2048x768x768 and x256, r=8), ragged
-               77x100x130 r=16, decode M=1 and 8 at K=N=4096 (bf16)
-  tri_lora_timing each kernel at the training shape of wq (M=2048,
-               K=N=768, r=8, f32) beside the bound, the plain version and
-               one torch call (addmm / x.T@g), with x@w alone as a floor
+               77x100x130 r=16, decode M=1 and 8 at K=N=4096 (bf16); then
+               the bf16 forward at rwkv6-1.6b width with f32 adapters on
+               the prefill's strided (B,T,5,D) views and the decode rows
+               (wgmma route) and on a view TMA cannot read (SIMT route);
+               each line names the forward's route
+  tri_lora_timing each kernel beside the bound, the plain version and one
+               torch call (addmm / x.T@g): at the training shapes of wq
+               (forward, dx, dW; x@w alone as a floor) and wk/wv (dW), f32,
+               and the forward at the rwkv6-1.6b prefill (M=4096) and decode
+               (M=8) shapes, bf16 with f32 adapters; each output held to
+               the plain version's (gradients with the absolute part
+               scaled), and the host time of a decode-shape call
   train        CE-LoRA ``run_federated`` on fed-100m at full width and
                depth (f32, random backbone): 4 clients, 3 rounds of 5 local
                steps of batch 8 at sequence 256, attn_impl="flash"; exact
@@ -56,13 +64,14 @@ Phases, one JSON line each (several for the case phases):
                bound and the plain versions (no PyTorch call computes it)
   rwkv_prefill rwkv6-1.6b at full width and depth (bf16, random weights):
                model.forward over 8x512 tokens with use_rwkv_kernel=True,
-               exactly 24 wkv6 and 96 tri-LoRA forward launches, every
-               wkv6 call against wkv6_ref on its own inputs, the same
-               weights in f32 within 2e-2 of the plain path's logits, and
-               a profile window
+               exactly 24 wkv6 and 96 tri-LoRA forward launches (all 96 on
+               the wgmma route), every wkv6 call against wkv6_ref on its own
+               inputs, the same weights in f32 within 2e-2 of the plain
+               path's logits, and a profile window with the tri-LoRA and
+               wkv6 kernels' shares of device time
   rwkv_decode  serve.generate at full width and depth: 8 prompts of 32
-               tokens and 32 new ones, 96 tri-LoRA forward and 0 wkv6
-               launches every step
+               tokens and 32 new ones, 96 tri-LoRA forward launches on the
+               wgmma route and 0 wkv6 launches every step
   rwkv_oracle  the same width in f32 at 2 layers (B=2, T=200): card vs CPU
                logits within 1e-4 of the largest, token-by-token decode on
                the card vs the forward at 2e-3
@@ -116,8 +125,21 @@ TRI_LORA_CASES = ((64, 64, 64, 4), (96, 160, 130, 8), (32, 256, 64, 16),
                   (128, 64, 192, 2), (2048, 768, 768, 8),
                   (2048, 768, 256, 8), (77, 100, 130, 16))
 TRI_LORA_DECODE = ((1, 4096, 4096, 8), (8, 4096, 4096, 8))
-#: the training shape of wq, at which the kernels are timed
-TRI_LORA_TIMED = (2048, 768, 768, 8)
+#: (label, kernel, M, K, N, r, dtype of x/W/g, dtype of the adapters) at
+#: which the tri-LoRA kernels are timed: the training shapes of fed-100m
+#: (wq/wo and wk/wv, f32; dx at wq only) and the rwkv6-1.6b prefill (8x512
+#: tokens) and decode (8 rows) shapes of the time mix (bf16, f32 adapters
+#: as rwkv_params makes them)
+TRI_LORA_TIMED = (
+    ("wq", "tri_lora_fwd", 2048, 768, 768, 8, "float32", "float32"),
+    ("wq", "tri_lora_dx", 2048, 768, 768, 8, "float32", "float32"),
+    ("wq", "tri_lora_dw", 2048, 768, 768, 8, "float32", "float32"),
+    ("wk/wv", "tri_lora_fwd", 2048, 768, 256, 8, "float32", "float32"),
+    ("wk/wv", "tri_lora_dw", 2048, 768, 256, 8, "float32", "float32"),
+    ("rwkv prefill", "tri_lora_fwd", 4096, 2048, 2048, 8, "bfloat16",
+     "float32"),
+    ("rwkv decode", "tri_lora_fwd", 8, 2048, 2048, 8, "bfloat16", "float32"),
+)
 WKV6_SRC = "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu"
 WKV6_TPU = "src/repro/kernels/rwkv6/rwkv6.py:79"
 #: (B, T, H, hd) of the wkv6 cases in f32 with a non-zero state: the JAX
@@ -182,6 +204,16 @@ def compare(torch, got, want, dtype_name):
     tol = TOL[dtype_name]
     bad = err > tol["atol"] + tol["rtol"] * want.float().abs()
     return float(err.max()), int(bad.sum())
+
+
+def compare_scaled(torch, got, want, dtype_name):
+    """As :func:`compare`, with the absolute part scaled by the reference's
+    largest entry (how tests/test_kernels.py holds a gradient)."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    tol = TOL[dtype_name]["rtol"]
+    scale = max(1.0, float(want.abs().max()))
+    return float(err.max()), int((err > tol * scale + tol * want.abs()).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -522,12 +554,14 @@ def tri_lora_cases(torch, tl_ops, tl_ref, dev):
             x, w, a, c, b, ct = tri_lora_inputs(torch, dev, m, k, n, r, dt,
                                                 gen)
             leaves = [t.detach().requires_grad_(True) for t in (x, w, a, c, b)]
-            before = dict(tl_ops.LAUNCHES)
+            before = {**tl_ops.LAUNCHES, **tl_ops.ROUTES}
             y = tl_ops.tri_lora_matmul(*leaves, s)
             grads = torch.autograd.grad(y, leaves, ct)
             torch.cuda.synchronize()
             launched = {key: tl_ops.LAUNCHES[key] - before[key]
-                        for key in before}
+                        for key in tl_ops.LAUNCHES}
+            route = [key for key in tl_ops.ROUTES
+                     if tl_ops.ROUTES[key] > before[key]]
             want_y = tl_ref.tri_lora_matmul_ref(x, w, a, c, b, s)
             want = tl_ref.tri_lora_bwd_ref(x, w, a, c, b, ct, s)
             errs, bad = {}, 0
@@ -535,15 +569,12 @@ def tri_lora_cases(torch, tl_ops, tl_ref, dev):
             tol = TOL[dt_name]["rtol"]
             for name, got, ref_g in zip(("dx", "dw", "da", "dc", "db"),
                                         grads, want):
-                scale = max(1.0, float(ref_g.float().abs().max()))
-                err = (got.float() - ref_g.float()).abs()
-                errs[name] = float(err.max())
-                bad += int((err > tol * scale
-                            + tol * ref_g.float().abs()).sum())
+                errs[name], out = compare_scaled(torch, got, ref_g, dt_name)
+                bad += out
             case = dict(m=m, k=k, n=n, r=r)
             emit({"phase": "tri_lora_cases", "dtype": dt_name, **case,
                   "max_abs_err": errs, "n_out_of_tol": bad, "tol": tol,
-                  "launches": launched})
+                  "launches": launched, "route": route})
             require(bad == 0, f"tri-LoRA kernels disagree with the plain "
                     f"version: {case} {dt_name} errors {errs}")
             require(launched == {"tri_lora_fwd": 1, "tri_lora_dx": 1,
@@ -551,24 +582,70 @@ def tri_lora_cases(torch, tl_ops, tl_ref, dev):
                     f"tri-LoRA launches {launched} for one forward and "
                     f"backward")
             worst[dt_name] = max(worst.get(dt_name, 0.0), *errs.values())
+    for name, x, w, a, c, b, want_route in tri_lora_route_inputs(torch, dev,
+                                                                 gen):
+        before = dict(tl_ops.ROUTES)
+        y = tl_ops.tri_lora_matmul(x, w, a, c, b, s)
+        torch.cuda.synchronize()
+        route = [key for key in before if tl_ops.ROUTES[key] > before[key]]
+        err, bad = compare(torch, y, tl_ref.tri_lora_matmul_ref(
+            x, w, a, c, b, s), "bfloat16")
+        emit({"phase": "tri_lora_cases", "case": name, "dtype": "bfloat16",
+              "m": x.shape[0] * (x.shape[1] if x.dim() == 3 else 1),
+              "k": w.shape[0], "n": w.shape[1], "r": b.shape[0],
+              "adapter_dtype": str(b.dtype).split(".")[-1],
+              "max_abs_err": {"y": err}, "n_out_of_tol": bad,
+              "tol": TOL["bfloat16"]["rtol"], "route": route})
+        require(bad == 0, f"tri-LoRA forward disagrees with the plain "
+                f"version: {name}, error {err}")
+        require(route == [want_route], f"{name} took the route {route}, "
+                f"not {want_route}")
+        worst["bfloat16"] = max(worst["bfloat16"], err)
     return worst
 
 
-def time_tri_lora(torch, tl_ops, bounds, dev):
-    """f32 at the training shape of wq (M=2048, K=N=768, r=8): each kernel
-    beside its plain version (the same products, f32 accumulation), one
-    PyTorch library call and the bound; ``x@w`` alone as a floor.  Returns
-    the kernel-table rows."""
-    m, k, n, r = TRI_LORA_TIMED
-    gen = torch.Generator(device=dev).manual_seed(9)
-    s = 2.0
+def tri_lora_route_inputs(torch, dev, gen):
+    """Forward cases of the RWKV time mix at rwkv6-1.6b width (bf16, f32
+    adapters): the prefill's strided views of one (B,T,5,D) buffer at the
+    prefill's 8x512 tokens (M = 4096, row stride 5·D, read in place by
+    TMA), the decode rows, and the same values one bf16 element past a
+    16-byte boundary (the SIMT route)."""
+    d, r = 2048, 8
+    mixed = torch.randn((8, 512, 5, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    _, w, a, c, b, _ = tri_lora_inputs(torch, dev, 8, d, d, r,
+                                       torch.bfloat16, gen)
+    a, c, b = a.float(), c.float(), b.float()
+    shifted = torch.empty((8 * 512, d + 8), dtype=torch.bfloat16,
+                          device=dev)[:, 1:d + 1]
+    shifted.copy_(mixed[..., 1, :].reshape(-1, d))
+    return (("rwkv_prefill_view", mixed[..., 1, :], w, a, c, b, "fwd_wgmma"),
+            ("rwkv_decode_rows", mixed[:, -1, 2, :], w, a, c, b,
+             "fwd_wgmma"),
+            ("unaligned_view", shifted, w, a, c, b, "fwd_simt"))
+
+
+def tri_lora_timed_sets(torch, dev, m, k, n, r, dtype, small, gen):
+    """Enough copies of (x, w, a, b, p, q, g) to exceed the L2 cache: x, W
+    and g in ``dtype``, the adapters in ``small``, P and Q as the op makes
+    them (s = 2, rounded to ``dtype``)."""
+    dt, st = getattr(torch, dtype), getattr(torch, small)
     sets = []
-    for _ in range(copies_for(4 * (m * k + k * n + m * n))):
-        x, w, a, c, b, g = tri_lora_inputs(torch, dev, m, k, n, r,
-                                           torch.float32, gen)
-        p = s * (x @ a) @ c
-        q = s * (g @ b.T) @ c.T
+    for _ in range(copies_for(torch.finfo(dt).bits // 8
+                              * (m * k + k * n + m * n))):
+        x, w, a, c, b, g = tri_lora_inputs(torch, dev, m, k, n, r, dt, gen)
+        a, c, b = (t.float().to(st) for t in (a, c, b))
+        p = (2.0 * (x.float() @ a.float()) @ c.float()).to(dt)
+        q = (2.0 * (g.float() @ b.float().T) @ c.float().T).to(dt)
         sets.append((x, w, a, b, p, q, g))
+    return sets
+
+
+def tri_lora_calls(torch, tl_ops):
+    """The kernel, its plain version (the same products in f32) and one
+    PyTorch call computing the same function, per kernel name."""
+    def f32(t):
+        return t.float()
     kernel = {
         "tri_lora_fwd": lambda x, w, a, b, p, q, g: tl_ops.tri_lora_fwd(
             x, w, p, b),
@@ -576,35 +653,82 @@ def time_tri_lora(torch, tl_ops, bounds, dev):
             g, w, q, a),
         "tri_lora_dw": lambda x, w, a, b, p, q, g: tl_ops.tri_lora_dw(x, g)}
     plain = {
-        "tri_lora_fwd": lambda x, w, a, b, p, q, g: x @ w + p @ b,
-        "tri_lora_dx": lambda x, w, a, b, p, q, g: g @ w.T + q @ a.T,
-        "tri_lora_dw": lambda x, w, a, b, p, q, g: x.T @ g}
+        "tri_lora_fwd": lambda x, w, a, b, p, q, g: (
+            f32(x) @ f32(w) + f32(p) @ f32(b)).to(x.dtype),
+        "tri_lora_dx": lambda x, w, a, b, p, q, g: (
+            f32(g) @ f32(w).T + f32(q) @ f32(a).T).to(g.dtype),
+        "tri_lora_dw": lambda x, w, a, b, p, q, g: (
+            f32(x).T @ f32(g)).to(x.dtype)}
     library = {
-        "tri_lora_fwd": lambda x, w, a, b, p, q, g: torch.addmm(p @ b, x, w),
-        "tri_lora_dx": lambda x, w, a, b, p, q, g: torch.addmm(q @ a.T, g,
-                                                               w.T),
+        "tri_lora_fwd": lambda x, w, a, b, p, q, g: torch.addmm(
+            p @ b.to(p.dtype), x, w),
+        "tri_lora_dx": lambda x, w, a, b, p, q, g: torch.addmm(
+            q @ a.T.to(q.dtype), g, w.T),
         "tri_lora_dw": lambda x, w, a, b, p, q, g: x.T @ g}
-    bd = {"tri_lora_fwd": bounds.tri_lora_matmul(m, k, n, r, "float32"),
-          "tri_lora_dx": bounds.tri_lora_dx(m, k, n, r, "float32"),
-          "tri_lora_dw": bounds.tri_lora_dw(m, k, n, "float32")}
-    rows, line = [], {}
-    for name in ("tri_lora_fwd", "tri_lora_dx", "tri_lora_dw"):
-        err = float((kernel[name](*sets[0]) - plain[name](*sets[0]))
-                    .abs().max())
+    return kernel, plain, library
+
+
+def host_us(torch, fn, args, calls: int = 200) -> float:
+    """Host time of one enqueued call (no synchronisation inside)."""
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def time_tri_lora(torch, tl_ops, bounds, dev):
+    """Each kernel at each TRI_LORA_TIMED shape beside its plain version,
+    one PyTorch library call and the bound, with the route the forward
+    took; at the wq shape ``x@w`` alone as a floor; at the decode shape the
+    host time of one call (the wgmma route encodes two tensor maps a call).
+    Each output is held to the plain version's on the same inputs: the
+    forward to the kernel tolerance, dx and dW with its absolute part
+    scaled by the largest entry, as in ``tri_lora_cases``.  Returns the
+    kernel-table rows."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kernel, plain, library = tri_lora_calls(torch, tl_ops)
+    rows = []
+    for label, name, m, k, n, r, dtype, small in TRI_LORA_TIMED:
+        sets = tri_lora_timed_sets(torch, dev, m, k, n, r, dtype, small, gen)
+        before = dict(tl_ops.ROUTES)
+        got = kernel[name](*sets[0])
+        route = [key for key in before if tl_ops.ROUTES[key] > before[key]]
+        check = compare if name == "tri_lora_fwd" else compare_scaled
+        err, bad = check(torch, got, plain[name](*sets[0]), dtype)
+        require(bad == 0, f"{name} at the {label} shape disagrees with the "
+                f"plain version: {bad} entries out of tolerance, error {err}")
         t = {"kernel": time_ms(torch, kernel[name], sets),
              "plain": time_ms(torch, plain[name], sets),
              "library": time_ms(torch, library[name], sets)}
-        line[name] = {**{f"{key}_us": 1e3 * v for key, v in t.items()},
-                      "bound_us": 1e3 * bd[name].ms, "max_abs_err": err}
+        bd = {"tri_lora_fwd": bounds.tri_lora_matmul(m, k, n, r, dtype),
+              "tri_lora_dx": bounds.tri_lora_dx(m, k, n, r, dtype),
+              "tri_lora_dw": bounds.tri_lora_dw(m, k, n, dtype)}[name]
+        line = {"phase": "tri_lora_timing", "kernel": name, "shape": label,
+                "m": m, "k": k, "n": n, "r": r, "dtype": dtype,
+                "adapter_dtype": small, "route": route,
+                **{f"{key}_us": 1e3 * v for key, v in t.items()},
+                "bound_us": 1e3 * bd.ms, "bound_by": bd.by,
+                "max_abs_err": err, "n_out_of_tol": bad,
+                "tol": TOL[dtype]["rtol"]}
+        if name == "tri_lora_dw":
+            line["splits"] = tl_ops.dw_plan(m, k, n, tl_ops.sm_count(dev))[0]
+        if label == "wq" and name == "tri_lora_fwd":
+            line["x_at_w_floor_us"] = 1e3 * time_ms(
+                torch, lambda x, w, *_: x @ w, sets)
+        if dtype == "bfloat16" and m <= 64:
+            line["host_us"] = host_us(torch, kernel[name], sets[0])
+        emit(line)
         rows.append(dict(name=name, route="cuda", source=TRI_LORA_SRC,
                          replaces=TRI_LORA_TPU[name], max_abs_err=err,
                          ms=t["kernel"], plain_ms=t["plain"],
-                         library_ms=t["library"], **bound(bd[name])))
-    floor_us = 1e3 * time_ms(torch, lambda x, w, *_: x @ w, sets)
-    emit({"phase": "tri_lora_timing", "m": m, "k": k, "n": n, "r": r,
-          "dtype": "float32", **line, "x_at_w_floor_us": floor_us})
-    del sets
-    torch.cuda.empty_cache()
+                         library_ms=t["library"], shape=label, **bound(bd)))
+        del sets, got
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -839,6 +963,7 @@ def phase_rwkv_prefill(torch, wkv_ops, wkv_ref, tl_ops, model, get_config,
         finally:
             wkv_ops.wkv6 = kernel
         launches = {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES}
+        routes = dict(tl_ops.ROUTES)
         call_errs, call_bad = [], 0
         for ins, out in calls:
             want = wkv_ref.wkv6_ref(*ins)
@@ -894,7 +1019,8 @@ def phase_rwkv_prefill(torch, wkv_ops, wkv_ref, tl_ops, model, get_config,
           "first_wall_s": first_s, "wall_s": wall, "tok_per_s": tokens / wall,
           "plain_wall_s": plain_wall, "plain_tok_per_s": tokens / plain_wall,
           "peak_mem_gb": peak, "launches": launches,
-          "expected_launches": expected, "plain_wkv6_launches": plain_launches,
+          "expected_launches": expected, "routes": routes,
+          "plain_wkv6_launches": plain_launches,
           "wkv6_calls_checked": len(call_errs) // 2,
           "wkv6_calls_max_err_over_max": max(call_errs),
           "wkv6_calls_n_out_of_tol": call_bad,
@@ -908,9 +1034,13 @@ def phase_rwkv_prefill(torch, wkv_ops, wkv_ref, tl_ops, model, get_config,
               float((logits - plain).abs().max()) / scale,
           "finite": finite,
           "profile": {"window": "one forward, use_rwkv_kernel=True",
-                      **device_split(prof, window_us, 12)}})
+                      **device_split(prof, window_us, 12,
+                                     shares=("tri_lora", "wkv6"))}})
     require(launches == expected,
             f"rwkv_prefill launches {launches} != expected {expected}")
+    require(routes == {"fwd_wgmma": 4 * cfg.n_layers, "fwd_simt": 0},
+            f"rwkv_prefill forward routes {routes}: every tri-LoRA forward "
+            f"of the bf16 prefill must take the wgmma route")
     require(plain_launches == {"wkv6": 0},
             f"the plain path launched {plain_launches}")
     require(finite and tuple(logits.shape) == (job["batch"], job["seq"],
@@ -940,14 +1070,16 @@ def phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, params,
     per_step, step_ms = [], []
     decode_step = serve.model.decode_step
 
+    def counts():
+        return {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES, **tl_ops.ROUTES}
+
     def counted(*args, **kw):
-        before = {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES}
+        before = counts()
         t = time.perf_counter()
         out = decode_step(*args, **kw)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t))
-        per_step.append({k: v - before[k] for k, v in
-                         {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES}.items()})
+        per_step.append({k: v - before[k] for k, v in counts().items()})
         return out
 
     wkv_ops.reset_launches()                  # counts of the main path only
@@ -963,7 +1095,8 @@ def phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, params,
     launches = {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES}
     steps = len(per_step)
     want_step = {"wkv6": 0, "tri_lora_fwd": 4 * cfg.n_layers,
-                 "tri_lora_dx": 0, "tri_lora_dw": 0}
+                 "tri_lora_dx": 0, "tri_lora_dw": 0,
+                 "fwd_wgmma": 4 * cfg.n_layers, "fwd_simt": 0}
     srt = sorted(step_ms)
     emit({"phase": "rwkv_decode", "arch": cfg.name, **job, "steps": steps,
           "out_shape": list(out.shape), "wall_s": wall,
@@ -981,6 +1114,7 @@ def phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, params,
             f" (each step must launch {want_step})")
     require(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
             "token ids out of range")
+    return launches
 
 
 def phase_rwkv_oracle(torch, wkv_ops, model, get_config, dev):
@@ -1113,9 +1247,11 @@ def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
     return launches, (cfg, params, bank, eng)
 
 
-def device_split(prof, wall_us: float, top: int) -> dict:
+def device_split(prof, wall_us: float, top: int, shares=()) -> dict:
     """Device time by kernel name over a profiled window, the window's
-    wall time and the device's idle share in it."""
+    wall time and the device's idle share in it; for each substring in
+    ``shares``, the share of device time of the kernels whose names hold
+    it."""
     by_name: dict = {}
     for e in prof.events():                   # device-side kernel events
         if getattr(e.device_type, "name", "") != "CUDA":
@@ -1125,7 +1261,9 @@ def device_split(prof, wall_us: float, top: int) -> dict:
     rows_out = sorted(((k, us, n) for k, (us, n) in by_name.items()),
                       key=lambda r: -r[1])
     dev_total = sum(us for _, us, _ in rows_out)
-    return {"wall_us": wall_us,
+    share = {f"{key}_share": sum(us for k, us, _ in rows_out if key in k)
+             / dev_total for key in shares if dev_total}
+    return {**share, "wall_us": wall_us,
             "device_us": dev_total if rows_out else None,
             "device_idle_share": (1 - dev_total / wall_us)
             if rows_out else None,
@@ -1576,8 +1714,8 @@ def main() -> int:
         rwkv_launches, rwkv_p = phase_rwkv_prefill(
             torch, wkv_ops, wkv_ref, tl_ops, model, get_config, dev)
         launches["wkv6"] = rwkv_launches["wkv6"]
-        phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, rwkv_p,
-                          dev)
+        decode_launches = phase_rwkv_decode(torch, wkv_ops, tl_ops, serve,
+                                            get_config, rwkv_p, dev)
         del rwkv_p
         torch.cuda.empty_cache()
         phase_rwkv_oracle(torch, wkv_ops, model, get_config, dev)
@@ -1587,13 +1725,16 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows += flash_rows + tri_lora_rows + [wkv6_row]
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    path_launches = {"rwkv prefill": rwkv_launches,
+                     "rwkv decode": decode_launches}
+    for r in rows:                    # the launches of the row's own path
+        r["launches"] = path_launches.get(r.get("shape"), launches)[r["name"]]
     emit({"phase": "summary", "max_abs_err_by_dtype": {
         "decode_attention": attn_err, "grouped_gemv": gemv_err,
         "flash_attention": flash_err, "tri_lora": tri_lora_err,
         "wkv6": wkv6_err}, "wall_s": time.perf_counter() - START})
-    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+    emit({"kernels": [{k: r[k] for k in keys + ("shape",) if k in r}
+                      for r in rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

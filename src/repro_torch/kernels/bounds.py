@@ -194,11 +194,21 @@ TRAINING = tuple(
          tri_lora_dw(2048, 768, n, "float32"))))
 
 
+#: The tri-LoRA forward at the shapes of the rwkv6-1.6b time mix (bf16,
+#: d = 2048, rank 8): the prefill of 8 sequences of 512 tokens and a decode
+#: step of 8 rows.
+RWKV = tuple(
+    ("tri_lora_matmul_kernel", TABLE[0][1],
+     f"rwkv6-1.6b {phase}, M={m} K=N=2048 r=8, bf16",
+     tri_lora_matmul(m, 2048, 2048, 8, "bfloat16"))
+    for phase, m in (("prefill", 4096), ("decode", 8)))
+
+
 def main() -> None:
     print("| kernel | TPU source | shape | MB moved | GFLOP | bound µs | "
           "bound by |")
     print("|---|---|---|---|---|---|---|")
-    for name, src, shape, bd in TABLE + TRAINING:
+    for name, src, shape, bd in TABLE + TRAINING + RWKV:
         print(f"| `{name}` | `{src}` | {shape} | {bd.nbytes / 1e6:.2f} | "
               f"{bd.flops / 1e9:.3f} | {bd.ms * 1e3:.2f} | {bd.by} |")
 

@@ -7,7 +7,16 @@ kernel, and a backward that runs the dx and dW kernels
 tensors it launches the kernels through a ``torch.autograd.Function`` or
 raises: each kernel wrapper checks device, dtype, shapes and unit inner
 stride first, and raises when a launch reports an error.  ``LAUNCHES``
-counts kernel launches per kernel.
+counts kernel launches per kernel (one per op call; a dW op that splits its
+contraction is two launches on the card, counted once), ``ROUTES`` the
+forward's launches by route.
+
+The forward has two hand-written kernels, and :func:`fwd_route` picks one
+from the operands' type and layout before the launch: bf16 x and W that TMA
+can address (16-byte aligned base and row stride) take the ``wgmma``
+kernel, everything else (f32, or a bf16 view TMA cannot read) the
+register-tiled ``simt`` kernel.  Both are checked on the card; a failed
+build or launch raises on either route.
 
 As in the JAX package's op (``repro.kernels.tri_lora.ops``), the rank-r
 products stay plain: P = s·(x@A)@C (rounded to x's dtype) feeds the
@@ -28,16 +37,32 @@ from repro_torch.kernels.tri_lora import ref
 
 #: Kernel launches per kernel; incremented only where a kernel is launched.
 LAUNCHES = {"tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0}
+#: Forward launches by route (:func:`fwd_route`).
+ROUTES = {"fwd_wgmma": 0, "fwd_simt": 0}
 
 MAX_RANK = 64
+#: TMA reads rows whose base and stride are multiples of 16 bytes.
+TMA_ALIGN = 16
+#: dW plan: the blocks to aim for per SM (8 measured best at the fed-100m
+#: shapes on the H100), the most splits, the fewest contraction rows a
+#: split is worth, the kernel's output tile (64 x 64) and its contraction
+#: slab.
+DW_BLOCKS_PER_SM = 8
+DW_MAX_SPLITS = 8
+DW_MIN_ROWS = 256
+DW_TILE = 64
+DW_SLAB = 16
 _LIB = "tri_lora"
 _VP, _I, _LL = ffi.VP, ffi.I, ffi.LL
 _RANKED = [_I, _I] + [_VP, _LL] * 5 + [_I] * 4 + [_VP]
+_FWD_ENTRY = {"simt": "tri_lora_fwd_launch",
+              "wgmma": "tri_lora_fwd_wgmma_launch"}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check_2d(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -69,23 +94,42 @@ def _rank_of(r: int) -> int:
     return r
 
 
+def _tma_ok(t: torch.Tensor) -> bool:
+    """TMA can read the 2-D operand ``t`` in place: unit inner stride, a
+    row stride of at least one row, base and row stride in 16-byte units."""
+    row = t.stride(0) * t.element_size()
+    return (t.stride(1) == 1 and t.stride(0) >= t.shape[1]
+            and t.data_ptr() % TMA_ALIGN == 0 and row % TMA_ALIGN == 0)
+
+
+def fwd_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The forward kernel for x (M,K) and w (K,N): ``"wgmma"`` when both
+    are bf16 and TMA can read them in place, else ``"simt"``.  Decided from
+    dtypes, strides and base addresses alone, before any launch."""
+    bf16 = x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+    return "wgmma" if bf16 and _tma_ok(x) and _tma_ok(w) else "simt"
+
+
 def tri_lora_fwd(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Forward kernel: x (M,K) @ w (K,N) + p (M,r) @ b (r,N) → (M,N) in
-    x.dtype, f32 accumulation seeded with p@b."""
+    x.dtype, f32 accumulation seeded with p@b; the route by
+    :func:`fwd_route`."""
     m, k = x.shape
     n = w.shape[1]
     r = _rank_of(p.shape[1])
     _check_ranked((("x", x, (m, k)), ("w", w, (k, n)), ("p", p, (m, r))),
                   (("b", b, (r, n)),))
+    route = fwd_route(x, w)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    fn = ffi.fn(_LIB, "tri_lora_fwd_launch", _RANKED)
+    fn = ffi.fn(_LIB, _FWD_ENTRY[route], _RANKED)
     code = fn(ffi.DTYPE_CODE[x.dtype], ffi.DTYPE_CODE[b.dtype],
               x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
               p.data_ptr(), p.stride(0), b.data_ptr(), b.stride(0),
               y.data_ptr(), y.stride(0), m, k, n, r, ffi.stream())
     ffi.check(_LIB, code)
     LAUNCHES["tri_lora_fwd"] += 1
+    ROUTES[f"fwd_{route}"] += 1
     return y
 
 
@@ -109,18 +153,51 @@ def tri_lora_dx(g: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
     return dx
 
 
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of the CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def dw_plan(m: int, k: int, n: int, sms: int) -> tuple:
+    """(splits, rows per split) of dW's M contraction on a card of ``sms``
+    SMs: enough splits that the 64×64 output tiles × splits reach
+    ``DW_BLOCKS_PER_SM`` blocks per SM, at most ``DW_MAX_SPLITS``, none
+    shorter than ``DW_MIN_ROWS`` rows (so M below two of those is one
+    split); rows per split a multiple of the slab."""
+    tiles = -(-k // DW_TILE) * -(-n // DW_TILE)
+    splits = max(1, min(DW_MAX_SPLITS, -(-DW_BLOCKS_PER_SM * sms // tiles),
+                        m // DW_MIN_ROWS))
+    rows = -(-m // splits)
+    rows = -(-rows // DW_SLAB) * DW_SLAB
+    return -(-m // rows), rows
+
+
+def dw_scratch_shape(m: int, k: int, n: int, sms: int) -> tuple:
+    """Shape of the f32 partials the dW kernel writes: (splits, K, N), or
+    () when one split writes dW directly."""
+    splits, _ = dw_plan(m, k, n, sms)
+    return (splits, k, n) if splits > 1 else ()
+
+
 def tri_lora_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dW kernel: xᵀ (K,M) @ g (M,N) → (K,N) in x.dtype, with x (M,K) read
-    in place and M as the contraction."""
+    in place and M as the contraction, split by :func:`dw_plan` and summed
+    in fixed order (bitwise the same from call to call)."""
     m, k = x.shape
     n = g.shape[1]
     _check_ranked((("x", x, (m, k)), ("g", g, (m, n))), ())
+    sms = sm_count(x.device)
+    splits, rows = dw_plan(m, k, n, sms)
+    shape = dw_scratch_shape(m, k, n, sms)
+    scratch = (torch.empty(shape, dtype=torch.float32, device=x.device)
+               if shape else None)
     dw = torch.empty((k, n), dtype=x.dtype, device=x.device)
     fn = ffi.fn(_LIB, "tri_lora_dw_launch",
-                [_I] + [_VP, _LL] * 3 + [_I] * 3 + [_VP])
+                [_I] + [_VP, _LL] * 3 + [_VP] + [_I] * 5 + [_VP])
     code = fn(ffi.DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0),
-              g.data_ptr(), g.stride(0), dw.data_ptr(), dw.stride(0), m, k,
-              n, ffi.stream())
+              g.data_ptr(), g.stride(0), dw.data_ptr(), dw.stride(0),
+              None if scratch is None else scratch.data_ptr(), m, k, n,
+              splits, rows, ffi.stream())
     ffi.check(_LIB, code)
     LAUNCHES["tri_lora_dw"] += 1
     return dw

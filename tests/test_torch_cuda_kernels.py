@@ -395,6 +395,95 @@ def test_dense_on_the_card_runs_the_tri_lora_kernels(cuda):
                                "tri_lora_dw": 1}
 
 
+def _fwd_routed(cuda, x, w, a, c, b, dtype):
+    """The op's forward on x (any view) against the plain forward; returns
+    the routes it took."""
+    before = dict(tl_ops.ROUTES)
+    y = tl_ops.tri_lora_matmul(x, w, a, c, b, 2.0)
+    torch.cuda.synchronize()
+    _close(y, tl_ref.tri_lora_matmul_ref(x, w, a, c, b, 2.0), dtype)
+    return {key: tl_ops.ROUTES[key] - before[key] for key in before}
+
+
+@pytest.mark.parametrize("m,k,n,r,b_dtype", [
+    (4100, 1032, 2056, 8, torch.float32),     # ragged M, N and K (x8)
+    (4100, 2048, 2048, 16, torch.bfloat16),   # rwkv6-1.6b width
+    (65, 1032, 2056, 64, torch.bfloat16),     # one row past a 64-row tile
+    (65, 2048, 2048, 1, torch.float32),
+    (1, 2048, 2048, 8, torch.bfloat16),       # one decode row
+    (1, 1032, 2056, 64, torch.float32),
+    (8, 2048, 2048, 8, torch.float32),        # the RWKV decode shape
+    (8, 1032, 2056, 16, torch.bfloat16)])
+def test_tri_lora_forward_wgmma_route(cuda, m, k, n, r, b_dtype):
+    """bf16 operands TMA can read take the wgmma kernel, with B (and the
+    adapter) in f32 or bf16 and never rounded to bf16 in the kernel."""
+    x, w, a, c, b, _ = _tri_lora_inputs(cuda, m, k, n, r, torch.bfloat16,
+                                        m + k + r)
+    a, c, b = (t.float().to(b_dtype) for t in (a, c, b))
+    routes = _fwd_routed(cuda, x, w, a, c, b, torch.bfloat16)
+    assert routes == {"fwd_wgmma": 1, "fwd_simt": 0}
+
+
+def test_tri_lora_forward_wgmma_reads_a_strided_view(cuda):
+    """x as the model's ``mixed[..., i, :]`` of one (B,T,5,D) buffer: the
+    tensor map takes the row stride 5·D, nothing is copied, and the result
+    is the contiguous copy's."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    d, n, r = 1024, 1024, 8
+    mixed = torch.randn((2, 33, 5, d), generator=g, device=cuda).to(
+        torch.bfloat16)
+    _, w, a, c, b, _ = _tri_lora_inputs(cuda, 66, d, n, r, torch.bfloat16, 12)
+    a, c, b = a.float(), c.float(), b.float()
+    xv = mixed[..., 2, :]
+    assert xv.reshape(-1, d).stride(0) == 5 * d
+    assert xv.reshape(-1, d).data_ptr() == xv.data_ptr()
+    routes = _fwd_routed(cuda, xv, w, a, c, b, torch.bfloat16)
+    assert routes == {"fwd_wgmma": 1, "fwd_simt": 0}
+    torch.testing.assert_close(tl_ops.tri_lora_matmul(xv, w, a, c, b, 2.0),
+                               tl_ops.tri_lora_matmul(xv.contiguous(), w, a,
+                                                      c, b, 2.0),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m,k,n,r,dtype", [
+    (64, 100, 96, 8, torch.bfloat16),         # row stride 200 bytes
+    (2048, 768, 768, 8, torch.float32),       # fed-100m wq/wo
+    (2048, 768, 256, 8, torch.float32),       # wk/wv
+    (77, 100, 130, 16, torch.float32),
+    (4100, 256, 200, 64, torch.float32)])
+def test_tri_lora_forward_simt_route(cuda, m, k, n, r, dtype):
+    """f32, and bf16 that TMA cannot read, take the register-tiled
+    kernel."""
+    x, w, a, c, b, _ = _tri_lora_inputs(cuda, m, k, n, r, dtype, m + n)
+    routes = _fwd_routed(cuda, x, w, a, c, b, dtype)
+    assert routes == {"fwd_wgmma": 0, "fwd_simt": 1}
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (2048, 768, 768, torch.float32),          # 8 splits of 256 rows
+    (2048, 768, 256, torch.float32),          # 8 splits of 256 rows
+    (100, 768, 256, torch.float32),           # M below one split
+    (600, 130, 70, torch.bfloat16)])          # 2 splits, ragged edges
+def test_tri_lora_dw_split_is_deterministic(cuda, m, k, n, dtype):
+    """dW split over M and summed in fixed order: within the kernel
+    tolerance of xᵀ@g (absolute part scaled by the largest entry), bitwise
+    the same on a second call, one count per op call."""
+    x, _, _, _, _, gy = _tri_lora_inputs(cuda, m, k, n, 1, dtype, m + k)
+    splits, rows = tl_ops.dw_plan(m, k, n, tl_ops.sm_count(x.device))
+    assert (splits > 1) == (m >= 2 * tl_ops.DW_MIN_ROWS)
+    n0 = tl_ops.LAUNCHES["tri_lora_dw"]
+    first = tl_ops.tri_lora_dw(x, gy)
+    second = tl_ops.tri_lora_dw(x, gy)
+    torch.cuda.synchronize()
+    assert tl_ops.LAUNCHES["tri_lora_dw"] == n0 + 2
+    assert torch.equal(first, second)
+    want = x.float().T @ gy.float()
+    tol = TOL[dtype]["rtol"]
+    np.testing.assert_allclose(first.float().cpu().numpy(),
+                               want.cpu().numpy(), rtol=tol,
+                               atol=tol * max(1.0, float(want.abs().max())))
+
+
 # ---------------------------------------------------------------------------
 # wkv6
 # ---------------------------------------------------------------------------

@@ -146,3 +146,58 @@ def test_kernel_wrappers_check_operands_and_device():
         ops.tri_lora_dx(torch.zeros(8, 12), w.bfloat16(), p, a)
     with pytest.raises(ValueError, match="CUDA"):
         ops.tri_lora_fwd(x, w, p, b)
+
+
+def _route_operands(case: str):
+    """x (M,K) and w (K,N) laid out as the named case lays them out."""
+    bf = torch.bfloat16
+    w = torch.zeros((64, 48), dtype=bf)
+    if case == "bf16":
+        return torch.zeros((8, 64), dtype=bf), w
+    if case == "bf16_meta":
+        return (torch.empty((4096, 2048), dtype=bf, device="meta"),
+                torch.empty((2048, 2048), dtype=bf, device="meta"))
+    if case == "bf16_mixed_view":            # mixed[..., i, :], (B,T,5,D)
+        return torch.zeros((2, 3, 5, 64), dtype=bf)[..., 2, :].reshape(
+            -1, 64), w
+    if case == "f32":
+        return torch.zeros((8, 64)), torch.zeros((64, 48))
+    if case == "bf16_k100":                  # row stride 200 bytes
+        return torch.zeros((8, 100), dtype=bf), torch.zeros((100, 48),
+                                                            dtype=bf)
+    if case == "bf16_base_off_16":           # base 2 bytes past a row
+        return torch.zeros((8, 65), dtype=bf)[:, 1:], w
+    if case == "bf16_w_stride_52":           # W row stride 104 bytes
+        return torch.zeros((8, 64), dtype=bf), torch.zeros(
+            (64, 52), dtype=bf)[:, :48]
+    if case == "bf16_x_f32_w":
+        return torch.zeros((8, 64), dtype=bf), torch.zeros((64, 48))
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case,route", [
+    ("bf16", "wgmma"), ("bf16_meta", "wgmma"), ("bf16_mixed_view", "wgmma"),
+    ("f32", "simt"), ("bf16_k100", "simt"), ("bf16_base_off_16", "simt"),
+    ("bf16_w_stride_52", "simt"), ("bf16_x_f32_w", "simt")])
+def test_forward_route_follows_dtype_strides_and_alignment(case, route):
+    """The forward's route is chosen from dtypes, strides and base
+    addresses alone: bf16 operands TMA can read in place (16-byte base and
+    row stride) go to the wgmma kernel, the rest to the SIMT kernel."""
+    assert ops.fwd_route(*_route_operands(case)) == route
+
+
+@pytest.mark.parametrize("m,k,n,splits,rows", [
+    (2048, 768, 768, 8, 256),       # fed-100m wq/wo: 144 tiles x 8 splits
+    (2048, 768, 256, 8, 256),       # wk/wv: 48 tiles x 8
+    (77, 100, 130, 1, 80),          # ragged, below one split
+    (1, 4096, 4096, 1, 16),         # one row
+    (600, 64, 64, 2, 304)])         # ragged last split
+def test_dw_split_plan(m, k, n, splits, rows):
+    """dW's M contraction splits until the tiles x splits reach the target
+    block count on the H100's 132 SMs, in ranges of whole slabs that cover
+    M exactly; one split needs no scratch."""
+    assert ops.dw_plan(m, k, n, 132) == (splits, rows)
+    assert (splits - 1) * rows < m <= splits * rows
+    assert rows % ops.DW_SLAB == 0
+    assert ops.dw_scratch_shape(m, k, n, 132) == (
+        (splits, k, n) if splits > 1 else ())
