@@ -7,17 +7,24 @@ versions, serves and trains.
 
 Phases, one JSON line each (several for the case phases):
   build        build every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
+  hold_check   time_ms's gap test must fire on a host-bound call and stay
+               quiet on a device-bound one
   kernels      the decode kernels against their plain PyTorch versions on
                the card at the serving path's shapes (and edge cases), with
                their times, the plain versions', one PyTorch library call's
                and the card's bound
   flash_cases  the flash forward (out, lse) and backward (dq, dk, dv)
                kernels against the plain version: f32/bf16, causal /
-               window 64 / non-causal, GQA 12/4 and 32/32, hd 64/128,
-               S 256/512 and ragged 200
-  flash_timing forward and forward+backward at the train shape (B=8, S=256,
-               H=12, K=4, hd=64, f32) and at S=512, beside the bound, the
-               plain version and scaled_dot_product_attention
+               window 64 and 96 / non-causal, GQA 12/4, 32/32, 8/1 and
+               16/1 (MQA), hd 64/128, S 256/512 and ragged 200; the
+               backward twice (bitwise equal), on the 16-byte route, and
+               the last case again on unaligned views (scalar route)
+  flash_timing forward, dq, dk/dv, the backward as the model runs it
+               (softmax_delta + dq + dk/dv) and forward+backward at the
+               train shape (B=8, S=256, H=12, K=4, hd=64, f32) and at
+               S=512, beside the bound, the plain version and
+               scaled_dot_product_attention (forward; backward, the
+               library time of dq and dk/dv)
   serve        multi-tenant LLaMA-7B decode at full width and depth (bf16,
                random weights): 16 requests from 8 users through 8 slots;
                every request must finish and every step must launch both
@@ -100,7 +107,7 @@ GEMV_TPU = "src/repro/kernels/decode_attention/grouped.py:67"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_TPU = {name: f"src/repro/kernels/flash_attention/flash_attention.py:{n}"
              for name, n in (("flash_fwd", 124), ("flash_dq", 176),
-                             ("flash_dkv", 214))}
+                             ("flash_dkv", 214), ("flash_bwd", 255))}
 #: (B, S, H, K, hd, causal, window) of the flash kernel cases
 FLASH_CASES = (
     (4, 256, 12, 4, 64, True, 0),       # the train phase's shape
@@ -111,9 +118,14 @@ FLASH_CASES = (
     (2, 256, 32, 32, 128, True, 0),     # LLaMA-7B heads
     (1, 512, 32, 32, 128, True, 64),
     (2, 200, 32, 32, 128, False, 0),
+    (2, 200, 16, 1, 64, True, 0),       # MQA: 16 heads on one KV head
+    (1, 512, 8, 1, 128, True, 96),      # a group of 8, window 96
 )
 #: the train phase's attention shape and the kernel table's bound shape
 FLASH_TIMED = ((8, 256, 12, 4, 64), (8, 512, 12, 4, 64))
+#: the flash kernels (all, then the backward's two) whose share of device
+#: time the training profiles report
+FLASH_SHARES = ("flash_", "bwd::flash_")
 TRI_LORA_SRC = "src/repro_torch/kernels/tri_lora/csrc/tri_lora.cu"
 TRI_LORA_TPU = {name: f"src/repro/kernels/tri_lora/tri_lora.py:{n}"
                 for name, n in (("tri_lora_fwd", 55), ("tri_lora_dx", 107),
@@ -175,24 +187,91 @@ def require(cond: bool, what: str) -> None:
 # timing
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, inputs, iters: int = 60) -> float:
+#: the stream hold of time_ms, in clock cycles (~30 ms at H100 clocks), and
+#: the most it is doubled to before a run that leaves the device a gap fails
+HOLD_CYCLES = 60_000_000
+HOLD_MAX_X = 16
+#: [hold, calls] of each time_ms run since the last :func:`holds_used`, the
+#: hold as a multiple of HOLD_CYCLES; negative where the device may have
+#: waited for the host even at the largest hold (a plain version, its host
+#: time included)
+HOLDS: list = []
+
+
+def time_ms(torch, fn, inputs, iters: int = 60, *,
+            plain: bool = False) -> float:
     """Device time of one ``fn(*inputs[i])`` call, cycling through
     ``inputs`` (copies that together exceed the 50 MB L2, so each call reads
     its operands from device memory as the serving path does).  A sleep
-    kernel holds the stream while the host enqueues every call, so the
-    events time the device and not the host's launch rate."""
+    kernel holds the stream while the host enqueues the calls, so the
+    events time the device and not the host's launch rate.  An event marks
+    the end of each call on the stream; once a call is enqueued, the mark
+    of the call before it (the hold's end, for the first) must still be
+    pending.  If the device has reached it, the device may have waited for
+    the host between the two calls: a gap.  The host may also block on the
+    full launch queue before the hold ends (a call of many launches); the
+    marks of the calls just before stay pending, so that is no gap.  On a
+    gap the run is repeated with twice the hold and half the calls (at
+    least 8), up to HOLD_MAX_X times HOLD_CYCLES, and fails beyond that.
+    A ``plain`` version (a yardstick of correctness, not of speed) is timed
+    all the same, its host time included, and its hold recorded as
+    negative.  The hold and the calls used are appended to HOLDS."""
     for i in range(3):
         fn(*inputs[i % len(inputs)])
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(60_000_000)               # ~30 ms at H100 clocks
-    start.record()
-    for i in range(iters):
-        fn(*inputs[i % len(inputs)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    hold, calls = 1, iters
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        marks = [torch.cuda.Event() for _ in range(calls)]
+        torch.cuda._sleep(HOLD_CYCLES * hold)
+        start.record()
+        gap, last = False, start
+        for i in range(calls):
+            fn(*inputs[i % len(inputs)])
+            gap = gap or last.query()       # the device got there first
+            marks[i].record()
+            last = marks[i]
+        end.record()
+        torch.cuda.synchronize()
+        if not gap or (plain and hold == HOLD_MAX_X):
+            HOLDS.append([-hold if gap else hold, calls])
+            return start.elapsed_time(end) / calls
+        require(hold < HOLD_MAX_X,
+                f"the device reached the end of a call before the host had "
+                f"enqueued the next, even behind a "
+                f"{HOLD_MAX_X}x{HOLD_CYCLES}-cycle hold")
+        hold, calls = 2 * hold, max(min(8, iters), calls // 2)
+
+
+def holds_used() -> list:
+    """The [hold, calls] of the time_ms runs since the last call,
+    emptied."""
+    used = list(HOLDS)
+    HOLDS.clear()
+    return used
+
+
+def phase_hold_check(torch, dev) -> None:
+    """time_ms's gap test on two calls of known kind: a small kernel and
+    then 2 ms on the host (the device waits for the host, so the hold must
+    grow), and a 4096x4096 f32 matmul (the host keeps ahead of the device
+    at the first hold)."""
+    x = torch.zeros(1 << 20, device=dev)
+    a = torch.randn(4096, 4096, device=dev)
+
+    def host_bound(x):
+        x.add_(1)
+        time.sleep(2e-3)
+    host_ms = time_ms(torch, host_bound, [(x,)])
+    device_ms = time_ms(torch, lambda a: a @ a, [(a,)])
+    holds = holds_used()
+    emit({"phase": "hold_check", "host_bound_ms": host_ms,
+          "device_bound_ms": device_ms, "stream_hold_x": holds})
+    require(holds[0][0] > 1, f"time_ms saw no gap in a host-bound run: "
+                             f"{holds[0]}")
+    require(holds[1] == [1, 60], f"time_ms saw a gap in a device-bound "
+                                 f"run: {holds[1]}")
 
 
 def copies_for(nbytes: int) -> int:
@@ -340,8 +419,8 @@ def time_attention(torch, F, ops, ref, bounds, dev):
         ms=time_ms(torch, lambda q, k, v, i, m: ops.decode_attention(
             q, k, v, i), sets),
         plain_ms=time_ms(torch, lambda q, k, v, i, m: ref.decode_attention_ref(
-            q, k, v, i), sets),
-        library_ms=time_ms(torch, lib, sets),
+            q, k, v, i), sets, plain=True),
+        library_ms=time_ms(torch, lib, sets), stream_hold_x=holds_used(),
         **bound(bounds.decode_attention(b, h, kh, hd, n_valid, "bfloat16")))
 
 
@@ -370,8 +449,9 @@ def time_gemv(torch, ops, ref, bounds, dev):
         replaces=GEMV_TPU, max_abs_err=err,
         ms=time_ms(torch, lambda *t: ops.grouped_dense(*t, scaling=2.0), sets),
         plain_ms=time_ms(torch, lambda *t: ref.grouped_gemv_ref(
-            *t, scaling=2.0), sets),
+            *t, scaling=2.0), sets, plain=True),
         library_ms=time_ms(torch, lambda rows, x, w, *_: x @ w, sets),
+        stream_hold_x=holds_used(),
         **bound(bounds.grouped_gemv(bsz, kk, n, r, users, "bfloat16")))
 
 
@@ -385,20 +465,41 @@ def flash_inputs(torch, dev, b, s, h, kh, hd, dtype, gen):
                        (b, s, h, hd))]
 
 
+def unaligned_view(torch, t):
+    """t's values in a view whose rows start one element past a 16-byte
+    boundary (the backward's scalar route)."""
+    buf = torch.empty((*t.shape[:-1], t.shape[-1] + 1), dtype=t.dtype,
+                      device=t.device)
+    view = buf[..., 1:]
+    view.copy_(t)
+    return view
+
+
 def flash_cases(torch, fa_ops, fa_ref, dev):
     """Kernels vs plain version: out and lse of the forward, dq/dk/dv of
-    the backward, per case and dtype.  lse is f32 in both dtypes and is
+    the backward, per case and dtype; the backward again on the same
+    inputs, which must give bitwise the same dq, dk and dv; each case once
+    more on unaligned views of the same values at the last case's shape,
+    through the backward's scalar route.  lse is f32 in both dtypes and is
     held to the f32 tolerance."""
     gen = torch.Generator(device=dev).manual_seed(6)
     worst = {}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
-        for (b, s, h, kh, hd, causal, window) in FLASH_CASES:
+        for i, (b, s, h, kh, hd, causal, window) in enumerate(
+                FLASH_CASES + FLASH_CASES[-1:]):
+            route = "scalar" if i == len(FLASH_CASES) else "vec"
             q, k, v, do = flash_inputs(torch, dev, b, s, h, kh, hd, dt, gen)
+            if route == "scalar":
+                q, k, v, do = (unaligned_view(torch, t) for t in (q, k, v, do))
             kw = dict(causal=causal, window=window)
+            fa_ops.reset_launches()
             out, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
             grads = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            again = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
             torch.cuda.synchronize()
+            routes = dict(fa_ops.ROUTES)
+            same = all(torch.equal(x, y) for x, y in zip(grads, again))
             want_out, want_lse = fa_ref.flash_attention_fwd_ref(q, k, v,
                                                                 **kw)
             want_grads = fa_ref.flash_attention_bwd_ref(q, k, v, do, **kw)
@@ -413,53 +514,100 @@ def flash_cases(torch, fa_ops, fa_ref, dev):
             case = dict(b=b, s=s, h=h, kh=kh, hd=hd, causal=causal,
                         window=window)
             emit({"phase": "flash_cases", "dtype": dt_name, **case,
+                  "routes": routes, "bwd_bitwise_repeatable": same,
                   "max_abs_err": errs, "n_out_of_tol": bad,
                   "tol": TOL[dt_name], "lse_tol": TOL["float32"]})
             require(bad == 0, f"flash kernels disagree with the plain "
                     f"version: {case} {dt_name} errors {errs}")
+            require(same, f"flash backward not bitwise repeatable: {case} "
+                    f"{dt_name}")
+            want_routes = {"bwd_vec": 0, "bwd_scalar": 0}
+            want_routes[f"bwd_{route}"] = 4
+            require(routes == want_routes, f"flash backward routes {routes}, "
+                    f"expected {want_routes}: {case} {dt_name}")
             worst[dt_name] = max(worst.get(dt_name, 0.0), *errs.values())
     return worst
 
 
+def flash_timed_sets(torch, fa_ops, dev, b, s, h, kh, hd, gen):
+    """Copies of (q, k, v, dO, out, lse, delta), f32 causal, that together
+    exceed the L2, at one FLASH_TIMED shape."""
+    one = 4 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
+    sets = []
+    for _ in range(copies_for(one)):
+        q, k, v, do = flash_inputs(torch, dev, b, s, h, kh, hd,
+                                   torch.float32, gen)
+        out, lse = fa_ops.flash_attention_fwd(q, k, v)
+        sets.append((q, k, v, do, out, lse, fa_ops.softmax_delta(out, do)))
+    return sets
+
+
+def flash_bwd_calls(fa_ops):
+    """The backward as timed, each a function of one set: the dq kernel,
+    the dk/dv kernel, and ``flash_attention_bwd`` as the model runs it
+    (``softmax_delta``, dq, dk/dv)."""
+    return {
+        "flash_dq": lambda q, k, v, do, o, lse, delta:
+            fa_ops.flash_attention_dq(q, k, v, do, lse, delta),
+        "flash_dkv": lambda q, k, v, do, o, lse, delta:
+            fa_ops.flash_attention_dkv(q, k, v, do, lse, delta),
+        "flash_bwd": lambda q, k, v, do, o, lse, delta:
+            fa_ops.flash_attention_bwd(q, k, v, o, lse, do)}
+
+
+def sdpa_causal(F, q, k, v):
+    """scaled_dot_product_attention on the model-layout tensors (transposed
+    views), causal, grouped-query."""
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+
+
+def sdpa_bwd_graphs(torch, F, sets):
+    """One SDPA forward graph per set, and the call that runs its backward
+    (all three gradients) again and again."""
+    def graph(q, k, v, do, *_):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        return leaves, sdpa_causal(F, *leaves), do.transpose(1, 2)
+
+    def run(leaves, y, dy):
+        torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    return [graph(*t) for t in sets], run
+
+
 def time_flash(torch, F, fa_ops, fa_ref, bounds, dev):
     """f32 causal at the train phase's shape and at S=512: each kernel, the
-    forward and forward+backward, the plain version and SDPA
-    (``is_causal=True, enable_gqa=True`` on the model-layout tensors,
-    transposed views).  Returns the kernel-table rows at the train
-    shape."""
+    forward, the backward as the model runs it (``flash_attention_bwd``:
+    ``softmax_delta`` + dq + dk/dv) and forward+backward, the plain
+    version and SDPA (``is_causal=True, enable_gqa=True`` on the
+    model-layout tensors, transposed views).  Returns the kernel-table rows
+    at the train shape; dq's and dk/dv's library time is SDPA's backward,
+    which computes all three gradients."""
     gen = torch.Generator(device=dev).manual_seed(7)
     rows = None
+    bwd = flash_bwd_calls(fa_ops)
     for (b, s, h, kh, hd) in FLASH_TIMED:
-        one = 4 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
-        sets = []
-        for _ in range(copies_for(one)):
-            q, k, v, do = flash_inputs(torch, dev, b, s, h, kh, hd,
-                                       torch.float32, gen)
-            out, lse = fa_ops.flash_attention_fwd(q, k, v)
-            delta = fa_ops.softmax_delta(out, do)
-            sets.append((q, k, v, do, out, lse, delta))
+        sets = flash_timed_sets(torch, fa_ops, dev, b, s, h, kh, hd, gen)
         q, k, v, do, out, lse, delta = sets[0]
         want_out, _ = fa_ref.flash_attention_fwd_ref(q, k, v)
         want = fa_ref.flash_attention_bwd_ref(q, k, v, do)
-        dq = fa_ops.flash_attention_dq(q, k, v, do, lse, delta)
-        dk, dv = fa_ops.flash_attention_dkv(q, k, v, do, lse, delta)
+        fa_ops.reset_launches()
+        dq = bwd["flash_dq"](*sets[0])
+        dk, dv = bwd["flash_dkv"](*sets[0])
+        routes = dict(fa_ops.ROUTES)
+        checked = [compare(torch, got, w, "float32")
+                   for got, w in zip((dq, dk, dv), want)]
+        require(all(bad == 0 for _, bad in checked),
+                f"the timed backward disagrees with the plain version at "
+                f"S={s}: {checked}")
         err = {"flash_fwd": float((out - want_out).abs().max()),
-               "flash_dq": float((dq - want[0]).abs().max()),
-               "flash_dkv": max(float((dk - want[1]).abs().max()),
-                                float((dv - want[2]).abs().max()))}
+               "flash_dq": checked[0][0],
+               "flash_dkv": max(checked[1][0], checked[2][0])}
+        err["flash_bwd"] = max(err["flash_dq"], err["flash_dkv"])
 
         def plain_graph(q, k, v, do, *_):
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             return leaves, fa_ref.flash_attention_ref(*leaves), do
-
-        def sdpa(q, k, v):
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)
-
-        def sdpa_graph(q, k, v, do, *_):
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            return leaves, sdpa(*leaves), do.transpose(1, 2)
 
         def grad_of(graphs):
             def run(leaves, y, dy):
@@ -467,58 +615,65 @@ def time_flash(torch, F, fa_ops, fa_ref, bounds, dev):
             return run
 
         plain_graphs = [plain_graph(*t) for t in sets[:4]]
-        sdpa_graphs = [sdpa_graph(*t) for t in sets]
+        sdpa_graphs, sdpa_bwd = sdpa_bwd_graphs(torch, F, sets)
         t = {
             "flash_fwd": time_ms(torch, lambda q, k, v, *_:
                                  fa_ops.flash_attention_fwd(q, k, v), sets),
-            "flash_dq": time_ms(torch, lambda q, k, v, do, o, lse, delta:
-                                fa_ops.flash_attention_dq(q, k, v, do, lse,
-                                                          delta), sets),
-            "flash_dkv": time_ms(torch, lambda q, k, v, do, o, lse, delta:
-                                 fa_ops.flash_attention_dkv(q, k, v, do, lse,
-                                                            delta), sets),
+            **{n: time_ms(torch, fn, sets) for n, fn in bwd.items()},
             "fwd_bwd": time_ms(torch, lambda q, k, v, do, *_:
                                fa_ops.flash_attention_bwd(
                                    q, k, v, *fa_ops.flash_attention_fwd(
                                        q, k, v), do), sets),
             "plain_fwd": time_ms(torch, lambda q, k, v, *_:
                                  fa_ref.flash_attention_fwd_ref(q, k, v),
-                                 sets, iters=20),
+                                 sets, iters=20, plain=True),
             "plain_bwd": time_ms(torch, grad_of(plain_graphs), plain_graphs,
-                                 iters=20),
+                                 iters=20, plain=True),
             "plain_fwd_bwd": time_ms(torch, lambda q, k, v, do, *_:
                                      fa_ref.flash_attention_bwd_ref(
-                                         q, k, v, do), sets, iters=20),
-            "sdpa_fwd": time_ms(torch, lambda q, k, v, *_: sdpa(q, k, v),
-                                sets),
-            "sdpa_bwd": time_ms(torch, grad_of(sdpa_graphs), sdpa_graphs),
+                                         q, k, v, do), sets, iters=20,
+                                     plain=True),
+            "sdpa_fwd": time_ms(torch, lambda q, k, v, *_:
+                                sdpa_causal(F, q, k, v), sets),
+            "sdpa_bwd": time_ms(torch, sdpa_bwd, sdpa_graphs),
         }
         del plain_graphs, sdpa_graphs
         bd = {"flash_fwd": bounds.flash_fwd(b, h, kh, s, hd, "float32"),
               "flash_dq": bounds.flash_dq(b, h, kh, s, hd, "float32"),
               "flash_dkv": bounds.flash_dkv(b, h, kh, s, hd, "float32"),
-              "fwd_bwd_ms": (bounds.flash_fwd(b, h, kh, s, hd, "float32").ms
-                             + bounds.flash_bwd(b, h, kh, s, hd,
-                                                "float32").ms)}
+              "flash_bwd": bounds.flash_bwd(b, h, kh, s, hd, "float32")}
+        bd_ms = {n: x.ms for n, x in bd.items()} | {
+            "fwd_bwd": bd["flash_fwd"].ms + bd["flash_bwd"].ms}
         emit({"phase": "flash_timing", "b": b, "s": s, "h": h, "kh": kh,
               "hd": hd, "dtype": "float32", "causal": True,
               "kernel_ms": {n: t[n] for n in ("flash_fwd", "flash_dq",
-                                              "flash_dkv", "fwd_bwd")},
-              "bound_ms": {n: bd[n].ms for n in ("flash_fwd", "flash_dq",
-                                                 "flash_dkv")}
-              | {"fwd_bwd": bd["fwd_bwd_ms"]},
+                                              "flash_dkv", "flash_bwd",
+                                              "fwd_bwd")},
+              "bound_ms": bd_ms,
               "plain_ms": {"fwd": t["plain_fwd"], "bwd": t["plain_bwd"],
                            "fwd_bwd": t["plain_fwd_bwd"]},
               "sdpa_ms": {"fwd": t["sdpa_fwd"], "bwd": t["sdpa_bwd"]},
-              "max_abs_err": err})
+              "bwd_over_sdpa_bwd": t["flash_bwd"] / t["sdpa_bwd"],
+              "routes": routes, "max_abs_err": err,
+              "stream_hold_x": holds_used()})
+        require(routes == {"bwd_vec": 2, "bwd_scalar": 0},
+                f"the timed backward took routes {routes}")
         if rows is None:          # the train phase's shape
             rows = [dict(name=n, route="cuda", source=FLASH_SRC,
                          replaces=FLASH_TPU[n], max_abs_err=err[n], ms=t[n],
                          plain_ms=t["plain_fwd" if n == "flash_fwd"
                                     else "plain_bwd"],
-                         library_ms=t["sdpa_fwd"] if n == "flash_fwd"
-                         else None, **bound(bd[n]))
-                    for n in ("flash_fwd", "flash_dq", "flash_dkv")]
+                         library_ms=t["sdpa_fwd" if n == "flash_fwd"
+                                      else "sdpa_bwd"], **bound(bd[n]))
+                    for n in ("flash_fwd", "flash_dq", "flash_dkv",
+                              "flash_bwd")]
+            for r in rows[1:3]:
+                r["note"] = ("library_ms is SDPA's whole backward (dq, dk "
+                             "and dv); compare it with flash_bwd")
+            rows[3].update(launch_key="flash_dq", note=(
+                "softmax_delta + flash_dq + flash_dkv as the model runs "
+                "them; launches counts its calls (one dq and one dk/dv "
+                "launch each)"))
         del sets
         torch.cuda.empty_cache()
     return rows
@@ -703,7 +858,7 @@ def time_tri_lora(torch, tl_ops, bounds, dev):
         require(bad == 0, f"{name} at the {label} shape disagrees with the "
                 f"plain version: {bad} entries out of tolerance, error {err}")
         t = {"kernel": time_ms(torch, kernel[name], sets),
-             "plain": time_ms(torch, plain[name], sets),
+             "plain": time_ms(torch, plain[name], sets, plain=True),
              "library": time_ms(torch, library[name], sets)}
         bd = {"tri_lora_fwd": bounds.tri_lora_matmul(m, k, n, r, dtype),
               "tri_lora_dx": bounds.tri_lora_dx(m, k, n, r, dtype),
@@ -722,6 +877,7 @@ def time_tri_lora(torch, tl_ops, bounds, dev):
                 torch, lambda x, w, *_: x @ w, sets)
         if dtype == "bfloat16" and m <= 64:
             line["host_us"] = host_us(torch, kernel[name], sets[0])
+        line["stream_hold_x"] = holds_used()
         emit(line)
         rows.append(dict(name=name, route="cuda", source=TRI_LORA_SRC,
                          replaces=TRI_LORA_TPU[name], max_abs_err=err,
@@ -829,8 +985,8 @@ def time_wkv6(torch, wkv_ops, wkv_ref, rwkv, bounds, dev, card: str):
     err = float((y - wkv_ref.wkv6_ref(*sets[0])[0]).abs().max())
     ms = time_ms(torch, wkv_ops.wkv6, sets)
     chunked_ms = time_ms(torch, lambda *a: rwkv.wkv_chunked(*a, chunk=32),
-                         sets, iters=5)
-    scan_ms = time_ms(torch, wkv_ref.wkv6_ref, sets, iters=3)
+                         sets, iters=5, plain=True)
+    scan_ms = time_ms(torch, wkv_ref.wkv6_ref, sets, iters=3, plain=True)
     scaling = {}                  # the kernel's time against its block count
     for bb in (1, 32):
         ins = wkv6_inputs(torch, dev, bb, t, h, hd, torch.bfloat16, gen)
@@ -843,7 +999,7 @@ def time_wkv6(torch, wkv_ops, wkv_ref, rwkv, bounds, dev, card: str):
           "plain_chunked32_us": 1e3 * chunked_ms,
           "plain_scan_us": 1e3 * scan_ms, "kernel_by_batch": scaling,
           "library": "no single PyTorch call computes WKV6",
-          "max_abs_err": err})
+          "max_abs_err": err, "stream_hold_x": holds_used()})
     del sets
     torch.cuda.empty_cache()
     return dict(name="wkv6", route="cuda", source=WKV6_SRC,
@@ -1387,7 +1543,7 @@ def train_profile(torch, cfg, dev, job: dict = TRAIN):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     return {"window": "lora_loc, 1 client, 3 local steps + 1 eval batch",
-            **device_split(prof, wall_us, 12)}
+            **device_split(prof, wall_us, 12, shares=FLASH_SHARES)}
 
 
 def phase_train(torch, fa_ops, tl_ops, get_config, dev):
@@ -1401,6 +1557,7 @@ def phase_train(torch, fa_ops, tl_ops, get_config, dev):
     tl_ops.reset_launches()
     out, wall = train_job(torch, cfg, dev, "flash")
     launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
+    flash_routes = dict(fa_ops.ROUTES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     hist = out["history"]
     steps = sum(len(r.sampled) for r in hist) * job["local_steps"]
@@ -1429,12 +1586,16 @@ def phase_train(torch, fa_ops, tl_ops, get_config, dev):
           "trained_tokens": tokens, "trained_tok_per_s": tokens / wall,
           "round_wall_s_sum": sum(r.wall_s for r in hist),
           "peak_mem_gb": peak, "launches": launches,
-          "expected_launches": expected, "profile": prof,
+          "expected_launches": expected, "flash_bwd_routes": flash_routes,
+          "profile": prof,
           "ref": {"attn_impl": "ref", "wall_s": ref_wall,
                   "train_loss": [r.train_loss for r in ref["history"]],
                   "mean_acc": [r.mean_acc for r in ref["history"]]}})
     require(launches == expected,
             f"train launches {launches} != expected {expected}")
+    require(flash_routes == {"bwd_vec": 2 * layers * steps, "bwd_scalar": 0},
+            f"train flash backward routes {flash_routes}: every dq and dk/dv "
+            f"launch should take the 16-byte route")
     for a, b in zip(hist, ref["history"]):
         require((a.sampled, a.participants, a.dropped, a.uplink_bytes,
                  a.downlink_bytes, a.uplink_elems)
@@ -1521,7 +1682,8 @@ def phase_lm_train(torch, fa_ops, tl_ops, get_config, dev):
           "expected_launches": expected, "checkpoint_restored": same,
           "checkpoint_meta": checkpoint.metadata(str(path)),
           "profile": {"window": "train.local_fit, 1 client, 3 steps",
-                      **device_split(prof, window_us, 12)}})
+                      **device_split(prof, window_us, 12,
+                                     shares=FLASH_SHARES)}})
     require(launches == expected,
             f"lm_train launches {launches} != expected {expected}")
     require(hist[-1]["loss"] < hist[0]["loss"],
@@ -1675,6 +1837,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     try:
         phase_build(build)
+        phase_hold_check(torch, dev)
         attn_err = attn_cases(torch, ops, ref, dev)
         gemv_err = gemv_cases(torch, ops, ref, dev)
         flash_err = flash_cases(torch, fa_ops, fa_ref, dev)
@@ -1728,12 +1891,13 @@ def main() -> int:
     path_launches = {"rwkv prefill": rwkv_launches,
                      "rwkv decode": decode_launches}
     for r in rows:                    # the launches of the row's own path
-        r["launches"] = path_launches.get(r.get("shape"), launches)[r["name"]]
+        r["launches"] = path_launches.get(r.get("shape"), launches)[
+            r.get("launch_key", r["name"])]
     emit({"phase": "summary", "max_abs_err_by_dtype": {
         "decode_attention": attn_err, "grouped_gemv": gemv_err,
         "flash_attention": flash_err, "tri_lora": tri_lora_err,
         "wkv6": wkv6_err}, "wall_s": time.perf_counter() - START})
-    emit({"kernels": [{k: r[k] for k in keys + ("shape",) if k in r}
+    emit({"kernels": [{k: r[k] for k in keys + ("shape", "note") if k in r}
                       for r in rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -31,29 +31,45 @@
 // (wgmma) tiles are later work.
 //
 // What the design does about it:
-// * One block of 256 threads per (64-row tile, head, batch row).  The TPU's
-//   sequential grid axis becomes a loop inside the block over only the tiles
-//   that intersect the causal/window band (the TPU kernel's _band), so
-//   causal attention does half the tile products.
-// * Tiles are staged in shared memory as f32 with rows padded to hd+1
-//   floats, so the 16 threads that read 16 different rows at one column hit
-//   16 different banks.  Each thread owns a 4x4 block of the 64x64 score
-//   tile (rows ty+16i, columns tx+16j) and 4 x hd/16 accumulators, so every
-//   shared-memory load feeds 4 FMAs.  Row max and row sums are reduced over
-//   the 16 lanes of a half warp by shuffles; the online-softmax state stays
-//   in registers in f32.
+// * Forward: one block of 256 threads per (64-row tile, head, batch row).
+//   The TPU's sequential grid axis becomes a loop inside the block over
+//   only the tiles that intersect the causal/window band (the TPU kernel's
+//   _band), so causal attention does half the tile products.  Tiles are
+//   staged as f32 with rows padded to hd+1 floats; each thread owns a 4x4
+//   block of the 64x64 score tile and 4 x hd/16 accumulators.  Row max and
+//   row sums are reduced over the 16 lanes of a half warp by shuffles; the
+//   online-softmax state stays in registers in f32.
+// * Backward (namespace bwd): blocks of 128 threads, each owning a 4x8
+//   piece of the 64x64 score tile and 4 x hd/8 accumulators, so one 16-byte
+//   shared-memory read feeds 8 or more FMAs; s and dp stay in registers
+//   through the exp and ds, and only the operand of a transposed product
+//   (ds for dq; p, then ds, for dk/dv) is staged.  Tiles arrive by 16-byte
+//   cp.async, the next K tile (dq) or the next Q tile (dk/dv) in flight
+//   while the current one is computed; rows are padded to hd+4 floats so
+//   the 16-byte reads meet no bank conflict.
+// * dq: one block per (64-row tile, head, batch row), q tiles launched last
+//   first (under a causal band the last is the heaviest), two blocks an SM.
+// * dk/dv: a thread-block cluster per (64-key tile, KV head, batch row),
+//   one block per query head of the group (min(G, 8) blocks; with G > 8 a
+//   block takes heads rank, rank + 8, ...).  Each block sums its heads'
+//   band q tiles in registers; the cluster then adds the blocks' partials
+//   through distributed shared memory in rank order.  No atomics: dq, dk
+//   and dv are bitwise the same from call to call.
 // * q/k/v/dO are read in the model's (B,S,heads,hd) layout through their
 //   strides: no transpose, no padding, no repeat of K/V for GQA.  The ragged
-//   sequence edge is masked inside the kernel by the real lengths.
-// * dk/dv: one block per (64-key tile, KV head, batch row) walks the G
-//   query heads of its group and their band q tiles and sums the group in
-//   registers, so no atomics and no second reduction pass are needed (the
-//   idea of the TPU kernel's flattened (group, q-block) axis).
+//   sequence edge is masked inside the kernel by the real lengths.  Rows
+//   that are not 16-byte aligned take the scalar route of the backward (one
+//   element a copy), chosen by the caller: flash_dq_scalar_launch /
+//   flash_dkv_scalar_launch.
 //
 // Each entry point launches on the given stream and returns the
 // cudaError_t of the launch.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -243,11 +259,212 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// backward: dq per (q tile, head, batch row) over the band KV tiles
+// backward
 // ---------------------------------------------------------------------------
+//
+// Thread t of a block owns rows tr + 16i (i < 4) and columns tc + 8j (j < 8)
+// of a 64x64 score tile (tr = t / 8, tc = t % 8) and channels 4tc + 32h + e
+// (e < 4) of a 64 x hd output tile.  Operand tiles are staged as f32
+// [row][channel] with rows of hd + 4 floats: the 8 threads of a quarter warp
+// read 8 rows tc + 8j at one channel, which lie on 8 different 16-byte bank
+// groups, or one row (a broadcast).  Score tiles are [row][column] with rows
+// of 72 floats, so a warp's 32 scalar stores hit 32 banks.
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(
+namespace bwd {
+
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 128;
+constexpr int kLdS = kTile + 8;  // padded row of a staged score tile
+constexpr int kMaxCluster = 8;   // the portable cluster size
+
+template <int HD>
+struct Geo {
+  static constexpr int kLd = HD + 4;          // padded [row][channel] row
+  static constexpr int kTileF = kTile * kLd;  // floats of a staged tile
+  static constexpr int kScoreF = kTile * kLdS;
+  static constexpr int kNH = HD / 32;         // float4 channel groups
+  // dq: q, dO, two k stages, v, ds.  dk/dv: k, v, two q stages, dO, p/ds,
+  // two lse stages and delta.
+  static constexpr size_t kDqSmem = sizeof(float) * (5 * kTileF + kScoreF);
+  static constexpr size_t kDkvSmem =
+      sizeof(float) * (5 * kTileF + kScoreF + 3 * kTile);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// cp.async of 4 or 16 bytes; !ok zero-fills the destination and reads
+// nothing (src must still be a valid address)
+__device__ __forceinline__ void cp_async4(float* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [first, first + 64) of an (S, HD) slice with row stride `rs` into a
+// staged tile; rows at or beyond n are zero.  VEC: 16 bytes a read (f32 by
+// cp.async, bf16 eight at a time through registers); else one element a
+// read (f32 by cp.async, bf16 through registers).
+template <typename T, int HD, bool VEC>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src,
+                                           long long rs, int first, int n) {
+  constexpr int kLd = Geo<HD>::kLd;
+  constexpr int E = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int kPerRow = HD / E;
+  static_assert(kTile * kPerRow % kThreads == 0, "whole reads per thread");
+#pragma unroll
+  for (int i = 0; i < kTile * kPerRow / kThreads; ++i) {
+    const int e = static_cast<int>(threadIdx.x) + i * kThreads;
+    const int r = e / kPerRow, c = (e % kPerRow) * E;
+    const bool ok = first + r < n;
+    const T* p = ok ? src + (first + r) * rs + c : src;
+    float* to = dst + r * kLd + c;
+    if constexpr (sizeof(T) == 4) {
+      if constexpr (VEC)
+        cp_async16(to, p, ok);
+      else
+        cp_async4(to, p, ok);
+    } else if constexpr (VEC) {
+      const uint4 raw =
+          ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 f0 = __bfloat1622float2(h2[0]);
+      const float2 f1 = __bfloat1622float2(h2[1]);
+      const float2 f2 = __bfloat1622float2(h2[2]);
+      const float2 f3 = __bfloat1622float2(h2[3]);
+      *reinterpret_cast<float4*>(to) = make_float4(f0.x, f0.y, f1.x, f1.y);
+      *reinterpret_cast<float4*>(to + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
+    } else {
+      *to = ok ? __bfloat162float(*p) : 0.f;
+    }
+  }
+}
+
+// 64 values src[first + i] (zero at or beyond n) into dst[i], by threads
+// [lane0, lane0 + 64)
+__device__ __forceinline__ void stage_row(float* dst, const float* src,
+                                          int first, int n, int lane0) {
+  const int i = static_cast<int>(threadIdx.x) - lane0;
+  if (i >= 0 && i < kTile) {
+    const bool ok = first + i < n;
+    cp_async4(dst + i, ok ? src + first + i : src, ok);
+  }
+}
+
+// acc[i][j] += a[tr + 16i] . b[tc + 8j]: rows of two staged tiles dotted
+// over their HD channels, 12 16-byte reads for 128 FMAs
+template <int HD>
+__device__ __forceinline__ void dot_rows(float (&acc)[4][8],
+                                         const float* __restrict__ a,
+                                         const float* __restrict__ b) {
+  constexpr int kLd = Geo<HD>::kLd;
+  const float* pa = a + (threadIdx.x >> 3) * kLd;
+  const float* pb = b + (threadIdx.x & 7) * kLd;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 av[4], bv[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(pa + 16 * i * kLd + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(pb + 8 * j * kLd + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float s = acc[i][j];
+        s = fmaf(av[i].x, bv[j].x, s);
+        s = fmaf(av[i].y, bv[j].y, s);
+        s = fmaf(av[i].z, bv[j].z, s);
+        acc[i][j] = fmaf(av[i].w, bv[j].w, s);
+      }
+  }
+}
+
+// acc[i][4h + e] += sum_c s[tr + 16i][c] m[c][4tc + 32h + e]: a staged
+// score tile times a staged tile, (4 + 4 HD/32) 16-byte reads for
+// 4 x 4 x HD/8 FMAs
+template <int HD>
+__device__ __forceinline__ void score_times(float (&acc)[4][HD / 8],
+                                            const float* __restrict__ s,
+                                            const float* __restrict__ m) {
+  constexpr int kLd = Geo<HD>::kLd, kNH = Geo<HD>::kNH;
+  const float* ps = s + (threadIdx.x >> 3) * kLdS;
+  const float* pm = m + 4 * (threadIdx.x & 7);
+#pragma unroll 2
+  for (int c = 0; c < kTile; c += 4) {
+    float4 sv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sv[i] = *reinterpret_cast<const float4*>(ps + 16 * i * kLdS + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float4 mv[kNH];
+#pragma unroll
+      for (int h = 0; h < kNH; ++h)
+        mv[h] = *reinterpret_cast<const float4*>(pm + (c + cc) * kLd + 32 * h);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = cc == 0   ? sv[i].x
+                        : cc == 1 ? sv[i].y
+                        : cc == 2 ? sv[i].z
+                                  : sv[i].w;
+#pragma unroll
+        for (int h = 0; h < kNH; ++h) {
+          acc[i][4 * h] = fmaf(a, mv[h].x, acc[i][4 * h]);
+          acc[i][4 * h + 1] = fmaf(a, mv[h].y, acc[i][4 * h + 1]);
+          acc[i][4 * h + 2] = fmaf(a, mv[h].z, acc[i][4 * h + 2]);
+          acc[i][4 * h + 3] = fmaf(a, mv[h].w, acc[i][4 * h + 3]);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(a, b);
+  reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(c, d);
+}
+
+// the band's tiles along one axis: [lo, hi] of the n tiles t for which
+// `hit(t)`; they are contiguous, and lo > hi when there are none
+template <class F>
+__device__ __forceinline__ int2 tile_range(int n, F hit) {
+  int lo = 0, hi = n - 1;
+  while (lo <= hi && !hit(lo)) ++lo;
+  while (hi >= lo && !hit(hi)) --hi;
+  return make_int2(lo, hi);
+}
+
+// dq per (64-row tile, head, batch row): grid (B*H, Sq/64), q tiles in
+// reverse order, over the band's k tiles.  Per k tile: s = q k^T and
+// p (registers), dp = dO v^T and ds (registers, then staged), dq += ds k;
+// the next k tile (second stage) and v tile load meanwhile.
+template <typename T, int HD, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2) flash_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int sq,
@@ -255,113 +472,105 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long do_sb, long long do_ss,
     long long do_sh, float scale, Band band) {
-  constexpr int LD = HD + 1;
-  constexpr int NJ = HD / 16;
-  extern __shared__ float smem[];
-  float* sq_t = smem;                  // 64 x LD
-  float* sdo_t = sq_t + kTile * LD;    // 64 x LD
-  float* sk_t = sdo_t + kTile * LD;    // 64 x LD
-  float* sv_t = sk_t + kTile * LD;     // 64 x LD
-  float* sds_t = sv_t + kTile * LD;    // 64 x kPad
+  using G = Geo<HD>;
+  extern __shared__ __align__(16) float bsmem[];
+  float* s_q = bsmem;
+  float* s_do = s_q + G::kTileF;
+  float* s_k = s_do + G::kTileF;  // two stages
+  float* s_v = s_k + 2 * G::kTileF;
+  float* s_ds = s_v + G::kTileF;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q_first = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
+  const int h = blockIdx.x % n_heads, b = blockIdx.x / n_heads;
+  const int q_first = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int kvh = h / group;
   const T* kb = k + b * k_sb + kvh * k_sh;
   const T* vb = v + b * v_sb + kvh * v_sh;
+  const int2 kr = tile_range((band.skv + kTile - 1) / kTile, [&](int t) {
+    return band.tiles(q_first, t * kTile);
+  });
 
-  load_tile<T, HD>(sq_t, q + b * q_sb + h * q_sh, q_ss, q_first, sq);
-  load_tile<T, HD>(sdo_t, dout + b * do_sb + h * do_sh, do_ss, q_first, sq);
-  float row_lse[4], row_delta[4], acc[4][NJ];
+  stage_tile<T, HD, VEC>(s_q, q + b * q_sb + h * q_sh, q_ss, q_first, sq);
+  stage_tile<T, HD, VEC>(s_do, dout + b * do_sb + h * do_sh, do_ss, q_first,
+                         sq);
+  cp_async_commit();
+  if (kr.x <= kr.y) {
+    stage_tile<T, HD, VEC>(s_k, kb, k_ss, kr.x * kTile, band.skv);
+    cp_async_commit();
+    stage_tile<T, HD, VEC>(s_v, vb, v_ss, kr.x * kTile, band.skv);
+    cp_async_commit();
+  }
+  float row_lse[4], row_delta[4], acc[4][HD / 8];
   const long long row0 = (static_cast<long long>(b) * n_heads + h) * sq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qi = q_first + ty + 16 * i;
+    const int qi = q_first + tr + 16 * i;
     row_lse[i] = qi < sq ? lse[row0 + qi] : 0.f;
     row_delta[i] = qi < sq ? delta[row0 + qi] : 0.f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < HD / 8; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_kt = (band.skv + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kr.x; kt <= kr.y; ++kt) {
     const int k_first = kt * kTile;
-    if (!band.tiles(q_first, k_first)) continue;
+    const float* s_kc = s_k + ((kt - kr.x) & 1) * G::kTileF;
+    cp_async_wait<1>();  // q, dO and this k tile have landed (v may not)
     __syncthreads();
-    load_tile<T, HD>(sk_t, kb, k_ss, k_first, band.skv);
-    load_tile<T, HD>(sv_t, vb, v_ss, k_first, band.skv);
+    float p[4][8] = {};
+    dot_rows<HD>(p, s_q, s_kc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q_first + tr + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool ok = qi < sq && band.valid(qi, k_first + tc + 8 * j);
+        p[i][j] = ok ? expf(p[i][j] * scale - row_lse[i]) : 0.f;
+      }
+    }
+    cp_async_wait<0>();  // this v tile
     __syncthreads();
-
-    float s[4][4], dp[4][4];
+    float dp[4][8] = {};
+    dot_rows<HD>(dp, s_do, s_v);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sq_t[(ty + 16 * i) * LD + d];
-        dov[i] = sdo_t[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sk_t[(tx + 16 * j) * LD + d];
-        vv[j] = sv_t[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-        }
+      for (int j = 0; j < 8; ++j)
+        s_ds[(tr + 16 * i) * kLdS + tc + 8 * j] =
+            p[i][j] * (dp[i][j] - row_delta[i]);
+    __syncthreads();  // ds is staged; v and the other k stage are free
+    if (kt < kr.y) {
+      stage_tile<T, HD, VEC>(s_k + ((kt + 1 - kr.x) & 1) * G::kTileF, kb,
+                             k_ss, k_first + kTile, band.skv);
+      cp_async_commit();
+      stage_tile<T, HD, VEC>(s_v, vb, v_ss, k_first + kTile, band.skv);
+      cp_async_commit();
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q_first + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = band.valid(qi, k_first + tx + 16 * j);
-        const float p = ok ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
-        sds_t[(ty + 16 * i) * kPad + tx + 16 * j] =
-            p * (dp[i][j] - row_delta[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float kv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = sk_t[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = sds_t[(ty + 16 * i) * kPad + c];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(ds, kv[j], acc[i][j]);
-      }
-    }
+    score_times<HD>(acc, s_ds, s_kc);
   }
+  cp_async_wait<0>();  // a block with no band tile still staged q and dO
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qi = q_first + ty + 16 * i;
+    const int qi = q_first + tr + 16 * i;
     if (qi >= sq) continue;
     T* row = dq + ((static_cast<long long>(b) * sq + qi) * n_heads + h) * HD;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = from_f32<T>(acc[i][j] * scale);
+    for (int c = 0; c < G::kNH; ++c)
+      store4(row + 4 * tc + 32 * c, acc[i][4 * c] * scale,
+             acc[i][4 * c + 1] * scale, acc[i][4 * c + 2] * scale,
+             acc[i][4 * c + 3] * scale);
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward: dk and dv per (KV tile, KV head, batch row), summed over the G
-// query heads of the group and their band q tiles
-// ---------------------------------------------------------------------------
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
+// dk and dv per (64-key tile, KV head, batch row): a cluster of min(G, 8)
+// blocks along x, grid (ranks*K*B, Skv/64), key tile 0 (the heaviest under
+// a causal band) first.  Block `rank` walks heads rank, rank + ranks, ... of
+// the group and, for each, the band's q tiles: s^T = k q^T and p (staged as
+// [key][query]), dv += p dO, dp^T = v dO^T and ds, then (staged) dk += ds q;
+// the next q tile loads meanwhile, the dO tile during the s product.  The
+// cluster sums the blocks' register partials in rank order.
+template <typename T, int HD, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
@@ -370,137 +579,151 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long do_sb, long long do_ss, long long do_sh, float scale,
     Band band) {
-  constexpr int LD = HD + 1;
-  constexpr int NJ = HD / 16;
-  extern __shared__ float smem[];
-  float* sk_t = smem;                  // 64 x LD  keys of this block
-  float* sv_t = sk_t + kTile * LD;     // 64 x LD
-  float* sq_t = sv_t + kTile * LD;     // 64 x LD  current q tile
-  float* sdo_t = sq_t + kTile * LD;    // 64 x LD
-  float* sp_t = sdo_t + kTile * LD;    // 64 keys x kPad queries
+  using G = Geo<HD>;
+  extern __shared__ __align__(16) float bsmem[];
+  float* s_k = bsmem;
+  float* s_v = s_k + G::kTileF;
+  float* s_q = s_v + G::kTileF;  // two stages
+  float* s_do = s_q + 2 * G::kTileF;
+  float* s_ps = s_do + G::kTileF;         // p, then ds: [key][query]
+  float* s_lse = s_ps + G::kScoreF;       // two stages
+  float* s_delta = s_lse + 2 * kTile;
 
-  // keys c_i = ty + 16 i; queries r_j = tx + 16 j; channels tx + 16 j
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k_first = blockIdx.x * kTile;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  load_tile<T, HD>(sk_t, k + b * k_sb + kvh * k_sh, k_ss, k_first, band.skv);
-  load_tile<T, HD>(sv_t, v + b * v_sb + kvh * v_sh, v_ss, k_first, band.skv);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
+  const int unit = blockIdx.x / ranks;
+  const int kvh = unit % n_kv_heads, b = unit / n_kv_heads;
+  const int k_first = blockIdx.y * kTile;
+  const int2 qr = tile_range((sq + kTile - 1) / kTile, [&](int t) {
+    return band.tiles(t * kTile, k_first);
+  });
+  const int per_head = qr.y - qr.x + 1;  // q tiles of one head
+  const int items =
+      per_head > 0 ? (group - rank + ranks - 1) / ranks * per_head : 0;
+  // item n: head kvh*group + rank + ranks*(n / per_head), q tile
+  // qr.x + n % per_head
+  auto head_of = [&](int n) {
+    return kvh * group + rank + ranks * (n / per_head);
+  };
+  auto first_of = [&](int n) { return (qr.x + n % per_head) * kTile; };
+  auto stage_q = [&](int n) {
+    const int h = head_of(n), first = first_of(n);
+    stage_tile<T, HD, VEC>(s_q + (n & 1) * G::kTileF, q + b * q_sb + h * q_sh,
+                           q_ss, first, sq);
+    stage_row(s_lse + (n & 1) * kTile,
+              lse + (static_cast<long long>(b) * n_heads + h) * sq, first, sq,
+              0);
+  };
 
-  float dk_acc[4][NJ], dv_acc[4][NJ];
+  stage_tile<T, HD, VEC>(s_k, k + b * k_sb + kvh * k_sh, k_ss, k_first,
+                         band.skv);
+  stage_tile<T, HD, VEC>(s_v, v + b * v_sb + kvh * v_sh, v_ss, k_first,
+                         band.skv);
+  if (items > 0) stage_q(0);
+  cp_async_commit();
+
+  float dk_acc[4][HD / 8], dv_acc[4][HD / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int c = 0; c < HD / 8; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  const int n_qt = (sq + kTile - 1) / kTile;
-  for (int g = 0; g < group; ++g) {
-    const int h = kvh * group + g;
-    const long long row0 = (static_cast<long long>(b) * n_heads + h) * sq;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int q_first = qt * kTile;
-      if (!band.tiles(q_first, k_first)) continue;
-      __syncthreads();  // the previous q tile's readers are done
-      load_tile<T, HD>(sq_t, q + b * q_sb + h * q_sh, q_ss, q_first, sq);
-      load_tile<T, HD>(sdo_t, dout + b * do_sb + h * do_sh, do_ss, q_first,
-                       sq);
-      float col_lse[4], col_delta[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = q_first + tx + 16 * j;
-        col_lse[j] = qi < sq ? lse[row0 + qi] : 0.f;
-        col_delta[j] = qi < sq ? delta[row0 + qi] : 0.f;
-      }
-      __syncthreads();
+  for (int n = 0; n < items; ++n) {
+    const int h = head_of(n), q_first = first_of(n);
+    const float* s_qc = s_q + (n & 1) * G::kTileF;
+    const float* s_lc = s_lse + (n & 1) * kTile;
+    cp_async_wait<0>();  // this q tile (and k, v) have landed
+    __syncthreads();     // ... for all; the previous item's products are done
+    stage_tile<T, HD, VEC>(s_do, dout + b * do_sb + h * do_sh, do_ss,
+                           q_first, sq);
+    stage_row(s_delta, delta + (static_cast<long long>(b) * n_heads + h) * sq,
+              q_first, sq, kTile);
+    cp_async_commit();
+    if (n + 1 < items) stage_q(n + 1);
+    cp_async_commit();
 
-      float s[4][4], dp[4][4];
+    float s[4][8] = {};
+    dot_rows<HD>(s, s_k, s_qc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
+      const int kj = k_first + tr + 16 * i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < HD; ++d) {
-        float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = sk_t[(ty + 16 * i) * LD + d];
-          vv[i] = sv_t[(ty + 16 * i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = sq_t[(tx + 16 * j) * LD + d];
-          dov[j] = sdo_t[(tx + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
-          }
-      }
-      float ds[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kj = k_first + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qi = q_first + tx + 16 * j;
-          const bool ok = qi < sq && band.valid(qi, kj);
-          const float p = ok ? expf(s[i][j] * scale - col_lse[j]) : 0.f;
-          ds[i][j] = p * (dp[i][j] - col_delta[j]);
-          sp_t[(ty + 16 * i) * kPad + tx + 16 * j] = p;
-        }
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float dov[NJ];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dov[j] = sdo_t[r * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = sp_t[(ty + 16 * i) * kPad + r];
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            dv_acc[i][j] = fmaf(p, dov[j], dv_acc[i][j]);
-        }
-      }
-      __syncthreads();  // p is read; the tile now takes ds
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          sp_t[(ty + 16 * i) * kPad + tx + 16 * j] = ds[i][j];
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float qv[NJ];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) qv[j] = sq_t[r * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float dsv = sp_t[(ty + 16 * i) * kPad + r];
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            dk_acc[i][j] = fmaf(dsv, qv[j], dk_acc[i][j]);
-        }
+      for (int j = 0; j < 8; ++j) {
+        const int qi = q_first + tc + 8 * j;
+        const bool ok = qi < sq && band.valid(qi, kj);
+        s_ps[(tr + 16 * i) * kLdS + tc + 8 * j] =
+            ok ? expf(s[i][j] * scale - s_lc[tc + 8 * j]) : 0.f;
       }
     }
-  }
-
+    cp_async_wait<1>();  // this dO tile and delta (the next q may not)
+    __syncthreads();
+    score_times<HD>(dv_acc, s_ps, s_do);
+    float dp[4][8] = {};
+    dot_rows<HD>(dp, s_v, s_do);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k_first + ty + 16 * i;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        dp[i][j] = s_ps[(tr + 16 * i) * kLdS + tc + 8 * j] *
+                   (dp[i][j] - s_delta[tc + 8 * j]);
+    __syncthreads();  // every thread has read p
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        s_ps[(tr + 16 * i) * kLdS + tc + 8 * j] = dp[i][j];
+    __syncthreads();
+    score_times<HD>(dk_acc, s_ps, s_qc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the tile buffers now take this block's partials
+
+  float* part = bsmem;  // [2][64][HD]: dk, then dv
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < G::kNH; ++c) {
+      const int at = (tr + 16 * i) * HD + 4 * tc + 32 * c;
+      store4(part + at, dk_acc[i][4 * c], dk_acc[i][4 * c + 1],
+             dk_acc[i][4 * c + 2], dk_acc[i][4 * c + 3]);
+      store4(part + kTile * HD + at, dv_acc[i][4 * c], dv_acc[i][4 * c + 1],
+             dv_acc[i][4 * c + 2], dv_acc[i][4 * c + 3]);
+    }
+  cluster.sync();  // every partial of the cluster is written
+
+  // block `rank` sums its share of the float4s over the ranks, in order
+  constexpr int kNV = 2 * kTile * HD / 4;
+  const int share = (kNV + ranks - 1) / ranks;
+  const int end = min(kNV, (rank + 1) * share);
+  for (int e = rank * share + static_cast<int>(threadIdx.x); e < end;
+       e += kThreads) {
+    float4 sum = reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(part, 0))[e];
+    for (int r = 1; r < ranks; ++r) {
+      const float4 x = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, r))[e];
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    const bool is_dv = e >= kNV / 2;
+    const int key = (e / (HD / 4)) % kTile, ch = (e % (HD / 4)) * 4;
+    const int kj = k_first + key;
     if (kj >= band.skv) continue;
-    const long long off =
-        ((static_cast<long long>(b) * band.skv + kj) * n_kv_heads + kvh) * HD;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[off + tx + 16 * j] = from_f32<T>(dk_acc[i][j] * scale);
-      dv[off + tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
-    }
+    const long long at =
+        ((static_cast<long long>(b) * band.skv + kj) * n_kv_heads + kvh) * HD +
+        ch;
+    const float f = is_dv ? 1.f : scale;
+    store4((is_dv ? dv : dk) + at, sum.x * f, sum.y * f, sum.z * f,
+           sum.w * f);
   }
+  cluster.sync();  // no block leaves while another reads its partial
 }
+
+}  // namespace bwd
 
 // ---------------------------------------------------------------------------
 // launches
@@ -508,9 +731,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 
 constexpr size_t fwd_smem(int hd) {
   return sizeof(float) * (3 * kTile * (hd + 1) + kTile * kPad);
-}
-constexpr size_t bwd_smem(int hd) {
-  return sizeof(float) * (4 * kTile * (hd + 1) + kTile * kPad);
 }
 
 // kernels whose shared memory exceeds the default 48 KB must opt in once
@@ -524,6 +744,14 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 struct Strides {
   long long sb, ss, sh;
 };
+
+// the 16-byte route reads rows whose base and every stride are whole
+// multiples of 16 bytes
+bool rows16(const void* p, Strides s, int elem) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0 &&
+         (s.sb * elem) % 16 == 0 && (s.ss * elem) % 16 == 0 &&
+         (s.sh * elem) % 16 == 0;
+}
 
 template <typename T, int HD>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
@@ -542,54 +770,142 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq_out, int batch,
-               int sq, int n_heads, int group, Strides qs, Strides ks,
-               Strides vs, Strides dos, float scale, Band band,
-               cudaStream_t stream) {
-  const size_t smem = bwd_smem(HD);
-  cudaError_t err = allow_smem(flash_dq_kernel<T, HD>, smem);
+// the backward's operands and shape, as each entry point receives them
+struct BwdArgs {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  int batch, sq, n_heads, n_kv_heads, group;
+  Strides qs, ks, vs, dos;
+  float scale;
+  Band band;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, bool VEC>
+cudaError_t dq(const BwdArgs& a, void* dq_out) {
+  using G = bwd::Geo<HD>;
+  auto kernel = bwd::flash_dq_kernel<T, HD, VEC>;
+  cudaError_t err = allow_smem(kernel, G::kDqSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kTile - 1) / kTile, n_heads, batch);
-  flash_dq_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq_out), sq, n_heads, group, qs.sb, qs.ss, qs.sh, ks.sb,
-      ks.ss, ks.sh, vs.sb, vs.ss, vs.sh, dos.sb, dos.ss, dos.sh, scale, band);
+  const dim3 grid(a.batch * a.n_heads, (a.sq + kTile - 1) / kTile);
+  kernel<<<grid, bwd::kThreads, G::kDqSmem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(dq_out), a.sq, a.n_heads, a.group, a.qs.sb, a.qs.ss,
+      a.qs.sh, a.ks.sb, a.ks.ss, a.ks.sh, a.vs.sb, a.vs.ss, a.vs.sh,
+      a.dos.sb, a.dos.ss, a.dos.sh, a.scale, a.band);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dk, void* dv,
-                int batch, int sq, int n_heads, int n_kv_heads, int group,
-                Strides qs, Strides ks, Strides vs, Strides dos, float scale,
-                Band band, cudaStream_t stream) {
-  const size_t smem = bwd_smem(HD);
-  cudaError_t err = allow_smem(flash_dkv_kernel<T, HD>, smem);
+template <typename T, int HD, bool VEC>
+cudaError_t dkv(const BwdArgs& a, void* dk, void* dv) {
+  using G = bwd::Geo<HD>;
+  auto kernel = bwd::flash_dkv_kernel<T, HD, VEC>;
+  cudaError_t err = allow_smem(kernel, G::kDkvSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((band.skv + kTile - 1) / kTile, n_kv_heads, batch);
-  flash_dkv_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, n_heads, n_kv_heads,
-      group, qs.sb, qs.ss, qs.sh, ks.sb, ks.ss, ks.sh, vs.sb, vs.ss, vs.sh,
-      dos.sb, dos.ss, dos.sh, scale, band);
+  const int ranks = a.group < bwd::kMaxCluster ? a.group : bwd::kMaxCluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks * a.n_kv_heads * a.batch,
+                     (a.band.skv + kTile - 1) / kTile);
+  cfg.blockDim = dim3(bwd::kThreads);
+  cfg.dynamicSmemBytes = G::kDkvSmem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), a.sq, a.n_heads,
+      a.n_kv_heads, a.group, a.qs.sb, a.qs.ss, a.qs.sh, a.ks.sb, a.ks.ss,
+      a.ks.sh, a.vs.sb, a.vs.ss, a.vs.sh, a.dos.sb, a.dos.ss, a.dos.sh,
+      a.scale, a.band);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 bool bad_shape(int batch, int sq, int skv, int n_heads, int n_kv_heads) {
   return batch < 1 || batch > 65535 || sq < 1 || skv < 1 || n_heads < 1 ||
-         n_heads > 65535 || n_kv_heads < 1 || n_heads % n_kv_heads != 0;
+         n_heads > 65535 || n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
+         static_cast<long long>(batch) * n_heads > (1LL << 30) ||
+         (sq + kTile - 1) / kTile > 65535 || (skv + kTile - 1) / kTile > 65535;
 }
 
 Band make_band(int causal, int window, int sq, int skv) {
   // rows are the LAST sq queries of the skv-long sequence, as in the
   // reference sdpa; a window applies to causal attention only
   return Band{causal != 0, causal ? window : 0, causal ? skv - sq : 0, skv};
+}
+
+// the backward's checks and (dtype, hd) dispatch; VEC: the 16-byte route,
+// which refuses operands it cannot read 16 bytes at a time
+template <bool VEC, class Launch>
+int bwd_entry(int dtype, int hd, const BwdArgs& a, Launch launch) {
+  const int elem = dtype == 1 ? 2 : 4;
+  if (VEC && !(rows16(a.q, a.qs, elem) && rows16(a.k, a.ks, elem) &&
+               rows16(a.v, a.vs, elem) && rows16(a.dout, a.dos, elem)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (dtype == 0 && hd == 64)
+    err = launch(float{}, std::integral_constant<int, 64>{});
+  else if (dtype == 0 && hd == 128)
+    err = launch(float{}, std::integral_constant<int, 128>{});
+  else if (dtype == 1 && hd == 64)
+    err = launch(__nv_bfloat16{}, std::integral_constant<int, 64>{});
+  else if (dtype == 1 && hd == 128)
+    err = launch(__nv_bfloat16{}, std::integral_constant<int, 128>{});
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+template <bool VEC>
+int dq_entry(int dtype, int hd, const void* q, const void* k, const void* v,
+             const void* dout, const void* lse, const void* delta,
+             void* dq_out, int batch, int sq, int skv, int n_heads,
+             int n_kv_heads, long long q_sb, long long q_ss, long long q_sh,
+             long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+             long long v_ss, long long v_sh, long long do_sb, long long do_ss,
+             long long do_sh, float scale, int causal, int window,
+             void* stream) {
+  if (bad_shape(batch, sq, skv, n_heads, n_kv_heads) || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{q, k, v, dout, lse, delta, batch, sq, n_heads, n_kv_heads,
+                  n_heads / n_kv_heads, Strides{q_sb, q_ss, q_sh},
+                  Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh},
+                  Strides{do_sb, do_ss, do_sh}, scale,
+                  make_band(causal, window, sq, skv),
+                  static_cast<cudaStream_t>(stream)};
+  return bwd_entry<VEC>(dtype, hd, a, [&](auto t, auto h) {
+    return dq<decltype(t), decltype(h)::value, VEC>(a, dq_out);
+  });
+}
+
+template <bool VEC>
+int dkv_entry(int dtype, int hd, const void* q, const void* k, const void* v,
+              const void* dout, const void* lse, const void* delta, void* dk,
+              void* dv, int batch, int sq, int skv, int n_heads,
+              int n_kv_heads, long long q_sb, long long q_ss, long long q_sh,
+              long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+              long long v_ss, long long v_sh, long long do_sb,
+              long long do_ss, long long do_sh, float scale, int causal,
+              int window, void* stream) {
+  if (bad_shape(batch, sq, skv, n_heads, n_kv_heads) || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{q, k, v, dout, lse, delta, batch, sq, n_heads, n_kv_heads,
+                  n_heads / n_kv_heads, Strides{q_sb, q_ss, q_sh},
+                  Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh},
+                  Strides{do_sb, do_ss, do_sh}, scale,
+                  make_band(causal, window, sq, skv),
+                  static_cast<cudaStream_t>(stream)};
+  return bwd_entry<VEC>(dtype, hd, a, [&](auto t, auto h) {
+    return dkv<decltype(t), decltype(h)::value, VEC>(a, dk, dv);
+  });
 }
 
 }  // namespace
@@ -599,7 +915,9 @@ Band make_band(int causal, int window, int sq, int skv) {
 // through the given element strides (batch, sequence, head) with unit
 // channel stride.  Outputs are contiguous: out and dq (B,Sq,H,hd), dk and dv
 // (B,Skv,K,hd), lse and delta (B,H,Sq) f32.  Each returns the cudaError_t of
-// its launch.
+// its launch.  flash_dq_launch and flash_dkv_launch stage 16 bytes a read
+// and refuse (cudaErrorInvalidValue) operands whose base or strides are no
+// multiple of 16 bytes; the *_scalar_launch entry points take any strides.
 extern "C" int flash_fwd_launch(
     int dtype, int hd, const void* q, const void* k, const void* v, void* out,
     void* lse, int batch, int sq, int skv, int n_heads, int n_kv_heads,
@@ -630,76 +948,42 @@ extern "C" int flash_fwd_launch(
   return static_cast<int>(err);
 }
 
-extern "C" int flash_dq_launch(
-    int dtype, int hd, const void* q, const void* k, const void* v,
-    const void* dout, const void* lse, const void* delta, void* dq_out,
-    int batch, int sq, int skv, int n_heads, int n_kv_heads, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long do_sb, long long do_ss, long long do_sh, float scale,
-    int causal, int window, void* stream) {
-  if (bad_shape(batch, sq, skv, n_heads, n_kv_heads) || window < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int group = n_heads / n_kv_heads;
-  const Band band = make_band(causal, window, sq, skv);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
-      vs{v_sb, v_ss, v_sh}, dos{do_sb, do_ss, do_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0 && hd == 64)
-    err = dq<float, 64>(q, k, v, dout, lse, delta, dq_out, batch, sq, n_heads,
-                        group, qs, ks, vs, dos, scale, band, s);
-  else if (dtype == 0 && hd == 128)
-    err = dq<float, 128>(q, k, v, dout, lse, delta, dq_out, batch, sq,
-                         n_heads, group, qs, ks, vs, dos, scale, band, s);
-  else if (dtype == 1 && hd == 64)
-    err = dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq_out, batch, sq,
-                                n_heads, group, qs, ks, vs, dos, scale, band,
-                                s);
-  else if (dtype == 1 && hd == 128)
-    err = dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq_out, batch,
-                                 sq, n_heads, group, qs, ks, vs, dos, scale,
-                                 band, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
-}
+#define FLASH_DQ_PARAMS                                                     \
+  int dtype, int hd, const void *q, const void *k, const void *v,           \
+      const void *dout, const void *lse, const void *delta, void *dq_out,   \
+      int batch, int sq, int skv, int n_heads, int n_kv_heads,              \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,       \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,       \
+      long long v_sh, long long do_sb, long long do_ss, long long do_sh,    \
+      float scale, int causal, int window, void *stream
+#define FLASH_DQ_ARGS                                                       \
+  dtype, hd, q, k, v, dout, lse, delta, dq_out, batch, sq, skv, n_heads,    \
+      n_kv_heads, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,     \
+      do_sb, do_ss, do_sh, scale, causal, window, stream
+#define FLASH_DKV_PARAMS                                                    \
+  int dtype, int hd, const void *q, const void *k, const void *v,           \
+      const void *dout, const void *lse, const void *delta, void *dk,       \
+      void *dv, int batch, int sq, int skv, int n_heads, int n_kv_heads,    \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,       \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,       \
+      long long v_sh, long long do_sb, long long do_ss, long long do_sh,    \
+      float scale, int causal, int window, void *stream
+#define FLASH_DKV_ARGS                                                      \
+  dtype, hd, q, k, v, dout, lse, delta, dk, dv, batch, sq, skv, n_heads,    \
+      n_kv_heads, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,     \
+      do_sb, do_ss, do_sh, scale, causal, window, stream
 
-extern "C" int flash_dkv_launch(
-    int dtype, int hd, const void* q, const void* k, const void* v,
-    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-    int batch, int sq, int skv, int n_heads, int n_kv_heads, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long do_sb, long long do_ss, long long do_sh, float scale,
-    int causal, int window, void* stream) {
-  if (bad_shape(batch, sq, skv, n_heads, n_kv_heads) || window < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int group = n_heads / n_kv_heads;
-  const Band band = make_band(causal, window, sq, skv);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
-      vs{v_sb, v_ss, v_sh}, dos{do_sb, do_ss, do_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0 && hd == 64)
-    err = dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, batch, sq,
-                         n_heads, n_kv_heads, group, qs, ks, vs, dos, scale,
-                         band, s);
-  else if (dtype == 0 && hd == 128)
-    err = dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, batch, sq,
-                          n_heads, n_kv_heads, group, qs, ks, vs, dos, scale,
-                          band, s);
-  else if (dtype == 1 && hd == 64)
-    err = dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, batch, sq,
-                                 n_heads, n_kv_heads, group, qs, ks, vs, dos,
-                                 scale, band, s);
-  else if (dtype == 1 && hd == 128)
-    err = dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, batch,
-                                  sq, n_heads, n_kv_heads, group, qs, ks, vs,
-                                  dos, scale, band, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+extern "C" int flash_dq_launch(FLASH_DQ_PARAMS) {
+  return dq_entry<true>(FLASH_DQ_ARGS);
+}
+extern "C" int flash_dq_scalar_launch(FLASH_DQ_PARAMS) {
+  return dq_entry<false>(FLASH_DQ_ARGS);
+}
+extern "C" int flash_dkv_launch(FLASH_DKV_PARAMS) {
+  return dkv_entry<true>(FLASH_DKV_ARGS);
+}
+extern "C" int flash_dkv_scalar_launch(FLASH_DKV_PARAMS) {
+  return dkv_entry<false>(FLASH_DKV_ARGS);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -7,6 +7,12 @@ autograd) when the tensors lie on the CPU.  On CUDA tensors it launches the
 kernels through a ``torch.autograd.Function`` or raises: it checks device,
 dtype, head dim and layout first, and raises when a launch reports an
 error.  ``LAUNCHES`` counts kernel launches per kernel.
+
+The dq and dk/dv kernels stage their tiles 16 bytes a read; operands they
+cannot read that way (a base or a batch, sequence or head stride that is
+no multiple of 16 bytes) take the same kernels' scalar route, one element
+a read.  :func:`bwd_route` picks the route before the launch, and
+``ROUTES`` counts the backward's launches by route.
 """
 from __future__ import annotations
 
@@ -17,6 +23,10 @@ from repro_torch.kernels.flash_attention import ref
 
 #: Kernel launches per kernel; incremented only where a kernel is launched.
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+#: dq and dk/dv launches by route (:func:`bwd_route`).
+ROUTES = {"bwd_vec": 0, "bwd_scalar": 0}
+#: The 16-byte route reads rows whose base and strides are multiples of it.
+ALIGN = 16
 
 HEAD_DIMS = (64, 128)
 _LIB = "flash_attention"
@@ -24,8 +34,9 @@ _VP, _I, _LL, _F = ffi.VP, ffi.I, ffi.LL, ffi.F
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check_operands(q, k, v, window: int) -> None:
@@ -93,6 +104,23 @@ def _bwd_args(q, k, v, do, causal: bool, window: int) -> tuple:
 _BWD_TAIL = [_I] * 5 + [_LL] * 12 + [_F, _I, _I, _VP]
 
 
+def bwd_route(*ts: torch.Tensor) -> str:
+    """The backward's route for operands ``ts`` (q, k, v, dO): ``"vec"``
+    when each one's base address and batch, sequence and head strides are
+    multiples of 16 bytes, else ``"scalar"``.  Decided from strides and
+    base addresses alone, before any launch."""
+    def rows16(t):
+        return t.data_ptr() % ALIGN == 0 and all(
+            s * t.element_size() % ALIGN == 0 for s in t.stride()[:3])
+    return "vec" if all(rows16(t) for t in ts) else "scalar"
+
+
+def _bwd_fn(kernel: str, route: str, n_ptrs: int):
+    name = f"flash_{kernel}_launch" if route == "vec" else \
+        f"flash_{kernel}_scalar_launch"
+    return ffi.fn(_LIB, name, [_I, _I] + [_VP] * n_ptrs + _BWD_TAIL)
+
+
 def softmax_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = Σ_d dO·O per query row, (B,H,Sq) f32 — the softmax-Jacobian
     row correction of the backward (plain PyTorch, as the JAX wrapper
@@ -102,32 +130,38 @@ def softmax_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                        window: int = 0) -> torch.Tensor:
-    """dq kernel: (B,Sq,H,hd) in q.dtype."""
+    """dq kernel: (B,Sq,H,hd) in q.dtype; the route by :func:`bwd_route`."""
     _check_bwd(q, k, v, do, lse, delta, window)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    fn = ffi.fn(_LIB, "flash_dq_launch", [_I, _I] + [_VP] * 7 + _BWD_TAIL)
+    route = bwd_route(q, k, v, do)
+    fn = _bwd_fn("dq", route, 7)
     code = fn(ffi.DTYPE_CODE[q.dtype], q.shape[3], q.data_ptr(),
               k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
               delta.data_ptr(), dq.data_ptr(),
               *_bwd_args(q, k, v, do, causal, window))
     ffi.check(_LIB, code)
     LAUNCHES["flash_dq"] += 1
+    ROUTES[f"bwd_{route}"] += 1
     return dq
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                         window: int = 0) -> tuple:
-    """dk/dv kernel: (dk, dv), each (B,Skv,K,hd) in k.dtype."""
+    """dk/dv kernel: (dk, dv), each (B,Skv,K,hd) in k.dtype, each summed
+    over the G query heads of its KV head in a fixed order; the route by
+    :func:`bwd_route`."""
     _check_bwd(q, k, v, do, lse, delta, window)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    fn = ffi.fn(_LIB, "flash_dkv_launch", [_I, _I] + [_VP] * 8 + _BWD_TAIL)
+    route = bwd_route(q, k, v, do)
+    fn = _bwd_fn("dkv", route, 8)
     code = fn(ffi.DTYPE_CODE[q.dtype], q.shape[3], q.data_ptr(),
               k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
               delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
               *_bwd_args(q, k, v, do, causal, window))
     ffi.check(_LIB, code)
     LAUNCHES["flash_dkv"] += 1
+    ROUTES[f"bwd_{route}"] += 1
     return dk, dv
 
 

@@ -288,6 +288,104 @@ def test_fed_task_grads_through_flash_kernels_match_ref(cuda):
                                    rtol=1e-4, atol=1e-5)
 
 
+def _flash_bwd_vs_plain(q, k, v, do, dtype, causal=True, window=0):
+    """The backward kernels' (dq, dk, dv) held to the plain version's."""
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                     window=window)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                          window=window)
+    for got_g, want_g in zip(got, want):
+        _close(got_g, want_g, dtype)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
+    """Two backward calls on the same inputs give bitwise-equal dq, dk and
+    dv: the dk/dv cluster sums its heads' partials in rank order and no
+    f32 sum uses atomics."""
+    q, k, v, do = _flash_inputs(cuda, 2, 200, 12, 4, 64, dtype, 21)
+    out, lse = fa_ops.flash_attention_fwd(q, k, v)
+    first = fa_ops.flash_attention_bwd(q, k, v, out, lse, do)
+    second = fa_ops.flash_attention_bwd(q, k, v, out, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h,kh", [(12, 12), (12, 4), (16, 2), (16, 1)],
+                         ids=["G1", "G3", "G8", "MQA16"])
+def test_flash_backward_groups_at_ragged_length(cuda, h, kh):
+    """GQA groups of 1, 3, 8 and 16 (MQA: a cluster of 8 whose blocks take
+    two heads each) at S=200, no multiple of the 64-row tile."""
+    q, k, v, do = _flash_inputs(cuda, 2, 200, h, kh, 64, torch.float32,
+                                h + kh)
+    fa_ops.reset_launches()
+    _flash_bwd_vs_plain(q, k, v, do, torch.float32)
+    assert fa_ops.ROUTES == {"bwd_vec": 2, "bwd_scalar": 0}
+
+
+def test_flash_backward_long_causal_sequence(cuda):
+    """S=1024 causal: 16 tiles a side, more dq and dk/dv blocks than one
+    wave of the card, with band lengths 1 to 16."""
+    q, k, v, do = _flash_inputs(cuda, 4, 1024, 12, 4, 64, torch.float32, 5)
+    _flash_bwd_vs_plain(q, k, v, do, torch.float32)
+
+
+@pytest.mark.parametrize("s,window", [(512, 64), (512, 32), (300, 96)])
+def test_flash_backward_window_straddles_tiles(cuda, s, window):
+    """Sliding windows whose edge cuts through 64-wide tiles: a tile pair
+    can lie partly inside the band for one q tile and wholly outside for
+    the next."""
+    q, k, v, do = _flash_inputs(cuda, 2, s, 12, 4, 64, torch.float32,
+                                s + window)
+    _flash_bwd_vs_plain(q, k, v, do, torch.float32, window=window)
+
+
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_backward_fewer_queries_than_keys(cuda, window):
+    """Sq < Skv: the causal rows are the last Sq of the sequence, so the
+    band is offset by Skv - Sq, no multiple of the tile; keys before the
+    first row's band get zero dk and dv."""
+    g = torch.Generator(device=cuda).manual_seed(window + 3)
+    q, do = (torch.randn((2, 100, 12, 64), generator=g, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn((2, 228, 4, 64), generator=g, device=cuda)
+            for _ in range(2))
+    _flash_bwd_vs_plain(q, k, v, do, torch.float32, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_unaligned_view_takes_scalar_route(cuda, dtype):
+    """Operands one element past a 16-byte boundary take the scalar route,
+    which gives bitwise the 16-byte route's values; the 16-byte entry point
+    itself refuses them."""
+    q, k, v, do = _flash_inputs(cuda, 2, 200, 12, 4, 64, dtype, 17)
+
+    def moved(t):
+        buf = torch.empty((*t.shape[:-1], t.shape[-1] + 1), dtype=t.dtype,
+                          device=t.device)
+        buf[..., 1:] = t
+        return buf[..., 1:]
+    views = [moved(t) for t in (q, k, v, do)]
+    assert fa_ops.bwd_route(*views) == "scalar"
+    fa_ops.reset_launches()
+    got = _flash_bwd_vs_plain(*views, dtype)
+    assert fa_ops.ROUTES == {"bwd_vec": 0, "bwd_scalar": 2}
+    out, lse = fa_ops.flash_attention_fwd(q, k, v)
+    for a, b in zip(got, fa_ops.flash_attention_bwd(q, k, v, out, lse, do)):
+        assert torch.equal(a, b)
+    delta = fa_ops.softmax_delta(out, do)
+    fn = fa_ops._bwd_fn("dq", "vec", 7)
+    dq = torch.empty(q.shape, dtype=dtype, device=cuda)
+    code = fn(fa_ops.ffi.DTYPE_CODE[dtype], 64, views[0].data_ptr(),
+              k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), dq.data_ptr(),
+              *fa_ops._bwd_args(views[0], k, v, do, True, 0))
+    assert code != 0
+
+
 # ---------------------------------------------------------------------------
 # tri-LoRA projection: forward, dx and dW kernels
 # ---------------------------------------------------------------------------

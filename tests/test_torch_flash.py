@@ -124,3 +124,44 @@ def test_select_impl_matches_jax(cfg_impl, impl, seq, kw):
 def test_select_impl_rejects_unknown_backend():
     with pytest.raises(ValueError, match="unknown attn_impl"):
         attention.select_impl(None, 16, impl="xla-flash")
+
+
+def _moved(t, shift):
+    """t's values in a view whose rows start ``shift`` elements into a
+    buffer one row-width wider."""
+    buf = torch.zeros((*t.shape[:-1], t.shape[-1] + shift), dtype=t.dtype)
+    buf[..., shift:] = t
+    return buf[..., shift:]
+
+
+@pytest.mark.parametrize("dtype,make,want", [
+    (torch.float32, lambda t: t, "vec"),
+    (torch.bfloat16, lambda t: t, "vec"),
+    (torch.float32, lambda t: _moved(t, 1), "scalar"),      # odd row stride
+    (torch.float32, lambda t: _moved(t, 4), "vec"),         # 16-byte shift
+    (torch.bfloat16, lambda t: _moved(t, 4), "scalar"),     # 8-byte shift
+    (torch.bfloat16, lambda t: _moved(t, 8), "vec"),
+    (torch.float32, lambda t: t.transpose(1, 2).contiguous().transpose(1, 2),
+     "vec"),                                              # heads outermost
+], ids=["f32", "bf16", "f32+1", "f32+4", "bf16+4", "bf16+8", "f32-bhsd"])
+def test_bwd_route_follows_strides_and_alignment(dtype, make, want):
+    """The backward's route is chosen from base addresses and strides alone
+    before any launch: 16-byte rows take the 16-byte route, anything else
+    the scalar one, and one unaligned operand sends the call to it."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _inputs(2, 24, 4, 2, 64, 3))
+    ops = [make(t) for t in (q, k, v, do)]
+    assert fa_ops.bwd_route(*ops) == want
+    assert fa_ops.bwd_route(ops[0], k, v, do) == want
+    assert fa_ops.bwd_route(q, k, v, do) == "vec"
+
+
+def test_cpu_flash_counts_no_launch_or_route():
+    """On CPU tensors flash_attention runs its plain version: no kernel
+    launch and no backward route is counted."""
+    q, k, v, do = (torch.from_numpy(a).requires_grad_(True)
+                   for a in _inputs(1, 16, 4, 2, 16, 4))
+    fa_ops.reset_launches()
+    fa_ops.flash_attention(q, k, v, causal=True).backward(do.detach())
+    assert set(fa_ops.LAUNCHES.values()) == {0}
+    assert fa_ops.ROUTES == {"bwd_vec": 0, "bwd_scalar": 0}

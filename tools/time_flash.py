@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Time the flash-attention backward of one tree of this repository on the
+card, at the shapes ``chip_smoke.py`` times it (``FLASH_TIMED``: f32,
+causal, B=8, H=12, K=4, hd=64, S=256 and 512), so that two trees can be
+compared inside one run on one card:
+
+    python tools/time_flash.py [--tree DIR] [--label NAME]
+
+``DIR`` is the root of a checkout (default: this one); its
+``src/repro_torch`` is imported and its kernels are built under it.  Prints
+one JSON line per shape with the device time in µs of the dq kernel, the
+dk/dv kernel, ``flash_attention_bwd`` as the model runs it
+(``softmax_delta`` + dq + dk/dv) and ``scaled_dot_product_attention``'s
+backward (all three gradients) on the same inputs, each timed by
+``chip_smoke.time_ms`` (operands cycled through more copies than the L2
+holds, the stream held while the host enqueues) with the holds it used,
+and, where the tree counts them, the backward's routes; then the card's
+name and power limit.  Each tree's dq, dk and dv are held to the plain
+version at the f32 tolerance first.  To compare a change with its parent,
+run parent, change, change, parent in one call.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("time_flash: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
+    import chip_smoke as cs
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    calls = cs.flash_bwd_calls(fa_ops)
+    routes = getattr(fa_ops, "ROUTES", None) or {}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for (b, s, h, kh, hd) in cs.FLASH_TIMED:
+        sets = cs.flash_timed_sets(torch, fa_ops, dev, b, s, h, kh, hd, gen)
+        q, k, v, do, out, lse, delta = sets[0]
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, do)
+        before = dict(routes)
+        got = (calls["flash_dq"](*sets[0]), *calls["flash_dkv"](*sets[0]))
+        took = {key: routes[key] - before[key] for key in before}
+        checked = [cs.compare(torch, g, w, "float32")
+                   for g, w in zip(got, want)]
+        cs.require(all(bad == 0 for _, bad in checked),
+                   f"{args.tree}: the backward disagrees with the plain "
+                   f"version at S={s}: {checked}")
+        graphs, sdpa_bwd = cs.sdpa_bwd_graphs(torch, F, sets)
+        cs.holds_used()
+        us = {name: 1e3 * cs.time_ms(torch, fn, sets)
+              for name, fn in calls.items()}
+        us["sdpa_bwd"] = 1e3 * cs.time_ms(torch, sdpa_bwd, graphs)
+        cs.emit({"tree": args.label or args.tree, "b": b, "s": s, "h": h,
+                 "kh": kh, "hd": hd, "dtype": "float32", "causal": True,
+                 "us": us, "bwd_over_sdpa_bwd":
+                     us["flash_bwd"] / us["sdpa_bwd"],
+                 "routes": took, "max_abs_err": [e for e, _ in checked],
+                 "stream_hold_x": cs.holds_used()})
+        del sets, graphs, got
+        torch.cuda.empty_cache()
+    print(cs.card_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
