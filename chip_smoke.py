@@ -37,18 +37,20 @@ Phases, one JSON line each (several for the case phases):
                grads through autograd against the plain forward and the
                analytic backward: f32/bf16, the JAX kernel-test shapes, the
                training shapes (2048x768x768 and x256, r=8), ragged
-               77x100x130 r=16, decode M=1 and 8 at K=N=4096 (bf16); then
+               77x100x130 r=16, dW in clusters of 7 and 3 splits, decode
+               M=1 and 8 at K=N=4096 (bf16); then
                the bf16 forward at rwkv6-1.6b width with f32 adapters on
                the prefill's strided (B,T,5,D) views and the decode rows
                (wgmma route) and on a view TMA cannot read (SIMT route);
                each line names the forward's route
   tri_lora_timing each kernel beside the bound, the plain version and one
                torch call (addmm / x.T@g): at the training shapes of wq
-               (forward, dx, dW; x@w alone as a floor) and wk/wv (dW), f32,
-               and the forward at the rwkv6-1.6b prefill (M=4096) and decode
-               (M=8) shapes, bf16 with f32 adapters; each output held to
-               the plain version's (gradients with the absolute part
-               scaled), and the host time of a decode-shape call
+               (forward, dx, dW; x@w alone as a floor) and wk/wv (forward,
+               dx, dW), f32, and the forward at the rwkv6-1.6b prefill
+               (M=4096) and decode (M=8) shapes, bf16 with f32 adapters;
+               each output held to the plain version's (gradients with the
+               absolute part scaled), dx and dW bitwise the same on a
+               second call, and the host time of a decode-shape call
   train        CE-LoRA ``run_federated`` on fed-100m at full width and
                depth (f32, random backbone): 4 clients, 3 rounds of 5 local
                steps of batch 8 at sequence 256, attn_impl="flash"; exact
@@ -131,15 +133,17 @@ TRI_LORA_TPU = {name: f"src/repro/kernels/tri_lora/tri_lora.py:{n}"
                 for name, n in (("tri_lora_fwd", 55), ("tri_lora_dx", 107),
                                 ("tri_lora_dw", 154))}
 #: (M, K, N, r) of the tri-LoRA cases: the JAX package's kernel-test shapes,
-#: the training shapes of fed-100m wq/wo and wk/wv, a ragged shape; the
+#: the training shapes of fed-100m wq/wo and wk/wv, a ragged shape, and M
+#: that dW splits into clusters of 7 (ragged last split) and 3 blocks; the
 #: decode shapes (LLaMA-7B width, bf16 only) follow
 TRI_LORA_CASES = ((64, 64, 64, 4), (96, 160, 130, 8), (32, 256, 64, 16),
                   (128, 64, 192, 2), (2048, 768, 768, 8),
-                  (2048, 768, 256, 8), (77, 100, 130, 16))
+                  (2048, 768, 256, 8), (77, 100, 130, 16),
+                  (2000, 768, 512, 8), (800, 256, 192, 8))
 TRI_LORA_DECODE = ((1, 4096, 4096, 8), (8, 4096, 4096, 8))
 #: (label, kernel, M, K, N, r, dtype of x/W/g, dtype of the adapters) at
 #: which the tri-LoRA kernels are timed: the training shapes of fed-100m
-#: (wq/wo and wk/wv, f32; dx at wq only) and the rwkv6-1.6b prefill (8x512
+#: (wq/wo and wk/wv, f32) and the rwkv6-1.6b prefill (8x512
 #: tokens) and decode (8 rows) shapes of the time mix (bf16, f32 adapters
 #: as rwkv_params makes them)
 TRI_LORA_TIMED = (
@@ -147,6 +151,7 @@ TRI_LORA_TIMED = (
     ("wq", "tri_lora_dx", 2048, 768, 768, 8, "float32", "float32"),
     ("wq", "tri_lora_dw", 2048, 768, 768, 8, "float32", "float32"),
     ("wk/wv", "tri_lora_fwd", 2048, 768, 256, 8, "float32", "float32"),
+    ("wk/wv", "tri_lora_dx", 2048, 768, 256, 8, "float32", "float32"),
     ("wk/wv", "tri_lora_dw", 2048, 768, 256, 8, "float32", "float32"),
     ("rwkv prefill", "tri_lora_fwd", 4096, 2048, 2048, 8, "bfloat16",
      "float32"),
@@ -729,7 +734,9 @@ def tri_lora_cases(torch, tl_ops, tl_ref, dev):
             case = dict(m=m, k=k, n=n, r=r)
             emit({"phase": "tri_lora_cases", "dtype": dt_name, **case,
                   "max_abs_err": errs, "n_out_of_tol": bad, "tol": tol,
-                  "launches": launched, "route": route})
+                  "launches": launched, "route": route,
+                  "dw_splits": tl_ops.dw_plan(m, k, n,
+                                              tl_ops.dw_capacity(dev))[0]})
             require(bad == 0, f"tri-LoRA kernels disagree with the plain "
                     f"version: {case} {dt_name} errors {errs}")
             require(launched == {"tri_lora_fwd": 1, "tri_lora_dx": 1,
@@ -843,8 +850,9 @@ def time_tri_lora(torch, tl_ops, bounds, dev):
     host time of one call (the wgmma route encodes two tensor maps a call).
     Each output is held to the plain version's on the same inputs: the
     forward to the kernel tolerance, dx and dW with its absolute part
-    scaled by the largest entry, as in ``tri_lora_cases``.  Returns the
-    kernel-table rows."""
+    scaled by the largest entry, as in ``tri_lora_cases``; dx and dW must
+    give the same bits on a second call.  Returns the kernel-table
+    rows."""
     gen = torch.Generator(device=dev).manual_seed(9)
     kernel, plain, library = tri_lora_calls(torch, tl_ops)
     rows = []
@@ -857,6 +865,10 @@ def time_tri_lora(torch, tl_ops, bounds, dev):
         err, bad = check(torch, got, plain[name](*sets[0]), dtype)
         require(bad == 0, f"{name} at the {label} shape disagrees with the "
                 f"plain version: {bad} entries out of tolerance, error {err}")
+        same = name == "tri_lora_fwd" or torch.equal(got,
+                                                      kernel[name](*sets[0]))
+        require(same, f"{name} at the {label} shape is not bitwise "
+                f"repeatable")
         t = {"kernel": time_ms(torch, kernel[name], sets),
              "plain": time_ms(torch, plain[name], sets, plain=True),
              "library": time_ms(torch, library[name], sets)}
@@ -869,9 +881,11 @@ def time_tri_lora(torch, tl_ops, bounds, dev):
                 **{f"{key}_us": 1e3 * v for key, v in t.items()},
                 "bound_us": 1e3 * bd.ms, "bound_by": bd.by,
                 "max_abs_err": err, "n_out_of_tol": bad,
-                "tol": TOL[dtype]["rtol"]}
+                "tol": TOL[dtype]["rtol"], "bitwise_repeatable": same}
         if name == "tri_lora_dw":
-            line["splits"] = tl_ops.dw_plan(m, k, n, tl_ops.sm_count(dev))[0]
+            line["splits"] = tl_ops.dw_plan(m, k, n,
+                                            tl_ops.dw_capacity(dev))[0]
+            line["dw_capacity"] = tl_ops.dw_capacity(dev)
         if label == "wq" and name == "tri_lora_fwd":
             line["x_at_w_floor_us"] = 1e3 * time_ms(
                 torch, lambda x, w, *_: x @ w, sets)

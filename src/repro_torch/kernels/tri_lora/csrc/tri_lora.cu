@@ -24,8 +24,9 @@
 // us at the 989 TFLOP/s of the bf16 tensor cores.  In f32 (fed-100m wq,
 // M=2048 K=N=768) it does 2.4 GFLOP on ~15 MB, and f32 operands must not go
 // through TF32 (the parity tolerance is 2e-5), so the ceiling is the 67
-// TFLOP/s of f32 FMAs: 36 us for the forward and for dW.  At decode (M = 8
-// rows) the forward is bound by the bytes of W (kernels/bounds.py).
+// TFLOP/s of f32 FMAs: 36 us for the forward, dx and dW (12 us for dx and
+// dW at wk/wv, N = 256).  At decode (M = 8 rows) the forward is bound by
+// the bytes of W (kernels/bounds.py).
 //
 // What the designs do about it.  The forward has two routes, chosen by the
 // caller from the operands' type and layout before the launch (ops.py):
@@ -64,19 +65,28 @@
 //   f32 through registers.  Each thread fixes its copy offsets and edge
 //   masks once, so a slab costs it a few instructions per copy.  The seed
 //   P@B comes first, read from L2 in B's own type.
-// dW splits the M contraction over S blocks per output tile, so that the
-// tiles x S blocks fill the card (the caller picks S, ops.dw_plan): each
-// block runs the SIMT micro-kernel over its M range in 16-deep slabs (x^T
-// and g both staged along their rows, 16 bytes a copy, so x is read in
-// place) and writes an f32 partial into an (S, K, N) scratch the caller
-// allocates; a second kernel sums the S partials in fixed order and casts,
-// so dW is bitwise the same from run to run (no atomics; the TPU carried
-// this sum sequentially).  A dW op is therefore two launches (one when
-// S = 1, which writes dW directly).  dW stays on f32 FMAs in both types.
-// dx keeps the first design: one block of 256 threads per 64x64 output
-// tile, 32-deep slabs staged as f32 in [depth][64+1] layout, a 4x4 register
-// tile per thread, the rank-r term as the first slab run, W and A read in
-// place along the contraction.
+// dx runs the same SIMT micro-kernel with W^T as its right-hand operand:
+// dx's output column kc is W's row kc and the contraction runs along W's
+// rows, so g and W are both staged as [row][depth] by 16-byte cp.async
+// along N (neither is transposed).  Each thread owns the columns t%8 + 8j
+// (j < 8), so the 8 threads of a quarter-warp read float4s of 8 W rows
+// kLdX = 36 floats apart, on 8 disjoint groups of banks; 12 float4 reads
+// feed 128 FMAs, the forward's ratio.  The seed Q@A^T comes first, A read
+// in its own type.
+// dW splits the M contraction over S <= 8 blocks per output tile, so that
+// the tiles x S blocks fill the card in one wave (the caller picks S from
+// the occupancy calculator, ops.dw_plan and tri_lora_dw_capacity): each
+// block runs the SIMT micro-kernel over its M range in 32-deep slabs, one
+// in flight (x^T and g both staged along their rows, 16 bytes a copy, so x
+// is read in place).  The S blocks of a tile form one thread-block
+// cluster: each writes its f32 partial into its own shared memory, and
+// block q sums its share of the tile over the blocks 0..S-1 in rank order
+// through distributed shared memory, casts and stores.  No scratch, no
+// atomics, one launch; dW is bitwise the same from run to run (the TPU
+// carried this sum sequentially).  One split writes dW directly.  dW stays
+// on f32 FMAs in both types.  What paces it beside cuBLAS: clusters of 3
+// or more blocks run on at most 124 of the H100's 132 SMs, and the tiles
+// x S blocks do not spread evenly over them.
 //
 // Operands are read by row strides (unit inner stride).  Rows, columns and
 // depth beyond the real extents read as zero and are not stored, so the
@@ -84,19 +94,16 @@
 //
 // Each entry point launches on the given stream and returns the
 // cudaError_t of the launch.
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
 
 namespace {
 
-constexpr int kTile = 64;     // output rows and columns per block
-constexpr int kDepth = 32;    // contraction slab
-constexpr int kThreads = 256;
-constexpr int kLd = kTile + 1;  // padded shared-memory row
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -112,135 +119,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Stage the slab [k0, k0 + 32) of the contraction for tile rows
-// [i0, i0 + 64) of an operand into dst[kk * kLd + i] as f32.  DEPTH_CONTIG:
-// element (i, kk) lies at src[i * ld + kk] (contiguous along the
-// contraction); otherwise at src[kk * ld + i] (contiguous along the rows).
-// Positions at or beyond n_i rows or n_k depth read as zero.
-template <typename T, bool DEPTH_CONTIG>
-__device__ __forceinline__ void stage(float* __restrict__ dst,
-                                      const T* __restrict__ src,
-                                      long long ld, int i0, int n_i, int k0,
-                                      int n_k) {
-  for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-    int i, kk;
-    if (DEPTH_CONTIG) {
-      i = e / kDepth;
-      kk = e % kDepth;
-    } else {
-      kk = e / kTile;
-      i = e % kTile;
-    }
-    const int gi = i0 + i, gk = k0 + kk;
-    float v = 0.f;
-    if (gi < n_i && gk < n_k)
-      v = to_f32(DEPTH_CONTIG ? src[gi * ld + gk] : src[gk * ld + gi]);
-    dst[kk * kLd + i] = v;
-  }
-}
-
-// acc += L[rows, :depth] @ R[:depth, cols] over 32-deep slabs.  L's tile
-// rows are the output rows, R's tile rows are the output columns.
-template <typename TL, bool L_DEPTH_CONTIG, typename TR, bool R_DEPTH_CONTIG>
-__device__ __forceinline__ void accumulate(
-    float (&acc)[4][4], float* __restrict__ sl, float* __restrict__ sr,
-    const TL* __restrict__ l, long long ldl, const TR* __restrict__ r,
-    long long ldr, int row0, int n_rows, int col0, int n_cols, int depth) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int k0 = 0; k0 < depth; k0 += kDepth) {
-    stage<TL, L_DEPTH_CONTIG>(sl, l, ldl, row0, n_rows, k0, depth);
-    stage<TR, R_DEPTH_CONTIG>(sr, r, ldr, col0, n_cols, k0, depth);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sl[kk * kLd + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sr[kk * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store(T* __restrict__ out, long long ld,
-                                      const float (&acc)[4][4], int row0,
-                                      int n_rows, int col0, int n_cols) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= n_rows) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < n_cols) out[row * ld + col] = from_f32<T>(acc[i][j]);
-    }
-  }
-}
-
-// dx (M,K) = Q (M,r) @ A^T + g (M,N) @ W^T, with A (K,r) and W (K,N) read
-// in place: the element (column kc, depth d) of W^T is w[kc * ldw + d]
-template <typename T, typename S>
-__global__ void __launch_bounds__(kThreads) tri_lora_dx_kernel(
-    const T* __restrict__ g, long long ldg, const T* __restrict__ w,
-    long long ldw, const T* __restrict__ q, long long ldq,
-    const S* __restrict__ a, long long lda, T* __restrict__ dx,
-    long long lddx, int m, int k, int n, int r) {
-  __shared__ float sl[kDepth * kLd], sr[kDepth * kLd];
-  const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
-  float acc[4][4] = {};
-  accumulate<T, true, S, true>(acc, sl, sr, q, ldq, a, lda, row0, m, col0,
-                               k, r);
-  accumulate<T, true, T, true>(acc, sl, sr, g, ldg, w, ldw, row0, m, col0,
-                               k, n);
-  store(dx, lddx, acc, row0, m, col0, k);
-}
-
-dim3 grid_of(int rows, int cols) {
-  return dim3((cols + kTile - 1) / kTile, (rows + kTile - 1) / kTile);
-}
-
-bool bad_extent(int rows, int cols) {
-  return rows < 1 || cols < 1 || (rows + kTile - 1) / kTile > 65535;
-}
-
-template <typename T, typename S>
-cudaError_t dx(const void* g, long long ldg, const void* w, long long ldw,
-               const void* q, long long ldq, const void* a, long long lda,
-               void* out, long long ldo, int m, int k, int n, int r,
-               cudaStream_t s) {
-  tri_lora_dx_kernel<T, S><<<grid_of(m, k), kThreads, 0, s>>>(
-      static_cast<const T*>(g), ldg, static_cast<const T*>(w), ldw,
-      static_cast<const T*>(q), ldq, static_cast<const S*>(a), lda,
-      static_cast<T*>(out), ldo, m, k, n, r);
-  return cudaGetLastError();
-}
-
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-int sm_count() {
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n = 132;
-    return n;
-  }();
-  return sms;
-}
-
 // ---------------------------------------------------------------------------
 // Register-tiled SIMT product: the forward in f32 (and in bf16 that TMA
-// cannot address) and the dW partials
+// cannot address), dx, and dW
 // ---------------------------------------------------------------------------
 
 namespace simt {
@@ -251,33 +136,41 @@ constexpr int kThreads = 128;  // a 4x8 micro-tile each
 constexpr int kLd = 64 + 4;    // shared row: 64 floats, 16-byte aligned pad
 
 // BK-deep slabs in a ring of ST stages (ST - 1 in flight).  XR: the row
-// operand is staged as [row][depth] (the forward's x, read in place along
-// its rows), else as [depth][row] (dW's x^T, read along x's rows).
-template <int BK_, int ST_, bool XR_>
+// operand is staged as [row][depth] (the forward's x and dx's g, read in
+// place along their rows), else as [depth][row] (dW's x^T, read along x's
+// rows).  WR: the column operand too is staged as [column][depth] (dx's
+// W^T: W's rows are dx's columns), else as [depth][column].
+template <int BK_, int ST_, bool XR_, bool WR_ = false>
 struct Geo {
   static constexpr int BK = BK_, ST = ST_;
-  static constexpr bool XR = XR_;
+  static constexpr bool XR = XR_, WR = WR_;
   static constexpr int kLdX = BK + 4;
   static constexpr int kABuf = XR ? kBM * kLdX : BK * kLd;
-  static constexpr int kBuf = BK * kLd;
+  static constexpr int kBuf = WR ? kBN * kLdX : BK * kLd;
   static constexpr int kSmem = ST * (kABuf + kBuf) * 4;
 };
-// The forward: 32-deep slabs, two in flight (its grids are small, so each
-// block needs more bytes in flight); dW: 16-deep slabs (measured best)
+// The forward and dx: 32-deep slabs, two in flight (their grids are small,
+// so each block needs more bytes in flight).  dW: 32-deep slabs, one in
+// flight, so that 6 blocks fit an SM (measured best of 16- and 32-deep
+// slabs in rings of 2 to 4).
 using FwdGeo = Geo<32, 3, true>;
-using DwGeo = Geo<16, 3, false>;
+using DxGeo = Geo<32, 3, true, true>;
+using DwGeo = Geo<32, 2, false>;
 
-// Thread t owns columns {4*(t%8) + j, 32 + 4*(t%8) + j} (j < 4) and rows
-// t/8 + 16*i (XR) or 4*(t/8) + i (i < 4) of the tile.  A warp's float4
-// reads of a slab row of B touch 8 consecutive float4s and of A (as
-// [depth][row]) 4, broadcast; as [row][depth] the warp's 4 rows lie
-// kLdX = BK + 4 floats apart, on 4 disjoint groups of banks.
+// Thread t owns rows t/8 + 16*i (XR) or 4*(t/8) + i (i < 4) of the tile,
+// and columns t%8 + 8*j (WR) or {4*(t%8) + j, 32 + 4*(t%8) + j} (j < 4).
+// A warp's float4 reads of a slab row of B (as [depth][column]) touch 8
+// consecutive float4s and of A (as [depth][row]) 4, broadcast.  As
+// [row][depth] a quarter-warp reads one row of A (broadcast) and, for WR,
+// 8 rows of B kLdX = BK + 4 floats apart, on 8 disjoint groups of banks.
 template <class G>
 __device__ __forceinline__ int row_of(int i) {
   if constexpr (G::XR) return static_cast<int>(threadIdx.x) / 8 + 16 * i;
   return 4 * (static_cast<int>(threadIdx.x) / 8) + i;
 }
+template <class G>
 __device__ __forceinline__ int col_of(int j) {
+  if constexpr (G::WR) return static_cast<int>(threadIdx.x) % 8 + 8 * j;
   return (j < 4 ? 0 : 32) + 4 * (static_cast<int>(threadIdx.x) % 8) + (j & 3);
 }
 
@@ -304,8 +197,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // This thread's share of staging one operand's slab along the tile's
-// columns: the element (depth d, column c) lies at src[d * ld + c] (W and g
-// along their rows, x^T of dW) and goes to [d - d0][c - c0].  VEC: 16-byte
+// columns: the element (depth d, column c) lies at src[d * ld + c] (the
+// forward's W, dW's x^T and g) and goes to [d - d0][c - c0].  VEC: 16-byte
 // copies (f32, base and row stride 16-byte aligned); otherwise one element
 // a copy.  f32 by cp.async, bf16 widened through registers.  Offsets and
 // the column mask are fixed once; a slab adds only its depth.
@@ -345,9 +238,10 @@ struct AlongRows {
   }
 };
 
-// This thread's share of staging the forward's x as [row][depth]: the
-// element (row i, depth d) lies at src[i * ld + d] and goes to
-// [i - r0][d - d0], 16 bytes a copy when VEC; the row mask is fixed once.
+// This thread's share of staging an operand as [row][depth] (the forward's
+// x, dx's g and W): the element (row i, depth d) lies at src[i * ld + d]
+// and goes to [i - r0][d - d0], 16 bytes a copy when VEC; the row mask is
+// fixed once.
 template <class G, typename T, bool VEC>
 struct RowsByDepth {
   static constexpr int kE = VEC ? 4 : 1;
@@ -389,11 +283,43 @@ struct RowsByDepth {
   }
 };
 
-// acc += the slab's [row][depth] x [depth][column] product
+__device__ __forceinline__ float lane_of(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// acc += the slab's rows x columns product, each operand as its Geo lays
+// it out; each accumulator takes the slab's depths in order
 template <class G>
 __device__ __forceinline__ void slab_product(float (&acc)[4][8],
                                              const float* __restrict__ a,
                                              const float* __restrict__ b) {
+  if constexpr (G::WR) {
+    static_assert(G::XR, "a [column][depth] B pairs with a [row][depth] A");
+    const int tr = static_cast<int>(threadIdx.x) / 8;
+    const int tc = static_cast<int>(threadIdx.x) % 8;
+#pragma unroll
+    for (int k4 = 0; k4 < G::BK; k4 += 4) {
+      float4 a4[4], b4[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a4[i] = *reinterpret_cast<const float4*>(a + (tr + 16 * i) * G::kLdX +
+                                                 k4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        b4[j] = *reinterpret_cast<const float4*>(b + (tc + 8 * j) * G::kLdX +
+                                                 k4);
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float av = lane_of(a4[i], kq);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(av, lane_of(b4[j], kq), acc[i][j]);
+        }
+    }
+    return;
+  }
   const int ar = 4 * (static_cast<int>(threadIdx.x) / 8);
   const int bc = 4 * (static_cast<int>(threadIdx.x) % 8);
   if constexpr (G::XR) {
@@ -414,10 +340,7 @@ __device__ __forceinline__ void slab_product(float (&acc)[4][8],
         const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float av = kq == 0   ? a4[i].x
-                           : kq == 1 ? a4[i].y
-                           : kq == 2 ? a4[i].z
-                                     : a4[i].w;
+          const float av = lane_of(a4[i], kq);
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
         }
@@ -468,7 +391,8 @@ __device__ __forceinline__ void mainloop(float (&acc)[4][8], float* smem,
 }
 
 // out[row, col] = acc for the tile's rows < n_rows and columns < n_cols;
-// float4 stores where `vec` (f32 out, 16-byte aligned base and row stride)
+// float4 stores where `vec` (f32 out, 16-byte aligned base and row stride,
+// and the [4*(t%8)] column map), else one element a store
 template <class G, typename T>
 __device__ __forceinline__ void store_tile(T* __restrict__ out, long long ld,
                                            const float (&acc)[4][8],
@@ -478,9 +402,17 @@ __device__ __forceinline__ void store_tile(T* __restrict__ out, long long ld,
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + row_of<G>(i);
     if (row >= n_rows) continue;
+    if constexpr (G::WR) {      // a warp stores 4 rows of 8 columns a step
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = col0 + col_of<G>(j);
+        if (col < n_cols) out[row * ld + col] = from_f32<T>(acc[i][j]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int col = col0 + col_of(4 * h);
+      const int col = col0 + col_of<G>(4 * h);
       T* dst = out + row * ld + col;
       if constexpr (sizeof(T) == 4) {
         if (vec && col + 3 < n_cols) {
@@ -497,6 +429,42 @@ __device__ __forceinline__ void store_tile(T* __restrict__ out, long long ld,
   }
 }
 
+// acc = L (M,r) @ R^T, R (cols,r) at rt[col * col_stride + q * q_stride]:
+// the rank-r seed of the forward (R = B^T, strides 1 and ldb) and of dx
+// (R = A, strides lda and 1), read from L2 in the factor's own type, rank
+// by rank
+template <class G, typename T, typename S>
+__device__ __forceinline__ void seed(float (&acc)[4][8],
+                                     const T* __restrict__ l, long long ldl,
+                                     const S* __restrict__ rt,
+                                     long long col_stride, long long q_stride,
+                                     int row0, int n_rows, int col0,
+                                     int n_cols, int r) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int q = 0; q < r; ++q) {
+    float pv[4], bv[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + row_of<G>(i);
+      pv[i] = row < n_rows ? to_f32(l[row * ldl + q]) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + col_of<G>(j);
+      bv[j] = col < n_cols ? to_f32(rt[col * col_stride + q * q_stride])
+                           : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], bv[j], acc[i][j]);
+  }
+}
+
 // y (M,N) = P (M,r) @ B (r,N) + x (M,K) @ W (K,N): the seed P@B first, read
 // from L2 in B's own type, then the slabs of x@W.  VEC: W by 16-byte
 // copies; XVEC: x too.
@@ -510,43 +478,47 @@ __global__ void __launch_bounds__(kThreads) tri_lora_fwd_simt_kernel(
   extern __shared__ float4 smem_f4[];
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
   float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int q = 0; q < r; ++q) {
-    float pv[4], bv[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + row_of<G>(i);
-      pv[i] = row < m ? to_f32(p[row * ldp + q]) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = col0 + col_of(j);
-      bv[j] = col < n ? to_f32(b[q * ldb + col]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], bv[j], acc[i][j]);
-  }
+  seed<G>(acc, p, ldp, b, 1, ldb, row0, m, col0, n, r);
   RowsByDepth<G, T, XVEC> xs(x, ldx, row0, m);
   AlongRows<G, T, VEC> ws(w, ldw, col0, n);
   mainloop<G>(acc, reinterpret_cast<float*>(smem_f4), xs, ws, 0, k);
   store_tile<G>(y, ldy, acc, row0, m, col0, n, y_vec);
 }
 
-// dW (K,N) = x^T @ g over block z's M range [z*depth, (z+1)*depth), x
-// (M,K) read in place.  OutT float: an f32 partial at out + z*split_stride;
-// otherwise (one split) dW itself.
-template <typename T, typename OutT, bool VEC>
-__global__ void __launch_bounds__(kThreads) tri_lora_dw_split_kernel(
+// dx (M,K) = Q (M,r) @ A^T + g (M,N) @ W^T: the seed Q@A^T first (A (K,r)
+// in its own type), then the slabs of g@W^T with g and W both read in
+// place along their rows (N).  GVEC / WVEC: g / W by 16-byte copies.
+template <typename T, typename S, bool GVEC, bool WVEC>
+__global__ void __launch_bounds__(kThreads) tri_lora_dx_simt_kernel(
+    const T* __restrict__ g, long long ldg, const T* __restrict__ w,
+    long long ldw, const T* __restrict__ q, long long ldq,
+    const S* __restrict__ a, long long lda, T* __restrict__ dx,
+    long long lddx, int m, int k, int n, int r) {
+  using G = DxGeo;
+  extern __shared__ float4 smem_f4[];
+  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
+  float acc[4][8];
+  seed<G>(acc, q, ldq, a, lda, 1, row0, m, col0, k, r);
+  RowsByDepth<G, T, GVEC> gs(g, ldg, row0, m);
+  RowsByDepth<G, T, WVEC> ws(w, ldw, col0, k);
+  mainloop<G>(acc, reinterpret_cast<float*>(smem_f4), gs, ws, 0, n);
+  store_tile<G>(dx, lddx, acc, row0, m, col0, k, false);
+}
+
+// dW (K,N) = x^T @ g, x (M,K) read in place; block z runs the M range
+// [z*depth, min(M, (z+1)*depth)).  One split (gridDim.z = 1) stores its
+// tile.  Otherwise the S blocks of a tile are one cluster (1, 1, S), rank
+// z = blockIdx.z: each writes its f32 partial into its own shared memory,
+// and rank z sums its share of the tile's float4s over the ranks 0..S-1 in
+// that order, casts and stores.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads) tri_lora_dw_kernel(
     const T* __restrict__ x, long long ldx, const T* __restrict__ g,
-    long long ldg, OutT* __restrict__ out, long long ldo,
-    long long split_stride, bool o_vec, int m, int k, int n, int depth) {
+    long long ldg, T* __restrict__ dw, long long lddw, bool o_vec, int m,
+    int k, int n, int depth) {
   using G = DwGeo;
+  constexpr int kNV = kBM * kBN / 4;             // float4s of a tile
+  static_assert(G::kSmem >= kNV * 16, "the partial reuses the ring");
   __shared__ __align__(16) float smem[G::kSmem / 4];
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
   const int d0 = blockIdx.z * depth, d1 = min(m, d0 + depth);
@@ -558,22 +530,56 @@ __global__ void __launch_bounds__(kThreads) tri_lora_dw_split_kernel(
   AlongRows<G, T, VEC> xs(x, ldx, row0, k);
   AlongRows<G, T, VEC> gs(g, ldg, col0, n);
   mainloop<G>(acc, smem, xs, gs, d0, d1);
-  store_tile<G>(out + blockIdx.z * split_stride, ldo, acc, row0, k, col0, n,
-                o_vec);
-}
-
-// dW = the sum of the `splits` dense (K,N) f32 partials, in split order
-template <typename T>
-__global__ void __launch_bounds__(256) tri_lora_dw_sum_kernel(
-    const float* __restrict__ part, int splits, int k, int n,
-    T* __restrict__ dw, long long lddw) {
-  const long long count = static_cast<long long>(k) * n;
-  for (long long e = blockIdx.x * 256LL + threadIdx.x; e < count;
-       e += static_cast<long long>(gridDim.x) * 256) {
-    float s = part[e];
-    for (int z = 1; z < splits; ++z) s += part[z * count + e];
-    dw[(e / n) * lddw + e % n] = from_f32<T>(s);
+  if (gridDim.z == 1) {
+    store_tile<G>(dw, lddw, acc, row0, k, col0, n, o_vec);
+    return;
   }
+
+  cg::cluster_group cluster = cg::this_cluster();
+  float* part = smem;                  // [64][64] f32
+  cp_async_wait<0>();
+  __syncthreads();                     // the ring is free for the partial
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(part + row_of<G>(i) * kBN +
+                                 col_of<G>(4 * h)) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                      acc[i][4 * h + 3]);
+  cluster.sync();                      // every partial of the tile is written
+
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int share = (kNV + ranks - 1) / ranks;
+  const int end = min(kNV, (rank + 1) * share);
+  for (int e = rank * share + static_cast<int>(threadIdx.x); e < end;
+       e += kThreads) {
+    float4 sum = reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(part, 0))[e];
+    for (int z = 1; z < ranks; ++z) {
+      const float4 v = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, z))[e];
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const int row = row0 + e / (kBN / 4), col = col0 + 4 * (e % (kBN / 4));
+    if (row >= k) continue;
+    T* dst = dw + row * lddw + col;
+    if constexpr (sizeof(T) == 4) {
+      if (o_vec && col + 3 < n) {
+        *reinterpret_cast<float4*>(dst) = sum;
+        continue;
+      }
+    }
+    const float f[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (col + j < n) dst[j] = from_f32<T>(f[j]);
+  }
+  cluster.sync();                      // no block leaves while read
 }
 
 bool aligned16(const void* ptr, long long ld, int elem) {
@@ -616,53 +622,89 @@ cudaError_t fwd(const void* x, long long ldx, const void* w, long long ldw,
                                         ldy, m, k, n, r, s);
 }
 
-template <typename T, typename OutT, bool VEC>
-cudaError_t dw_split(const void* x, long long ldx, const void* g,
-                     long long ldg, OutT* out, long long ldo,
-                     long long split_stride, int m, int k, int n, int splits,
-                     int depth, cudaStream_t s) {
-  const dim3 grid((n + kBN - 1) / kBN, (k + kBM - 1) / kBM, splits);
-  tri_lora_dw_split_kernel<T, OutT, VEC><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), ldx, static_cast<const T*>(g), ldg, out, ldo,
-      split_stride, sizeof(OutT) == 4 && aligned16(out, ldo, 4), m, k, n,
-      depth);
+template <typename T, typename S, bool GVEC, bool WVEC>
+cudaError_t dx_launch(const void* g, long long ldg, const void* w,
+                      long long ldw, const void* q, long long ldq,
+                      const void* a, long long lda, void* out, long long ldo,
+                      int m, int k, int n, int r, cudaStream_t s) {
+  constexpr int smem = DxGeo::kSmem;                   // above 48 KB
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tri_lora_dx_simt_kernel<T, S, GVEC, WVEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((k + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  tri_lora_dx_simt_kernel<T, S, GVEC, WVEC><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(g), ldg, static_cast<const T*>(w), ldw,
+      static_cast<const T*>(q), ldq, static_cast<const S*>(a), lda,
+      static_cast<T*>(out), ldo, m, k, n, r);
   return cudaGetLastError();
 }
 
-template <typename T, typename OutT>
-cudaError_t dw_split(const void* x, long long ldx, const void* g,
-                     long long ldg, OutT* out, long long ldo,
-                     long long split_stride, int m, int k, int n, int splits,
-                     int depth, cudaStream_t s) {
-  if constexpr (sizeof(T) == 4)
-    if (aligned16(x, ldx, 4) && aligned16(g, ldg, 4))
-      return dw_split<T, OutT, true>(x, ldx, g, ldg, out, ldo, split_stride,
-                                     m, k, n, splits, depth, s);
-  return dw_split<T, OutT, false>(x, ldx, g, ldg, out, ldo, split_stride, m,
-                                  k, n, splits, depth, s);
+// 16-byte copies of g and of W wherever each is aligned (f32); bf16 is
+// widened through registers one element a copy
+template <typename T, typename S>
+cudaError_t dx(const void* g, long long ldg, const void* w, long long ldw,
+               const void* q, long long ldq, const void* a, long long lda,
+               void* out, long long ldo, int m, int k, int n, int r,
+               cudaStream_t s) {
+  if constexpr (sizeof(T) == 4) {
+    const bool gv = aligned16(g, ldg, 4), wv = aligned16(w, ldw, 4);
+    if (gv && wv)
+      return dx_launch<T, S, true, true>(g, ldg, w, ldw, q, ldq, a, lda, out,
+                                         ldo, m, k, n, r, s);
+    if (gv)
+      return dx_launch<T, S, true, false>(g, ldg, w, ldw, q, ldq, a, lda, out,
+                                          ldo, m, k, n, r, s);
+    if (wv)
+      return dx_launch<T, S, false, true>(g, ldg, w, ldw, q, ldq, a, lda, out,
+                                          ldo, m, k, n, r, s);
+  }
+  return dx_launch<T, S, false, false>(g, ldg, w, ldw, q, ldq, a, lda, out,
+                                       ldo, m, k, n, r, s);
+}
+
+// grid (N/64, K/64, S); with S > 1 a cluster of (1, 1, S) blocks
+template <typename T, bool VEC>
+cudaError_t dw_launch(const void* x, long long ldx, const void* g,
+                      long long ldg, void* out, long long ldo, int m, int k,
+                      int n, int splits, int depth, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + kBN - 1) / kBN, (k + kBM - 1) / kBM, splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, tri_lora_dw_kernel<T, VEC>, static_cast<const T*>(x), ldx,
+      static_cast<const T*>(g), ldg, static_cast<T*>(out), ldo,
+      sizeof(T) == 4 && aligned16(out, ldo, 4), m, k, n, depth);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dw(const void* x, long long ldx, const void* g, long long ldg,
-               void* out, long long ldo, float* scratch, int m, int k, int n,
-               int splits, int depth, cudaStream_t s) {
-  if (splits == 1)
-    return dw_split<T, T>(x, ldx, g, ldg, static_cast<T*>(out), ldo, 0, m, k,
-                          n, 1, depth, s);
-  cudaError_t err =
-      dw_split<T, float>(x, ldx, g, ldg, scratch, n,
-                         static_cast<long long>(k) * n, m, k, n, splits,
-                         depth, s);
-  if (err != cudaSuccess) return err;
-  const long long count = static_cast<long long>(k) * n;
-  const int blocks = static_cast<int>(
-      std::min<long long>((count + 255) / 256, 8LL * sm_count()));
-  tri_lora_dw_sum_kernel<T><<<blocks, 256, 0, s>>>(scratch, splits, k, n,
-                                                   static_cast<T*>(out), ldo);
-  return cudaGetLastError();
+               void* out, long long ldo, int m, int k, int n, int splits,
+               int depth, cudaStream_t s) {
+  if constexpr (sizeof(T) == 4)
+    if (aligned16(x, ldx, 4) && aligned16(g, ldg, 4))
+      return dw_launch<T, true>(x, ldx, g, ldg, out, ldo, m, k, n, splits,
+                                depth, s);
+  return dw_launch<T, false>(x, ldx, g, ldg, out, ldo, m, k, n, splits, depth,
+                             s);
 }
 
 }  // namespace simt
+
+// the grids put 64-row tiles along y, at most 65,535 of them
+bool bad_extent(int rows, int cols) {
+  return rows < 1 || cols < 1 || (rows + simt::kBM - 1) / simt::kBM > 65535;
+}
 
 // ---------------------------------------------------------------------------
 // The bf16 forward on the tensor cores: TMA ring, wgmma consumers
@@ -1131,48 +1173,69 @@ extern "C" int tri_lora_dx_launch(int dtype, int small_dtype, const void* g,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0 && small_dtype == 0)
-    err = dx<float, float>(g, ldg, w, ldw, q, ldq, a, lda, out, ldo, m, k, n,
-                           r, s);
+    err = simt::dx<float, float>(g, ldg, w, ldw, q, ldq, a, lda, out, ldo, m,
+                                 k, n, r, s);
   else if (dtype == 0 && small_dtype == 1)
-    err = dx<float, __nv_bfloat16>(g, ldg, w, ldw, q, ldq, a, lda, out, ldo,
-                                   m, k, n, r, s);
+    err = simt::dx<float, __nv_bfloat16>(g, ldg, w, ldw, q, ldq, a, lda, out,
+                                         ldo, m, k, n, r, s);
   else if (dtype == 1 && small_dtype == 0)
-    err = dx<__nv_bfloat16, float>(g, ldg, w, ldw, q, ldq, a, lda, out, ldo,
-                                   m, k, n, r, s);
+    err = simt::dx<__nv_bfloat16, float>(g, ldg, w, ldw, q, ldq, a, lda, out,
+                                         ldo, m, k, n, r, s);
   else if (dtype == 1 && small_dtype == 1)
-    err = dx<__nv_bfloat16, __nv_bfloat16>(g, ldg, w, ldw, q, ldq, a, lda,
-                                           out, ldo, m, k, n, r, s);
+    err = simt::dx<__nv_bfloat16, __nv_bfloat16>(g, ldg, w, ldw, q, ldq, a,
+                                                 lda, out, ldo, m, k, n, r, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
 // `dtype` is the type of x, g and dW.  The M contraction runs in `splits`
-// ranges of `depth` rows (the last one ragged); with splits > 1, `scratch`
-// holds splits x K x N f32 (dense) partials, which a second launch sums in
-// split order into dW.
+// ranges of `depth` rows (the last one ragged), at most 8 (the portable
+// cluster size): with splits > 1 one cluster of blocks per output tile
+// sums the ranges' partials in range order.
 extern "C" int tri_lora_dw_launch(int dtype, const void* x, long long ldx,
                                   const void* g, long long ldg, void* out,
-                                  long long ldo, void* scratch, int m, int k,
-                                  int n, int splits, int depth,
-                                  void* stream) {
-  if (bad_extent(k, n) || m < 1 || splits < 1 || splits > 65535 ||
-      depth < 1 || static_cast<long long>(splits) * depth < m ||
-      static_cast<long long>(splits - 1) * depth >= m ||
-      (splits > 1 && scratch == nullptr))
+                                  long long ldo, int m, int k, int n,
+                                  int splits, int depth, void* stream) {
+  if (bad_extent(k, n) || m < 1 || splits < 1 || splits > 8 || depth < 1 ||
+      static_cast<long long>(splits) * depth < m ||
+      static_cast<long long>(splits - 1) * depth >= m)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(scratch);
   cudaError_t err;
   if (dtype == 0)
-    err = simt::dw<float>(x, ldx, g, ldg, out, ldo, part, m, k, n, splits,
-                          depth, s);
+    err = simt::dw<float>(x, ldx, g, ldg, out, ldo, m, k, n, splits, depth,
+                          s);
   else if (dtype == 1)
-    err = simt::dw<__nv_bfloat16>(x, ldx, g, ldg, out, ldo, part, m, k, n,
-                                  splits, depth, s);
+    err = simt::dw<__nv_bfloat16>(x, ldx, g, ldg, out, ldo, m, k, n, splits,
+                                  depth, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// The dW blocks the current device holds at once when they are launched in
+// clusters of `splits` blocks (f32, 16-byte route), from the occupancy
+// calculator; -1 when it fails.  Clusters of 3 or more blocks reach fewer
+// SMs than the card has, so this falls with the cluster size.
+extern "C" int tri_lora_dw_capacity(int splits) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, splits);
+  cfg.blockDim = dim3(simt::kThreads);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (splits < 1 || splits > 8 ||
+      cudaOccupancyMaxActiveClusters(
+          &clusters, simt::tri_lora_dw_kernel<float, true>, &cfg) !=
+          cudaSuccess)
+    return -1;
+  return clusters * splits;
 }
 
 extern "C" const char* tri_lora_error_string(int code) {

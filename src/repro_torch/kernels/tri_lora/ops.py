@@ -7,16 +7,18 @@ kernel, and a backward that runs the dx and dW kernels
 tensors it launches the kernels through a ``torch.autograd.Function`` or
 raises: each kernel wrapper checks device, dtype, shapes and unit inner
 stride first, and raises when a launch reports an error.  ``LAUNCHES``
-counts kernel launches per kernel (one per op call; a dW op that splits its
-contraction is two launches on the card, counted once), ``ROUTES`` the
-forward's launches by route.
+counts kernel launches per kernel (one per op call, one launch on the card
+each), ``ROUTES`` the forward's launches by route.
 
 The forward has two hand-written kernels, and :func:`fwd_route` picks one
 from the operands' type and layout before the launch: bf16 x and W that TMA
 can address (16-byte aligned base and row stride) take the ``wgmma``
 kernel, everything else (f32, or a bf16 view TMA cannot read) the
 register-tiled ``simt`` kernel.  Both are checked on the card; a failed
-build or launch raises on either route.
+build or launch raises on either route.  dx runs the same register-tiled
+micro-kernel with g and W both read in place; dW splits its M contraction
+(:func:`dw_plan`) over the blocks of one thread-block cluster per output
+tile, which sum their partials in split order.
 
 As in the JAX package's op (``repro.kernels.tri_lora.ops``), the rank-r
 products stay plain: P = s·(x@A)@C (rounded to x's dtype) feeds the
@@ -43,15 +45,13 @@ ROUTES = {"fwd_wgmma": 0, "fwd_simt": 0}
 MAX_RANK = 64
 #: TMA reads rows whose base and stride are multiples of 16 bytes.
 TMA_ALIGN = 16
-#: dW plan: the blocks to aim for per SM (8 measured best at the fed-100m
-#: shapes on the H100), the most splits, the fewest contraction rows a
-#: split is worth, the kernel's output tile (64 x 64) and its contraction
-#: slab.
-DW_BLOCKS_PER_SM = 8
+#: dW plan: the most splits (one cluster of blocks; 8 is the portable
+#: cluster size), the fewest contraction rows a split is worth, the
+#: kernel's output tile (64 x 64) and its contraction slab.
 DW_MAX_SPLITS = 8
 DW_MIN_ROWS = 256
 DW_TILE = 64
-DW_SLAB = 16
+DW_SLAB = 32
 _LIB = "tri_lora"
 _VP, _I, _LL = ffi.VP, ffi.I, ffi.LL
 _RANKED = [_I, _I] + [_VP, _LL] * 5 + [_I] * 4 + [_VP]
@@ -153,51 +153,57 @@ def tri_lora_dx(g: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
     return dx
 
 
-def sm_count(device: torch.device) -> int:
-    """The streaming multiprocessors of the CUDA ``device``."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+_DW_CAPACITY: dict = {}
 
 
-def dw_plan(m: int, k: int, n: int, sms: int) -> tuple:
-    """(splits, rows per split) of dW's M contraction on a card of ``sms``
-    SMs: enough splits that the 64×64 output tiles × splits reach
-    ``DW_BLOCKS_PER_SM`` blocks per SM, at most ``DW_MAX_SPLITS``, none
-    shorter than ``DW_MIN_ROWS`` rows (so M below two of those is one
-    split); rows per split a multiple of the slab."""
+def dw_capacity(device: torch.device) -> dict:
+    """{S: the dW blocks the CUDA ``device`` holds at once when they are
+    launched in clusters of S}, for S = 1..``DW_MAX_SPLITS``, from the
+    occupancy calculator (read once per device).  On the H100 clusters of
+    3 or more blocks reach only some of its SMs, so it falls with S."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _DW_CAPACITY:
+        fn = ffi.fn(_LIB, "tri_lora_dw_capacity", [_I])
+        with torch.cuda.device(index):
+            cap = {s: fn(s) for s in range(1, DW_MAX_SPLITS + 1)}
+        ffi.require(all(c > 0 for c in cap.values()),
+                    f"the occupancy of the dW kernel could not be read: "
+                    f"{cap}")
+        _DW_CAPACITY[index] = cap
+    return _DW_CAPACITY[index]
+
+
+def dw_plan(m: int, k: int, n: int, capacity: dict) -> tuple:
+    """(splits, rows per split) of dW's M contraction: the most splits S,
+    at most ``DW_MAX_SPLITS``, none shorter than ``DW_MIN_ROWS`` rows (so
+    M below two of those is one split), whose 64×64 output tiles × S
+    blocks the card holds at once (``capacity[S]``, :func:`dw_capacity`),
+    so that one wave of the launch covers dW; rows per split a multiple of
+    the slab."""
     tiles = -(-k // DW_TILE) * -(-n // DW_TILE)
-    splits = max(1, min(DW_MAX_SPLITS, -(-DW_BLOCKS_PER_SM * sms // tiles),
-                        m // DW_MIN_ROWS))
+    splits = max([1] + [s for s in range(2, DW_MAX_SPLITS + 1)
+                        if s <= m // DW_MIN_ROWS and tiles * s <= capacity[s]])
     rows = -(-m // splits)
     rows = -(-rows // DW_SLAB) * DW_SLAB
     return -(-m // rows), rows
 
 
-def dw_scratch_shape(m: int, k: int, n: int, sms: int) -> tuple:
-    """Shape of the f32 partials the dW kernel writes: (splits, K, N), or
-    () when one split writes dW directly."""
-    splits, _ = dw_plan(m, k, n, sms)
-    return (splits, k, n) if splits > 1 else ()
-
-
 def tri_lora_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dW kernel: xᵀ (K,M) @ g (M,N) → (K,N) in x.dtype, with x (M,K) read
     in place and M as the contraction, split by :func:`dw_plan` and summed
-    in fixed order (bitwise the same from call to call)."""
+    in split order inside the kernel (bitwise the same from call to
+    call)."""
     m, k = x.shape
     n = g.shape[1]
     _check_ranked((("x", x, (m, k)), ("g", g, (m, n))), ())
-    sms = sm_count(x.device)
-    splits, rows = dw_plan(m, k, n, sms)
-    shape = dw_scratch_shape(m, k, n, sms)
-    scratch = (torch.empty(shape, dtype=torch.float32, device=x.device)
-               if shape else None)
+    splits, rows = dw_plan(m, k, n, dw_capacity(x.device))
     dw = torch.empty((k, n), dtype=x.dtype, device=x.device)
     fn = ffi.fn(_LIB, "tri_lora_dw_launch",
-                [_I] + [_VP, _LL] * 3 + [_VP] + [_I] * 5 + [_VP])
+                [_I] + [_VP, _LL] * 3 + [_I] * 5 + [_VP])
     code = fn(ffi.DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0),
-              g.data_ptr(), g.stride(0), dw.data_ptr(), dw.stride(0),
-              None if scratch is None else scratch.data_ptr(), m, k, n,
-              splits, rows, ffi.stream())
+              g.data_ptr(), g.stride(0), dw.data_ptr(), dw.stride(0), m, k,
+              n, splits, rows, ffi.stream())
     ffi.check(_LIB, code)
     LAUNCHES["tri_lora_dw"] += 1
     return dw

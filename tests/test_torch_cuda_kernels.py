@@ -561,13 +561,16 @@ def test_tri_lora_forward_simt_route(cuda, m, k, n, r, dtype):
     (2048, 768, 768, torch.float32),          # 8 splits of 256 rows
     (2048, 768, 256, torch.float32),          # 8 splits of 256 rows
     (100, 768, 256, torch.float32),           # M below one split
-    (600, 130, 70, torch.bfloat16)])          # 2 splits, ragged edges
+    (600, 130, 70, torch.bfloat16),           # 2 splits, ragged edges
+    (2000, 768, 512, torch.float32),          # 7 splits, ragged last one
+    (800, 256, 192, torch.bfloat16)])         # 3 splits
 def test_tri_lora_dw_split_is_deterministic(cuda, m, k, n, dtype):
-    """dW split over M and summed in fixed order: within the kernel
-    tolerance of xᵀ@g (absolute part scaled by the largest entry), bitwise
-    the same on a second call, one count per op call."""
+    """dW split over M and summed in split order by a cluster of blocks
+    (any count of them up to 8): within the kernel tolerance of xᵀ@g
+    (absolute part scaled by the largest entry), bitwise the same on a
+    second call, one count per op call."""
     x, _, _, _, _, gy = _tri_lora_inputs(cuda, m, k, n, 1, dtype, m + k)
-    splits, rows = tl_ops.dw_plan(m, k, n, tl_ops.sm_count(x.device))
+    splits, rows = tl_ops.dw_plan(m, k, n, tl_ops.dw_capacity(x.device))
     assert (splits > 1) == (m >= 2 * tl_ops.DW_MIN_ROWS)
     n0 = tl_ops.LAUNCHES["tri_lora_dw"]
     first = tl_ops.tri_lora_dw(x, gy)
@@ -580,6 +583,82 @@ def test_tri_lora_dw_split_is_deterministic(cuda, m, k, n, dtype):
     np.testing.assert_allclose(first.float().cpu().numpy(),
                                want.cpu().numpy(), rtol=tol,
                                atol=tol * max(1.0, float(want.abs().max())))
+
+
+def test_tri_lora_dw_capacity_reads_the_card(cuda):
+    """The occupancy calculator gives the dW kernel a positive capacity for
+    every cluster size, none above that of single blocks."""
+    cap = tl_ops.dw_capacity(cuda)
+    assert sorted(cap) == list(range(1, tl_ops.DW_MAX_SPLITS + 1))
+    assert all(0 < c <= cap[1] for c in cap.values())
+
+
+def _dx_plain(g, w, q, a):
+    return (g.float() @ w.float().T + q.float() @ a.float().T).to(g.dtype)
+
+
+def _dx_operands(cuda, m, k, n, r, dtype, a_dtype, seed):
+    _, w, _, c, b, gy = _tri_lora_inputs(cuda, m, k, n, r, dtype, seed)
+    a = _tri_lora_inputs(cuda, m, k, n, r, a_dtype, seed + 1)[2]
+    q = (2.0 * (gy.float() @ b.float().T) @ c.float().T).to(dtype)
+    return gy, w, q, a
+
+
+@pytest.mark.parametrize("m,k,n,r", [
+    (96, 160, 130, 8), (77, 100, 130, 16),    # N = 130: the scalar copies
+    (2048, 768, 768, 8), (2048, 768, 256, 8),  # fed-100m wq/wo, wk/wv
+    (1, 64, 64, 1), (130, 1000, 64, 64)])
+@pytest.mark.parametrize("dtype,a_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])         # f32 adapters in a bf16 model
+def test_tri_lora_dx_matches_plain(cuda, m, k, n, r, dtype, a_dtype):
+    """dx = g@Wᵀ + Q@Aᵀ against its plain version in f32, A never rounded
+    to g's type; at the gradient tolerance (absolute part scaled by the
+    largest entry); one count per call."""
+    g, w, q, a = _dx_operands(cuda, m, k, n, r, dtype, a_dtype, m + k + n)
+    n0 = tl_ops.LAUNCHES["tri_lora_dx"]
+    got = tl_ops.tri_lora_dx(g, w, q, a)
+    torch.cuda.synchronize()
+    assert tl_ops.LAUNCHES["tri_lora_dx"] == n0 + 1
+    assert got.dtype == dtype and got.shape == (m, k)
+    want = _dx_plain(g, w, q, a)
+    tol = TOL[dtype]["rtol"]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol * max(1.0, float(want.float().abs()
+                                                         .max())))
+
+
+@pytest.mark.parametrize("offset", [0, 1])    # 16-byte copies; scalar
+def test_tri_lora_dx_reads_views_in_place(cuda, offset):
+    """g as a row slice of a wider buffer and W as one layer of a stacked
+    (layers, K, N) tensor give bitwise the contiguous copies' dx, on either
+    copy route (the accumulation order does not depend on it)."""
+    gen = torch.Generator(device=cuda).manual_seed(21 + offset)
+    m, k, n, r = 200, 192, 100, 8
+    wide = torch.randn((m, n + 12), generator=gen, device=cuda)
+    g = wide[:, offset:offset + n]
+    w = (0.1 * torch.randn((3, k, n + 4 * offset), generator=gen,
+                           device=cuda))[1, :, offset:offset + n]
+    q = torch.randn((m, r), generator=gen, device=cuda)
+    a = torch.randn((k, r), generator=gen, device=cuda)
+    assert g.stride(0) == n + 12 and w.stride(0) == n + 4 * offset
+    got = tl_ops.tri_lora_dx(g, w, q, a)
+    want = tl_ops.tri_lora_dx(g.contiguous(), w.contiguous(), q, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _close(got, _dx_plain(g, w, q, a), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tri_lora_dx_is_bitwise_repeatable(cuda, dtype):
+    """Two calls on the same inputs give the same bits."""
+    g, w, q, a = _dx_operands(cuda, 2048, 768, 256, 8, dtype, torch.float32,
+                              4)
+    first = tl_ops.tri_lora_dx(g, w, q, a)
+    second = tl_ops.tri_lora_dx(g, w, q, a)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # ---------------------------------------------------------------------------

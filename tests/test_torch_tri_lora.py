@@ -186,18 +186,27 @@ def test_forward_route_follows_dtype_strides_and_alignment(case, route):
     assert ops.fwd_route(*_route_operands(case)) == route
 
 
+#: dW blocks one H100 80GB HBM3 holds at once by cluster size, as
+#: ``ops.dw_capacity`` read it (6 blocks an SM; clusters of 3 or more
+#: blocks reach fewer than its 132 SMs)
+H100_DW_CAPACITY = {1: 792, 2: 792, 3: 744, 4: 744, 5: 730, 6: 744, 7: 707,
+                    8: 736}
+
+
 @pytest.mark.parametrize("m,k,n,splits,rows", [
-    (2048, 768, 768, 8, 256),       # fed-100m wq/wo: 144 tiles x 8 splits
+    (2048, 768, 768, 5, 416),       # fed-100m wq/wo: 144 tiles x 5 <= 744
     (2048, 768, 256, 8, 256),       # wk/wv: 48 tiles x 8
-    (77, 100, 130, 1, 80),          # ragged, below one split
-    (1, 4096, 4096, 1, 16),         # one row
-    (600, 64, 64, 2, 304)])         # ragged last split
+    (77, 100, 130, 1, 96),          # ragged, below one split
+    (1, 4096, 4096, 1, 32),         # one row
+    (600, 64, 64, 2, 320),          # ragged last split
+    (2000, 768, 512, 7, 288),       # clusters of 7 and 3 blocks
+    (800, 768, 768, 3, 288)])
 def test_dw_split_plan(m, k, n, splits, rows):
-    """dW's M contraction splits until the tiles x splits reach the target
-    block count on the H100's 132 SMs, in ranges of whole slabs that cover
-    M exactly; one split needs no scratch."""
-    assert ops.dw_plan(m, k, n, 132) == (splits, rows)
+    """dW's M contraction takes the most splits whose tiles x splits blocks
+    one H100 holds at once, in ranges of whole slabs that cover M exactly;
+    the splits of a tile are one cluster of at most 8 blocks, the portable
+    cluster size (any count up to 8, not only powers of two)."""
+    assert ops.dw_plan(m, k, n, H100_DW_CAPACITY) == (splits, rows)
     assert (splits - 1) * rows < m <= splits * rows
     assert rows % ops.DW_SLAB == 0
-    assert ops.dw_scratch_shape(m, k, n, 132) == (
-        (splits, k, n) if splits > 1 else ())
+    assert 1 <= splits <= ops.DW_MAX_SPLITS == 8
