@@ -10,9 +10,16 @@ Phases, one JSON line each (several for the case phases):
   hold_check   time_ms's gap test must fire on a host-bound call and stay
                quiet on a device-bound one
   kernels      the decode kernels against their plain PyTorch versions on
-               the card at the serving path's shapes (and edge cases), with
-               their times, the plain versions', one PyTorch library call's
-               and the card's bound
+               the card, f32 and bf16, each case twice (bitwise equal) on
+               the route its alignment gives: decode attention at LLaMA-7B
+               width, 12/4 GQA, h2o-danube-3-4b's heads (32/8, hd 120) over
+               a 4,096 ring and recurrentgemma-2b's (10/1, hd 256) over
+               2,048 (split route), ragged with masked rows; the GEMV at
+               1, 8, 17, 20, 40 rows, K=11008, ragged K/N and W as an
+               unaligned column slice (scalar route); then their times at
+               the serving shapes beside the plain versions, one PyTorch
+               call (SDPA; x@W, a floor) and the card's bound, and decode
+               attention at the long ring (danube heads, ring 4,096)
   flash_cases  the flash forward (out, lse) and backward (dq, dk, dv)
                kernels against the plain version: f32/bf16, causal /
                window 64 and 96 / non-causal, GQA 12/4, 32/32, 8/1 and
@@ -28,8 +35,9 @@ Phases, one JSON line each (several for the case phases):
   serve        multi-tenant LLaMA-7B decode at full width and depth (bf16,
                random weights): 16 requests from 8 users through 8 slots;
                every request must finish and every step must launch both
-               kernels
-  profile      device time by kernel and device idle share over a few steps
+               kernels, all on their 16-byte routes
+  profile      device time by kernel and device idle share over a few steps,
+               and the decode kernels' shares of it
   oracle       the same width in f32 at 2 layers: ServeEngine tokens must
                equal the merged-weights serve_naive tokens request for
                request
@@ -320,134 +328,227 @@ def phase_build(build):
           "kernels": info})
 
 
+#: (B, H, K, hd, ring, idx) of the decode-attention cases: LLaMA-7B width
+#: (ragged with a masked row and a wrapped ring; a scalar idx), 12/4 GQA,
+#: then h2o-danube-3-4b's heads (32/8, hd 120) over its 4,096 ring and
+#: recurrentgemma-2b's (10/1, hd 256) over 2,048 (the split route), each
+#: ragged with a masked row
+ATTN_CASES = (
+    (8, 32, 32, 128, 160, [5, 200, -1, 159, 0, 77, 100, 158]),
+    (8, 32, 32, 128, 160, 37),
+    (4, 12, 4, 64, 100, [5, 140, -1, 99]),
+    (8, 32, 8, 120, 4096, [5, 5000, -1, 4095, 0, 2047, 3000, 4094]),
+    (8, 10, 1, 256, 2048, [2047, -1, 0, 100, 9000, 1500, 2046, 31]),
+)
+
+
 def attn_cases(torch, ops, ref, dev):
-    """Kernel vs plain version: LLaMA-7B width and 12/4 GQA, f32 and bf16,
-    ragged idx with a masked row, a wrapped ring, a scalar idx."""
+    """Kernel vs plain version on every ATTN_CASES case, f32 and bf16:
+    masked rows exactly zero, a second call bitwise equal, the 16-byte
+    route."""
     g = torch.Generator(device=dev).manual_seed(1)
     worst = {}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
-        for (b, h, kh, hd, ring, idx) in (
-                (8, 32, 32, 128, 160, [5, 200, -1, 159, 0, 77, 100, 158]),
-                (8, 32, 32, 128, 160, 37),
-                (4, 12, 4, 64, 100, [5, 140, -1, 99])):
+        for (b, h, kh, hd, ring, idx) in ATTN_CASES:
             def rn(*s):
                 return torch.randn(s, generator=g, device=dev).to(dt)
             q, k, v = rn(b, 1, h, hd), rn(b, ring, kh, hd), rn(b, ring, kh, hd)
             idx_t = torch.tensor(idx, dtype=torch.int32, device=dev)
+            ops.reset_launches()
             got = ops.decode_attention(q, k, v, idx_t)
+            again = ops.decode_attention(q, k, v, idx_t)
             torch.cuda.synchronize()
+            routes = {k_: n for k_, n in ops.ROUTES.items() if n}
             want = ref.decode_attention_ref(q, k, v, idx_t)
             err, nbad = compare(torch, got, want, dt_name)
             masked = [i for i, x in enumerate(torch.atleast_1d(idx_t).tolist())
                       if x < 0]
             zero = all(bool((got[i] == 0).all()) for i in masked)
+            same = bool(torch.equal(got, again))
+            plan = ops.attn_plan(b, kh, h // kh, ops.attn_capacity(dev))
             case = dict(b=b, h=h, kh=kh, hd=hd, ring=ring,
                         idx=idx if isinstance(idx, int) else "ragged")
             emit({"phase": "kernels", "kernel": "decode_attention",
-                  "dtype": dt_name, **case, "max_abs_err": err,
-                  "n_out_of_tol": nbad, "masked_rows_zero": zero,
+                  "dtype": dt_name, **case, "plan": plan, "routes": routes,
+                  "max_abs_err": err, "n_out_of_tol": nbad,
+                  "masked_rows_zero": zero, "bitwise_repeatable": same,
                   "tol": TOL[dt_name]})
-            require(nbad == 0 and zero,
+            require(nbad == 0 and zero and same
+                    and routes == {"attn_vec": 2},
                     f"decode_attention disagrees with its plain version: "
-                    f"{case} {dt_name} err={err} bad={nbad} zero={zero}")
+                    f"{case} {dt_name} err={err} bad={nbad} zero={zero} "
+                    f"repeatable={same} routes={routes}")
             worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+            del q, k, v, want, got, again
     return worst
 
 
+#: (K, N, rows, unaligned) of the grouped-GEMV cases, r=8 over m=8 bank
+#: rows: the serving widths (K=N=4096 and K=11008), 1 and 17 rows, ragged
+#: K/N (odd N, 20 rows), 40 rows (two 32-row groups), and W as a column
+#: slice one element past a 16-byte boundary (the scalar route)
+GEMV_CASES = (
+    (4096, 4096, [0, 2, -1, 1, 7, 7, 3, 5], False),
+    (11008, 4096, [0, 2, -1, 1, 7, 7, 3, 5], False),
+    (4096, 4096, [6], False),
+    (4096, 4096, [3, -1, 0, 1, 2, 4, 5, 6, 7, 0, 1, 2, 3, 4, 5, 6, 7], False),
+    (300, 71, [3, -1, 0, 1, 2, 4, 5, 6, 7, 0] * 2, False),
+    (4096, 4096, [3, -1, 0, 1, 2, 4, 5, 6, 7, 0] * 4, False),
+    (4096, 4096, [0, 2, -1, 1, 7, 7, 3, 5], True),
+    (1000, 520, [3, -1, 0, 1, 2, 4, 5, 6, 7, 0, 1, 2, 3, 4, 5, 6, 7], True),
+)
+
+
 def gemv_cases(torch, ops, ref, dev):
-    """Kernel vs plain version at the serving widths (K=N=4096, and
-    K=11008), ragged K/N (odd N, 20 rows) and 40 rows (two 32-row groups)
-    — r=8, m=8 bank rows."""
+    """Kernel vs plain version on every GEMV_CASES case, f32 and bf16:
+    masked rows exactly zero, a second call bitwise equal, the route the
+    operands' alignment gives."""
     g = torch.Generator(device=dev).manual_seed(2)
     worst = {}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
-        for (kk, n, rows) in ((4096, 4096, [0, 2, -1, 1, 7, 7, 3, 5]),
-                              (11008, 4096, [0, 2, -1, 1, 7, 7, 3, 5]),
-                              (300, 71, [3, -1, 0, 1, 2, 4, 5, 6, 7, 0] * 2),
-                              (4096, 4096, [3, -1, 0, 1, 2, 4, 5, 6, 7, 0] * 4)):
+        for (kk, n, rows, unaligned) in GEMV_CASES:
             m, r = 8, 8
             x = torch.randn((len(rows), kk), generator=g, device=dev).to(dt)
             w = (torch.randn((kk, n), generator=g, device=dev)
                  / math.sqrt(kk)).to(dt)
+            if unaligned:                    # a column slice of a wider W
+                wide = torch.zeros((kk, n + 9), dtype=dt, device=dev)
+                wide[:, 1:n + 1] = w
+                w = wide[:, 1:n + 1]
             a = torch.randn((m, kk, r), generator=g, device=dev) / math.sqrt(r)
             c = torch.eye(r, device=dev) + 0.1 * torch.randn(
                 (m, r, r), generator=g, device=dev)
             bb = 0.02 * torch.randn((m, r, n), generator=g, device=dev)
             rows_t = torch.tensor(rows, dtype=torch.int32, device=dev)
+            ops.reset_launches()
             got = ops.grouped_dense(rows_t, x, w, a, c, bb, scaling=2.0)
+            again = ops.grouped_dense(rows_t, x, w, a, c, bb, scaling=2.0)
             torch.cuda.synchronize()
+            routes = {k_: v for k_, v in ops.ROUTES.items() if v}
             want = ref.grouped_gemv_ref(rows_t, x, w, a, c, bb, scaling=2.0)
             err, nbad = compare(torch, got, want, dt_name)
             zero = bool((got[rows_t < 0] == 0).all())
-            case = dict(rows=len(rows), k=kk, n=n, r=r, m=m)
+            same = bool(torch.equal(got, again))
+            size = x.element_size()
+            route = ("gemv_vec" if not unaligned and kk * size % 16 == 0
+                     and n * size % 16 == 0 else "gemv_scalar")
+            plan = ops.gemv_plan(len(rows), kk, n, x.element_size(),
+                                 ops._sms(dev.index or 0))
+            case = dict(rows=len(rows), k=kk, n=n, r=r, m=m,
+                        unaligned_w=unaligned)
             emit({"phase": "kernels", "kernel": "grouped_gemv",
-                  "dtype": dt_name, **case, "max_abs_err": err,
-                  "n_out_of_tol": nbad, "masked_rows_zero": zero,
+                  "dtype": dt_name, **case, "plan": plan, "routes": routes,
+                  "max_abs_err": err, "n_out_of_tol": nbad,
+                  "masked_rows_zero": zero, "bitwise_repeatable": same,
                   "tol": TOL[dt_name]})
-            require(nbad == 0 and zero,
+            require(nbad == 0 and zero and same and routes == {route: 2},
                     f"grouped_gemv disagrees with its plain version: {case} "
-                    f"{dt_name} err={err} bad={nbad} zero={zero}")
+                    f"{dt_name} err={err} bad={nbad} zero={zero} "
+                    f"repeatable={same} routes={routes}")
             worst[dt_name] = max(worst.get(dt_name, 0.0), err)
     return worst
 
 
-def time_attention(torch, F, ops, ref, bounds, dev):
-    """The serving path's call: B=8 slots, H=K=32, hd=128, ring 160, bf16,
-    every ring full (the most a step of the serve phase reads)."""
-    b, h, kh, hd, ring = 8, 32, 32, 128, 160
-    g = torch.Generator(device=dev).manual_seed(3)
-    kv_bytes = 2 * b * ring * kh * hd * 2
+#: (B, H, K, hd, ring) at which decode attention is timed: the serving
+#: path's call (every ring of 160 full, the most a serve step reads), and
+#: h2o-danube-3-4b's heads over full rings of 4,096 (the split route);
+#: tools/time_decode.py also times recurrentgemma-2b's (10 on 1, hd 256)
+ATTN_TIMED = {"serve": (8, 32, 32, 128, 160),
+              "long ring": (8, 32, 8, 120, 4096),
+              "mqa hd 256": (8, 10, 1, 256, 2048)}
+
+
+def attn_timed_sets(torch, dev, b, h, kh, hd, ring, gen):
+    """bf16 (q, k, v, idx, mask) copies that together exceed the L2, every
+    ring full; the mask is SDPA's."""
     sets = []
-    for _ in range(copies_for(kv_bytes)):
-        q, k, v = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    for _ in range(copies_for(2 * b * ring * kh * hd * 2)):
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
                    for s in ((b, 1, h, hd), (b, ring, kh, hd),
                              (b, ring, kh, hd)))
         idx = torch.full((b,), ring - 1, dtype=torch.int32, device=dev)
         valid = (torch.arange(ring, device=dev)[None, :] <= idx[:, None]) | \
             (idx[:, None] >= ring)
         sets.append((q, k, v, idx, valid[:, None, None, :]))
+    return sets
+
+
+def sdpa_decode(F, q, k, v, idx, mask):
+    """The library yardstick: one SDPA call over the (B, H, R, hd) views."""
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=q.shape[2] != k.shape[2])
+
+
+def time_attention(torch, F, ops, ref, bounds, dev, label: str = "serve"):
+    """Decode attention at ``ATTN_TIMED[label]`` in bf16, beside its plain
+    version, SDPA and the bound."""
+    b, h, kh, hd, ring = ATTN_TIMED[label]
+    sets = attn_timed_sets(torch, dev, b, h, kh, hd, ring,
+                           torch.Generator(device=dev).manual_seed(3))
     q, k, v, idx, _ = sets[0]
-    err = float((ops.decode_attention(q, k, v, idx).float()
-                 - ref.decode_attention_ref(q, k, v, idx).float()).abs().max())
-
-    def lib(q, k, v, idx, mask):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask)
-
+    got = ops.decode_attention(q, k, v, idx)
+    err, nbad = compare(torch, got, ref.decode_attention_ref(q, k, v, idx),
+                        "bfloat16")
+    require(nbad == 0, f"decode_attention at {label}: {nbad} out of "
+                       f"tolerance (err {err})")
     n_valid = sum(min(int(i) + 1, ring) for i in idx.tolist())
-    return dict(
+    row = dict(
         name="decode_attention", route="cuda", source=ATTN_SRC,
         replaces=ATTN_TPU, max_abs_err=err,
         ms=time_ms(torch, lambda q, k, v, i, m: ops.decode_attention(
             q, k, v, i), sets),
         plain_ms=time_ms(torch, lambda q, k, v, i, m: ref.decode_attention_ref(
             q, k, v, i), sets, plain=True),
-        library_ms=time_ms(torch, lib, sets), stream_hold_x=holds_used(),
+        library_ms=time_ms(torch, lambda *t: sdpa_decode(F, *t), sets),
+        stream_hold_x=holds_used(), shape=f"{label} B={b} H={h} K={kh} "
+        f"hd={hd} ring={ring}",
+        plan=ops.attn_plan(b, kh, h // kh, ops.attn_capacity(dev)),
         **bound(bounds.decode_attention(b, h, kh, hd, n_valid, "bfloat16")))
+    del sets
+    torch.cuda.empty_cache()
+    return row
+
+
+def gemv_timed_sets(torch, dev, gen):
+    """The serving path's call: the bank GEMV of ``wq`` at LLaMA-7B width —
+    8 slots of 8 distinct users, K=N=4096 bf16, r=8, m=8; copies that
+    together exceed the L2."""
+    bsz, kk, n, r, m = GEMV_TIMED
+    sets = []
+    for _ in range(copies_for(kk * n * 2)):
+        x = torch.randn((bsz, kk), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = (torch.randn((kk, n), generator=gen, device=dev)
+             / math.sqrt(kk)).to(torch.bfloat16)
+        a = torch.randn((m, kk, r), generator=gen, device=dev) / math.sqrt(r)
+        c = torch.eye(r, device=dev) + 0.1 * torch.randn(
+            (m, r, r), generator=gen, device=dev)
+        b = 0.02 * torch.randn((m, r, n), generator=gen, device=dev)
+        rows = torch.arange(bsz, dtype=torch.int32, device=dev)
+        sets.append((rows, x, w, a, c, b))
+    return sets
+
+
+#: (rows, K, N, r, bank rows) of the timed grouped GEMV
+GEMV_TIMED = (8, 4096, 4096, 8, 8)
 
 
 def time_gemv(torch, ops, ref, bounds, dev):
-    """The serving path's call: the bank GEMV of ``wq`` at LLaMA-7B width —
-    8 slots of 8 distinct users, K=N=4096 bf16, r=8, m=8."""
-    bsz, kk, n, r, m = 8, 4096, 4096, 8, 8
-    g = torch.Generator(device=dev).manual_seed(4)
-    sets = []
-    for _ in range(copies_for(kk * n * 2)):
-        x = torch.randn((bsz, kk), generator=g, device=dev).to(torch.bfloat16)
-        w = (torch.randn((kk, n), generator=g, device=dev)
-             / math.sqrt(kk)).to(torch.bfloat16)
-        a = torch.randn((m, kk, r), generator=g, device=dev) / math.sqrt(r)
-        c = torch.eye(r, device=dev) + 0.1 * torch.randn(
-            (m, r, r), generator=g, device=dev)
-        b = 0.02 * torch.randn((m, r, n), generator=g, device=dev)
-        rows = torch.arange(bsz, dtype=torch.int32, device=dev)
-        sets.append((rows, x, w, a, c, b))
-    err = float((ops.grouped_dense(*sets[0], scaling=2.0).float()
-                 - ref.grouped_gemv_ref(*sets[0], scaling=2.0).float()
-                 ).abs().max())
+    """The grouped GEMV at GEMV_TIMED beside its plain version, ``x@W``
+    alone (a floor: no one PyTorch call computes the function) and the
+    bound."""
+    bsz, kk, n, r, m = GEMV_TIMED
+    sets = gemv_timed_sets(torch, dev,
+                           torch.Generator(device=dev).manual_seed(4))
+    got = ops.grouped_dense(*sets[0], scaling=2.0)
+    err, nbad = compare(torch, got, ref.grouped_gemv_ref(*sets[0],
+                                                         scaling=2.0),
+                        "bfloat16")
+    require(nbad == 0, f"grouped_gemv at the serving shape: {nbad} out of "
+                       f"tolerance (err {err})")
     users = len(set(sets[0][0].tolist()))
     return dict(
         name="grouped_gemv", route="cuda", source=GEMV_SRC,
@@ -457,6 +558,7 @@ def time_gemv(torch, ops, ref, bounds, dev):
             *t, scaling=2.0), sets, plain=True),
         library_ms=time_ms(torch, lambda rows, x, w, *_: x @ w, sets),
         stream_hold_x=holds_used(),
+        plan=ops.gemv_plan(bsz, kk, n, 2, ops._sms(dev.index or 0)),
         **bound(bounds.grouped_gemv(bsz, kk, n, r, users, "bfloat16")))
 
 
@@ -1352,8 +1454,10 @@ def bound(b) -> dict:
             "flops": b.flops}
 
 
-def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
-    """LLaMA-7B at full width and depth, bf16, random weights."""
+def serve_engine(torch, serve, model, random_bank, get_config, dev):
+    """LLaMA-7B at full width and depth, bf16, random weights (seed 0) and
+    a random bank of 8 users, behind a ServeEngine of 8 slots of 160:
+    (cfg, params, bank, engine, seconds to make the weights)."""
     cfg = get_config("celora-llama-7b")
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -1362,12 +1466,20 @@ def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
         bank = random_bank(cfg, 8, gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    eng = serve.ServeEngine(cfg, params["base"], bank, slots=8, max_len=160,
+                            device=dev)
+    return cfg, params, bank, eng, init_s
+
+
+def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
+    """LLaMA-7B at full width and depth, bf16, random weights."""
+    cfg, params, bank, eng, init_s = serve_engine(torch, serve, model,
+                                                  random_bank, get_config,
+                                                  dev)
     from repro_torch.tree import tree_leaves
     n_weights = sum(t.numel() for t in tree_leaves(params["base"]))
     reqs = serve.make_requests(bank, 16, prompt_len=128, gen=32,
                                vocab=cfg.vocab_size, seed=0)
-    eng = serve.ServeEngine(cfg, params["base"], bank, slots=8, max_len=160,
-                            device=dev)
     step_ms = []
     step = eng._step
 
@@ -1387,6 +1499,7 @@ def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
     wall = time.perf_counter() - t0
     srt = sorted(step_ms)
     launches = dict(ops.LAUNCHES)
+    routes = dict(ops.ROUTES)
     steps = eng.steps
     n_layers, n_targets = cfg.n_layers, len(cfg.lora_targets)
     lens = sorted({len(v) for v in done.values()})
@@ -1403,7 +1516,7 @@ def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
           "step_ms_max": srt[-1], "first_step_ms": step_ms[0],
           "tok_per_s": new_tokens / wall,
           "slot_tokens_per_s": steps * 8 / wall, "init_s": init_s,
-          "launches": launches,
+          "launches": launches, "routes": routes,
           "expected_launches": {"grouped_gemv": n_targets * n_layers * steps,
                                 "decode_attention": n_layers * steps},
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1412,6 +1525,9 @@ def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
     require(launches["grouped_gemv"] == n_targets * n_layers * steps
             and launches["decode_attention"] == n_layers * steps,
             f"launch counts {launches} over {steps} steps")
+    require(routes["gemv_vec"] == launches["grouped_gemv"]
+            and routes["attn_vec"] == launches["decode_attention"],
+            f"the serve path left the 16-byte routes: {routes}")
     require(all(bool(((v >= 0) & (v < cfg.vocab_size)).all())
                 for v in done.values()), "token ids out of range")
     return launches, (cfg, params, bank, eng)
@@ -1420,33 +1536,55 @@ def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
 def device_split(prof, wall_us: float, top: int, shares=()) -> dict:
     """Device time by kernel name over a profiled window, the window's
     wall time and the device's idle share in it; for each substring in
-    ``shares``, the share of device time of the kernels whose names hold
-    it."""
+    ``shares``, the share of kernel time of the kernels whose names hold
+    it.  ``device_us`` is the time some kernel ran (the union of their
+    intervals: a kernel launched as a programmatic dependent overlaps the
+    one before it), ``kernel_us_sum`` the sum of their durations."""
     by_name: dict = {}
+    spans = []
     for e in prof.events():                   # device-side kernel events
         if getattr(e.device_type, "name", "") != "CUDA":
             continue
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        spans.append((e.time_range.start, e.time_range.end))
     rows_out = sorted(((k, us, n) for k, (us, n) in by_name.items()),
                       key=lambda r: -r[1])
     dev_total = sum(us for _, us, _ in rows_out)
+    busy, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
     share = {f"{key}_share": sum(us for k, us, _ in rows_out if key in k)
              / dev_total for key in shares if dev_total}
     return {**share, "wall_us": wall_us,
-            "device_us": dev_total if rows_out else None,
-            "device_idle_share": (1 - dev_total / wall_us)
+            "device_us": busy if rows_out else None,
+            "kernel_us_sum": dev_total if rows_out else None,
+            "device_idle_share": (1 - busy / wall_us)
             if rows_out else None,
             "top": [{"kernel": k[:80], "us": round(t, 1), "count": n}
                     for k, t, n in rows_out[:top]]}
 
 
-def phase_profile(torch, state, dev):
+#: the decode kernels whose shares of the serve profile's device time it
+#: reports: the GEMV's two kernels (before: its main kernel and down
+#: projection), decode attention
+SERVE_SHARES = ("grouped_gemv_kernel", "grouped_gemv_combine_kernel",
+                "lora_down_kernel",
+                "decode_attention_kernel")
+
+
+def phase_profile(torch, state, dev) -> dict:
     """Device time by kernel over 3 steps of the serve engine with all 8
-    slots active at position 120, and the device's idle share."""
+    slots active at position 120, and the device's idle share; emitted
+    and returned."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, params, bank, eng = state
+    cfg, params, bank, eng = state[:4]
     from repro_torch.models import model
     cache = model.init_decode_cache(cfg, 8, 160, device=dev)
     tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
@@ -1464,7 +1602,10 @@ def phase_profile(torch, state, dev):
                                                  device=dev), rows)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    emit({"phase": "profile", "steps": 3, **device_split(prof, wall_us, 14)})
+    line = {"phase": "profile", "steps": 3,
+            **device_split(prof, wall_us, 14, SERVE_SHARES)}
+    emit(line)
+    return line
 
 
 def phase_oracle(torch, ops, serve, random_bank, get_config, model, dev):
@@ -1860,10 +2001,12 @@ def main() -> int:
         card = card_line()
         rows = [time_attention(torch, F, ops, ref, bounds, dev),
                 time_gemv(torch, ops, ref, bounds, dev)]
+        long_ring = time_attention(torch, F, ops, ref, bounds, dev,
+                                   "long ring")
         flash_rows = time_flash(torch, F, fa_ops, fa_ref, bounds, dev)
         tri_lora_rows = time_tri_lora(torch, tl_ops, bounds, dev)
         wkv6_row = time_wkv6(torch, wkv_ops, wkv_ref, rwkv, bounds, dev, card)
-        for r in rows:
+        for r in rows + [long_ring]:
             emit({"phase": "kernels", "timing": r["name"],
                   "kernel_ms": r["ms"], **{k: v for k, v in r.items()
                                            if k not in ("name", "ms")}})

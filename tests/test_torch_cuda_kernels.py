@@ -54,6 +54,12 @@ def _close(got, want, dtype):
     (8, 32, 32, 128, 160, [5, 200, -1, 159, 0, 77, 100, 158]),
     (4, 12, 4, 64, 100, [5, 140, -1, 99]),
     (2, 8, 2, 64, 33, 40),                     # scalar idx, wrapped ring
+    # h2o-danube-3-4b heads (hd 120, groups of 4) over a 4,096 ring and
+    # recurrentgemma-2b's (hd 256, 10 on 1) over 2,048: the split route
+    (8, 32, 8, 120, 4096, [5, 5000, -1, 4095, 0, 2047, 3000, 4094]),
+    (8, 10, 1, 256, 2048, [2047, -1, 0, 100, 9000, 1500, 2046, 31]),
+    (2, 32, 8, 120, 300, 1000),                # scalar idx, wrapped
+    (3, 10, 1, 256, 64, 17),                   # scalar idx
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(cuda, b, h, kh, hd, ring, idx,
@@ -85,6 +91,53 @@ def test_decode_attention_kernel_reads_cache_by_strides(cuda):
     _close(ops.decode_attention(q, k, v, idx), want, torch.float32)
 
 
+def _attn_inputs(dev, b, h, kh, hd, ring, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in ((b, 1, h, hd), (b, ring, kh, hd), (b, ring, kh, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,hd,ring,idx", [
+    (8, 32, 32, 128, 160, [159] * 8),            # the serving shape
+    (8, 32, 8, 120, 4096, [4095, 100, -1, 9000, 0, 3000, 4094, 2048]),
+    (8, 10, 1, 256, 2048, 2047),                 # split route, scalar idx
+])
+def test_decode_attention_is_bitwise_repeatable(cuda, dtype, b, h, kh, hd,
+                                                ring, idx):
+    """Splits combined in split order, no atomics: equal bits call to
+    call."""
+    q, k, v = _attn_inputs(cuda, b, h, kh, hd, ring, dtype, hd + ring)
+    idx_t = torch.tensor(idx, dtype=torch.int32, device=cuda)
+    first = ops.decode_attention(q, k, v, idx_t)
+    for _ in range(3):
+        assert torch.equal(ops.decode_attention(q, k, v, idx_t), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 120, 256])
+def test_decode_attention_unaligned_cache_takes_scalar_route(cuda, dtype,
+                                                             hd):
+    """A cache whose base is one element past a 16-byte boundary takes the
+    scalar route and gives the 16-byte route's bits on the same values."""
+    b, h, kh, ring = 3, 8, 2, 300
+    q, k, v = _attn_inputs(cuda, b, h, kh, hd, ring, dtype, hd)
+    idx = torch.tensor([299, 40, 1000], dtype=torch.int32, device=cuda)
+    buf = torch.zeros(2 * k.numel() + 1, dtype=dtype, device=cuda)
+    ku = buf[1:1 + k.numel()].view(k.shape)
+    vu = buf[1 + k.numel():].view(v.shape)
+    ku.copy_(k)
+    vu.copy_(v)
+    ops.reset_launches()
+    got_u = ops.decode_attention(q, ku, vu, idx)
+    assert ops.ROUTES["attn_scalar"] == 1 and ops.ROUTES["attn_vec"] == 0
+    got = ops.decode_attention(q, k, v, idx)
+    torch.cuda.synchronize()
+    assert ops.ROUTES["attn_vec"] == 1
+    assert torch.equal(got_u, got)
+    _close(got, ref.decode_attention_ref(q, k, v, idx), dtype)
+
+
 @pytest.mark.parametrize("k,n,rows", [
     (4096, 4096, [0, 2, -1, 1, 7, 7, 3, 5]),
     (11008, 4096, [0, 2, -1, 1, 7, 7, 3, 5]),
@@ -92,6 +145,10 @@ def test_decode_attention_kernel_reads_cache_by_strides(cuda):
     (100, 70, [-1]),                                   # only a masked row
     (4096, 4096, [3, -1, 0, 1, 2, 4, 5, 6, 7, 0] * 4),  # 40 rows: 2 groups
     (300, 71, [7, 6, -1, 5, 4, 3, 2, 1, 0, 0] * 7),     # 70 rows: 3 groups
+    (4096, 4096, [5]),                                  # 1 row
+    (4096, 4096, [3, -1, 0, 1, 2, 4, 5, 6, 7, 0, 1, 2, 3, 4, 5, 6, 7]),
+    (4096, 4096, [7, 6, -1, 5, 4, 3, 2, 1] * 4),        # 32 rows: 1 group
+    (1000, 520, [1, 2, -1, 0, 3, 4, 5, 6, 7, 7, 6, 5, 4, 3, 2, 1, 0]),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grouped_gemv_kernel_matches_plain(cuda, k, n, rows, dtype):
@@ -112,6 +169,53 @@ def test_grouped_gemv_kernel_matches_plain(cuda, k, n, rows, dtype):
     _close(got, ref.grouped_gemv_ref(rows_t, x, w, a, c, b, scaling=2.0),
            dtype)
     assert not got[rows_t < 0].any()
+
+
+def _gemv_inputs(dev, bsz, k, n, dtype, seed, m=8, r=8):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((bsz, k), generator=g, device=dev).to(dtype)
+    w = (torch.randn((k, n), generator=g, device=dev)
+         / math.sqrt(k)).to(dtype)
+    a = torch.randn((m, k, r), generator=g, device=dev) / math.sqrt(r)
+    c = torch.eye(r, device=dev) + 0.1 * torch.randn((m, r, r), generator=g,
+                                                      device=dev)
+    b = 0.02 * torch.randn((m, r, n), generator=g, device=dev)
+    rows = torch.arange(bsz, dtype=torch.int32, device=dev) % m
+    rows[1 % bsz] = -1
+    return rows, x, w, a, c, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (300, 71)])
+def test_grouped_gemv_unaligned_w_takes_scalar_route(cuda, dtype, k, n):
+    """A column slice of a wider W one element past a 16-byte boundary
+    takes the scalar route and gives the 16-byte route's bits (same order
+    of sums) on the same values."""
+    rows, x, w, a, c, b = _gemv_inputs(cuda, 8, k, n, dtype, k + n)
+    wide = torch.zeros((k, n + 9), dtype=dtype, device=cuda)
+    view = wide[:, 1:n + 1]
+    view.copy_(w)
+    aligned = torch.zeros((k, n + 8), dtype=dtype, device=cuda)[:, :n]
+    aligned.copy_(w)
+    ops.reset_launches()
+    got_view = ops.grouped_dense(rows, x, view, a, c, b, scaling=2.0)
+    assert ops.ROUTES["gemv_scalar"] == 1 and ops.ROUTES["gemv_vec"] == 0
+    got = ops.grouped_dense(rows, x, aligned, a, c, b, scaling=2.0)
+    torch.cuda.synchronize()
+    assert ops.ROUTES["gemv_vec"] == (1 if (n + 8) % 8 == 0 else 0)
+    assert torch.equal(got_view, got)
+    _close(got, ref.grouped_gemv_ref(rows, x, w, a, c, b, scaling=2.0),
+           dtype)
+    assert not got[rows < 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemv_is_bitwise_repeatable(cuda, dtype):
+    """Split-K sums in split order, no atomics: equal bits call to call."""
+    ins = _gemv_inputs(cuda, 8, 4096, 4096, dtype, 3)
+    first = ops.grouped_dense(*ins, scaling=2.0)
+    for _ in range(3):
+        assert torch.equal(ops.grouped_dense(*ins, scaling=2.0), first)
 
 
 def test_grouped_gemv_wrapper_refuses_what_the_kernel_cannot_take(cuda):

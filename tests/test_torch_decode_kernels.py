@@ -54,6 +54,9 @@ def _bank(rng, m, k, n, r):
     (96, 4, 1, 32, [95, -1]),          # MQA, exactly full + masked slot
     (80, 4, 4, 16, [3, 120]),          # MHA, ring not a power of two
     (48, 12, 4, 64, 47),               # GQA 12/4, scalar idx
+    (40, 8, 2, 120, [5, 57]),          # h2o-danube's hd 120, wrapped row
+    (24, 10, 1, 256, [23, -1]),        # recurrentgemma's hd 256, 10 on 1
+    (20, 10, 1, 256, 9),               # hd 256, scalar idx
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_ref_matches_jax(ring, h, kh, hd, idx, dtype):
@@ -184,6 +187,7 @@ def test_cpu_path_counts_no_launches():
     k = torch.zeros(1, 8, 2, 64)
     ops.decode_attention(q, k, k, torch.tensor(3, dtype=torch.int32))
     assert ops.LAUNCHES == {"decode_attention": 0, "grouped_gemv": 0}
+    assert not any(ops.ROUTES.values())
 
 
 def test_kernel_sources_are_listed_for_the_build():
@@ -201,6 +205,73 @@ def test_kernel_sources_are_listed_for_the_build():
             assert f'extern "C" int {fn}_launch' in text, name
         assert f'extern "C" const char* {name}_error_string' in text, name
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_attention_head_dims_are_the_kernel_instantiations():
+    """``ops._ATTN_HEAD_DIMS`` is the ``Instantiated`` list of
+    decode_attention.cu, and it holds the head dim (and the group of query
+    heads a KV head) of every config the JAX package registers."""
+    import re
+
+    import repro.configs  # noqa: F401  (registers the configs)
+    from repro.models.config import get_config, list_configs
+
+    text = build.sources()["decode_attention"].read_text()
+    found = re.search(r"using Instantiated = HeadDims<([0-9, ]+)>;", text)
+    assert found, "decode_attention.cu names no Instantiated head dims"
+    dims = tuple(int(d) for d in found.group(1).split(","))
+    assert dims == ops._ATTN_HEAD_DIMS
+    for name in list_configs():
+        cfg = get_config(name)
+        assert cfg.hd in ops._ATTN_HEAD_DIMS, name
+        assert cfg.n_heads // cfg.n_kv_heads <= ops.ATTN_MAX_GROUP, name
+
+
+#: blocks an H100 holds at once, two an SM, per cluster size: clusters of
+#: 3 or more reach only some of its SMs (the occupancy calculator's answer
+#: for the tri-LoRA dW kernel, six an SM, scaled to two)
+H100_CAPACITY = {1: 264, 2: 264, 3: 248, 4: 248, 5: 243, 6: 248, 7: 235,
+                 8: 245}
+
+
+@pytest.mark.parametrize("b,kh,group,want", [
+    (8, 32, 1, 1),       # the serving shape: LLaMA-7B, 8 slots
+    (8, 8, 4, 3),        # h2o-danube-3-4b heads: 64 (row, KV head) pairs
+    (8, 1, 10, 8),       # recurrentgemma-2b: 3 head chunks
+    (1, 1, 1, 8),
+    (64, 8, 8, 1),       # more blocks than one wave: no split
+    (4, 4, 3, 8),        # fed-100m heads: 16 pairs
+    (3, 2, 64, None),
+    (2, 2, 12, None),
+])
+def test_attn_plan_takes_the_most_splits_of_one_wave(b, kh, group, want):
+    """Splits are the most, up to the largest portable cluster, whose
+    blocks fit the card's capacity for that cluster size; 1 when none
+    does."""
+    splits = ops.attn_plan(b, kh, group, H100_CAPACITY)
+    blocks = b * kh * -(-group // 4)
+    assert 1 <= splits <= ops.ATTN_MAX_SPLITS
+    assert blocks * splits <= H100_CAPACITY[splits] or splits == 1
+    assert all(blocks * s > H100_CAPACITY[s]
+               for s in range(splits + 1, ops.ATTN_MAX_SPLITS + 1))
+    if want is not None:
+        assert splits == want
+
+
+@pytest.mark.parametrize("b,k,n", [(8, 4096, 4096), (1, 4096, 4096),
+                                   (40, 4096, 4096), (17, 300, 71),
+                                   (8, 11008, 4096), (3, 64, 8)])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_gemv_plan_slices_cover_k_once(b, k, n, itemsize):
+    """K slices are stage multiples, at most GEMV_MAX_SPLITS of them, and
+    cover K with no empty slice; the serving shape gets 16 slices of
+    256."""
+    splits, depth = ops.gemv_plan(b, k, n, itemsize, 132)
+    assert 1 <= splits <= ops.GEMV_MAX_SPLITS
+    assert depth % ops.GEMV_STAGE_K == 0
+    assert (splits - 1) * depth < k <= splits * depth
+    if (b, k, n, itemsize) == (8, 4096, 4096, 2):
+        assert (splits, depth) == (16, 256)
 
 
 def test_bound_table_names_every_tpu_kernel():
