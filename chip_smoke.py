@@ -24,8 +24,9 @@ Phases, one JSON line each (several for the case phases):
                kernels against the plain version: f32/bf16, causal /
                window 64 and 96 / non-causal, GQA 12/4, 32/32, 8/1 and
                16/1 (MQA), hd 64/128, S 256/512 and ragged 200; the
-               backward twice (bitwise equal), on the 16-byte route, and
-               the last case again on unaligned views (scalar route)
+               forward and the backward twice (bitwise equal; the
+               forward's SHA-256 printed), on the 16-byte routes, and the
+               last case again on unaligned views (scalar routes)
   flash_timing forward, dq, dk/dv, the backward as the model runs it
                (softmax_delta + dq + dk/dv) and forward+backward at the
                train shape (B=8, S=256, H=12, K=4, hd=64, f32) and at
@@ -62,7 +63,8 @@ Phases, one JSON line each (several for the case phases):
   train        CE-LoRA ``run_federated`` on fed-100m at full width and
                depth (f32, random backbone): 4 clients, 3 rounds of 5 local
                steps of batch 8 at sequence 256, attn_impl="flash"; exact
-               flash and tri-LoRA launch counts, a profile window, and the
+               flash and tri-LoRA launch counts (every flash launch on its
+               16-byte route), a profile window, and the
                same job with attn_impl="ref" on the card as its reference
   lm_train     the causal-LM driver ``launch.train.run`` on fed-100m at full
                width and depth: 4 clients, 3 rounds of 5 local steps of
@@ -74,15 +76,20 @@ Phases, one JSON line each (several for the case phases):
   card_vs_cpu  one loss and its adapter gradients at full width and depth
                on the card (all kernels) and on the CPU (plain versions)
   wkv6_cases   the wkv6 kernel (y and final state) against the plain scan:
-               the JAX kernel-test shapes, T = 1, ragged T, extreme decay,
-               the rwkv6-1.6b prefill shape in bf16/f32, strided views of
-               one (B,T,3D) buffer; one launch per call
+               the JAX kernel-test shapes, T = 1, ragged T, hd 17/48/64 at
+               T 1/15/17/513, extreme decay, the rwkv6-1.6b prefill shape
+               in bf16/f32, strided views of one (B,T,3D) buffer; one
+               launch per call on the route ops.route names (hd 17 takes
+               the scalar route, the rest the 16-byte one), each case
+               twice (bitwise equal)
   wkv6_timing  the kernel at B=8 T=512 H=32 hd=64 beside the corrected
-               bound and the plain versions (no PyTorch call computes it)
+               bound and the plain versions (no PyTorch call computes it),
+               and at B=1, 8 and 32
   rwkv_prefill rwkv6-1.6b at full width and depth (bf16, random weights):
                model.forward over 8x512 tokens with use_rwkv_kernel=True,
-               exactly 24 wkv6 and 96 tri-LoRA forward launches (all 96 on
-               the wgmma route), every wkv6 call against wkv6_ref on its own
+               exactly 24 wkv6 launches (all on the 16-byte route) and 96
+               tri-LoRA forward launches (all 96 on the wgmma route),
+               every wkv6 call against wkv6_ref on its own
                inputs, the same weights in f32 within 2e-2 of the plain
                path's logits, and a profile window with the tri-LoRA and
                wkv6 kernels' shares of device time
@@ -172,6 +179,12 @@ WKV6_TPU = "src/repro/kernels/rwkv6/rwkv6.py:79"
 #: at a T that is no multiple of the 32-step chunk
 WKV6_CASES = ((2, 64, 2, 16), (2, 80, 2, 16), (2, 33, 1, 8),
               (2, 128, 4, 32), (2, 1, 2, 64), (2, 77, 3, 64))
+#: (B, T, H, hd) of the wkv6 cases in the model's types (bf16 r/k/v/u, f32
+#: w): head dims that leave part of the kernel's 64 columns and keys empty
+#: (17 on the scalar staging route) or none, at T of one step, within the
+#: 32-step chunk and one past a multiple of it
+WKV6_EDGE = tuple((2, t, 3, hd) for hd in (17, 48, 64)
+                  for t in (1, 15, 17, 513))
 #: the rwkv6-1.6b prefill shape (bf16 r/k/v/u, f32 w), at which the
 #: kernel is checked and timed
 WKV6_FULL = (8, 512, 32, 64)
@@ -306,6 +319,17 @@ def compare_scaled(torch, got, want, dtype_name):
     tol = TOL[dtype_name]["rtol"]
     scale = max(1.0, float(want.abs().max()))
     return float(err.max()), int((err > tol * scale + tol * want.abs()).sum())
+
+
+def digest(torch, *ts) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes, in
+    order: equal digests mean bitwise-equal outputs."""
+    import hashlib
+    h = hashlib.sha256()
+    for x in ts:
+        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
 
 
 # ---------------------------------------------------------------------------
@@ -602,6 +626,9 @@ def flash_cases(torch, fa_ops, fa_ref, dev):
             kw = dict(causal=causal, window=window)
             fa_ops.reset_launches()
             out, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+            fwd_sha = [digest(torch, out, lse),
+                       digest(torch, *fa_ops.flash_attention_fwd(q, k, v,
+                                                                 **kw))]
             grads = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
             again = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
             torch.cuda.synchronize()
@@ -621,16 +648,22 @@ def flash_cases(torch, fa_ops, fa_ref, dev):
             case = dict(b=b, s=s, h=h, kh=kh, hd=hd, causal=causal,
                         window=window)
             emit({"phase": "flash_cases", "dtype": dt_name, **case,
-                  "routes": routes, "bwd_bitwise_repeatable": same,
+                  "routes": routes, "fwd_sha256": fwd_sha[0],
+                  "fwd_bitwise_repeatable": fwd_sha[0] == fwd_sha[1],
+                  "bwd_bitwise_repeatable": same,
                   "max_abs_err": errs, "n_out_of_tol": bad,
                   "tol": TOL[dt_name], "lse_tol": TOL["float32"]})
             require(bad == 0, f"flash kernels disagree with the plain "
                     f"version: {case} {dt_name} errors {errs}")
+            require(fwd_sha[0] == fwd_sha[1], f"flash forward not bitwise "
+                    f"repeatable: {case} {dt_name}")
             require(same, f"flash backward not bitwise repeatable: {case} "
                     f"{dt_name}")
-            want_routes = {"bwd_vec": 0, "bwd_scalar": 0}
+            want_routes = {"fwd_vec": 0, "fwd_scalar": 0, "bwd_vec": 0,
+                           "bwd_scalar": 0}
+            want_routes[f"fwd_{route}"] = 2
             want_routes[f"bwd_{route}"] = 4
-            require(routes == want_routes, f"flash backward routes {routes}, "
+            require(routes == want_routes, f"flash routes {routes}, "
                     f"expected {want_routes}: {case} {dt_name}")
             worst[dt_name] = max(worst.get(dt_name, 0.0), *errs.values())
     return worst
@@ -763,7 +796,8 @@ def time_flash(torch, F, fa_ops, fa_ref, bounds, dev):
               "bwd_over_sdpa_bwd": t["flash_bwd"] / t["sdpa_bwd"],
               "routes": routes, "max_abs_err": err,
               "stream_hold_x": holds_used()})
-        require(routes == {"bwd_vec": 2, "bwd_scalar": 0},
+        require(routes == {"fwd_vec": 0, "fwd_scalar": 0, "bwd_vec": 2,
+                           "bwd_scalar": 0},
                 f"the timed backward took routes {routes}")
         if rows is None:          # the train phase's shape
             rows = [dict(name=n, route="cuda", source=FLASH_SRC,
@@ -1023,11 +1057,13 @@ def wkv6_check(torch, wkv_ops, wkv_ref, ins, plain_ins=None):
     """One op call against ``wkv6_ref`` (on ``plain_ins`` if given: the
     same values laid out contiguously): errors of y and the final state,
     each held to rtol = atol = 1e-4 with the absolute part scaled by the
-    reference's largest entry, and the launches of the call."""
+    reference's largest entry, the launches of the call, and the digests
+    of (y, state) from it and from a second call."""
     n0 = wkv_ops.LAUNCHES["wkv6"]
     y, s = wkv_ops.wkv6(*ins)
     torch.cuda.synchronize()
     launched = wkv_ops.LAUNCHES["wkv6"] - n0
+    sha = [digest(torch, y, s), digest(torch, *wkv_ops.wkv6(*ins))]
     want = wkv_ref.wkv6_ref(*(plain_ins or ins))
     errs, bad = {}, 0
     for name, got, ref_t in (("y", y, want[0]), ("state", s, want[1])):
@@ -1036,18 +1072,22 @@ def wkv6_check(torch, wkv_ops, wkv_ref, ins, plain_ins=None):
         errs[name] = float(err.max())
         bad += int((err > 1e-4 * scale + 1e-4 * ref_t.abs()).sum())
     finite = bool(torch.isfinite(y).all() and torch.isfinite(s).all())
-    return errs, bad, launched, finite
+    return errs, bad, launched, finite, sha
 
 
 def wkv6_cases(torch, wkv_ops, wkv_ref, dev):
     """The kernel against the plain scan on the card: the JAX test shapes,
-    T = 1 and a ragged T in f32 with a non-zero state; extreme decay
-    (w = 1e-6); the full prefill shape in the model's types; r, k and v
-    as strided views of one (B, T, 3·D) buffer."""
+    T = 1 and a ragged T in f32 with a non-zero state; head dims 17, 48
+    and 64 at ragged T in the model's types; extreme decay (w = 1e-6); the
+    full prefill shape in the model's types; r, k and v as strided views of
+    one (B, T, 3·D) buffer.  Each case twice, bitwise equal."""
     gen = torch.Generator(device=dev).manual_seed(14)
     cases = [(f"f32 B={b} T={t} H={h} hd={hd}",
               wkv6_inputs(torch, dev, b, t, h, hd, torch.float32, gen), None)
              for (b, t, h, hd) in WKV6_CASES]
+    cases += [(f"bf16 r/k/v/u, f32 w: B={b} T={t} H={h} hd={hd}",
+               wkv6_inputs(torch, dev, b, t, h, hd, torch.bfloat16, gen),
+               None) for (b, t, h, hd) in WKV6_EDGE]
     b, t, h, hd = 1, 64, 1, 8
     cases.append(("extreme decay w=1e-6", (
         torch.full((b, t, h, hd), 0.5, device=dev),
@@ -1070,20 +1110,42 @@ def wkv6_cases(torch, wkv_ops, wkv_ref, dev):
     cases.append(("strided views of a (B,T,3D) bf16 buffer",
                   (r, k, v, w, u, s0),
                   (r.contiguous(), k.contiguous(), v.contiguous(), w, u, s0)))
-    worst = 0.0
+    worst, taken = 0.0, set()
     for name, ins, plain in cases:
-        errs, bad, launched, finite = wkv6_check(torch, wkv_ops, wkv_ref,
-                                                 ins, plain)
-        emit({"phase": "wkv6_cases", "case": name,
+        before = dict(wkv_ops.ROUTES)
+        errs, bad, launched, finite, sha = wkv6_check(torch, wkv_ops,
+                                                      wkv_ref, ins, plain)
+        route = [key for key in before if wkv_ops.ROUTES[key] > before[key]]
+        taken.update(route)
+        emit({"phase": "wkv6_cases", "case": name, "route": route,
               "strides": list(ins[0].stride()), "max_abs_err": errs,
               "n_out_of_tol": bad, "launches": launched, "finite": finite,
+              "sha256": sha[0], "bitwise_repeatable": sha[0] == sha[1],
               "tol": "rtol=atol=1e-4, atol scaled by the largest entry"})
         require(bad == 0 and finite, f"wkv6 disagrees with wkv6_ref: {name} "
                 f"errors {errs}, {bad} out of tolerance, finite={finite}")
+        require(sha[0] == sha[1], f"wkv6 not bitwise repeatable: {name}")
         require(launched == 1, f"wkv6 launched {launched} kernels in one "
                 f"call ({name})")
+        require(route == [f"wkv6_{wkv_ops.route(*ins[:4])}"],
+                f"wkv6 took routes {route} ({name})")
         worst = max(worst, *errs.values())
+    require(taken == set(wkv_ops.ROUTES),
+            f"the wkv6 cases took only the routes {sorted(taken)}")
     return worst
+
+
+def wkv6_by_batch(torch, wkv_ops, dev, gen) -> dict:
+    """The kernel's time in µs at the prefill's T, H and hd for B = 1, 8
+    and 32, keyed by B and the launch's block count (one block per
+    (b, h))."""
+    _, t, h, hd = WKV6_FULL
+    out = {}
+    for bb in (1, 8, 32):
+        ins = wkv6_inputs(torch, dev, bb, t, h, hd, torch.bfloat16, gen)
+        out[f"b{bb}_blocks{bb * h}_us"] = 1e3 * time_ms(
+            torch, wkv_ops.wkv6, [ins])
+    return out
 
 
 def time_wkv6(torch, wkv_ops, wkv_ref, rwkv, bounds, dev, card: str):
@@ -1103,11 +1165,7 @@ def time_wkv6(torch, wkv_ops, wkv_ref, rwkv, bounds, dev, card: str):
     chunked_ms = time_ms(torch, lambda *a: rwkv.wkv_chunked(*a, chunk=32),
                          sets, iters=5, plain=True)
     scan_ms = time_ms(torch, wkv_ref.wkv6_ref, sets, iters=3, plain=True)
-    scaling = {}                  # the kernel's time against its block count
-    for bb in (1, 32):
-        ins = wkv6_inputs(torch, dev, bb, t, h, hd, torch.bfloat16, gen)
-        scaling[f"b{bb}_blocks{bb * h}_us"] = 1e3 * time_ms(
-            torch, wkv_ops.wkv6, [ins])
+    scaling = wkv6_by_batch(torch, wkv_ops, dev, gen)
     emit({"phase": "wkv6_timing", "card": card, "b": b, "t": t, "h": h,
           "hd": hd, "dtypes": "r/k/v/u bf16, w/state/y f32",
           "kernel_us": 1e3 * ms, "bound_us": 1e3 * bd.ms,
@@ -1236,6 +1294,7 @@ def phase_rwkv_prefill(torch, wkv_ops, wkv_ref, tl_ops, model, get_config,
             wkv_ops.wkv6 = kernel
         launches = {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES}
         routes = dict(tl_ops.ROUTES)
+        wkv_routes = dict(wkv_ops.ROUTES)
         call_errs, call_bad = [], 0
         for ins, out in calls:
             want = wkv_ref.wkv6_ref(*ins)
@@ -1292,6 +1351,7 @@ def phase_rwkv_prefill(torch, wkv_ops, wkv_ref, tl_ops, model, get_config,
           "plain_wall_s": plain_wall, "plain_tok_per_s": tokens / plain_wall,
           "peak_mem_gb": peak, "launches": launches,
           "expected_launches": expected, "routes": routes,
+          "wkv6_routes": wkv_routes,
           "plain_wkv6_launches": plain_launches,
           "wkv6_calls_checked": len(call_errs) // 2,
           "wkv6_calls_max_err_over_max": max(call_errs),
@@ -1313,6 +1373,9 @@ def phase_rwkv_prefill(torch, wkv_ops, wkv_ref, tl_ops, model, get_config,
     require(routes == {"fwd_wgmma": 4 * cfg.n_layers, "fwd_simt": 0},
             f"rwkv_prefill forward routes {routes}: every tri-LoRA forward "
             f"of the bf16 prefill must take the wgmma route")
+    require(wkv_routes == {"wkv6_vec": cfg.n_layers, "wkv6_scalar": 0},
+            f"rwkv_prefill wkv6 routes {wkv_routes}: every wkv6 launch of "
+            f"the prefill must take the 16-byte route")
     require(plain_launches == {"wkv6": 0},
             f"the plain path launched {plain_launches}")
     require(finite and tuple(logits.shape) == (job["batch"], job["seq"],
@@ -1741,15 +1804,17 @@ def phase_train(torch, fa_ops, tl_ops, get_config, dev):
           "trained_tokens": tokens, "trained_tok_per_s": tokens / wall,
           "round_wall_s_sum": sum(r.wall_s for r in hist),
           "peak_mem_gb": peak, "launches": launches,
-          "expected_launches": expected, "flash_bwd_routes": flash_routes,
+          "expected_launches": expected, "flash_routes": flash_routes,
           "profile": prof,
           "ref": {"attn_impl": "ref", "wall_s": ref_wall,
                   "train_loss": [r.train_loss for r in ref["history"]],
                   "mean_acc": [r.mean_acc for r in ref["history"]]}})
     require(launches == expected,
             f"train launches {launches} != expected {expected}")
-    require(flash_routes == {"bwd_vec": 2 * layers * steps, "bwd_scalar": 0},
-            f"train flash backward routes {flash_routes}: every dq and dk/dv "
+    require(flash_routes == {"fwd_vec": expected["flash_fwd"],
+                             "fwd_scalar": 0, "bwd_vec": 2 * layers * steps,
+                             "bwd_scalar": 0},
+            f"train flash routes {flash_routes}: every forward, dq and dk/dv "
             f"launch should take the 16-byte route")
     for a, b in zip(hist, ref["history"]):
         require((a.sampled, a.participants, a.dropped, a.uplink_bytes,

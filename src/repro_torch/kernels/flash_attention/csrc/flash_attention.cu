@@ -30,37 +30,44 @@
 // f32 FMAs.  bf16 operands take the same f32 path here; tensor-core
 // (wgmma) tiles are later work.
 //
-// What the design does about it:
-// * Forward: one block of 256 threads per (64-row tile, head, batch row).
-//   The TPU's sequential grid axis becomes a loop inside the block over
-//   only the tiles that intersect the causal/window band (the TPU kernel's
-//   _band), so causal attention does half the tile products.  Tiles are
-//   staged as f32 with rows padded to hd+1 floats; each thread owns a 4x4
-//   block of the 64x64 score tile and 4 x hd/16 accumulators.  Row max and
-//   row sums are reduced over the 16 lanes of a half warp by shuffles; the
-//   online-softmax state stays in registers in f32.
-// * Backward (namespace bwd): blocks of 128 threads, each owning a 4x8
-//   piece of the 64x64 score tile and 4 x hd/8 accumulators, so one 16-byte
-//   shared-memory read feeds 8 or more FMAs; s and dp stay in registers
-//   through the exp and ds, and only the operand of a transposed product
-//   (ds for dq; p, then ds, for dk/dv) is staged.  Tiles arrive by 16-byte
-//   cp.async, the next K tile (dq) or the next Q tile (dk/dv) in flight
-//   while the current one is computed; rows are padded to hd+4 floats so
-//   the 16-byte reads meet no bank conflict.
+// What the design does about it: every kernel is built from one
+// micro-kernel.  Blocks of 128 threads; thread t owns rows tr + 16i (i < 4)
+// and columns tc + 8j (j < 8) of a 64x64 score tile (tr = t / 8,
+// tc = t % 8) and channels 4tc + 32h + e (e < 4) of a 64 x hd output tile,
+// so one 16-byte shared-memory read feeds 8 or more FMAs.  Operand tiles
+// are staged as f32 [row][channel] with rows of hd + 4 floats (the 8
+// threads of a quarter warp read 8 rows tc + 8j at one channel, which lie
+// on 8 different 16-byte bank groups, or one row: a broadcast); score
+// tiles are [row][column] with rows of 72 floats, so a warp's 32 scalar
+// stores hit 32 banks.  Tiles arrive by 16-byte cp.async while the tile
+// before them is computed.  s, p and dp stay in registers through the max,
+// the exp and ds; only the operand of a transposed product is staged.
+// * Forward: one block per (64-row tile, head, batch row), two blocks an
+//   SM, q tiles launched last first (under a causal band the last is the
+//   heaviest).  The TPU's sequential grid axis becomes a loop inside the
+//   block over only the k tiles that intersect the causal/window band (the
+//   TPU kernel's _band), so causal attention does half the tile products.
+//   K and V tiles are double-buffered: the next band tile's K and V are in
+//   flight while the current one is computed.  Per k tile: s = q k^T
+//   (registers), the online softmax in registers (row max and sum over the
+//   8 lanes that share a row, by shuffles; the mask only on tiles the band
+//   cuts), p staged once as the operand of o += p v.  The online-softmax
+//   state stays in registers in f32.
 // * dq: one block per (64-row tile, head, batch row), q tiles launched last
-//   first (under a causal band the last is the heaviest), two blocks an SM.
+//   first, two blocks an SM; the next K tile and the V tile load while the
+//   current products run.
 // * dk/dv: a thread-block cluster per (64-key tile, KV head, batch row),
 //   one block per query head of the group (min(G, 8) blocks; with G > 8 a
 //   block takes heads rank, rank + 8, ...).  Each block sums its heads'
 //   band q tiles in registers; the cluster then adds the blocks' partials
-//   through distributed shared memory in rank order.  No atomics: dq, dk
-//   and dv are bitwise the same from call to call.
+//   through distributed shared memory in rank order.  No atomics: out, lse,
+//   dq, dk and dv are bitwise the same from call to call.
 // * q/k/v/dO are read in the model's (B,S,heads,hd) layout through their
 //   strides: no transpose, no padding, no repeat of K/V for GQA.  The ragged
 //   sequence edge is masked inside the kernel by the real lengths.  Rows
-//   that are not 16-byte aligned take the scalar route of the backward (one
-//   element a copy), chosen by the caller: flash_dq_scalar_launch /
-//   flash_dkv_scalar_launch.
+//   that are not 16-byte aligned take the scalar route of the same kernels
+//   (one element a copy), chosen by the caller: flash_fwd_scalar_launch,
+//   flash_dq_scalar_launch, flash_dkv_scalar_launch.
 //
 // Each entry point launches on the given stream and returns the
 // cudaError_t of the launch.
@@ -73,37 +80,10 @@
 
 namespace {
 
-constexpr int kTile = 64;  // query rows and keys per tile
-constexpr int kThreads = 256;
-constexpr int kPad = kTile + 1;  // padded row of a 64-wide score tile
+constexpr int kTile = 64;        // query rows and keys per tile
+constexpr int kThreads = 128;    // threads of every block
+constexpr int kLdS = kTile + 8;  // padded row of a staged score tile
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// reductions over the 16 lanes that share a tile row (lanes tx = 0..15)
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 struct Band {
   int causal, window, q_off, skv;
@@ -116,6 +96,14 @@ struct Band {
     }
     return true;
   }
+  // does every (query, key) of the pair lie in the band?  (rows past Sq are
+  // never stored, so they need no mask)
+  __device__ __forceinline__ bool full(int q_first, int k_first) const {
+    if (k_first + kTile > skv) return false;
+    if (!causal) return true;
+    return k_first + kTile - 1 <= q_first + q_off &&
+           (window == 0 || k_first > q_first + q_off + kTile - 1 - window);
+  }
   // element mask for query row qi (sequence index) and key kj
   __device__ __forceinline__ bool valid(int qi, int kj) const {
     if (kj >= skv) return false;
@@ -125,158 +113,22 @@ struct Band {
   }
 };
 
-// rows [first, first + 64) of a (S, hd) slice with row stride `rs` into a
-// padded f32 tile; rows at or beyond n are zero
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long rs, int first, int n) {
-  constexpr int LD = HD + 1;
-  for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int row = first + r;
-    dst[r * LD + d] = row < n ? to_f32(src[row * rs + d]) : 0.f;
-  }
+// reductions over the 8 lanes that share a score-tile row (tc = 0..7)
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// the micro-kernel's pieces, shared by the forward and the backward
 // ---------------------------------------------------------------------------
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int sq, int n_heads,
-    int group, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, float scale, Band band) {
-  constexpr int LD = HD + 1;
-  constexpr int NJ = HD / 16;
-  extern __shared__ float smem[];
-  float* sq_t = smem;                 // 64 x LD
-  float* sk_t = sq_t + kTile * LD;    // 64 x LD
-  float* sv_t = sk_t + kTile * LD;    // 64 x LD
-  float* sp_t = sv_t + kTile * LD;    // 64 x kPad
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q_first = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / group;
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
-
-  load_tile<T, HD>(sq_t, qb, q_ss, q_first, sq);
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_kt = (band.skv + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k_first = kt * kTile;
-    if (!band.tiles(q_first, k_first)) continue;  // uniform over the block
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, HD>(sk_t, kb, k_ss, k_first, band.skv);
-    load_tile<T, HD>(sv_t, vb, v_ss, k_first, band.skv);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sq_t[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sk_t[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q_first + ty + 16 * i;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = band.valid(qi, k_first + tx + 16 * j);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        sp_t[(ty + 16 * i) * kPad + tx + 16 * j] = p;
-      }
-      l[i] = alpha * l[i] + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float vv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = sv_t[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sp_t[(ty + 16 * i) * kPad + c];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q_first + ty + 16 * i;
-    if (qi >= sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((static_cast<long long>(b) * sq + qi) * n_heads + h) * HD;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      orow[tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
-    if (tx == 0)
-      lse[(static_cast<long long>(b) * n_heads + h) * sq + qi] =
-          m[i] + logf(denom);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-//
-// Thread t of a block owns rows tr + 16i (i < 4) and columns tc + 8j (j < 8)
-// of a 64x64 score tile (tr = t / 8, tc = t % 8) and channels 4tc + 32h + e
-// (e < 4) of a 64 x hd output tile.  Operand tiles are staged as f32
-// [row][channel] with rows of hd + 4 floats: the 8 threads of a quarter warp
-// read 8 rows tc + 8j at one channel, which lie on 8 different 16-byte bank
-// groups, or one row (a broadcast).  Score tiles are [row][column] with rows
-// of 72 floats, so a warp's 32 scalar stores hit 32 banks.
-
-namespace bwd {
-
-namespace cg = cooperative_groups;
-
-constexpr int kThreads = 128;
-constexpr int kLdS = kTile + 8;  // padded row of a staged score tile
-constexpr int kMaxCluster = 8;   // the portable cluster size
 
 template <int HD>
 struct Geo {
@@ -284,8 +136,9 @@ struct Geo {
   static constexpr int kTileF = kTile * kLd;  // floats of a staged tile
   static constexpr int kScoreF = kTile * kLdS;
   static constexpr int kNH = HD / 32;         // float4 channel groups
-  // dq: q, dO, two k stages, v, ds.  dk/dv: k, v, two q stages, dO, p/ds,
-  // two lse stages and delta.
+  // forward: q, two k and two v stages, p.  dq: q, dO, two k stages, v,
+  // ds.  dk/dv: k, v, two q stages, dO, p/ds, two lse stages and delta.
+  static constexpr size_t kFwdSmem = sizeof(float) * (5 * kTileF + kScoreF);
   static constexpr size_t kDqSmem = sizeof(float) * (5 * kTileF + kScoreF);
   static constexpr size_t kDkvSmem =
       sizeof(float) * (5 * kTileF + kScoreF + 3 * kTile);
@@ -458,6 +311,137 @@ __device__ __forceinline__ int2 tile_range(int n, F hit) {
   while (hi >= lo && !hit(hi)) --hi;
   return make_int2(lo, hi);
 }
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// out and lse per (64-row tile, head, batch row): grid (B*H, Sq/64), q
+// tiles in reverse order, over the band's k tiles.  Per k tile: s = q k^T
+// (registers), the online softmax (registers), p staged, o += p v; the next
+// k and v tiles (the other stage) load meanwhile.
+template <typename T, int HD, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, int sq, int n_heads,
+    int group, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, float scale, Band band) {
+  using G = Geo<HD>;
+  extern __shared__ __align__(16) float fsmem[];
+  float* s_q = fsmem;
+  float* s_k = s_q + G::kTileF;      // two stages
+  float* s_v = s_k + 2 * G::kTileF;  // two stages
+  float* s_p = s_v + 2 * G::kTileF;
+
+  const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
+  const int h = blockIdx.x % n_heads, b = blockIdx.x / n_heads;
+  const int kvh = h / group;
+  const T* kb = k + b * k_sb + kvh * k_sh;
+  const T* vb = v + b * v_sb + kvh * v_sh;
+  // q tile n - 1 - y: under a causal band the heaviest tiles go first
+  const int n_qt = (sq + kTile - 1) / kTile;
+  const int q_first = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kTile;
+  const int2 kr = tile_range((band.skv + kTile - 1) / kTile, [&](int t) {
+    return band.tiles(q_first, t * kTile);
+  });
+
+  // groups: {q, k tile 0}, {v tile 0}; then {k, v} of the next tile at the
+  // top of every iteration (empty after the last)
+  stage_tile<T, HD, VEC>(s_q, q + b * q_sb + h * q_sh, q_ss, q_first, sq);
+  if (kr.x <= kr.y)
+    stage_tile<T, HD, VEC>(s_k, kb, k_ss, kr.x * kTile, band.skv);
+  cp_async_commit();
+  if (kr.x <= kr.y)
+    stage_tile<T, HD, VEC>(s_v, vb, v_ss, kr.x * kTile, band.skv);
+  cp_async_commit();
+
+  float m[4], l[4], acc[4][HD / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = kr.x; kt <= kr.y; ++kt) {
+    const int k_first = kt * kTile;
+    const int stage = (kt - kr.x) & 1;
+    cp_async_wait<1>();  // q and this k tile have landed (v may not)
+    __syncthreads();     // ... for all; the last tile's products are done
+    if (kt < kr.y) {
+      stage_tile<T, HD, VEC>(s_k + (stage ^ 1) * G::kTileF, kb, k_ss,
+                             k_first + kTile, band.skv);
+      cp_async_commit();
+      stage_tile<T, HD, VEC>(s_v + (stage ^ 1) * G::kTileF, vb, v_ss,
+                             k_first + kTile, band.skv);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_commit();
+
+    float s[4][8] = {};
+    dot_rows<HD>(s, s_q, s_k + stage * G::kTileF);
+    const bool full = band.full(q_first, k_first);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q_first + tr + 16 * i;
+      bool ok[8];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        ok[j] = full || band.valid(qi, k_first + tc + 8 * j);
+        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        rs += p;
+        s_p[(tr + 16 * i) * kLdS + tc + 8 * j] = p;
+      }
+      l[i] = alpha * l[i] + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) acc[i][c] *= alpha;
+    }
+    cp_async_wait<2>();  // this v tile (the next k and v may not)
+    __syncthreads();     // ... and p, for all
+    score_times<HD>(acc, s_p, s_v + stage * G::kTileF);
+  }
+  cp_async_wait<0>();  // a block with no band tile still staged q
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q_first + tr + 16 * i;
+    if (qi >= sq) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* row = o + ((static_cast<long long>(b) * sq + qi) * n_heads + h) * HD;
+#pragma unroll
+    for (int c = 0; c < G::kNH; ++c)
+      store4(row + 4 * tc + 32 * c, acc[i][4 * c] / denom,
+             acc[i][4 * c + 1] / denom, acc[i][4 * c + 2] / denom,
+             acc[i][4 * c + 3] / denom);
+    if (tc == 0)
+      lse[(static_cast<long long>(b) * n_heads + h) * sq + qi] =
+          m[i] + logf(denom);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+namespace bwd {
+
+namespace cg = cooperative_groups;
+
+constexpr int kMaxCluster = 8;  // the portable cluster size
+
 
 // dq per (64-row tile, head, batch row): grid (B*H, Sq/64), q tiles in
 // reverse order, over the band's k tiles.  Per k tile: s = q k^T and
@@ -729,10 +713,6 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
 // launches
 // ---------------------------------------------------------------------------
 
-constexpr size_t fwd_smem(int hd) {
-  return sizeof(float) * (3 * kTile * (hd + 1) + kTile * kPad);
-}
-
 // kernels whose shared memory exceeds the default 48 KB must opt in once
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -753,16 +733,22 @@ bool rows16(const void* p, Strides s, int elem) {
          (s.sh * elem) % 16 == 0;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool VEC>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, int batch, int sq, int n_heads, int group,
                 Strides qs, Strides ks, Strides vs, float scale, Band band,
                 cudaStream_t stream) {
-  const size_t smem = fwd_smem(HD);
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, HD>, smem);
+  using G = Geo<HD>;
+  auto kernel = flash_fwd_kernel<T, HD, VEC>;
+  cudaError_t err = allow_smem(kernel, G::kFwdSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kTile - 1) / kTile, n_heads, batch);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (sq + kTile - 1) / kTile;
+  const dim3 grid(batch * n_heads, n_qt);
+  kernel<<<grid, kThreads, G::kFwdSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       sq, n_heads, group, qs.sb, qs.ss, qs.sh, ks.sb, ks.ss, ks.sh, vs.sb,
@@ -782,12 +768,12 @@ struct BwdArgs {
 
 template <typename T, int HD, bool VEC>
 cudaError_t dq(const BwdArgs& a, void* dq_out) {
-  using G = bwd::Geo<HD>;
+  using G = Geo<HD>;
   auto kernel = bwd::flash_dq_kernel<T, HD, VEC>;
   cudaError_t err = allow_smem(kernel, G::kDqSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.batch * a.n_heads, (a.sq + kTile - 1) / kTile);
-  kernel<<<grid, bwd::kThreads, G::kDqSmem, a.stream>>>(
+  kernel<<<grid, kThreads, G::kDqSmem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -799,7 +785,7 @@ cudaError_t dq(const BwdArgs& a, void* dq_out) {
 
 template <typename T, int HD, bool VEC>
 cudaError_t dkv(const BwdArgs& a, void* dk, void* dv) {
-  using G = bwd::Geo<HD>;
+  using G = Geo<HD>;
   auto kernel = bwd::flash_dkv_kernel<T, HD, VEC>;
   cudaError_t err = allow_smem(kernel, G::kDkvSmem);
   if (err != cudaSuccess) return err;
@@ -807,7 +793,7 @@ cudaError_t dkv(const BwdArgs& a, void* dk, void* dv) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ranks * a.n_kv_heads * a.batch,
                      (a.band.skv + kTile - 1) / kTile);
-  cfg.blockDim = dim3(bwd::kThreads);
+  cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = G::kDkvSmem;
   cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
@@ -842,14 +828,9 @@ Band make_band(int causal, int window, int sq, int skv) {
   return Band{causal != 0, causal ? window : 0, causal ? skv - sq : 0, skv};
 }
 
-// the backward's checks and (dtype, hd) dispatch; VEC: the 16-byte route,
-// which refuses operands it cannot read 16 bytes at a time
-template <bool VEC, class Launch>
-int bwd_entry(int dtype, int hd, const BwdArgs& a, Launch launch) {
-  const int elem = dtype == 1 ? 2 : 4;
-  if (VEC && !(rows16(a.q, a.qs, elem) && rows16(a.k, a.ks, elem) &&
-               rows16(a.v, a.vs, elem) && rows16(a.dout, a.dos, elem)))
-    return static_cast<int>(cudaErrorInvalidValue);
+// the (dtype, hd) dispatch of every entry point
+template <class Launch>
+int dispatch(int dtype, int hd, Launch launch) {
   cudaError_t err;
   if (dtype == 0 && hd == 64)
     err = launch(float{}, std::integral_constant<int, 64>{});
@@ -862,6 +843,41 @@ int bwd_entry(int dtype, int hd, const BwdArgs& a, Launch launch) {
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// the backward's checks and dispatch; VEC: the 16-byte route, which
+// refuses operands it cannot read 16 bytes at a time
+template <bool VEC, class Launch>
+int bwd_entry(int dtype, int hd, const BwdArgs& a, Launch launch) {
+  const int elem = dtype == 1 ? 2 : 4;
+  if (VEC && !(rows16(a.q, a.qs, elem) && rows16(a.k, a.ks, elem) &&
+               rows16(a.v, a.vs, elem) && rows16(a.dout, a.dos, elem)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, hd, launch);
+}
+
+// the forward's checks and dispatch, as bwd_entry
+template <bool VEC>
+int fwd_entry(int dtype, int hd, const void* q, const void* k, const void* v,
+              void* out, void* lse, int batch, int sq, int skv, int n_heads,
+              int n_kv_heads, long long q_sb, long long q_ss, long long q_sh,
+              long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+              long long v_ss, long long v_sh, float scale, int causal,
+              int window, void* stream) {
+  if (bad_shape(batch, sq, skv, n_heads, n_kv_heads) || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+      vs{v_sb, v_ss, v_sh};
+  const int elem = dtype == 1 ? 2 : 4;
+  if (VEC && !(rows16(q, qs, elem) && rows16(k, ks, elem) &&
+               rows16(v, vs, elem)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Band band = make_band(causal, window, sq, skv);
+  return dispatch(dtype, hd, [&](auto t, auto h) {
+    return fwd<decltype(t), decltype(h)::value, VEC>(
+        q, k, v, out, lse, batch, sq, n_heads, n_heads / n_kv_heads, qs, ks,
+        vs, scale, band, static_cast<cudaStream_t>(stream));
+  });
 }
 
 template <bool VEC>
@@ -915,37 +931,26 @@ int dkv_entry(int dtype, int hd, const void* q, const void* k, const void* v,
 // through the given element strides (batch, sequence, head) with unit
 // channel stride.  Outputs are contiguous: out and dq (B,Sq,H,hd), dk and dv
 // (B,Skv,K,hd), lse and delta (B,H,Sq) f32.  Each returns the cudaError_t of
-// its launch.  flash_dq_launch and flash_dkv_launch stage 16 bytes a read
-// and refuse (cudaErrorInvalidValue) operands whose base or strides are no
-// multiple of 16 bytes; the *_scalar_launch entry points take any strides.
-extern "C" int flash_fwd_launch(
-    int dtype, int hd, const void* q, const void* k, const void* v, void* out,
-    void* lse, int batch, int sq, int skv, int n_heads, int n_kv_heads,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, float scale, int causal, int window, void* stream) {
-  if (bad_shape(batch, sq, skv, n_heads, n_kv_heads) || window < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int group = n_heads / n_kv_heads;
-  const Band band = make_band(causal, window, sq, skv);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0 && hd == 64)
-    err = fwd<float, 64>(q, k, v, out, lse, batch, sq, n_heads, group, qs, ks,
-                         vs, scale, band, s);
-  else if (dtype == 0 && hd == 128)
-    err = fwd<float, 128>(q, k, v, out, lse, batch, sq, n_heads, group, qs,
-                          ks, vs, scale, band, s);
-  else if (dtype == 1 && hd == 64)
-    err = fwd<__nv_bfloat16, 64>(q, k, v, out, lse, batch, sq, n_heads, group,
-                                 qs, ks, vs, scale, band, s);
-  else if (dtype == 1 && hd == 128)
-    err = fwd<__nv_bfloat16, 128>(q, k, v, out, lse, batch, sq, n_heads,
-                                  group, qs, ks, vs, scale, band, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+// its launch.  flash_fwd_launch, flash_dq_launch and flash_dkv_launch stage
+// 16 bytes a read and refuse (cudaErrorInvalidValue) operands whose base or
+// strides are no multiple of 16 bytes; the *_scalar_launch entry points
+// take any strides.
+#define FLASH_FWD_PARAMS                                                    \
+  int dtype, int hd, const void *q, const void *k, const void *v, void *out, \
+      void *lse, int batch, int sq, int skv, int n_heads, int n_kv_heads,   \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,       \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,       \
+      long long v_sh, float scale, int causal, int window, void *stream
+#define FLASH_FWD_ARGS                                                      \
+  dtype, hd, q, k, v, out, lse, batch, sq, skv, n_heads, n_kv_heads, q_sb,  \
+      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, window, \
+      stream
+
+extern "C" int flash_fwd_launch(FLASH_FWD_PARAMS) {
+  return fwd_entry<true>(FLASH_FWD_ARGS);
+}
+extern "C" int flash_fwd_scalar_launch(FLASH_FWD_PARAMS) {
+  return fwd_entry<false>(FLASH_FWD_ARGS);
 }
 
 #define FLASH_DQ_PARAMS                                                     \

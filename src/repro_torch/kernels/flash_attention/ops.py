@@ -8,11 +8,11 @@ kernels through a ``torch.autograd.Function`` or raises: it checks device,
 dtype, head dim and layout first, and raises when a launch reports an
 error.  ``LAUNCHES`` counts kernel launches per kernel.
 
-The dq and dk/dv kernels stage their tiles 16 bytes a read; operands they
-cannot read that way (a base or a batch, sequence or head stride that is
-no multiple of 16 bytes) take the same kernels' scalar route, one element
-a read.  :func:`bwd_route` picks the route before the launch, and
-``ROUTES`` counts the backward's launches by route.
+Every kernel stages its tiles 16 bytes a read; operands it cannot read
+that way (a base or a batch, sequence or head stride that is no multiple
+of 16 bytes) take the same kernel's scalar route, one element a read.
+:func:`fwd_route` and :func:`bwd_route` pick the route before the launch,
+and ``ROUTES`` counts the launches by route.
 """
 from __future__ import annotations
 
@@ -23,8 +23,9 @@ from repro_torch.kernels.flash_attention import ref
 
 #: Kernel launches per kernel; incremented only where a kernel is launched.
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-#: dq and dk/dv launches by route (:func:`bwd_route`).
-ROUTES = {"bwd_vec": 0, "bwd_scalar": 0}
+#: Forward launches by route (:func:`fwd_route`), dq and dk/dv launches by
+#: route (:func:`bwd_route`).
+ROUTES = {"fwd_vec": 0, "fwd_scalar": 0, "bwd_vec": 0, "bwd_scalar": 0}
 #: The 16-byte route reads rows whose base and strides are multiples of it.
 ALIGN = 16
 
@@ -60,15 +61,31 @@ def _strides(t: torch.Tensor) -> tuple:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _rows16(t: torch.Tensor) -> bool:
+    return t.data_ptr() % ALIGN == 0 and all(
+        s * t.element_size() % ALIGN == 0 for s in t.stride()[:3])
+
+
+def fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The forward's route: ``"vec"`` when q, k and v each have a base
+    address and batch, sequence and head strides that are multiples of 16
+    bytes, else ``"scalar"``.  Decided from strides and base addresses
+    alone, before any launch."""
+    return "vec" if all(_rows16(t) for t in (q, k, v)) else "scalar"
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0):
-    """Forward kernel: (out (B,Sq,H,hd) in q.dtype, lse (B,H,Sq) f32)."""
+    """Forward kernel: (out (B,Sq,H,hd) in q.dtype, lse (B,H,Sq) f32);
+    the route by :func:`fwd_route`."""
     _check_operands(q, k, v, window)
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = ffi.fn(_LIB, "flash_fwd_launch",
+    route = fwd_route(q, k, v)
+    name = "flash_fwd_launch" if route == "vec" else "flash_fwd_scalar_launch"
+    fn = ffi.fn(_LIB, name,
                 [_I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I]
                 + [_LL] * 9 + [_F, _I, _I, _VP])
     code = fn(ffi.DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
@@ -77,6 +94,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               float(hd) ** -0.5, int(causal), int(window), ffi.stream())
     ffi.check(_LIB, code)
     LAUNCHES["flash_fwd"] += 1
+    ROUTES[f"fwd_{route}"] += 1
     return out, lse
 
 
@@ -109,10 +127,7 @@ def bwd_route(*ts: torch.Tensor) -> str:
     when each one's base address and batch, sequence and head strides are
     multiples of 16 bytes, else ``"scalar"``.  Decided from strides and
     base addresses alone, before any launch."""
-    def rows16(t):
-        return t.data_ptr() % ALIGN == 0 and all(
-            s * t.element_size() % ALIGN == 0 for s in t.stride()[:3])
-    return "vec" if all(rows16(t) for t in ts) else "scalar"
+    return "vec" if all(_rows16(t) for t in ts) else "scalar"
 
 
 def _bwd_fn(kernel: str, route: str, n_ptrs: int):

@@ -12,6 +12,12 @@ views need no copy), takes u as (H,hd) without a per-row broadcast, pads
 nothing and masks the ragged last chunk by the real T.  ``LAUNCHES``
 counts kernel launches.
 
+The kernel stages r, k, v and w 16 bytes a copy; operands it cannot read
+that way (a base, a batch, time or head stride, or a row of hd elements
+that is no multiple of 16 bytes) take the same kernel's scalar route, one
+element a load.  :func:`route` picks it before the launch, and ``ROUTES``
+counts the launches by route.
+
 The JAX op's ``chunk`` and ``interpret`` arguments have no counterpart:
 the kernel runs the recurrence step by step, and there is no interpret
 mode on the card.  Like the JAX kernel it has no VJP: a call that
@@ -26,7 +32,13 @@ from repro_torch.models import rwkv
 
 #: Kernel launches; incremented only where the kernel is launched.
 LAUNCHES = {"wkv6": 0}
+#: Launches by route (:func:`route`).
+ROUTES = {"wkv6_vec": 0, "wkv6_scalar": 0}
+#: The 16-byte route reads rows whose base and strides are multiples of it.
+ALIGN = 16
 
+#: Head dims the kernel takes (``kMaxHd`` of ``csrc/wkv6.cu``): one block
+#: of a (b, h) holds every key and value column up to it.
 MAX_HD = 64
 _LIB = "wkv6"
 _VP, _I, _LL = ffi.VP, ffi.I, ffi.LL
@@ -35,8 +47,22 @@ _ARGS = ([_I] * 3 + [_VP, _LL, _LL, _LL] * 4 + [_VP, _LL]
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
+
+
+def route(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          w: torch.Tensor) -> str:
+    """The kernel's route: ``"vec"`` when r, k, v and w each have a base
+    address, batch, time and head strides and a row of hd elements that
+    are multiples of 16 bytes, else ``"scalar"``.  Decided from strides and
+    base addresses alone, before any launch."""
+    def rows16(t):
+        n = t.element_size()
+        return t.data_ptr() % ALIGN == 0 and all(
+            s * n % ALIGN == 0 for s in (*t.stride()[:3], t.shape[-1]))
+    return "vec" if all(rows16(t) for t in (r, k, v, w)) else "scalar"
 
 
 def _check_cuda(r, k, v, w, u, state) -> None:
@@ -83,7 +109,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     _check_cuda(*ins)
     y = torch.empty((b, t, h, hd), dtype=torch.float32, device=r.device)
     s_out = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
-    fn = ffi.fn(_LIB, "wkv6_launch", _ARGS)
+    how = route(r, k, v, w)
+    fn = ffi.fn(_LIB, "wkv6_launch" if how == "vec" else "wkv6_scalar_launch",
+                _ARGS)
     code = fn(ffi.DTYPE_CODE[r.dtype], ffi.DTYPE_CODE[w.dtype],
               ffi.DTYPE_CODE[u.dtype],
               *(x for a in (r, k, v, w)
@@ -95,4 +123,5 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
               ffi.stream())
     ffi.check(_LIB, code)
     LAUNCHES["wkv6"] += 1
+    ROUTES[f"wkv6_{how}"] += 1
     return y, s_out

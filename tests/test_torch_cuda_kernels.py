@@ -406,6 +406,55 @@ def _flash_bwd_vs_plain(q, k, v, do, dtype, causal=True, window=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_is_bitwise_repeatable(cuda, dtype):
+    """Two forward calls on the same inputs give bitwise-equal out and lse,
+    on the 16-byte route, causal and windowed."""
+    q, k, v, _ = _flash_inputs(cuda, 2, 200, 12, 4, 64, dtype, 23)
+    for window in (0, 64):
+        fa_ops.reset_launches()
+        first = fa_ops.flash_attention_fwd(q, k, v, window=window)
+        second = fa_ops.flash_attention_fwd(q, k, v, window=window)
+        assert fa_ops.ROUTES["fwd_vec"] == 2
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_unaligned_view_takes_scalar_route(cuda, dtype):
+    """q, k and v one element past a 16-byte boundary take the forward's
+    scalar route, which matches the plain version and gives bitwise the
+    16-byte route's out and lse; the 16-byte entry point refuses them."""
+    q, k, v, _ = _flash_inputs(cuda, 2, 200, 12, 4, 64, dtype, 19)
+
+    def moved(t):
+        buf = torch.empty((*t.shape[:-1], t.shape[-1] + 1), dtype=t.dtype,
+                          device=t.device)
+        buf[..., 1:] = t
+        return buf[..., 1:]
+    views = [moved(t) for t in (q, k, v)]
+    assert fa_ops.fwd_route(*views) == "scalar"
+    fa_ops.reset_launches()
+    out, lse = fa_ops.flash_attention_fwd(*views)
+    assert fa_ops.ROUTES == {"fwd_vec": 0, "fwd_scalar": 1, "bwd_vec": 0,
+                             "bwd_scalar": 0}
+    want_out, want_lse = fa_ref.flash_attention_fwd_ref(q, k, v)
+    _close(out, want_out, dtype)
+    _close(lse, want_lse, torch.float32)
+    vec_out, vec_lse = fa_ops.flash_attention_fwd(q, k, v)
+    assert torch.equal(out, vec_out) and torch.equal(lse, vec_lse)
+    fn = fa_ops.ffi.fn("flash_attention", "flash_fwd_launch",
+                       [fa_ops._I, fa_ops._I] + [fa_ops._VP] * 5
+                       + [fa_ops._I] * 5 + [fa_ops._LL] * 9
+                       + [fa_ops._F, fa_ops._I, fa_ops._I, fa_ops._VP])
+    code = fn(fa_ops.ffi.DTYPE_CODE[dtype], 64, views[0].data_ptr(),
+              k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+              2, 200, 200, 12, 4, *fa_ops._strides(views[0]),
+              *fa_ops._strides(k), *fa_ops._strides(v), 0.125, 1, 0,
+              fa_ops.ffi.stream())
+    assert code != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
     """Two backward calls on the same inputs give bitwise-equal dq, dk and
     dv: the dk/dv cluster sums its heads' partials in rank order and no
@@ -427,7 +476,8 @@ def test_flash_backward_groups_at_ragged_length(cuda, h, kh):
                                 h + kh)
     fa_ops.reset_launches()
     _flash_bwd_vs_plain(q, k, v, do, torch.float32)
-    assert fa_ops.ROUTES == {"bwd_vec": 2, "bwd_scalar": 0}
+    assert fa_ops.ROUTES == {"fwd_vec": 1, "fwd_scalar": 0, "bwd_vec": 2,
+                             "bwd_scalar": 0}
 
 
 def test_flash_backward_long_causal_sequence(cuda):
@@ -476,7 +526,8 @@ def test_flash_backward_unaligned_view_takes_scalar_route(cuda, dtype):
     assert fa_ops.bwd_route(*views) == "scalar"
     fa_ops.reset_launches()
     got = _flash_bwd_vs_plain(*views, dtype)
-    assert fa_ops.ROUTES == {"bwd_vec": 0, "bwd_scalar": 2}
+    assert fa_ops.ROUTES == {"fwd_vec": 0, "fwd_scalar": 1, "bwd_vec": 0,
+                             "bwd_scalar": 2}
     out, lse = fa_ops.flash_attention_fwd(q, k, v)
     for a, b in zip(got, fa_ops.flash_attention_bwd(q, k, v, out, lse, do)):
         assert torch.equal(a, b)
@@ -794,15 +845,38 @@ def _wkv_close(got, want):
 def test_wkv6_kernel_matches_plain(cuda, b, t, h, hd, dtype):
     """The JAX kernel-test shapes, T = 1, a T that is no multiple of the
     32-step chunk, and the rwkv6-1.6b prefill shape with the model's types
-    (bf16 r/k/v/u, f32 w and state); one launch per call."""
+    (bf16 r/k/v/u, f32 w and state); one launch per call, on the 16-byte
+    route."""
     ins = _wkv_inputs(cuda, b, t, h, hd, dtype, b * t + h)
     wkv_ops.reset_launches()
     got = wkv_ops.wkv6(*ins)
     torch.cuda.synchronize()
     assert wkv_ops.LAUNCHES == {"wkv6": 1}
+    assert wkv_ops.ROUTES == {"wkv6_vec": 1, "wkv6_scalar": 0}
     assert all(x.dtype == torch.float32 for x in got)
     assert got[0].shape == (b, t, h, hd) and got[1].shape == (b, h, hd, hd)
     _wkv_close(got, wkv_ref.wkv6_ref(*ins))
+
+
+@pytest.mark.parametrize("hd", [17, 48, 64])
+@pytest.mark.parametrize("t", [1, 15, 17, 513])
+def test_wkv6_kernel_head_dims_and_ragged_lengths(cuda, hd, t):
+    """Head dims that leave part of the kernel's 64 columns and keys empty
+    (17: the scalar staging route; 48: 16-byte copies) or none (64), at T
+    of one step, within one 32-step chunk and one past a multiple of it;
+    y and the final state are bitwise the same on a second call."""
+    ins = _wkv_inputs(cuda, 2, t, 3, hd, torch.bfloat16, hd * 1000 + t)
+    wkv_ops.reset_launches()
+    first = wkv_ops.wkv6(*ins)
+    second = wkv_ops.wkv6(*ins)
+    torch.cuda.synchronize()
+    route = "wkv6_scalar" if hd == 17 else "wkv6_vec"
+    assert wkv_ops.ROUTES[route] == 2
+    _wkv_close(first, wkv_ref.wkv6_ref(*ins))
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[0], second[0])
+    f32 = [a.float() for a in ins]
+    _wkv_close(wkv_ops.wkv6(*f32), wkv_ref.wkv6_ref(*f32))
 
 
 def test_wkv6_kernel_extreme_decay_and_mixed_types(cuda):
@@ -838,6 +912,31 @@ def test_wkv6_kernel_reads_by_strides(cuda):
     want = wkv_ref.wkv6_ref(r.contiguous(), k.contiguous(), v.contiguous(), w,
                             u, s0.contiguous())
     _wkv_close(wkv_ops.wkv6(r, k, v, w, u, s0), want)
+
+
+def test_wkv6_unaligned_view_takes_the_scalar_route(cuda):
+    """w read from 4 bytes into a buffer cannot take the 16-byte copies:
+    the call takes the scalar route of the same kernel and matches the
+    plain version; the 16-byte entry point refuses it."""
+    b, t, h, hd = 2, 40, 3, 64
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, b, t, h, hd, torch.bfloat16, 11)
+    flat = torch.empty(w.numel() + 1, device=cuda)
+    moved = flat[1:].view(w.shape)
+    moved.copy_(w)
+    wkv_ops.reset_launches()
+    got = wkv_ops.wkv6(r, k, v, moved, u, s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.ROUTES == {"wkv6_vec": 0, "wkv6_scalar": 1}
+    _wkv_close(got, wkv_ref.wkv6_ref(r, k, v, w, u, s0))
+    from repro_torch.kernels import ffi
+    fn = ffi.fn("wkv6", "wkv6_launch", wkv_ops._ARGS)
+    y = torch.empty((b, t, h, hd), device=cuda)
+    s_out = torch.empty((b, h, hd, hd), device=cuda)
+    code = fn(1, 0, 1, *(x for a in (r, k, v, moved)
+                         for x in (a.data_ptr(), *a.stride()[:3])),
+              u.data_ptr(), u.stride(0), s0.data_ptr(), *s0.stride()[:3],
+              y.data_ptr(), s_out.data_ptr(), b, t, h, hd, ffi.stream())
+    assert code != 0
 
 
 def test_wkv6_wrapper_refuses_what_the_kernel_cannot_take(cuda):

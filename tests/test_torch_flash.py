@@ -156,12 +156,40 @@ def test_bwd_route_follows_strides_and_alignment(dtype, make, want):
     assert fa_ops.bwd_route(q, k, v, do) == "vec"
 
 
+@pytest.mark.parametrize("dtype,make,want", [
+    (torch.float32, lambda t: t, "vec"),
+    (torch.bfloat16, lambda t: t, "vec"),
+    (torch.float32, lambda t: _moved(t, 1), "scalar"),      # odd row stride
+    (torch.float32, lambda t: _moved(t, 4), "vec"),         # 16-byte shift
+    (torch.bfloat16, lambda t: _moved(t, 4), "scalar"),     # 8-byte shift
+    (torch.bfloat16, lambda t: _moved(t, 8), "vec"),
+    (torch.float32, lambda t: t.transpose(1, 2).contiguous().transpose(1, 2),
+     "vec"),                                              # heads outermost
+    (torch.float32, lambda t: t[:, 1:], "vec"),           # a later row
+    (torch.bfloat16, lambda t: t[:, :, 1:], "vec"),       # a later head
+], ids=["f32", "bf16", "f32+1", "f32+4", "bf16+4", "bf16+8", "f32-bhsd",
+        "f32-row1", "bf16-head1"])
+def test_fwd_route_follows_strides_and_alignment(dtype, make, want):
+    """The forward's route is chosen from q, k and v alone (base addresses
+    and strides) before any launch, by the backward's rule: one unaligned
+    operand sends the call to the scalar route."""
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _inputs(2, 24, 4, 2, 64, 5)[:3])
+    ops = [make(t) for t in (q, k, v)]
+    assert fa_ops.fwd_route(*ops) == want
+    assert fa_ops.fwd_route(q, ops[1], v) == want
+    assert fa_ops.fwd_route(q, k, ops[2]) == want
+    assert fa_ops.fwd_route(q, k, v) == "vec"
+    assert fa_ops.fwd_route(*ops) == fa_ops.bwd_route(*ops)
+
+
 def test_cpu_flash_counts_no_launch_or_route():
     """On CPU tensors flash_attention runs its plain version: no kernel
-    launch and no backward route is counted."""
+    launch and no forward or backward route is counted."""
     q, k, v, do = (torch.from_numpy(a).requires_grad_(True)
                    for a in _inputs(1, 16, 4, 2, 16, 4))
     fa_ops.reset_launches()
     fa_ops.flash_attention(q, k, v, causal=True).backward(do.detach())
     assert set(fa_ops.LAUNCHES.values()) == {0}
-    assert fa_ops.ROUTES == {"bwd_vec": 0, "bwd_scalar": 0}
+    assert fa_ops.ROUTES == {"fwd_vec": 0, "fwd_scalar": 0, "bwd_vec": 0,
+                             "bwd_scalar": 0}

@@ -287,6 +287,74 @@ def test_wkv6_op_refuses_gradients_and_bad_shapes():
     assert loss.requires_grad
 
 
+def test_wkv6_kernel_tiling_covers_every_head_dim():
+    """wkv6.cu is compiled for the head dims ``ops`` admits on the card,
+    and one block of a (b, h) covers each of them: its key slices hold
+    every key 1..MAX_HD and its column groups every value column, in whole
+    warps; the entry points refuse a wider head."""
+    import re
+
+    from repro_torch.kernels import build
+    text = build.sources()["wkv6"].read_text()
+    const = {name: int(val) for name, val in re.findall(
+        r"constexpr int (k[A-Za-z]+) = (\d+);", text)}
+    max_hd, cpt, slices = const["kMaxHd"], const["kCpt"], const["kSlices"]
+    assert max_hd == wkv_ops.MAX_HD
+    assert max_hd % slices == 0 and max_hd % cpt == 0
+    assert slices * (max_hd // cpt) % 32 == 0
+    for hd in range(1, wkv_ops.MAX_HD + 1):
+        assert -(-hd // (max_hd // slices)) <= slices
+        assert -(-hd // cpt) <= max_hd // cpt
+    assert "hd > kMaxHd" in text
+
+
+def _route_inputs(hd, dtype=torch.bfloat16, w_dtype=torch.float32):
+    r, k, v = (torch.zeros((2, 5, 3, hd), dtype=dtype) for _ in range(3))
+    return r, k, v, torch.zeros((2, 5, 3, hd), dtype=w_dtype)
+
+
+def _wide_views(hd):
+    wide = torch.zeros((2, 5, 3 * 3 * hd), dtype=torch.bfloat16)
+    return tuple(wide[..., i * 3 * hd:(i + 1) * 3 * hd].view(2, 5, 3, hd)
+                 for i in range(3))
+
+
+def _shifted(t):
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda: _route_inputs(64), "vec"),
+    (lambda: _route_inputs(48), "vec"),
+    (lambda: _route_inputs(8, torch.float32), "vec"),
+    (lambda: _route_inputs(64, torch.float32, torch.bfloat16), "vec"),
+    (lambda: _route_inputs(17), "scalar"),             # 34-byte rows
+    (lambda: _route_inputs(4), "scalar"),              # 8-byte rows
+    (lambda: (*_wide_views(64), _route_inputs(64)[3]), "vec"),
+    (lambda: (*_route_inputs(64)[:3], _shifted(_route_inputs(64)[3])),
+     "scalar"),                                        # w 4 bytes off
+    (lambda: (_shifted(_route_inputs(64)[0]), *_route_inputs(64)[1:]),
+     "scalar"),                                        # r 2 bytes off
+], ids=["bf16-64", "bf16-48", "f32-8", "f32-bf16w", "bf16-17", "bf16-4",
+        "wide-views", "w-shifted", "r-shifted"])
+def test_wkv6_route_follows_strides_and_alignment(make, want):
+    """The kernel's route is chosen from r, k, v and w alone (base
+    addresses, strides and the row of hd elements) before any launch: one
+    operand the 16-byte copies cannot read sends the call to the scalar
+    route."""
+    assert wkv_ops.route(*make()) == want
+
+
+def test_cpu_wkv6_counts_no_launch_or_route():
+    """On CPU tensors wkv6 runs its plain version: no kernel launch and no
+    route is counted."""
+    wkv_ops.reset_launches()
+    wkv_ops.wkv6(*(torch.from_numpy(a) for a in _wkv_inputs(1, 5, 2, 8, 0)))
+    assert wkv_ops.LAUNCHES == {"wkv6": 0}
+    assert wkv_ops.ROUTES == {"wkv6_vec": 0, "wkv6_scalar": 0}
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------

@@ -31,17 +31,10 @@ and decode attention at both shapes split over every count of blocks from
 from __future__ import annotations
 
 import argparse
-import hashlib
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def digest(torch, t) -> str:
-    """The first 16 hex digits of the SHA-256 of ``t``'s bytes."""
-    raw = t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
-    return hashlib.sha256(raw).hexdigest()[:16]
 
 
 def gemv_lines(torch, cs, ops, bounds, dev, label, sweep):
@@ -57,7 +50,8 @@ def gemv_lines(torch, cs, ops, bounds, dev, label, sweep):
              "us": 1e3 * cs.time_ms(torch, call, sets),
              "x@W_us": 1e3 * cs.time_ms(torch, lambda rows, x, w, *_: x @ w,
                                         sets),
-             "bound_us": 1e3 * bd.ms, "sha256": digest(torch, call(*sets[0]))})
+             "bound_us": 1e3 * bd.ms,
+             "sha256": cs.digest(torch, call(*sets[0]))})
     if not sweep:
         return
     plan = ops.gemv_plan
@@ -113,7 +107,7 @@ def attn_lines(torch, F, cs, ops, bounds, dev, label, sweep):
         cs.emit({**line, "us": 1e3 * cs.time_ms(torch, call, sets),
                  "sdpa_us": 1e3 * cs.time_ms(
                      torch, lambda *t: cs.sdpa_decode(F, *t), sets),
-                 "bound_us": 1e3 * bd.ms, "sha256": digest(torch, out)})
+                 "bound_us": 1e3 * bd.ms, "sha256": cs.digest(torch, out)})
         if sweep:
             plan = ops.attn_plan
             for cand in range(1, ops.ATTN_MAX_SPLITS + 1):

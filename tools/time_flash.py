@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
-"""Time the flash-attention backward of one tree of this repository on the
-card, at the shapes ``chip_smoke.py`` times it (``FLASH_TIMED``: f32,
+"""Time the flash-attention kernels of one tree of this repository on the
+card, at the shapes ``chip_smoke.py`` times them (``FLASH_TIMED``: f32,
 causal, B=8, H=12, K=4, hd=64, S=256 and 512), so that two trees can be
 compared inside one run on one card:
 
-    python tools/time_flash.py [--tree DIR] [--label NAME]
+    python tools/time_flash.py [--tree DIR] [--label NAME] [--sweep]
 
 ``DIR`` is the root of a checkout (default: this one); its
 ``src/repro_torch`` is imported and its kernels are built under it.  Prints
-one JSON line per shape with the device time in µs of the dq kernel, the
-dk/dv kernel, ``flash_attention_bwd`` as the model runs it
-(``softmax_delta`` + dq + dk/dv) and ``scaled_dot_product_attention``'s
-backward (all three gradients) on the same inputs, each timed by
+one JSON line per shape with the device time in µs of the forward kernel
+and ``scaled_dot_product_attention``'s forward, the dq kernel, the dk/dv
+kernel, ``flash_attention_bwd`` as the model runs it (``softmax_delta`` +
+dq + dk/dv) and SDPA's backward (all three gradients) on the same inputs,
+each timed by
 ``chip_smoke.time_ms`` (operands cycled through more copies than the L2
 holds, the stream held while the host enqueues) with the holds it used,
-and, where the tree counts them, the backward's routes; then the card's
-name and power limit.  Each tree's dq, dk and dv are held to the plain
-version at the f32 tolerance first.  To compare a change with its parent,
-run parent, change, change, parent in one call.
+the forward's SHA-256 (out and lse; every tree gets the same inputs from
+the same seed, so equal digests mean bitwise equal outputs) and, where the
+tree counts them, the routes; then the card's name and power limit.  Each
+tree's out, dq, dk and dv are held to the plain version at the f32
+tolerance first.  To compare a change with its parent, run parent,
+change, change, parent in one call.
+
+``--sweep`` adds the forward at the first shape with the batch at 2, 4,
+8, 16 and 32, causal and not: under a causal band its blocks carry 1 to
+4 k tiles, so a time that grows slower than the tile products (10 per
+(b, h) causal, 16 not) shows the critical path or an unfilled card.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--label", default="")
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -54,26 +63,52 @@ def main() -> int:
         q, k, v, do, out, lse, delta = sets[0]
         want = fa_ref.flash_attention_bwd_ref(q, k, v, do)
         before = dict(routes)
+        fwd = fa_ops.flash_attention_fwd(q, k, v)
         got = (calls["flash_dq"](*sets[0]), *calls["flash_dkv"](*sets[0]))
         took = {key: routes[key] - before[key] for key in before}
-        checked = [cs.compare(torch, g, w, "float32")
-                   for g, w in zip(got, want)]
+        checked = [cs.compare(torch, g, w, "float32") for g, w in zip(
+            (fwd[0], *got),
+            (fa_ref.flash_attention_fwd_ref(q, k, v)[0], *want))]
         cs.require(all(bad == 0 for _, bad in checked),
-                   f"{args.tree}: the backward disagrees with the plain "
+                   f"{args.tree}: the kernels disagree with the plain "
                    f"version at S={s}: {checked}")
         graphs, sdpa_bwd = cs.sdpa_bwd_graphs(torch, F, sets)
         cs.holds_used()
-        us = {name: 1e3 * cs.time_ms(torch, fn, sets)
-              for name, fn in calls.items()}
+        us = {"flash_fwd": 1e3 * cs.time_ms(
+                  torch, lambda q, k, v, *_: fa_ops.flash_attention_fwd(
+                      q, k, v), sets),
+              "sdpa_fwd": 1e3 * cs.time_ms(
+                  torch, lambda q, k, v, *_: cs.sdpa_causal(F, q, k, v),
+                  sets)}
+        us.update({name: 1e3 * cs.time_ms(torch, fn, sets)
+                   for name, fn in calls.items()})
         us["sdpa_bwd"] = 1e3 * cs.time_ms(torch, sdpa_bwd, graphs)
         cs.emit({"tree": args.label or args.tree, "b": b, "s": s, "h": h,
                  "kh": kh, "hd": hd, "dtype": "float32", "causal": True,
-                 "us": us, "bwd_over_sdpa_bwd":
+                 "us": us, "fwd_over_sdpa_fwd":
+                     us["flash_fwd"] / us["sdpa_fwd"], "bwd_over_sdpa_bwd":
                      us["flash_bwd"] / us["sdpa_bwd"],
+                 "fwd_sha256": cs.digest(torch, *fwd),
                  "routes": took, "max_abs_err": [e for e, _ in checked],
                  "stream_hold_x": cs.holds_used()})
-        del sets, graphs, got
+        del sets, graphs, got, fwd
         torch.cuda.empty_cache()
+    if args.sweep:
+        _, s, h, kh, hd = cs.FLASH_TIMED[0]
+        for causal in (True, False):
+            for b in (2, 4, 8, 16, 32):
+                one = 4 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
+                sets = [cs.flash_inputs(torch, dev, b, s, h, kh, hd,
+                                        torch.float32, gen)[:3]
+                        for _ in range(cs.copies_for(one))]
+                cs.emit({"tree": args.label or args.tree, "sweep": "fwd",
+                         "b": b, "s": s, "causal": causal,
+                         "us": 1e3 * cs.time_ms(
+                             torch, lambda q, k, v: fa_ops.flash_attention_fwd(
+                                 q, k, v, causal=causal), sets),
+                         "stream_hold_x": cs.holds_used()})
+                del sets
+                torch.cuda.empty_cache()
     print(cs.card_line(), flush=True)
     return 0
 
