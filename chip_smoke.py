@@ -60,17 +60,36 @@ Phases, one JSON line each (several for the case phases):
                each output held to the plain version's (gradients with the
                absolute part scaled), dx and dW bitwise the same on a
                second call, and the host time of a decode-shape call
+  (tri_lora_cases, grouped) the grouped forward and dx (one adapter per
+               client, the factors strided views of a stacked state) and
+               the rank-r grads against the plain grouped forward and
+               backward: f32/bf16 at the train_vmap shapes, 100 rows a
+               client (tiles straddle two clients), masked (-1) groups,
+               one row a group; a bf16 case on the wgmma route
+  (tri_lora_timing, grouped) the grouped forward and dx at the train_vmap
+               shapes beside the bound, the plain version and mm + baddbmm
   train        CE-LoRA ``run_federated`` on fed-100m at full width and
                depth (f32, random backbone): 4 clients, 3 rounds of 5 local
                steps of batch 8 at sequence 256, attn_impl="flash"; exact
                flash and tri-LoRA launch counts (every flash launch on its
                16-byte route), a profile window, and the
                same job with attn_impl="ref" on the card as its reference
+  train_vmap   the train job with client_parallelism="vmap": the 4
+               clients as one batch of 32 sequences, exact grouped
+               tri-LoRA and flash launches (one per projection per local
+               step for all clients), ledgers equal to the loop run's, loss
+               within 1e-3 + 1e-3·|loss| and accuracies within 0.05 of it,
+               a falling loss, and profile windows of the same lora_loc
+               work (4 clients, 3 steps) on the loop and the vmap path
   lm_train     the causal-LM driver ``launch.train.run`` on fed-100m at full
                width and depth: 4 clients, 3 rounds of 5 local steps of
                8x256, celora, int8 uplink, flash; exact launch counts, a
                falling loss, the byte ledger, a checkpoint that verifies and
-               restores, and a profile window of train.local_fit
+               restores, and a profile window of train.local_fit; then the
+               same job with client_parallelism="vmap" (grouped kernels):
+               exact launches, the same ledger, checkpoint and falling
+               loss, round 0's loss within 1e-3 + 1e-3·|loss| of the loop
+               run's (later rounds amplify rounding at this job's lr)
   pretrain     ``FedTask.create`` with two 8x256 warm-up batches: the
                backbone trains, so every projection runs the dW kernel too
   card_vs_cpu  one loss and its adapter gradients at full width and depth
@@ -172,6 +191,32 @@ TRI_LORA_TIMED = (
      "float32"),
     ("rwkv decode", "tri_lora_fwd", 8, 2048, 2048, 8, "bfloat16", "float32"),
 )
+#: (label, groups, rows per group index, K, N, r) of the grouped tri-LoRA
+#: cases (one adapter per client; row i applies groups[i // rows]): the
+#: train_vmap shapes (4 clients x 8 sequences of 256 tokens, fed-100m
+#: wq/wo and wk/wv), 3 clients of 100 rows (tiles straddle two clients),
+#: sequences of 40 tokens with repeated and masked (-1) groups, and one row
+#: per group index
+TRI_LORA_GROUPED = (
+    ("train_vmap wq", [i // 8 for i in range(32)], 256, 768, 768, 8),
+    ("train_vmap wk/wv", [i // 8 for i in range(32)], 256, 768, 256, 8),
+    ("straddling", [0, 1, 2], 100, 96, 130, 8),
+    ("masked", [0, 0, 1, -1, 2, 1], 40, 64, 72, 4),
+    ("rows of one", [2, 0, 1, -1, 0, 2, 1, 1], 1, 128, 96, 8),
+)
+#: a bf16 grouped forward that the wgmma route takes (256 rows a client)
+TRI_LORA_GROUPED_WGMMA = ("wgmma", [0, 1, 2, 3], 256, 512, 512, 8)
+#: the grouped timing shapes: train_vmap's (4 clients, 32 sequences)
+TRI_LORA_GROUPED_TIMED = (
+    ("train_vmap wq", "tri_lora_fwd_grouped", 768, 768),
+    ("train_vmap wq", "tri_lora_dx_grouped", 768, 768),
+    ("train_vmap wk/wv", "tri_lora_fwd_grouped", 768, 256),
+    ("train_vmap wk/wv", "tri_lora_dx_grouped", 768, 256),
+)
+#: the grouped tri-LoRA launch and route counts of a path that runs one
+#: adapter per projection (none of them)
+NO_GROUPED = {"tri_lora_fwd_grouped": 0, "tri_lora_dx_grouped": 0}
+NO_GROUPED_ROUTES = {"fwd_grouped_wgmma": 0, "fwd_grouped_simt": 0}
 WKV6_SRC = "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu"
 WKV6_TPU = "src/repro/kernels/rwkv6/rwkv6.py:79"
 #: (B, T, H, hd) of the wkv6 cases in f32 with a non-zero state: the JAX
@@ -876,7 +921,7 @@ def tri_lora_cases(torch, tl_ops, tl_ref, dev):
             require(bad == 0, f"tri-LoRA kernels disagree with the plain "
                     f"version: {case} {dt_name} errors {errs}")
             require(launched == {"tri_lora_fwd": 1, "tri_lora_dx": 1,
-                                 "tri_lora_dw": 1},
+                                 "tri_lora_dw": 1, **NO_GROUPED},
                     f"tri-LoRA launches {launched} for one forward and "
                     f"backward")
             worst[dt_name] = max(worst.get(dt_name, 0.0), *errs.values())
@@ -900,6 +945,163 @@ def tri_lora_cases(torch, tl_ops, tl_ref, dev):
                 f"not {want_route}")
         worst["bfloat16"] = max(worst["bfloat16"], err)
     return worst
+
+
+def tri_lora_grouped_inputs(torch, dev, groups, rows, k, n, r, dtype, gen):
+    """x, W, the stacked factors A (G,K,r), C, B as strided views of a
+    (G, 2, …) stack (a stacked client state's layer 1: client stride
+    2·K·r), the cotangent and the int32 groups; at the scales of
+    :func:`tri_lora_inputs`."""
+    g_n = max(groups) + 1
+    m = len(groups) * rows
+
+    def rn(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+    a, c, b = (rn((g_n, 2) + shape, 0.2)[:, 1]
+               for shape in ((k, r), (r, r), (r, n)))
+    return (rn((m, k)), rn((k, n), 0.05), a, c, b, rn((m, n)),
+            torch.tensor(groups, dtype=torch.int32, device=dev))
+
+
+def tri_lora_grouped_cases(torch, tl_ops, tl_ref, dev):
+    """The grouped op on the card (grouped forward and dx kernels, the dW
+    kernel over all rows, the rank-r grads through autograd) against the
+    plain grouped forward and backward on the same inputs, f32 and bf16,
+    each case's forward on the route ``fwd_route`` names; the tolerances
+    of :func:`tri_lora_cases`."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    s = 2.0
+    worst = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        cases = TRI_LORA_GROUPED + ((TRI_LORA_GROUPED_WGMMA,)
+                                    if dt_name == "bfloat16" else ())
+        for label, groups, rows, k, n, r in cases:
+            x, w, a, c, b, ct, gi = tri_lora_grouped_inputs(
+                torch, dev, groups, rows, k, n, r, dt, gen)
+            leaves = [t.detach().requires_grad_(True) for t in (x, w, a, c, b)]
+            before = {**tl_ops.LAUNCHES, **tl_ops.ROUTES}
+            y = tl_ops.grouped_tri_lora_matmul(
+                leaves[0].reshape(len(groups), rows, k), *leaves[1:], gi, s)
+            grads = torch.autograd.grad(y, leaves, ct.reshape(y.shape))
+            torch.cuda.synchronize()
+            launched = {key: tl_ops.LAUNCHES[key] - before[key]
+                        for key in tl_ops.LAUNCHES}
+            route = [key for key in tl_ops.ROUTES
+                     if tl_ops.ROUTES[key] > before[key]]
+            want_route = "fwd_grouped_" + tl_ops.fwd_route(x, w, rows)
+            want_y = tl_ref.grouped_tri_lora_matmul_ref(x, w, a, c, b, gi,
+                                                        rows, s)
+            want = tl_ref.grouped_tri_lora_bwd_ref(x, w, a, c, b, gi, ct,
+                                                   rows, s)
+            errs = {}
+            errs["y"], bad = compare(torch, y.detach().reshape(want_y.shape),
+                                     want_y, dt_name)
+            for name, got, ref_g in zip(("dx", "dw", "da", "dc", "db"),
+                                        grads, want):
+                errs[name], out = compare_scaled(torch, got, ref_g, dt_name)
+                bad += out
+            case = dict(case=label, groups=len(groups), rows=rows, k=k, n=n,
+                        r=r)
+            emit({"phase": "tri_lora_cases", "grouped": True,
+                  "dtype": dt_name, **case, "max_abs_err": errs,
+                  "n_out_of_tol": bad, "tol": TOL[dt_name]["rtol"],
+                  "launches": launched, "route": route})
+            require(bad == 0, f"grouped tri-LoRA kernels disagree with the "
+                    f"plain version: {case} {dt_name} errors {errs}")
+            require(launched == {"tri_lora_fwd": 0, "tri_lora_dx": 0,
+                                 "tri_lora_dw": 1, "tri_lora_fwd_grouped": 1,
+                                 "tri_lora_dx_grouped": 1},
+                    f"grouped launches {launched} for one forward and "
+                    f"backward")
+            require(route == [want_route] and (
+                label != "wgmma" or want_route == "fwd_grouped_wgmma"),
+                    f"{label} took the route {route}, not {want_route}")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), *errs.values())
+    return worst
+
+
+def grouped_timed_sets(torch, dev, k, n, gen):
+    """Enough copies of (x, w, a, b, p, q, g, groups) at a train_vmap
+    projection (f32, r = 8, 4 clients x 8 sequences x 256 tokens) to
+    exceed the L2 cache; P and Q as the op makes them (s = 2)."""
+    groups = [i // 8 for i in range(32)]
+    rows, r, sets = 256, 8, []
+    m = len(groups) * rows
+    for _ in range(copies_for(4 * (m * k + k * n + m * n))):
+        x, w, a, c, b, g, gi = tri_lora_grouped_inputs(
+            torch, dev, groups, rows, k, n, r, torch.float32, gen)
+        sel = gi.long()
+        p = 2.0 * ((x.reshape(32, rows, k) @ a[sel]) @ c[sel])
+        q = 2.0 * ((g.reshape(32, rows, n) @ b[sel].transpose(1, 2))
+                   @ c[sel].transpose(1, 2))
+        sets.append((x, w, a, b, p.reshape(m, r), q.reshape(m, r), g, gi))
+    return sets, rows
+
+
+def time_tri_lora_grouped(torch, tl_ops, bounds, dev):
+    """The grouped forward and dx at the train_vmap shapes beside the plain
+    version (the per-entry products in f32), the library yardstick (two
+    calls: ``mm`` for the big product, ``baddbmm`` adding each client's
+    rank-r term) and the bound; each output held to the plain version's.
+    Returns the kernel-table rows."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows_out = []
+    for label, name, k, n in TRI_LORA_GROUPED_TIMED:
+        sets, rows = grouped_timed_sets(torch, dev, k, n, gen)
+        clients = 4
+        kernel = {
+            "tri_lora_fwd_grouped": lambda x, w, a, b, p, q, g, gi:
+                tl_ops.tri_lora_fwd_grouped(x, w, p, b, gi, rows),
+            "tri_lora_dx_grouped": lambda x, w, a, b, p, q, g, gi:
+                tl_ops.tri_lora_dx_grouped(g, w, q, a, gi, rows)}[name]
+        plain = {
+            "tri_lora_fwd_grouped": lambda x, w, a, b, p, q, g, gi:
+                x @ w + (p.reshape(gi.numel(), rows, -1) @ b[gi.long()])
+                .reshape(x.shape[0], -1),
+            "tri_lora_dx_grouped": lambda x, w, a, b, p, q, g, gi:
+                g @ w.T + (q.reshape(gi.numel(), rows, -1)
+                           @ a[gi.long()].transpose(1, 2))
+                .reshape(g.shape[0], -1)}[name]
+        library = {
+            "tri_lora_fwd_grouped": lambda x, w, a, b, p, q, g, gi:
+                torch.baddbmm((x @ w).view(clients, -1, w.shape[1]),
+                              p.view(clients, -1, p.shape[1]), b),
+            "tri_lora_dx_grouped": lambda x, w, a, b, p, q, g, gi:
+                torch.baddbmm((g @ w.T).view(clients, -1, w.shape[0]),
+                              q.view(clients, -1, q.shape[1]),
+                              a.transpose(1, 2))}[name]
+        before = dict(tl_ops.ROUTES)
+        got = kernel(*sets[0])
+        route = [key for key in before if tl_ops.ROUTES[key] > before[key]]
+        check = compare if name == "tri_lora_fwd_grouped" else compare_scaled
+        err, bad = check(torch, got, plain(*sets[0]), "float32")
+        require(bad == 0, f"{name} at the {label} shape disagrees with the "
+                f"plain version: {bad} entries out of tolerance, error {err}")
+        t = {"kernel": time_ms(torch, kernel, sets),
+             "plain": time_ms(torch, plain, sets, plain=True),
+             "library": time_ms(torch, library, sets)}
+        m, r = sets[0][0].shape[0], 8
+        bd = (bounds.tri_lora_matmul_grouped if name == "tri_lora_fwd_grouped"
+              else bounds.tri_lora_dx_grouped)(m, k, n, r, clients, 32,
+                                               "float32")
+        emit({"phase": "tri_lora_timing", "kernel": name, "shape": label,
+              "m": m, "k": k, "n": n, "r": r, "clients": clients,
+              "sequences": 32, "dtype": "float32", "route": route,
+              **{f"{key}_us": 1e3 * v for key, v in t.items()},
+              "library": "mm + baddbmm", "bound_us": 1e3 * bd.ms,
+              "bound_by": bd.by, "max_abs_err": err, "n_out_of_tol": bad,
+              "tol": TOL["float32"]["rtol"],
+              "stream_hold_x": holds_used()})
+        rows_out.append(dict(name=name, route="cuda", source=TRI_LORA_SRC,
+                             replaces=TRI_LORA_TPU[name[:-len("_grouped")]],
+                             max_abs_err=err, ms=t["kernel"],
+                             plain_ms=t["plain"], library_ms=t["library"],
+                             shape=label, **bound(bd)))
+        del sets, got
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 def tri_lora_route_inputs(torch, dev, gen):
@@ -1341,7 +1543,7 @@ def phase_rwkv_prefill(torch, wkv_ops, wkv_ref, tl_ops, model, get_config,
     finite = bool(torch.isfinite(logits).all())
     tokens = job["batch"] * job["seq"]
     expected = {"wkv6": cfg.n_layers, "tri_lora_fwd": 4 * cfg.n_layers,
-                "tri_lora_dx": 0, "tri_lora_dw": 0}
+                "tri_lora_dx": 0, "tri_lora_dw": 0, **NO_GROUPED}
     emit({"phase": "rwkv_prefill", "arch": cfg.name, "dtype": cfg.param_dtype,
           "layers": cfg.n_layers, "d_model": cfg.d_model,
           "heads": cfg.n_heads, "hd": cfg.hd, "d_ff": cfg.d_ff,
@@ -1370,7 +1572,8 @@ def phase_rwkv_prefill(torch, wkv_ops, wkv_ref, tl_ops, model, get_config,
                                      shares=("tri_lora", "wkv6"))}})
     require(launches == expected,
             f"rwkv_prefill launches {launches} != expected {expected}")
-    require(routes == {"fwd_wgmma": 4 * cfg.n_layers, "fwd_simt": 0},
+    require(routes == {"fwd_wgmma": 4 * cfg.n_layers, "fwd_simt": 0,
+                       **NO_GROUPED_ROUTES},
             f"rwkv_prefill forward routes {routes}: every tri-LoRA forward "
             f"of the bf16 prefill must take the wgmma route")
     require(wkv_routes == {"wkv6_vec": cfg.n_layers, "wkv6_scalar": 0},
@@ -1431,7 +1634,8 @@ def phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, params,
     steps = len(per_step)
     want_step = {"wkv6": 0, "tri_lora_fwd": 4 * cfg.n_layers,
                  "tri_lora_dx": 0, "tri_lora_dw": 0,
-                 "fwd_wgmma": 4 * cfg.n_layers, "fwd_simt": 0}
+                 "fwd_wgmma": 4 * cfg.n_layers, "fwd_simt": 0, **NO_GROUPED,
+                 **NO_GROUPED_ROUTES}
     srt = sorted(step_ms)
     emit({"phase": "rwkv_decode", "arch": cfg.name, **job, "steps": steps,
           "out_shape": list(out.shape), "wall_s": wall,
@@ -1713,9 +1917,11 @@ TRAIN = dict(clients=4, rounds=3, local_steps=5, batch=8, seq=256,
              n_train=64, n_test=32, classes=4, lr=1e-3)
 
 
-def train_job(torch, cfg, dev, attn_impl: str, job: dict = TRAIN):
-    """``run_federated`` (celora, loop path, eager engine) on ``cfg`` with
-    a random backbone; returns (result, wall seconds)."""
+def train_job(torch, cfg, dev, attn_impl: str, job: dict = TRAIN,
+              mode: str = "loop"):
+    """``run_federated`` (celora, eager engine, client_parallelism
+    ``mode``) on ``cfg`` with a random backbone; returns (result, wall
+    seconds)."""
     from repro_torch.core.fed_model import FedTask
     from repro_torch.core.federated import FedConfig, run_federated
     from repro_torch.data import synthetic
@@ -1728,7 +1934,7 @@ def train_job(torch, cfg, dev, attn_impl: str, job: dict = TRAIN):
     fed = FedConfig(method="celora", n_clients=job["clients"],
                     rounds=job["rounds"], local_steps=job["local_steps"],
                     batch_size=job["batch"], lr=job["lr"], seed=0,
-                    client_parallelism="loop", attn_impl=attn_impl)
+                    client_parallelism=mode, attn_impl=attn_impl)
     t0 = time.perf_counter()
     out = run_federated(task, fed, ctrain, ctest, device=dev)
     if dev.type == "cuda":
@@ -1736,10 +1942,12 @@ def train_job(torch, cfg, dev, attn_impl: str, job: dict = TRAIN):
     return out, time.perf_counter() - t0
 
 
-def train_profile(torch, cfg, dev, job: dict = TRAIN):
-    """Device time by kernel and the device's idle share over one client's
-    local fit of 3 steps and its eval batch (``lora_loc``: no server
-    work), run through ``run_federated`` with attn_impl="flash"."""
+def train_profile(torch, cfg, dev, job: dict = TRAIN, clients: int = 1,
+                  mode: str = "loop"):
+    """Device time by kernel and the device's idle share over ``clients``
+    clients' local fits of 3 steps and their eval batches (``lora_loc``:
+    no server work), run through ``run_federated`` with attn_impl="flash"
+    and client_parallelism ``mode``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.fed_model import FedTask
@@ -1747,12 +1955,13 @@ def train_profile(torch, cfg, dev, job: dict = TRAIN):
     from repro_torch.data import synthetic
 
     ctrain, ctest, _ = synthetic.make_federated_classification(
-        1, 1, job["n_train"], job["n_test"], job["seq"], cfg.vocab_size,
-        job["classes"])
+        1, clients, job["n_train"], job["n_test"], job["seq"],
+        cfg.vocab_size, job["classes"])
     task = FedTask.create(torch.Generator(device=dev).manual_seed(1), cfg,
                           job["classes"])
-    fed = FedConfig(method="lora_loc", n_clients=1, rounds=1, local_steps=3,
-                    batch_size=job["batch"], attn_impl="flash")
+    fed = FedConfig(method="lora_loc", n_clients=clients, rounds=1,
+                    local_steps=3, batch_size=job["batch"], attn_impl="flash",
+                    client_parallelism=mode)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1760,8 +1969,10 @@ def train_profile(torch, cfg, dev, job: dict = TRAIN):
         run_federated(task, fed, ctrain, ctest, device=dev)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return {"window": "lora_loc, 1 client, 3 local steps + 1 eval batch",
-            **device_split(prof, wall_us, 12, shares=FLASH_SHARES)}
+    return {"window": f"lora_loc, {clients} client(s), {mode}, 3 local "
+                      f"steps + eval",
+            **device_split(prof, wall_us, 12,
+                           shares=FLASH_SHARES + ("tri_lora",))}
 
 
 def phase_train(torch, fa_ops, tl_ops, get_config, dev):
@@ -1787,7 +1998,8 @@ def phase_train(torch, fa_ops, tl_ops, get_config, dev):
     expected = {"flash_fwd": layers * (steps + evals + job["clients"]),
                 "flash_dq": layers * steps, "flash_dkv": layers * steps,
                 "tri_lora_fwd": proj * (steps + evals),
-                "tri_lora_dx": (proj - 3) * steps, "tri_lora_dw": 0}
+                "tri_lora_dx": (proj - 3) * steps, "tri_lora_dw": 0,
+                **NO_GROUPED}
     tokens = steps * job["batch"] * job["seq"]
     rounds = [{"round": r.round, "wall_s": r.wall_s,
                "train_loss": r.train_loss, "mean_acc": r.mean_acc,
@@ -1816,46 +2028,124 @@ def phase_train(torch, fa_ops, tl_ops, get_config, dev):
                              "bwd_scalar": 0},
             f"train flash routes {flash_routes}: every forward, dq and dk/dv "
             f"launch should take the 16-byte route")
-    for a, b in zip(hist, ref["history"]):
+    same_run("train flash vs ref", hist, ref["history"])
+    losses = [r.train_loss for r in hist]
+    require(all(b < a for a, b in zip(losses, losses[1:])),
+            f"train loss did not decrease over the rounds: {losses}")
+    return launches, out
+
+
+def same_run(what: str, hist, ref_hist) -> None:
+    """Identical ledgers, loss within 1e-3 + 1e-3·|loss| and accuracies
+    within 0.05, round by round (RoundRecords)."""
+    for a, b in zip(hist, ref_hist):
         require((a.sampled, a.participants, a.dropped, a.uplink_bytes,
                  a.downlink_bytes, a.uplink_elems)
                 == (b.sampled, b.participants, b.dropped, b.uplink_bytes,
                     b.downlink_bytes, b.uplink_elems),
-                f"round {a.round}: the flash and ref ledgers differ")
+                f"{what} round {a.round}: the ledgers differ")
         require(abs(a.train_loss - b.train_loss)
                 <= 1e-3 + 1e-3 * abs(b.train_loss),
-                f"round {a.round}: flash loss {a.train_loss} vs ref "
+                f"{what} round {a.round}: loss {a.train_loss} vs "
                 f"{b.train_loss}")
         require(max(abs(x - y) for x, y in zip(a.accs, b.accs)) <= 0.05,
-                f"round {a.round}: flash accs {a.accs} vs ref {b.accs}")
+                f"{what} round {a.round}: accs {a.accs} vs {b.accs}")
+
+
+def phase_train_vmap(torch, fa_ops, tl_ops, get_config, dev, loop_out):
+    """The train phase's job with client_parallelism="vmap": the 4 clients
+    train as one batch of 32 sequences, so every projection launches the
+    grouped tri-LoRA kernels once per local step for all clients and the
+    flash kernels run at batch 32; held to the loop run of the same job
+    (``loop_out``, from the train phase) and profiled beside the loop path
+    over the same work."""
+    cfg = get_config("fed-100m")
+    job = TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()                   # counts of the main path only
+    tl_ops.reset_launches()
+    out, wall = train_job(torch, cfg, dev, "flash", mode="vmap")
+    launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
+    flash_routes, routes = dict(fa_ops.ROUTES), dict(tl_ops.ROUTES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["history"]
+    # every round trains all clients as one batch: one launch per
+    # projection per local step, and one eval call per evaluated round
+    steps = len(hist) * job["local_steps"]
+    evals = sum(r.evaluated for r in hist)
+    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    expected = {"flash_fwd": layers * (steps + evals + job["clients"]),
+                "flash_dq": layers * steps, "flash_dkv": layers * steps,
+                "tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
+                "tri_lora_fwd_grouped": proj * (steps + evals),
+                "tri_lora_dx_grouped": (proj - 3) * steps}
+    tokens = (sum(len(r.sampled) for r in hist) * job["local_steps"]
+              * job["batch"] * job["seq"])
+    profiles = {mode: train_profile(torch, cfg, dev, job, job["clients"],
+                                    mode) for mode in ("loop", "vmap")}
+    emit({"phase": "train_vmap", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "method": "celora", "attn_impl": "flash",
+          "client_parallelism": "vmap", **job,
+          "rounds_detail": [{"round": r.round, "wall_s": r.wall_s,
+                             "train_loss": r.train_loss,
+                             "mean_acc": r.mean_acc,
+                             "uplink_bytes": r.uplink_bytes,
+                             "downlink_bytes": r.downlink_bytes}
+                            for r in hist],
+          "wall_s": wall, "trained_tokens": tokens,
+          "trained_tok_per_s": tokens / wall,
+          "round_wall_s_sum": sum(r.wall_s for r in hist),
+          "peak_mem_gb": peak, "launches": launches,
+          "expected_launches": expected, "routes": routes,
+          "flash_routes": flash_routes, "profile": profiles["vmap"],
+          "loop_profile": profiles["loop"],
+          "loop": {"train_loss": [r.train_loss for r in loop_out["history"]],
+                   "mean_acc": [r.mean_acc for r in loop_out["history"]]}})
+    require(launches == expected,
+            f"train_vmap launches {launches} != expected {expected}")
+    require(routes == {"fwd_wgmma": 0, "fwd_simt": 0, "fwd_grouped_wgmma": 0,
+                       "fwd_grouped_simt": expected["tri_lora_fwd_grouped"]},
+            f"train_vmap forward routes {routes}: every f32 grouped forward "
+            f"takes the SIMT route")
+    require(flash_routes == {"fwd_vec": expected["flash_fwd"],
+                             "fwd_scalar": 0, "bwd_vec": 2 * layers * steps,
+                             "bwd_scalar": 0},
+            f"train_vmap flash routes {flash_routes}: every launch should "
+            f"take the 16-byte route")
+    same_run("train_vmap vs loop", hist, loop_out["history"])
     losses = [r.train_loss for r in hist]
     require(all(b < a for a, b in zip(losses, losses[1:])),
-            f"train loss did not decrease over the rounds: {losses}")
+            f"train_vmap loss did not decrease over the rounds: {losses}")
     return launches
 
 
 #: the lm_train phase's job: the causal-LM driver's call at full width and
-#: depth, through the flash kernels, with the int8 uplink codec
+#: depth, through the flash kernels, with the int8 uplink codec.  At the
+#: driver's lr (3e-3) on the random backbone the rounds amplify rounding:
+#: the loop path alone, run twice with only the CPU's thread count (its
+#: sum order) changed, parts visibly in loss by round 2, so a vmap run is
+#: held to the loop run's loss in round 0 alone (before any aggregation)
 LM_TRAIN = dict(arch="fed-100m", clients=4, rounds=3, local_steps=5,
                 batch=8, seq=256, method="celora", uplink_codec="int8",
                 attn_impl="flash")
 
 
-def phase_lm_train(torch, fa_ops, tl_ops, get_config, dev):
-    """``launch.train.run`` on fed-100m: exact kernel launches, a falling
-    loss, the int8 byte ledger, a checkpoint that verifies and restores;
-    then the device-time split of one client's local steps."""
-    from torch.profiler import ProfilerActivity, profile
-
-    import numpy as np
-
+def phase_lm_train(torch, fa_ops, tl_ops, get_config, dev,
+                   mode: str = "loop", loop_hist=None):
+    """``launch.train.run`` on fed-100m with client_parallelism ``mode``:
+    exact kernel launches, a falling loss, the int8 byte ledger, a
+    checkpoint that verifies and restores; for "loop" then the device-time
+    split of one client's local steps, for "vmap" the loop run's history
+    (``loop_hist``) as the reference: the same participants and bytes each
+    round, round 0's loss within 1e-3 + 1e-3·|loss| (see LM_TRAIN).
+    Returns (launches, history)."""
     from repro_torch import checkpoint
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
 
-    job = LM_TRAIN
+    job = dict(LM_TRAIN, client_parallelism=mode)
     cfg = get_config(job["arch"])
-    path = ROOT / "build" / "chip_smoke" / "lm_train.npz"
+    path = ROOT / "build" / "chip_smoke" / f"lm_train_{mode}.npz"
     torch.cuda.reset_peak_memory_stats()
     fa_ops.reset_launches()                   # counts of the main path only
     tl_ops.reset_launches()
@@ -1868,19 +2158,68 @@ def phase_lm_train(torch, fa_ops, tl_ops, get_config, dev):
     hist = out["history"]
     steps = sum(len(r["participants"]) for r in hist) * job["local_steps"]
     layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
-    expected = {"flash_fwd": layers * steps, "flash_dq": layers * steps,
-                "flash_dkv": layers * steps, "tri_lora_fwd": proj * steps,
-                "tri_lora_dx": (proj - 3) * steps, "tri_lora_dw": 0}
+    tri = {"tri_lora_fwd": proj * steps, "tri_lora_dx": (proj - 3) * steps,
+           "tri_lora_dw": 0, **NO_GROUPED}
     tokens = steps * job["batch"] * job["seq"]
+    if mode == "vmap":          # all clients as one batch: one launch per
+        steps = len(hist) * job["local_steps"]         # projection a step
+        tri = {"tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
+               "tri_lora_fwd_grouped": proj * steps,
+               "tri_lora_dx_grouped": (proj - 3) * steps}
+    expected = {"flash_fwd": layers * steps, "flash_dq": layers * steps,
+                "flash_dkv": layers * steps, **tri}
     restored = checkpoint.restore(str(path),
                                   {"adapter_client0": out["adapters"][0]})
     same = all(torch.equal(a, b) for a, b in zip(
         tree_leaves(restored["adapter_client0"]),
         tree_leaves(out["adapters"][0])))
 
-    # train.local_fit of client 0, 3 steps, inside the profiler
+    profile_line = {}
+    if mode == "loop":
+        profile_line = {"profile": lm_profile(torch, cfg, out, job, dev)}
+    emit({"phase": "lm_train", **job, "layers": layers,
+          "d_model": cfg.d_model, "rounds_detail": hist, "wall_s": wall,
+          "round_wall_s": [r["wall_s"] for r in hist],
+          "trained_tokens": tokens, "trained_tok_per_s": tokens / wall,
+          "peak_mem_gb": peak, "launches": launches,
+          "expected_launches": expected, "checkpoint_restored": same,
+          "checkpoint_meta": checkpoint.metadata(str(path)), **profile_line})
+    require(launches == expected,
+            f"lm_train launches {launches} != expected {expected}")
+    require(hist[-1]["loss"] < hist[0]["loss"],
+            f"lm_train loss did not fall: {[r['loss'] for r in hist]}")
+    # per client: 4 stacked C leaves of 8 layers x 8x8 = 512 int8 codes and
+    # 8 bf16 tile scales (528 B) up, 512 f32 (2048 B) down
+    require(all(r["uplink_bytes"] == 8448 and r["downlink_bytes"] == 32768
+                for r in hist),
+            f"lm_train bytes {[(r['uplink_bytes'], r['downlink_bytes']) for r in hist]}")
+    require(same, "the checkpoint did not restore client 0's adapter")
+    for a, b in zip(hist, loop_hist or ()):
+        require((a["participants"], a["uplink_bytes"], a["downlink_bytes"],
+                 a["uplink_floats"]) == (b["participants"], b["uplink_bytes"],
+                                         b["downlink_bytes"],
+                                         b["uplink_floats"]),
+                f"lm_train {mode} round {a['round']}: the ledgers differ")
+    if loop_hist:
+        # round 0 only: at this job's lr the later rounds amplify rounding
+        # (see LM_TRAIN)
+        a, b = hist[0]["loss"], loop_hist[0]["loss"]
+        require(abs(a - b) <= 1e-3 + 1e-3 * abs(b),
+                f"lm_train {mode} round 0: loss {a} vs the loop run's {b}")
+    return launches, hist
+
+
+def lm_profile(torch, cfg, out, job, dev) -> dict:
+    """The device-time split of ``train.local_fit`` of client 0, 3 steps,
+    inside the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
     from repro_torch.data import synthetic
+    from repro_torch.launch import train
     from repro_torch.optim import adamw
+
     batches = synthetic.lm_batches(synthetic.make_lm_data(
         0, 20_000, cfg.vocab_size), job["batch"], job["seq"])
     drawn = [next(batches) for _ in range(3)]
@@ -1894,27 +2233,8 @@ def phase_lm_train(torch, fa_ops, tl_ops, get_config, dev):
                         out["adapters"][0], toks, labs)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t1) * 1e6
-    emit({"phase": "lm_train", **job, "layers": layers,
-          "d_model": cfg.d_model, "rounds_detail": hist, "wall_s": wall,
-          "round_wall_s": [r["wall_s"] for r in hist],
-          "trained_tokens": tokens, "trained_tok_per_s": tokens / wall,
-          "peak_mem_gb": peak, "launches": launches,
-          "expected_launches": expected, "checkpoint_restored": same,
-          "checkpoint_meta": checkpoint.metadata(str(path)),
-          "profile": {"window": "train.local_fit, 1 client, 3 steps",
-                      **device_split(prof, window_us, 12,
-                                     shares=FLASH_SHARES)}})
-    require(launches == expected,
-            f"lm_train launches {launches} != expected {expected}")
-    require(hist[-1]["loss"] < hist[0]["loss"],
-            f"lm_train loss did not fall: {[r['loss'] for r in hist]}")
-    # per client: 4 stacked C leaves of 8 layers x 8x8 = 512 int8 codes and
-    # 8 bf16 tile scales (528 B) up, 512 f32 (2048 B) down
-    require(all(r["uplink_bytes"] == 8448 and r["downlink_bytes"] == 32768
-                for r in hist),
-            f"lm_train bytes {[(r['uplink_bytes'], r['downlink_bytes']) for r in hist]}")
-    require(same, "the checkpoint did not restore client 0's adapter")
-    return launches
+    return {"window": "train.local_fit, 1 client, 3 steps",
+            **device_split(prof, window_us, 12, shares=FLASH_SHARES)}
 
 
 def phase_pretrain(torch, tl_ops, get_config, dev):
@@ -1942,7 +2262,9 @@ def phase_pretrain(torch, tl_ops, get_config, dev):
         tree_leaves(task.base), tree_leaves(init["base"])))
     finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(task.base))
     per_step = cfg.n_layers * len(cfg.lora_targets)
-    expected = {k: per_step * len(batches) for k in launches}
+    expected = {"tri_lora_fwd": per_step * len(batches),
+                "tri_lora_dx": per_step * len(batches),
+                "tri_lora_dw": per_step * len(batches), **NO_GROUPED}
     emit({"phase": "pretrain", "arch": cfg.name, "batches": [2, 8, 256],
           "wall_s": wall, "launches": launches, "expected_launches": expected,
           "base_leaves_moved": moved, "finite": finite})
@@ -2005,9 +2327,9 @@ def phase_card_vs_cpu(torch, tl_ops, model, get_config, dev):
     require(rel <= 1e-4, f"card loss {loss_card} vs CPU {loss_cpu}")
     require(max(errs) <= 1e-3,
             f"adapter gradients differ by {max(errs)} of their largest entry")
-    require(launched["tri_lora_fwd"] == projections
-            and launched["tri_lora_dx"] == projections - 3
-            and launched["tri_lora_dw"] == 0,
+    require(launched == {"tri_lora_fwd": projections,
+                         "tri_lora_dx": projections - 3, "tri_lora_dw": 0,
+                         **NO_GROUPED},
             f"one loss and gradient launched {launched}")
 
 
@@ -2062,6 +2384,7 @@ def main() -> int:
         gemv_err = gemv_cases(torch, ops, ref, dev)
         flash_err = flash_cases(torch, fa_ops, fa_ref, dev)
         tri_lora_err = tri_lora_cases(torch, tl_ops, tl_ref, dev)
+        grouped_err = tri_lora_grouped_cases(torch, tl_ops, tl_ref, dev)
         wkv6_err = wkv6_cases(torch, wkv_ops, wkv_ref, dev)
         card = card_line()
         rows = [time_attention(torch, F, ops, ref, bounds, dev),
@@ -2069,7 +2392,8 @@ def main() -> int:
         long_ring = time_attention(torch, F, ops, ref, bounds, dev,
                                    "long ring")
         flash_rows = time_flash(torch, F, fa_ops, fa_ref, bounds, dev)
-        tri_lora_rows = time_tri_lora(torch, tl_ops, bounds, dev)
+        tri_lora_rows = (time_tri_lora(torch, tl_ops, bounds, dev)
+                         + time_tri_lora_grouped(torch, tl_ops, bounds, dev))
         wkv6_row = time_wkv6(torch, wkv_ops, wkv_ref, rwkv, bounds, dev, card)
         for r in rows + [long_ring]:
             emit({"phase": "kernels", "timing": r["name"],
@@ -2083,12 +2407,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_oracle(torch, ops, serve, random_bank, get_config, model, dev)
         torch.cuda.empty_cache()
-        launches.update(phase_train(torch, fa_ops, tl_ops, get_config, dev))
-        # this slice's paths: the LM driver (forward and dx) and the
-        # backbone warm-up (dW)
-        lm = phase_lm_train(torch, fa_ops, tl_ops, get_config, dev)
+        train_launches, loop_out = phase_train(torch, fa_ops, tl_ops,
+                                               get_config, dev)
+        launches.update(train_launches)
+        # the vectorized clients: the grouped tri-LoRA kernels
+        vmap = phase_train_vmap(torch, fa_ops, tl_ops, get_config, dev,
+                                loop_out)
+        launches.update(tri_lora_fwd_grouped=vmap["tri_lora_fwd_grouped"],
+                        tri_lora_dx_grouped=vmap["tri_lora_dx_grouped"])
+        del loop_out
+        # the LM driver (forward and dx, then vectorized) and the backbone
+        # warm-up (dW)
+        lm, lm_hist = phase_lm_train(torch, fa_ops, tl_ops, get_config, dev)
         launches.update(tri_lora_fwd=lm["tri_lora_fwd"],
                         tri_lora_dx=lm["tri_lora_dx"])
+        phase_lm_train(torch, fa_ops, tl_ops, get_config, dev, "vmap",
+                       lm_hist)
         launches["tri_lora_dw"] = phase_pretrain(torch, tl_ops, get_config,
                                                  dev)["tri_lora_dw"]
         phase_card_vs_cpu(torch, tl_ops, model, get_config, dev)
@@ -2118,6 +2452,7 @@ def main() -> int:
     emit({"phase": "summary", "max_abs_err_by_dtype": {
         "decode_attention": attn_err, "grouped_gemv": gemv_err,
         "flash_attention": flash_err, "tri_lora": tri_lora_err,
+        "tri_lora_grouped": grouped_err,
         "wkv6": wkv6_err}, "wall_s": time.perf_counter() - START})
     emit({"kernels": [{k: r[k] for k in keys + ("shape", "note") if k in r}
                       for r in rows]})

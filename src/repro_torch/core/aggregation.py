@@ -9,7 +9,9 @@ C̄_i = λ·C_i + (1-λ)·Σ_{j≠i} w_ij C_j.
 ``aggregate_payloads`` applies eqn (3) weights to a list of per-client
 payload trees (out_i = Σ_j W[i,j]·p_j); ``fedavg`` is the FedPETuning
 baseline (sample-count weighted mean, one global result).  Both stack the
-list on a leading client axis and reduce with one einsum per leaf, as the
+list on a leading client axis and reduce with the stacked forms
+(``aggregate_stacked``, ``fedavg_stacked``: one contraction over the
+client axis per leaf), which the vectorized runtime calls directly, as the
 JAX package does.
 """
 from __future__ import annotations
@@ -59,23 +61,37 @@ def _stack(payloads: Sequence[Any]) -> Any:
     return tree_map(lambda *xs: torch.stack(xs), payloads[0], *payloads[1:])
 
 
+def aggregate_stacked(stacked: Any, weights: torch.Tensor) -> Any:
+    """Eqn (3) mixing over a STACKED payload: leaves (m, …) → (m, …) with
+    out[i] = Σ_j W[i,j]·leaf[j], one contraction per leaf."""
+    return tree_map(lambda leaf: torch.einsum(
+        "ij,j...->i...", weights.to(leaf.dtype), leaf), stacked)
+
+
 def aggregate_payloads(payloads: Sequence[Any],
                        weights: torch.Tensor) -> list:
     """Eqn (3) mixing: list of m payload trees in, list of m per-client
     aggregates out (out_i = Σ_j W[i,j]·p_j)."""
-    mixed = tree_map(lambda leaf: torch.einsum(
-        "ij,j...->i...", weights.to(leaf.dtype), leaf), _stack(payloads))
+    mixed = aggregate_stacked(_stack(payloads), weights)
     return [tree_map(lambda leaf, i=i: leaf[i], mixed)
             for i in range(weights.shape[0])]
 
 
 def fedavg(payloads: Sequence[Any], sample_counts: Sequence[int],
            participants: Optional[torch.Tensor] = None) -> Any:
-    """FedPETuning-style sample-weighted average; returns ONE global tree.
-    ``participants`` zeroes absent clients' counts so the mean renormalizes
-    over the participants; with every eligible count zero the mean is
-    uniform over the eligible clients."""
-    stacked = _stack(payloads)
+    """FedPETuning-style sample-weighted average; returns ONE global tree
+    (:func:`fedavg_stacked` of the stacked list)."""
+    return fedavg_stacked(_stack(payloads), sample_counts, participants)
+
+
+def fedavg_stacked(stacked: Any, sample_counts: Sequence[int],
+                   participants: Optional[torch.Tensor] = None) -> Any:
+    """FedAvg over a STACKED payload: leaves (m, …) → ONE global tree, the
+    sample-count weighted mean over the client axis.  ``participants``
+    zeroes absent clients' counts so the mean renormalizes over the
+    participants (absent terms add exact zeros); with every eligible count
+    zero the mean is uniform over the eligible clients.  The async engine's
+    ``col_scale`` comes with that engine."""
     dev = tree_leaves(stacked)[0].device
     n = torch.as_tensor(sample_counts, dtype=torch.float32, device=dev)
     elig = (torch.ones_like(n) if participants is None else

@@ -1,6 +1,5 @@
 """Federated fine-tuning strategies: CE-LoRA + the paper's six baselines.
-PyTorch port of ``repro.core.baselines`` (per-client states; the stacked
-``server_stacked`` form comes with the vectorized client paths).
+PyTorch port of ``repro.core.baselines``.
 
 Each strategy describes
 - which adapter factors are trainable (``grad_mask``),
@@ -12,6 +11,11 @@ Each strategy describes
 All strategies share the client state layout
 ``{'adapter': tri-LoRA tree, 'head': (D,K)}`` (plus method extras), so the
 runner in :mod:`repro_torch.core.federated` is strategy-agnostic.
+
+Every client-side method is tree algebra with no assumption on a leaf's
+leading axes, so it runs unchanged on a STACKED state (every leaf with a
+leading client axis m, :mod:`.client_batch`); the server's stacked form is
+:meth:`Strategy.server_stacked`.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core import aggregation, tri_lora
+from repro_torch.core import aggregation, client_batch, tri_lora
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -95,10 +99,18 @@ class Strategy:
                                          trainable["adapter"])
         return trainable["adapter"]
 
-    def local_penalty(self, trainable: dict, state: dict) -> torch.Tensor:
+    def local_penalty(self, trainable: dict, state: dict,
+                      stacked: bool = False) -> torch.Tensor:
+        """pFedMe's prox term; with ``stacked`` (leaves (m, …)) an (m,)
+        vector of each client's own term."""
         theta = _select(trainable["adapter"], self.uplink_keys)
-        diffs = [torch.sum(torch.square(a.float() - b.float()))
-                 for a, b in zip(tree_leaves(theta), tree_leaves(state["w"]))]
+        lead = 1 if stacked else 0
+
+        def sq(a, b):
+            d = torch.square(a.float() - b.float())
+            return d.reshape(d.shape[:lead] + (-1,)).sum(-1)
+        diffs = [sq(a, b) for a, b in zip(tree_leaves(theta),
+                                          tree_leaves(state["w"]))]
         return 0.5 * self.prox * sum(diffs)
 
     def after_local(self, state: dict, eta: float = 0.5) -> dict:
@@ -135,6 +147,26 @@ class Strategy:
             raise ValueError(f"personalized aggregation needs weights; "
                              f"strategy {self.name!r} got weights=None")
         return aggregation.aggregate_payloads(payloads, weights)
+
+    def server_stacked(self, payload: Any, *, sample_counts, weights=None,
+                       participants=None) -> Optional[Any]:
+        """Stacked form of :meth:`server`: ``payload`` is ONE tree with a
+        leading client axis (m, …); returns a stacked downlink of the same
+        layout (a FedAvg result broadcast over the client axis), or None
+        when the strategy never communicates.  ``participants`` masks the
+        aggregation as in :meth:`server`; the caller installs the downlink
+        into the participants only (``client_batch.select_clients``)."""
+        if self.aggregate == "none":
+            return None
+        m = len(sample_counts)
+        if self.aggregate == "fedavg":
+            g = aggregation.fedavg_stacked(payload, sample_counts,
+                                           participants)
+            return client_batch.broadcast_to_clients(g, m)
+        if weights is None:
+            raise ValueError(f"personalized aggregation needs weights; "
+                             f"strategy {self.name!r} got weights=None")
+        return aggregation.aggregate_stacked(payload, weights)
 
     def install(self, state: dict, downlink: Any) -> dict:
         if downlink is None:

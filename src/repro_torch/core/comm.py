@@ -10,7 +10,8 @@ structure; stragglers and strategies with ``aggregate="none"`` cost
 nothing.  Under an uplink codec (:mod:`.compress`) the uplink is priced on
 the ENCODED wire tree (codes and scales) and the downlink on the raw
 payload: the server broadcasts full-precision aggregates.  The stacked
-forms come with the vectorized paths.
+forms price one client's slice of a stacked payload (leaves (m, …), the
+vectorized paths' layout) times the participants.
 """
 from __future__ import annotations
 
@@ -47,6 +48,66 @@ class RoundComm:
     @staticmethod
     def zero() -> "RoundComm":
         return RoundComm(0, 0, 0)
+
+
+def _per_client(total: int, stacked: Any, unit: str) -> int:
+    """``total`` over the leading client axis m of ``stacked``'s leaves; a
+    ragged tree (some leaf without the m axis) leaves a remainder and
+    raises."""
+    leaves = tree_leaves(stacked)
+    m = int(leaves[0].shape[0])
+    if total % m != 0:
+        raise ValueError(
+            f"ragged stacked payload: total {unit} {total} not divisible by "
+            f"leading client axis m={m}; leaf shapes "
+            f"{[tuple(t.shape) for t in leaves]}")
+    return total // m
+
+
+def stacked_per_client_bytes(stacked: Any) -> int:
+    """Per-client payload bytes of a STACKED payload (leaves (m, …))."""
+    if not tree_leaves(stacked):
+        return 0
+    return _per_client(tree_bytes(stacked), stacked, "bytes")
+
+
+def stacked_per_client_elems(stacked: Any) -> int:
+    """Per-client element count of a STACKED payload (leaves (m, …))."""
+    if not tree_leaves(stacked):
+        return 0
+    return _per_client(tree_elems(stacked), stacked, "elems")
+
+
+def per_client_comm(payload: Any) -> tuple[int, int]:
+    """(bytes, elems) of ONE client's slice of a stacked payload — or of a
+    tree of meta tensors of its shape (:func:`.compress.wire_struct`), so
+    that traffic is priced from shapes alone.  ``None`` costs (0, 0)."""
+    if payload is None:
+        return 0, 0
+    return stacked_per_client_bytes(payload), stacked_per_client_elems(
+        payload)
+
+
+def round_comm_stacked(payload: Any, n_participants: int) -> RoundComm:
+    """Accounting from ONE stacked payload tree (the vectorized server
+    layout): only the ``n_participants`` client slices cross the wire, up
+    and (mirrored) down."""
+    if payload is None:
+        return RoundComm.zero()
+    per_b, per_e = per_client_comm(payload)
+    return RoundComm(n_participants * per_b, n_participants * per_b,
+                     n_participants * per_e)
+
+
+def round_comm_compressed_stacked(enc: Any, payload: Any,
+                                  n_participants: int) -> RoundComm:
+    """Compressed-uplink accounting from stacked trees: uplink priced on the
+    ENCODED wire tree ``enc``, downlink on the raw ``payload``."""
+    if payload is None:
+        return RoundComm.zero()
+    return RoundComm(n_participants * stacked_per_client_bytes(enc),
+                     n_participants * stacked_per_client_bytes(payload),
+                     n_participants * stacked_per_client_elems(enc))
 
 
 def round_comm_payloads(payloads: Any) -> RoundComm:

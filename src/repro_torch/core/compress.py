@@ -31,8 +31,15 @@ client) (``compress.client_key``); tests hand the port those numbers.
 Error feedback: a communicating client carries a residual ``e`` (the
 payload's structure, f32).  Per round it uplinks ``Q(payload + e)`` and
 keeps ``e' = (payload + e) − dequant``; the caller installs ``e'`` only for
-a delivered upload.  The stacked forms of the vectorized runtime are not
-ported yet.
+a delivered upload.
+
+Stacked forms (the vectorized runtime, every leaf with a leading client
+axis m): :func:`encode_stacked` quantizes every client's slice of a leaf
+at once, each slice as the loop path quantizes that client's leaf, with
+client i's uniforms drawn from its own generator
+(:func:`client_generator` (seed, round, i)), so loop and vectorized runs
+encode bit for bit alike.  :func:`wire_struct` gives the stacked wire tree
+as meta tensors, its bytes reckoned from shapes alone.
 """
 from __future__ import annotations
 
@@ -100,43 +107,47 @@ def _tile_shape(n: int, pack: bool) -> tuple[int, int]:
     return -(-n // tile), tile
 
 
-def _quant_leaf(x: torch.Tensor, u: torch.Tensor, qmax: int,
-                pack: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def _quant_leaf(x: torch.Tensor, u: torch.Tensor, qmax: int, pack: bool,
+                lead: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """One leaf → (codes, scales).  codes: int8 (n_tiles, tile), or uint8
-    (n_tiles, tile/2) nibble-packed; scales: bf16 (n_tiles,)."""
-    n = int(x.numel())
+    (n_tiles, tile/2) nibble-packed; scales: bf16 (n_tiles,).  The first
+    ``lead`` axes (a stacked leaf's client axis) are kept in front of both:
+    each slice is quantized as a leaf of its own."""
+    batch = tuple(x.shape[:lead])
+    n = int(np.prod(x.shape[lead:]))
     n_tiles, tile = _tile_shape(n, pack)
-    flat = x.reshape(-1).float()
+    flat = x.reshape(batch + (n,)).float()
     padding = n_tiles * tile - n
     if padding:
-        flat = torch.cat([flat, flat.new_zeros(padding)])
-    t = flat.reshape(n_tiles, tile)
-    amax = t.abs().amax(dim=1)
+        flat = torch.cat([flat, flat.new_zeros(batch + (padding,))], dim=-1)
+    t = flat.reshape(batch + (n_tiles, tile))
+    amax = t.abs().amax(dim=-1)
     scales = (amax / qmax).to(torch.bfloat16)             # the STORED scale
-    s = scales.float().clamp_min(1e-12)[:, None]
+    s = scales.float().clamp_min(1e-12)[..., None]
     codes = torch.floor(t / s + u.to(t.device)).clamp(-qmax, qmax).to(
         torch.int8)
     if pack:
-        lo = codes[:, 0::2].to(torch.uint8) & 0xF
-        hi = (codes[:, 1::2].to(torch.uint8) & 0xF) << 4
+        lo = codes[..., 0::2].to(torch.uint8) & 0xF
+        hi = (codes[..., 1::2].to(torch.uint8) & 0xF) << 4
         codes = lo | hi
     return codes, scales
 
 
 def _dequant_leaf(codes: torch.Tensor, scales: torch.Tensor, shape: tuple,
-                  pack: bool) -> torch.Tensor:
+                  pack: bool, lead: int = 0) -> torch.Tensor:
     """Inverse of :func:`_quant_leaf` (up to the quantization error)."""
     if pack:
         lo = (codes & 0xF).to(torch.int32)
         hi = (codes >> 4).to(torch.int32)
         lo = torch.where(lo > 7, lo - 16, lo)             # sign-extend
         hi = torch.where(hi > 7, hi - 16, hi)
-        c = torch.stack([lo, hi], dim=-1).reshape(codes.shape[0], -1)
+        c = torch.stack([lo, hi], dim=-1).reshape(codes.shape[:-1] + (-1,))
     else:
         c = codes.to(torch.int32)
-    vals = c.float() * scales.float()[:, None]
-    n = int(np.prod(shape)) if shape else 1
-    return vals.reshape(-1)[:n].reshape(shape)
+    vals = c.float() * scales.float()[..., None]
+    batch = tuple(shape[:lead])
+    n = int(np.prod(shape[lead:]))
+    return vals.reshape(batch + (-1,))[..., :n].reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -177,35 +188,40 @@ def _leaf_uniforms(codec: Codec, tree: Any, u: Uniforms) -> list:
     return [x.float() for x in u]
 
 
-def encode(codec: Codec, tree: Any, u: Uniforms) -> dict:
-    """Encode ONE client's payload tree → ``{"codes": …, "scales": …}`` (the
-    wire tree: :func:`.comm.tree_bytes` of it IS the uplink cost).  The
-    cast codecs carry no scales (an empty subtree); ``u`` is read by the
-    int codecs only."""
+def _encode(codec: Codec, tree: Any, leaf_u, lead: int) -> dict:
+    """The wire tree of ``tree``, with ``leaf_u(sorted tree)`` the int
+    codecs' per-leaf uniforms and ``lead`` kept leading axes."""
     if codec.is_identity:
         return {"codes": tree, "scales": {}}
     if codec.name == "bf16":
         return {"codes": tree_map(lambda l: l.to(torch.bfloat16), tree),
                 "scales": {}}
     tree = _sorted_tree(tree)
-    quantized = [_quant_leaf(l, us, codec.qmax, codec.pack)
-                 for l, us in zip(tree_leaves(tree),
-                                  _leaf_uniforms(codec, tree, u))]
+    quantized = [_quant_leaf(l, us, codec.qmax, codec.pack, lead)
+                 for l, us in zip(tree_leaves(tree), leaf_u(tree))]
     codes = iter([c for c, _ in quantized])
     scales = iter([s for _, s in quantized])
     return {"codes": tree_map(lambda _: next(codes), tree),
             "scales": tree_map(lambda _: next(scales), tree)}
 
 
-def decode(codec: Codec, enc: dict, like: Any) -> Any:
+def encode(codec: Codec, tree: Any, u: Uniforms) -> dict:
+    """Encode ONE client's payload tree → ``{"codes": …, "scales": …}`` (the
+    wire tree: :func:`.comm.tree_bytes` of it IS the uplink cost).  The
+    cast codecs carry no scales (an empty subtree); ``u`` is read by the
+    int codecs only."""
+    return _encode(codec, tree, lambda t: _leaf_uniforms(codec, t, u), 0)
+
+
+def decode(codec: Codec, enc: dict, like: Any, lead: int = 0) -> Any:
     """Decode a wire tree back to the structure and dtypes of ``like`` —
-    what the SERVER aggregates."""
+    what the SERVER aggregates (``lead``: kept leading axes)."""
     if codec.is_identity:
         return enc["codes"]
     if codec.name == "bf16":
         return tree_map(lambda c, l: c.to(l.dtype), enc["codes"], like)
     return tree_map(lambda c, s, l: _dequant_leaf(
-        c, s, tuple(l.shape), codec.pack).to(l.dtype),
+        c, s, tuple(l.shape), codec.pack, lead).to(l.dtype),
         enc["codes"], enc["scales"], like)
 
 
@@ -234,3 +250,53 @@ def encode_client(codec: Codec, payload: Any, ef: Any, u: Uniforms
     dec = decode(codec, enc, v)
     ef_new = tree_map(lambda a, b: a - b, v, dec)
     return enc, dec, ef_new
+
+
+def _stacked_uniforms(codec: Codec, tree: Any, us: Sequence[Uniforms]
+                      ) -> list:
+    """Per leaf of the sorted stacked ``tree`` (leaves (m, …)), the (m,
+    n_tiles, tile) uniforms: client i's row drawn from ``us[i]`` exactly as
+    :func:`encode` draws them for client i alone."""
+    m = int(tree_leaves(tree)[0].shape[0])
+    if len(us) != m:
+        raise ValueError(f"{len(us)} uniform sources for {m} clients")
+    rows = [_leaf_uniforms(codec, tree_map(lambda t, i=i: t[i], tree), u)
+            for i, u in enumerate(us)]
+    return [torch.stack(per_leaf) for per_leaf in zip(*rows)]
+
+
+def encode_stacked(codec: Codec, payload: Any, ef: Any,
+                   us: Sequence[Uniforms]) -> tuple[dict, Any, Any]:
+    """Stacked form of :func:`encode_client`: ``payload`` and ``ef`` carry a
+    leading client axis (m, …) and ``us`` holds client i's uniform source
+    at i.  Returns the stacked (wire, served, e'), each client's slice bit
+    for bit what :func:`encode_client` gives that client."""
+    v = tree_map(lambda p, e: p.float() + e, payload, ef)
+    enc = _encode(codec, v, lambda t: _stacked_uniforms(codec, t, us), 1)
+    dec = decode(codec, enc, v, lead=1)
+    ef_new = tree_map(lambda a, b: a - b, v, dec)
+    return enc, dec, ef_new
+
+
+def decode_stacked(codec: Codec, enc: dict, like: Any) -> Any:
+    """Row-wise :func:`decode` of a stacked wire tree (every leaf with a
+    leading client axis)."""
+    return decode(codec, enc, like, lead=1)
+
+
+def wire_struct(codec: Codec, payload_struct: Any, m: int) -> dict:
+    """The stacked wire tree of a stacked payload of m clients as meta
+    tensors (no data, no device work): its bytes, by
+    :func:`.comm.per_client_comm`, are the per-client uplink cost, reckoned
+    from shapes alone.  ``payload_struct`` may be meta tensors or real
+    ones; only shapes and dtypes are read."""
+    meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), payload_struct)
+    if int(tree_leaves(meta)[0].shape[0]) != m:
+        raise ValueError(f"payload_struct's client axis is not m={m}")
+
+    def leaf_u(tree):
+        return [torch.empty((m,) + _tile_shape(
+            int(np.prod(l.shape[1:])), codec.pack), device="meta")
+            for l in tree_leaves(tree)]
+    return _encode(codec, tree_map(lambda t: t.float(), meta), leaf_u, 1)

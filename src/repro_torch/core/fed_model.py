@@ -48,21 +48,37 @@ class FedTask(NamedTuple):
     # --------------------------------------------------------------- forward
     def logits(self, adapter: dict, head: torch.Tensor,
                tokens: torch.Tensor) -> torch.Tensor:
+        """(B, C) logits of tokens (B, T) for one client, or — vectorized
+        clients, as ``jax.vmap`` over them — (m, B, C) of tokens (m, B, T)
+        for a stacked client state (adapter leaves (m, …), head (m, D, C)):
+        the m batches fold into one of m·B sequences, each applying its
+        client's adapter (``forward_hidden``'s ``adapter_rows``), and the
+        pooled (m, B, D) features meet the heads in one batched product."""
         # attn_impl rides on cfg, so every client trains through the
         # configured backend — flash included
-        hidden, _, _ = model.forward_hidden(self.cfg, self.base, adapter,
-                                            {"tokens": tokens},
-                                            attn_impl=self.cfg.attn_impl)
+        stacked = tokens.dim() == 3
+        rows = (model.client_rows(tokens.shape[0], tokens.shape[1],
+                                  tokens.device) if stacked else None)
+        hidden, _, _ = model.forward_hidden(
+            self.cfg, self.base, adapter,
+            {"tokens": tokens.reshape(-1, tokens.shape[-1])},
+            attn_impl=self.cfg.attn_impl, adapter_rows=rows)
         pooled = hidden.float().mean(dim=1)
+        if stacked:
+            return torch.bmm(pooled.reshape(*tokens.shape[:2], -1), head)
         return pooled @ head
 
     def loss(self, trainable: dict, tokens: torch.Tensor,
              labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean NLL, accuracy) over one client's batch; for a stacked
+        state and (m, B, T) tokens, (m,) vectors of each client's own.
+        Differentiate their SUM: each client's leaves then get exactly
+        their own gradient."""
         logits = self.logits(trainable["adapter"], trainable["head"], tokens)
         logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, 1, labels.long()[:, None]).mean()
-        acc = (torch.argmax(logits, -1) == labels).float().mean()
-        return nll, acc
+        nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        acc = (torch.argmax(logits, -1) == labels).float()
+        return nll.mean(-1), acc.mean(-1)
 
     def features(self, tokens: torch.Tensor) -> torch.Tensor:
         """Frozen-backbone features for the GMM data similarity: the mean

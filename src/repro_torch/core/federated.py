@@ -1,5 +1,5 @@
 """Federated fine-tuning runtime (paper Algorithm 1): PyTorch port of
-``repro.core.federated``, the eager engine's reference ``loop`` path.
+``repro.core.federated``, the eager engine's ``loop`` and ``vmap`` paths.
 
 One server, m clients.  Per round: each sampled client locally fine-tunes
 its tri-LoRA (strategy-dependent factors) on private data (Alg. 1 line 3);
@@ -12,13 +12,28 @@ transmitted C) each round; their sum (eqn 4) drives the personalized
 weights.  Communication is accounted exactly in bytes from the real
 payload trees (:mod:`.comm`).
 
-Clients train one after another (``client_parallelism="loop"``, the port's
-default; the JAX package defaults to its batched ``"vmap"`` mode, which it
-holds equal to ``"loop"`` in its tests).  The options whose machinery is
-not ported yet — vectorized or sharded clients, the scan and async
-engines, host or sharded client stores, fault injection and admission
-control — raise ``NotImplementedError``; nothing falls back to another
-path.
+Client parallelism (``FedConfig.client_parallelism``):
+
+* ``"loop"`` — the reference path: clients train one after another, every
+  kernel launched once per client per step.
+* ``"vmap"`` (default, as in the JAX package) — all m clients train as
+  ONE batch: the states are stacked into one tree whose leaves carry a
+  leading client axis (:mod:`.client_batch`, held by the device store,
+  :mod:`.client_store`), the m minibatches fold into one batch of m·B
+  sequences, each applying its own client's adapter (the grouped tri-LoRA
+  kernels on the card), so each projection launches once per step for all
+  clients; one AdamW update covers every client's leaves, the loss
+  differentiated is the SUM of the m per-client means (each client gets
+  exactly its own gradient), and one eval call covers the (m, pad, T) test
+  stack.  All m train every round and :func:`.client_batch.select_clients`
+  keeps the unsampled clients' state frozen.  Aggregation, comm and the
+  codecs run on the stacked payload.  Both paths consume the same
+  per-client data streams, so they agree up to floating-point order.
+
+The options whose machinery is not ported yet — ``"shard"`` clients, the
+scan and async engines, host or sharded client stores, fault injection and
+admission control — raise ``NotImplementedError``; nothing falls back to
+another path.
 
 Uplink codecs (:mod:`.compress`): each communicating client carries an
 error-feedback residual ``ef`` in its state; the round encodes every
@@ -42,7 +57,8 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, comm, compress, sampling, tri_lora
+from repro_torch.core import (aggregation, client_batch, client_store, comm,
+                              compress, sampling, tri_lora)
 from repro_torch.core.baselines import Strategy, get_strategy
 from repro_torch.core.fed_model import FedTask
 from repro_torch.core.similarity import cka, gmm, ot
@@ -54,7 +70,6 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PARALLELISM_MODES = ("loop", "vmap", "shard")
 ENGINES = ("eager", "scan", "async")
-STORE_BACKENDS = ("device", "sharded", "host")
 ADMISSION_MODES = ("none", "norm")
 FAULT_RATES = ("fault_crash", "fault_loss", "fault_corrupt",
                "fault_divergent")
@@ -65,9 +80,7 @@ _NOT_PORTED = ("is not ported yet (ROADMAP, Queue 1 item {item}); the port "
 
 @dataclasses.dataclass
 class FedConfig:
-    """Every field of the JAX package's ``FedConfig``, with its default,
-    except ``client_parallelism``: the port's default is the reference
-    ``"loop"``, its only ported mode."""
+    """Every field of the JAX package's ``FedConfig``, with its default."""
     method: str = "celora"
     n_clients: int = 10
     rounds: int = 30
@@ -76,7 +89,7 @@ class FedConfig:
     lr: float = 5e-3
     seed: int = 0
     # --- client dispatch: "loop" (reference) | "vmap" | "shard" ------------
-    client_parallelism: str = "loop"
+    client_parallelism: str = "vmap"
     # --- population residency ---------------------------------------------
     client_store: str = "device"      # "device" | "sharded" | "host"
     # --- round dispatch -----------------------------------------------------
@@ -144,8 +157,8 @@ class RoundRecord:
     sampled: list = dataclasses.field(default_factory=list)
     dropped: list = dataclasses.field(default_factory=list)
     uplink_elems: int = 0  # dtype-blind element count
-    host_s: float = 0.0    # not measured by the loop path
-    device_s: float = 0.0  # not measured by the loop path
+    host_s: float = 0.0    # not measured by the eager paths
+    device_s: float = 0.0  # not measured by the eager paths
     evaluated: bool = True  # False: accs carried from the last eval round
     rejected: list = dataclasses.field(default_factory=list)
     failed: list = dataclasses.field(default_factory=list)
@@ -236,9 +249,10 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
     if mode not in PARALLELISM_MODES:
         raise ValueError(f"client_parallelism={mode!r}; "
                          f"expected one of {PARALLELISM_MODES}")
-    if mode != "loop":
-        raise _not_ported(f"client_parallelism={mode!r}",
-                          "'vectorized clients'", "client_parallelism='loop'")
+    if mode == "shard":
+        raise _not_ported("client_parallelism='shard'",
+                          "10 ('launch/mesh.py')",
+                          "client_parallelism='loop' or 'vmap'")
     if fed.sampler not in sampling.SAMPLERS:
         raise ValueError(f"sampler={fed.sampler!r}; "
                          f"expected one of {sampling.SAMPLERS}")
@@ -254,9 +268,9 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
                          "'async' (the eager engine does not checkpoint)")
     if fed.eval_every < 1:
         raise ValueError(f"eval_every must be >= 1; got {fed.eval_every}")
-    if fed.client_store not in STORE_BACKENDS:
+    if fed.client_store not in client_store.STORE_BACKENDS:
         raise ValueError(f"client_store={fed.client_store!r}; expected one "
-                         f"of {STORE_BACKENDS}")
+                         f"of {client_store.STORE_BACKENDS}")
     if fed.client_store != "device":
         raise _not_ported(f"client_store={fed.client_store!r}",
                           "'host / sharded client stores'",
@@ -398,14 +412,16 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
     test_labs = torch.as_tensor(lb, device=dev)
 
     @torch.no_grad()
-    def eval_one(trainable: dict, toks: torch.Tensor,
-                 labs: torch.Tensor) -> float:
-        """Accuracy over one client's padded test set (label -1 = pad)."""
+    def eval_acc(trainable: dict, toks: torch.Tensor,
+                 labs: torch.Tensor) -> list:
+        """Accuracy over padded test sets (label -1 = pad): one client's
+        (pad, T), or all m clients' stacked (m, pad, T) in one call."""
         logits = task.logits(strategy.effective_adapter(trainable),
                              trainable["head"], toks)
         w = (labs >= 0).float()
         correct = (torch.argmax(logits, -1) == labs).float() * w
-        return float(correct.sum() / w.sum().clamp_min(1.0))
+        return (correct.sum(-1) / w.sum(-1).clamp_min(1.0)).reshape(
+            -1).tolist()
 
     s_data = None
     if strategy.aggregate == "personalized" and fed.use_data_sim:
@@ -427,14 +443,15 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
             s_model_prev[0], cs, plan.sampled, cka_probes)
         return s_model_prev[0]
 
-    def personalized(plan, participants, c_trees: list) -> torch.Tensor:
+    def personalized(plan, participants, cs) -> torch.Tensor:
         """Eqn (3) weights from S = S^data (+ S^model this round over the
-        Cs the server holds, ``c_trees``)."""
+        Cs the server holds, a callable returning them stacked (m,
+        n_modules, r, r))."""
         sims = []
         if fed.use_data_sim and s_data is not None:
             sims.append(s_data)
         if fed.use_model_sim:
-            sims.append(model_sim(cka.stack_client_cs(c_trees), plan))
+            sims.append(model_sim(cs(), plan))
         if not sims:
             raise ValueError(
                 f"celora needs at least one similarity term; got "
@@ -445,66 +462,164 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
 
     history: list[RoundRecord] = []
     accs = [0.0] * m        # replaced on round 0 (always an eval round)
-    for rnd in range(fed.rounds):
-        plan = plans[rnd]
-        t0 = time.perf_counter()
-        in_sample = plan.mask(m, which="sampled")
-        losses = []
-        for i in range(m):
-            # ALWAYS draw: keeps the per-client data streams aligned with
-            # the JAX package's paths and across participation rates
-            bt = list(loaders[i].batches(fed.local_steps))
-            if not in_sample[i]:
-                continue                    # unsampled: frozen this round
-            toks = torch.as_tensor(np.stack([b["tokens"] for b in bt]),
-                                   device=dev)
-            labs = torch.as_tensor(np.stack([b["labels"] for b in bt]),
-                                   device=dev)
-            tr, loss = local_fit(strategy.trainable(states[i]),
-                                 states[i].get("w", {}), toks, labs)
-            states[i].update(tr)
-            states[i] = strategy.after_local(states[i], fed.pfedme_eta)
-            losses.append(float(loss))
+    if fed.client_parallelism == "loop":
+        for rnd in range(fed.rounds):
+            plan = plans[rnd]
+            t0 = time.perf_counter()
+            in_sample = plan.mask(m, which="sampled")
+            losses = []
+            for i in range(m):
+                # ALWAYS draw: keeps the per-client data streams aligned
+                # with the vectorized path and across participation rates
+                bt = list(loaders[i].batches(fed.local_steps))
+                if not in_sample[i]:
+                    continue                # unsampled: frozen this round
+                toks = torch.as_tensor(np.stack([b["tokens"] for b in bt]),
+                                       device=dev)
+                labs = torch.as_tensor(np.stack([b["labels"] for b in bt]),
+                                       device=dev)
+                tr, loss = local_fit(strategy.trainable(states[i]),
+                                     states[i].get("w", {}), toks, labs)
+                states[i].update(tr)
+                states[i] = strategy.after_local(states[i], fed.pfedme_eta)
+                losses.append(float(loss))
 
-        cmask = (torch.as_tensor(plan.mask(m), device=dev) if partial
-                 else None)
-        payloads = [strategy.uplink(s) for s in states]
-        if compressed:
-            # encode all m (the JAX package keys every client's draw), price
-            # the participants' ENCODED trees, aggregate the dequantized
-            # payloads, advance the residual of delivered uploads only
-            encoded = [compress.encode_client(codec, payloads[i],
-                                              states[i]["ef"],
-                                              sr_uniforms(rnd, i))
-                       for i in range(m)]
-            served = [e[1] for e in encoded]
-            rc = comm.round_comm_compressed_payloads(
-                [encoded[i][0] for i in plan.participants],
-                [payloads[i] for i in plan.participants])
+            cmask = (torch.as_tensor(plan.mask(m), device=dev) if partial
+                     else None)
+            payloads = [strategy.uplink(s) for s in states]
+            if compressed:
+                # encode all m (the JAX package keys every client's draw),
+                # price the participants' ENCODED trees, aggregate the
+                # dequantized payloads, advance the residual of delivered
+                # uploads only
+                encoded = [compress.encode_client(codec, payloads[i],
+                                                  states[i]["ef"],
+                                                  sr_uniforms(rnd, i))
+                           for i in range(m)]
+                served = [e[1] for e in encoded]
+                rc = comm.round_comm_compressed_payloads(
+                    [encoded[i][0] for i in plan.participants],
+                    [payloads[i] for i in plan.participants])
+                for i in plan.participants:
+                    states[i] = dict(states[i], ef=encoded[i][2])
+            else:
+                served = payloads
+                rc = comm.round_comm_payloads(
+                    [payloads[i] for i in plan.participants])
+            weights = None
+            if strategy.aggregate == "personalized":
+                c_trees = served if compressed else [
+                    tri_lora.tree_payload(s["adapter"]) for s in states]
+                weights = personalized(
+                    plan, cmask, lambda: cka.stack_client_cs(c_trees))
+            downs = strategy.server(served, sample_counts=sample_counts,
+                                    weights=weights, participants=cmask)
             for i in plan.participants:
-                states[i] = dict(states[i], ef=encoded[i][2])
-        else:
-            served = payloads
-            rc = comm.round_comm_payloads(
-                [payloads[i] for i in plan.participants])
-        weights = None
-        if strategy.aggregate == "personalized":
-            weights = personalized(
-                plan, cmask, served if compressed else
-                [tri_lora.tree_payload(s["adapter"]) for s in states])
-        downs = strategy.server(served, sample_counts=sample_counts,
-                                weights=weights, participants=cmask)
-        for i in plan.participants:
-            states[i] = strategy.install(states[i], downs[i])
+                states[i] = strategy.install(states[i], downs[i])
 
-        evaluated = _do_eval(rnd, fed)
-        if evaluated:
-            accs = [eval_one(strategy.trainable(states[i]), test_toks[i],
-                             test_labs[i]) for i in range(m)]
-        history.append(_round_record(rnd, losses, accs, rc, plan, t0,
-                                     evaluated=evaluated))
-        if verbose:
-            _print_round(strategy, history[-1])
+            evaluated = _do_eval(rnd, fed)
+            if evaluated:
+                accs = [eval_acc(strategy.trainable(states[i]),
+                                 test_toks[i], test_labs[i])[0]
+                        for i in range(m)]
+            history.append(_round_record(rnd, losses, accs, rc, plan, t0,
+                                         evaluated=evaluated))
+            if verbose:
+                _print_round(strategy, history[-1])
+    else:
+        # ---- vectorized path: one batched local fit, one stacked server
+        # step and one eval call per round; the device store holds the
+        # stacked population
+        pstore = client_store.make_store(fed.client_store, states,
+                                         parallelism=fed.client_parallelism)
+        stacked = pstore.resident()
+        vopt = adamw(lr=fed.lr, stacked=True)
+
+        def local_fit_stacked(trainable: dict, w_ref: Any,
+                              toks: torch.Tensor, labs: torch.Tensor):
+            """All m clients' ``local_fit`` as one batch: toks (m, steps,
+            B, T).  The scalar differentiated is the sum of the m
+            per-client losses, so each client's leaves get exactly their
+            own gradient; returns each client's mean loss (m,)."""
+            mask = strategy.grad_mask(trainable)
+            opt_state = vopt.init(trainable)
+            losses = []
+            for step in range(toks.shape[1]):
+                tr = tree_map(lambda t, on: t.detach().requires_grad_(on),
+                              trainable, mask)
+                loss, _ = task.loss(
+                    {"adapter": strategy.effective_adapter(tr),
+                     "head": tr["head"]}, toks[:, step], labs[:, step])
+                if strategy.prox:
+                    loss = loss + strategy.local_penalty(tr, {"w": w_ref},
+                                                         stacked=True)
+                wrt = [t for t in tree_leaves(tr) if t.requires_grad]
+                grads = dict(zip(map(id, wrt), torch.autograd.grad(
+                    loss.sum(), wrt)))
+                upd, opt_state = vopt.update(
+                    tree_map(lambda t: grads.get(id(t)), tr), opt_state,
+                    trainable)
+                trainable = apply_updates(trainable, upd)
+                losses.append(loss.detach())
+            return trainable, torch.stack(losses).mean(0)
+
+        for rnd in range(fed.rounds):
+            plan = plans[rnd]
+            t0 = time.perf_counter()
+            toks, labs = client_batch.stack_client_batches(
+                loaders, fed.local_steps, device=dev)
+            # all m train (one batch); the select below freezes the
+            # unsampled clients' state exactly
+            tr, losses = local_fit_stacked(
+                strategy.trainable(stacked), stacked.get("w", {}),
+                toks, labs)
+            trained = strategy.after_local(dict(stacked, **tr),
+                                           fed.pfedme_eta)
+            stacked = (client_batch.select_clients(
+                plan.mask(m, which="sampled"), trained, stacked)
+                if partial else trained)
+
+            cmask = (torch.as_tensor(plan.mask(m), device=dev) if partial
+                     else None)
+            payload = strategy.uplink(stacked)       # stacked tree or None
+            if compressed:
+                enc, served, ef_new = compress.encode_stacked(
+                    codec, payload, stacked["ef"],
+                    [sr_uniforms(rnd, i) for i in range(m)])
+                rc = comm.round_comm_compressed_stacked(
+                    enc, payload, plan.n_participants)
+                stacked = dict(stacked, ef=(
+                    client_batch.select_clients(cmask, ef_new,
+                                                stacked["ef"])
+                    if partial else ef_new))
+            else:
+                served = payload
+                rc = comm.round_comm_stacked(payload, plan.n_participants)
+            weights = None
+            if strategy.aggregate == "personalized":
+                c_tree = served if compressed else tri_lora.tree_payload(
+                    stacked["adapter"])
+                weights = personalized(plan, cmask,
+                                       lambda: cka.stacked_cs(c_tree))
+            down = strategy.server_stacked(served,
+                                           sample_counts=sample_counts,
+                                           weights=weights,
+                                           participants=cmask)
+            installed = strategy.install(stacked, down)
+            stacked = (client_batch.select_clients(cmask, installed, stacked)
+                       if partial and down is not None else installed)
+
+            evaluated = _do_eval(rnd, fed)
+            if evaluated:
+                accs = eval_acc(strategy.trainable(stacked), test_toks,
+                                test_labs)
+            history.append(_round_record(
+                rnd, losses.cpu().numpy()[plan.sampled], accs, rc, plan, t0,
+                evaluated=evaluated))
+            if verbose:
+                _print_round(strategy, history[-1])
+        pstore.adopt(stacked)
+        states = pstore.unstack()
 
     return {
         "method": strategy.name,

@@ -14,7 +14,7 @@ computed with batched products, no per-pair loop.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -67,10 +67,26 @@ def stack_client_cs(c_trees: list) -> torch.Tensor:
     return torch.stack([flat(t) for t in c_trees])
 
 
+def stacked_cs(c_tree: Any) -> torch.Tensor:
+    """Stacked-payload form of :func:`stack_client_cs`: ONE C tree whose
+    leaves carry a leading client axis (m, …, r, r), folded to (m,
+    n_modules, r, r) in the same module order."""
+    return torch.cat([leaf.reshape(leaf.shape[0], -1, leaf.shape[-2],
+                                   leaf.shape[-1])
+                      for leaf in tree_leaves(c_tree)], dim=1)
+
+
 def pairwise_model_similarity(c_trees: list,
                               probes: torch.Tensor) -> torch.Tensor:
     """S^model (m, m): mean over adapted modules of per-module CKA."""
     cs = stack_client_cs(c_trees)
+    return _pair_cka(cs, cs, probes).mean(-1)
+
+
+def pairwise_model_similarity_stacked(c_tree: Any,
+                                      probes: torch.Tensor) -> torch.Tensor:
+    """S^model (m, m) from a stacked C payload (leaves (m, …, r, r))."""
+    cs = stacked_cs(c_tree)
     return _pair_cka(cs, cs, probes).mean(-1)
 
 

@@ -76,6 +76,29 @@ def tri_lora_dx(m: int, k: int, n: int, r: int, dtype: str) -> Bound:
     return Bound(nbytes, 2 * m * n * k + 2 * m * r * k, dtype)
 
 
+def tri_lora_matmul_grouped(m: int, k: int, n: int, r: int, groups: int,
+                            entries: int, dtype: str,
+                            small: str = "float32") -> Bound:
+    """The grouped forward: y[i] = x[i]@W + P[i]@B[g(i)] with one B (r, N)
+    per group (``groups`` of them, in ``small``) and ``entries`` int32
+    group indices."""
+    s = SIZE[dtype]
+    nbytes = (m * k * s + k * n * s + m * r * s + groups * r * n * SIZE[small]
+              + 4 * entries + m * n * s)
+    return Bound(nbytes, 2 * m * k * n + 2 * m * r * n, dtype)
+
+
+def tri_lora_dx_grouped(m: int, k: int, n: int, r: int, groups: int,
+                        entries: int, dtype: str,
+                        small: str = "float32") -> Bound:
+    """The grouped dx: dx[i] = g[i]@Wᵀ + Q[i]@A[g(i)]ᵀ with one A (K, r)
+    per group."""
+    s = SIZE[dtype]
+    nbytes = (m * n * s + k * n * s + m * r * s + groups * k * r * SIZE[small]
+              + 4 * entries + m * k * s)
+    return Bound(nbytes, 2 * m * n * k + 2 * m * r * k, dtype)
+
+
 def tri_lora_dw(m: int, k: int, n: int, dtype: str) -> Bound:
     """dW = xᵀ@g."""
     s = SIZE[dtype]
@@ -204,11 +227,25 @@ RWKV = tuple(
     for phase, m in (("prefill", 4096), ("decode", 8)))
 
 
+#: The grouped tri-LoRA forms at the vectorized training shapes (fed-100m,
+#: f32, 4 clients x 8 sequences of 256 tokens folded into M = 8192, one
+#: group index a sequence, rank 8): wq/wo and wk/wv.
+VMAP = tuple(
+    row for proj, n in (("wq/wo", 768), ("wk/wv", 256))
+    for row in (
+        ("tri_lora_matmul_kernel (grouped)", TABLE[0][1],
+         f"fed-100m {proj}, 4 clients, M=8192 K=768 N={n} r=8, f32",
+         tri_lora_matmul_grouped(8192, 768, n, 8, 4, 32, "float32")),
+        ("tri_lora_dx_kernel (grouped)", TABLE[1][1],
+         f"fed-100m {proj}, 4 clients, M=8192 K=768 N={n} r=8, f32",
+         tri_lora_dx_grouped(8192, 768, n, 8, 4, 32, "float32"))))
+
+
 def main() -> None:
     print("| kernel | TPU source | shape | MB moved | GFLOP | bound µs | "
           "bound by |")
     print("|---|---|---|---|---|---|---|")
-    for name, src, shape, bd in TABLE + TRAINING + RWKV:
+    for name, src, shape, bd in TABLE + TRAINING + RWKV + VMAP:
         print(f"| `{name}` | `{src}` | {shape} | {bd.nbytes / 1e6:.2f} | "
               f"{bd.flops / 1e9:.3f} | {bd.ms * 1e3:.2f} | {bd.by} |")
 

@@ -88,6 +88,22 @@
 // or more blocks run on at most 124 of the H100's 132 SMs, and the tiles
 // x S blocks do not spread evenly over them.
 //
+// Grouped forms (vectorized clients): the forward and dx also run with one
+// rank-r factor per group of rows, where the M rows are the folded batches
+// of m clients and row i applies client groups[i / rows] (the TPU side runs
+// one kernel per client under jax.vmap; here the clients share one launch).
+// Only the seed changes: y[i] = x[i]@W + P[i]@B[g(i)] and dx[i] = g[i]@W^T
+// + Q[i]@A[g(i)]^T, with P and Q made per client outside.  The factor of
+// group g lies a client stride past group 0's, so a strided view of a
+// stacked client state is read in place.  A SIMT tile whose 64 rows lie in
+// one group (a vote of the block) reads that group's factor as the
+// single-adapter seed does; a tile that straddles two groups reads each
+// row's own.  The wgmma forward takes groups only where its tiles cannot
+// straddle (rows a multiple of the tile's rows; the caller routes other
+// shapes to SIMT) and stages its block's group's B.  A row whose group is
+// negative gets no delta and keeps x@W (the JAX dense semantics; unlike
+// the grouped GEMV's zero rows, this is a training path).
+//
 // Operands are read by row strides (unit inner stride).  Rows, columns and
 // depth beyond the real extents read as zero and are not stored, so the
 // ragged M, K and N edges are masked here and nothing is padded.
@@ -121,6 +137,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// The rank-r factor (B of the forward, A of dx) each row applies.  Row i
+// applies group idx[i / rows] (a client), whose factor lies `stride`
+// elements past group 0's; a negative group applies none, so the row's
+// seed is zero and it keeps x@W (g@W^T).  idx == nullptr: every row
+// applies the one factor given.
+struct Groups {
+  const int* idx;
+  int rows;
+  long long stride;
+};
+
+__device__ __forceinline__ int group_of(const Groups& gr, int row) {
+  return gr.idx == nullptr ? 0 : __ldg(gr.idx + row / gr.rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -432,18 +463,53 @@ __device__ __forceinline__ void store_tile(T* __restrict__ out, long long ld,
 // acc = L (M,r) @ R^T, R (cols,r) at rt[col * col_stride + q * q_stride]:
 // the rank-r seed of the forward (R = B^T, strides 1 and ldb) and of dx
 // (R = A, strides lda and 1), read from L2 in the factor's own type, rank
-// by rank
+// by rank.  With groups, row i reads the R of its group (gr): when the
+// tile's rows all lie in one group (one vote of the block), the tile reads
+// that group's R as above; a tile that straddles groups reads each row's
+// own R (4x the loads, on the tiles at a group's edge only).
 template <class G, typename T, typename S>
 __device__ __forceinline__ void seed(float (&acc)[4][8],
                                      const T* __restrict__ l, long long ldl,
                                      const S* __restrict__ rt,
                                      long long col_stride, long long q_stride,
-                                     int row0, int n_rows, int col0,
-                                     int n_cols, int r) {
+                                     const Groups& gr, int row0, int n_rows,
+                                     int col0, int n_cols, int r) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int g0 = group_of(gr, row0);
+  int grp[4];
+  bool one = true;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + row_of<G>(i);
+    grp[i] = row < n_rows ? group_of(gr, row) : g0;
+    one = one && grp[i] == g0;
+  }
+  // gr.idx is a kernel argument, so the whole block takes one branch
+  if (gr.idx != nullptr && !__syncthreads_and(one)) {
+#pragma unroll 1
+    for (int q = 0; q < r; ++q) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + row_of<G>(i);
+        if (grp[i] < 0) continue;
+        const float pv = row < n_rows ? to_f32(l[row * ldl + q]) : 0.f;
+        const S* ri = rt + grp[i] * gr.stride;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = col0 + col_of<G>(j);
+          const float bv =
+              col < n_cols ? to_f32(ri[col * col_stride + q * q_stride]) : 0.f;
+          acc[i][j] = fmaf(pv, bv, acc[i][j]);
+        }
+      }
+    }
+    return;
+  }
+  if (g0 < 0) return;
+  rt += g0 * gr.stride;
 #pragma unroll 4
   for (int q = 0; q < r; ++q) {
     float pv[4], bv[8];
@@ -472,13 +538,13 @@ template <typename T, typename S, bool VEC, bool XVEC>
 __global__ void __launch_bounds__(kThreads) tri_lora_fwd_simt_kernel(
     const T* __restrict__ x, long long ldx, const T* __restrict__ w,
     long long ldw, const T* __restrict__ p, long long ldp,
-    const S* __restrict__ b, long long ldb, T* __restrict__ y, long long ldy,
-    bool y_vec, int m, int k, int n, int r) {
+    const S* __restrict__ b, long long ldb, Groups gr, T* __restrict__ y,
+    long long ldy, bool y_vec, int m, int k, int n, int r) {
   using G = FwdGeo;
   extern __shared__ float4 smem_f4[];
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
   float acc[4][8];
-  seed<G>(acc, p, ldp, b, 1, ldb, row0, m, col0, n, r);
+  seed<G>(acc, p, ldp, b, 1, ldb, gr, row0, m, col0, n, r);
   RowsByDepth<G, T, XVEC> xs(x, ldx, row0, m);
   AlongRows<G, T, VEC> ws(w, ldw, col0, n);
   mainloop<G>(acc, reinterpret_cast<float*>(smem_f4), xs, ws, 0, k);
@@ -492,13 +558,13 @@ template <typename T, typename S, bool GVEC, bool WVEC>
 __global__ void __launch_bounds__(kThreads) tri_lora_dx_simt_kernel(
     const T* __restrict__ g, long long ldg, const T* __restrict__ w,
     long long ldw, const T* __restrict__ q, long long ldq,
-    const S* __restrict__ a, long long lda, T* __restrict__ dx,
+    const S* __restrict__ a, long long lda, Groups gr, T* __restrict__ dx,
     long long lddx, int m, int k, int n, int r) {
   using G = DxGeo;
   extern __shared__ float4 smem_f4[];
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
   float acc[4][8];
-  seed<G>(acc, q, ldq, a, lda, 1, row0, m, col0, k, r);
+  seed<G>(acc, q, ldq, a, lda, 1, gr, row0, m, col0, k, r);
   RowsByDepth<G, T, GVEC> gs(g, ldg, row0, m);
   RowsByDepth<G, T, WVEC> ws(w, ldw, col0, k);
   mainloop<G>(acc, reinterpret_cast<float*>(smem_f4), gs, ws, 0, n);
@@ -589,8 +655,9 @@ bool aligned16(const void* ptr, long long ld, int elem) {
 template <typename T, typename S, bool VEC, bool XVEC>
 cudaError_t fwd_launch(const void* x, long long ldx, const void* w,
                        long long ldw, const void* p, long long ldp,
-                       const void* b, long long ldb, void* y, long long ldy,
-                       int m, int k, int n, int r, cudaStream_t s) {
+                       const void* b, long long ldb, Groups gr, void* y,
+                       long long ldy, int m, int k, int n, int r,
+                       cudaStream_t s) {
   constexpr int smem = FwdGeo::kSmem;                  // above 48 KB
   static const cudaError_t attr = cudaFuncSetAttribute(
       tri_lora_fwd_simt_kernel<T, S, VEC, XVEC>,
@@ -599,7 +666,7 @@ cudaError_t fwd_launch(const void* x, long long ldx, const void* w,
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   tri_lora_fwd_simt_kernel<T, S, VEC, XVEC><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(x), ldx, static_cast<const T*>(w), ldw,
-      static_cast<const T*>(p), ldp, static_cast<const S*>(b), ldb,
+      static_cast<const T*>(p), ldp, static_cast<const S*>(b), ldb, gr,
       static_cast<T*>(y), ldy, sizeof(T) == 4 && aligned16(y, ldy, 4), m, k,
       n, r);
   return cudaGetLastError();
@@ -608,25 +675,26 @@ cudaError_t fwd_launch(const void* x, long long ldx, const void* w,
 template <typename T, typename S>
 cudaError_t fwd(const void* x, long long ldx, const void* w, long long ldw,
                 const void* p, long long ldp, const void* b, long long ldb,
-                void* y, long long ldy, int m, int k, int n, int r,
+                Groups gr, void* y, long long ldy, int m, int k, int n, int r,
                 cudaStream_t s) {
   if constexpr (sizeof(T) == 4) {
     if (aligned16(w, ldw, 4) && aligned16(x, ldx, 4))
-      return fwd_launch<T, S, true, true>(x, ldx, w, ldw, p, ldp, b, ldb, y,
-                                          ldy, m, k, n, r, s);
+      return fwd_launch<T, S, true, true>(x, ldx, w, ldw, p, ldp, b, ldb, gr,
+                                          y, ldy, m, k, n, r, s);
     if (aligned16(w, ldw, 4))
-      return fwd_launch<T, S, true, false>(x, ldx, w, ldw, p, ldp, b, ldb, y,
-                                           ldy, m, k, n, r, s);
+      return fwd_launch<T, S, true, false>(x, ldx, w, ldw, p, ldp, b, ldb, gr,
+                                           y, ldy, m, k, n, r, s);
   }
-  return fwd_launch<T, S, false, false>(x, ldx, w, ldw, p, ldp, b, ldb, y,
+  return fwd_launch<T, S, false, false>(x, ldx, w, ldw, p, ldp, b, ldb, gr, y,
                                         ldy, m, k, n, r, s);
 }
 
 template <typename T, typename S, bool GVEC, bool WVEC>
 cudaError_t dx_launch(const void* g, long long ldg, const void* w,
                       long long ldw, const void* q, long long ldq,
-                      const void* a, long long lda, void* out, long long ldo,
-                      int m, int k, int n, int r, cudaStream_t s) {
+                      const void* a, long long lda, Groups gr, void* out,
+                      long long ldo, int m, int k, int n, int r,
+                      cudaStream_t s) {
   constexpr int smem = DxGeo::kSmem;                   // above 48 KB
   static const cudaError_t attr = cudaFuncSetAttribute(
       tri_lora_dx_simt_kernel<T, S, GVEC, WVEC>,
@@ -635,7 +703,7 @@ cudaError_t dx_launch(const void* g, long long ldg, const void* w,
   const dim3 grid((k + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   tri_lora_dx_simt_kernel<T, S, GVEC, WVEC><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(g), ldg, static_cast<const T*>(w), ldw,
-      static_cast<const T*>(q), ldq, static_cast<const S*>(a), lda,
+      static_cast<const T*>(q), ldq, static_cast<const S*>(a), lda, gr,
       static_cast<T*>(out), ldo, m, k, n, r);
   return cudaGetLastError();
 }
@@ -645,22 +713,22 @@ cudaError_t dx_launch(const void* g, long long ldg, const void* w,
 template <typename T, typename S>
 cudaError_t dx(const void* g, long long ldg, const void* w, long long ldw,
                const void* q, long long ldq, const void* a, long long lda,
-               void* out, long long ldo, int m, int k, int n, int r,
+               Groups gr, void* out, long long ldo, int m, int k, int n, int r,
                cudaStream_t s) {
   if constexpr (sizeof(T) == 4) {
     const bool gv = aligned16(g, ldg, 4), wv = aligned16(w, ldw, 4);
     if (gv && wv)
-      return dx_launch<T, S, true, true>(g, ldg, w, ldw, q, ldq, a, lda, out,
-                                         ldo, m, k, n, r, s);
+      return dx_launch<T, S, true, true>(g, ldg, w, ldw, q, ldq, a, lda, gr,
+                                         out, ldo, m, k, n, r, s);
     if (gv)
-      return dx_launch<T, S, true, false>(g, ldg, w, ldw, q, ldq, a, lda, out,
-                                          ldo, m, k, n, r, s);
+      return dx_launch<T, S, true, false>(g, ldg, w, ldw, q, ldq, a, lda, gr,
+                                          out, ldo, m, k, n, r, s);
     if (wv)
-      return dx_launch<T, S, false, true>(g, ldg, w, ldw, q, ldq, a, lda, out,
-                                          ldo, m, k, n, r, s);
+      return dx_launch<T, S, false, true>(g, ldg, w, ldw, q, ldq, a, lda, gr,
+                                          out, ldo, m, k, n, r, s);
   }
-  return dx_launch<T, S, false, false>(g, ldg, w, ldw, q, ldq, a, lda, out,
-                                       ldo, m, k, n, r, s);
+  return dx_launch<T, S, false, false>(g, ldg, w, ldw, q, ldq, a, lda, gr,
+                                       out, ldo, m, k, n, r, s);
 }
 
 // grid (N/64, K/64, S); with S > 1 a cluster of (1, 1, S) blocks
@@ -900,15 +968,19 @@ __device__ __forceinline__ void stage_products(float (&d)[BN / 2],
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// y (M,N) = P (M,r) @ B (r,N) + x (M,K) @ W (K,N), bf16 x / W / P / y
+// y (M,N) = P (M,r) @ B (r,N) + x (M,K) @ W (K,N), bf16 x / W / P / y.
+// With groups, the caller guarantees that a tile's kBM rows lie in one
+// group (gr.rows a multiple of kBM): the block reads its group once and
+// stages that group's B (none for a negative group).
 template <int NWG, int BN, typename S>
 __global__ void __launch_bounds__(Cfg<NWG, BN>::kThreads, 1)
     tri_lora_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                               const __grid_constant__ CUtensorMap map_w,
                               const __nv_bfloat16* __restrict__ p,
                               long long ldp, const S* __restrict__ b,
-                              long long ldb, __nv_bfloat16* __restrict__ y,
-                              long long ldy, int m, int k, int n, int r) {
+                              long long ldb, Groups gr,
+                              __nv_bfloat16* __restrict__ y, long long ldy,
+                              int m, int k, int n, int r) {
   using C = Cfg<NWG, BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -959,7 +1031,10 @@ __global__ void __launch_bounds__(Cfg<NWG, BN>::kThreads, 1)
       smem_raw + (full + 16 * kStages - smem_u32(smem_raw)));
   float* sb = sp + C::kBM * kSeedQ;
   const int lr = row - m0, lc = col - n0;       // in the tile
-  for (int q0 = 0; q0 < r; q0 += kSeedQ) {
+  const int g = group_of(gr, m0);               // the block's group
+  if (g > 0) b += g * gr.stride;
+  const int seed_r = g >= 0 ? r : 0;            // none for a negative group
+  for (int q0 = 0; q0 < seed_r; q0 += kSeedQ) {
 #pragma unroll
     for (int it = 0; it < C::kBM * kSeedQ / C::kConsumers; ++it) {
       const int e = threadIdx.x + it * C::kConsumers;
@@ -1069,9 +1144,11 @@ bool encode(CUtensorMap* map, const void* base, int rows, int cols,
 template <int NWG, int BN, typename S>
 cudaError_t fwd(const void* x, long long ldx, const void* w, long long ldw,
                 const void* p, long long ldp, const void* b, long long ldb,
-                void* y, long long ldy, int m, int k, int n, int r,
+                Groups gr, void* y, long long ldy, int m, int k, int n, int r,
                 cudaStream_t s) {
   using C = Cfg<NWG, BN>;
+  if (gr.idx != nullptr && gr.rows % C::kBM != 0)
+    return cudaErrorInvalidValue;           // a tile would straddle groups
   static const cudaError_t attr = cudaFuncSetAttribute(
       tri_lora_fwd_wgmma_kernel<NWG, BN, S>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
@@ -1083,8 +1160,8 @@ cudaError_t fwd(const void* x, long long ldx, const void* w, long long ldw,
   const dim3 grid((n + BN - 1) / BN, (m + C::kBM - 1) / C::kBM);
   tri_lora_fwd_wgmma_kernel<NWG, BN, S><<<grid, C::kThreads, C::kSmem, s>>>(
       map_x, map_w, static_cast<const __nv_bfloat16*>(p), ldp,
-      static_cast<const S*>(b), ldb, static_cast<__nv_bfloat16*>(y), ldy, m,
-      k, n, r);
+      static_cast<const S*>(b), ldb, gr, static_cast<__nv_bfloat16*>(y), ldy,
+      m, k, n, r);
   return cudaGetLastError();
 }
 
@@ -1095,15 +1172,94 @@ cudaError_t fwd(const void* x, long long ldx, const void* w, long long ldw,
 template <typename S>
 cudaError_t fwd(const void* x, long long ldx, const void* w, long long ldw,
                 const void* p, long long ldp, const void* b, long long ldb,
-                void* y, long long ldy, int m, int k, int n, int r,
+                Groups gr, void* y, long long ldy, int m, int k, int n, int r,
                 cudaStream_t s) {
-  return m <= 64 ? fwd<1, 128, S>(x, ldx, w, ldw, p, ldp, b, ldb, y, ldy, m,
-                                  k, n, r, s)
-                 : fwd<2, 256, S>(x, ldx, w, ldw, p, ldp, b, ldb, y, ldy, m,
-                                  k, n, r, s);
+  return m <= 64 ? fwd<1, 128, S>(x, ldx, w, ldw, p, ldp, b, ldb, gr, y, ldy,
+                                  m, k, n, r, s)
+                 : fwd<2, 256, S>(x, ldx, w, ldw, p, ldp, b, ldb, gr, y, ldy,
+                                  m, k, n, r, s);
 }
 
 }  // namespace wg
+
+}  // namespace
+
+namespace {
+
+// the entry points' dtype dispatch: `dtype` the type of the large operands
+// (x, W, P, y / g, W, Q, dx), `small_dtype` that of the rank-r factor
+cudaError_t fwd_simt(int dtype, int small_dtype, const void* x, long long ldx,
+                     const void* w, long long ldw, const void* p,
+                     long long ldp, const void* b, long long ldb, Groups gr,
+                     void* y, long long ldy, int m, int k, int n, int r,
+                     cudaStream_t s) {
+  if (bad_extent(m, n) || k < 1 || r < 1 || r > 64)
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && small_dtype == 0)
+    return simt::fwd<float, float>(x, ldx, w, ldw, p, ldp, b, ldb, gr, y, ldy,
+                                   m, k, n, r, s);
+  if (dtype == 0 && small_dtype == 1)
+    return simt::fwd<float, __nv_bfloat16>(x, ldx, w, ldw, p, ldp, b, ldb, gr,
+                                           y, ldy, m, k, n, r, s);
+  if (dtype == 1 && small_dtype == 0)
+    return simt::fwd<__nv_bfloat16, float>(x, ldx, w, ldw, p, ldp, b, ldb, gr,
+                                           y, ldy, m, k, n, r, s);
+  if (dtype == 1 && small_dtype == 1)
+    return simt::fwd<__nv_bfloat16, __nv_bfloat16>(x, ldx, w, ldw, p, ldp, b,
+                                                   ldb, gr, y, ldy, m, k, n,
+                                                   r, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t fwd_wgmma(int dtype, int small_dtype, const void* x,
+                      long long ldx, const void* w, long long ldw,
+                      const void* p, long long ldp, const void* b,
+                      long long ldb, Groups gr, void* y, long long ldy, int m,
+                      int k, int n, int r, cudaStream_t s) {
+  if (dtype != 1 || bad_extent(m, n) || k < 1 || r < 1 || r > 64 ||
+      !simt::aligned16(x, ldx, 2) || !simt::aligned16(w, ldw, 2))
+    return cudaErrorInvalidValue;
+  if (small_dtype == 0)
+    return wg::fwd<float>(x, ldx, w, ldw, p, ldp, b, ldb, gr, y, ldy, m, k, n,
+                          r, s);
+  if (small_dtype == 1)
+    return wg::fwd<__nv_bfloat16>(x, ldx, w, ldw, p, ldp, b, ldb, gr, y, ldy,
+                                  m, k, n, r, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dx_simt(int dtype, int small_dtype, const void* g, long long ldg,
+                    const void* w, long long ldw, const void* q,
+                    long long ldq, const void* a, long long lda, Groups gr,
+                    void* out, long long ldo, int m, int k, int n, int r,
+                    cudaStream_t s) {
+  if (bad_extent(m, k) || n < 1 || r < 1 || r > 64)
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && small_dtype == 0)
+    return simt::dx<float, float>(g, ldg, w, ldw, q, ldq, a, lda, gr, out,
+                                  ldo, m, k, n, r, s);
+  if (dtype == 0 && small_dtype == 1)
+    return simt::dx<float, __nv_bfloat16>(g, ldg, w, ldw, q, ldq, a, lda, gr,
+                                          out, ldo, m, k, n, r, s);
+  if (dtype == 1 && small_dtype == 0)
+    return simt::dx<__nv_bfloat16, float>(g, ldg, w, ldw, q, ldq, a, lda, gr,
+                                          out, ldo, m, k, n, r, s);
+  if (dtype == 1 && small_dtype == 1)
+    return simt::dx<__nv_bfloat16, __nv_bfloat16>(g, ldg, w, ldw, q, ldq, a,
+                                                  lda, gr, out, ldo, m, k, n,
+                                                  r, s);
+  return cudaErrorInvalidValue;
+}
+
+// the groups of a grouped entry point: `groups` (M / rows int32 entries,
+// checked by the caller) and `rows` (> 0); false when they are malformed
+bool grouped(const void* groups, int rows, long long stride, Groups* gr) {
+  if (groups == nullptr || rows < 1 || stride < 0) return false;
+  *gr = Groups{static_cast<const int*>(groups), rows, stride};
+  return true;
+}
+
+constexpr Groups kOne = {nullptr, 1, 0};
 
 }  // namespace
 
@@ -1115,25 +1271,9 @@ extern "C" int tri_lora_fwd_launch(int dtype, int small_dtype, const void* x,
                                    long long ldp, const void* b,
                                    long long ldb, void* y, long long ldy,
                                    int m, int k, int n, int r, void* stream) {
-  if (bad_extent(m, n) || k < 1 || r < 1 || r > 64)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0 && small_dtype == 0)
-    err = simt::fwd<float, float>(x, ldx, w, ldw, p, ldp, b, ldb, y, ldy, m,
-                                  k, n, r, s);
-  else if (dtype == 0 && small_dtype == 1)
-    err = simt::fwd<float, __nv_bfloat16>(x, ldx, w, ldw, p, ldp, b, ldb, y,
-                                          ldy, m, k, n, r, s);
-  else if (dtype == 1 && small_dtype == 0)
-    err = simt::fwd<__nv_bfloat16, float>(x, ldx, w, ldw, p, ldp, b, ldb, y,
-                                          ldy, m, k, n, r, s);
-  else if (dtype == 1 && small_dtype == 1)
-    err = simt::fwd<__nv_bfloat16, __nv_bfloat16>(x, ldx, w, ldw, p, ldp, b,
-                                                  ldb, y, ldy, m, k, n, r, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(fwd_simt(dtype, small_dtype, x, ldx, w, ldw, p, ldp,
+                                   b, ldb, kOne, y, ldy, m, k, n, r,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 // The wgmma route, with the arguments of tri_lora_fwd_launch: bf16 x, W, P
@@ -1146,20 +1286,40 @@ extern "C" int tri_lora_fwd_wgmma_launch(int dtype, int small_dtype,
                                          const void* b, long long ldb, void* y,
                                          long long ldy, int m, int k, int n,
                                          int r, void* stream) {
-  if (dtype != 1 || bad_extent(m, n) || k < 1 || r < 1 || r > 64 ||
-      !simt::aligned16(x, ldx, 2) || !simt::aligned16(w, ldw, 2))
+  return static_cast<int>(fwd_wgmma(dtype, small_dtype, x, ldx, w, ldw, p,
+                                    ldp, b, ldb, kOne, y, ldy, m, k, n, r,
+                                    static_cast<cudaStream_t>(stream)));
+}
+
+// The grouped forward (one B per group, B of group g at b + g*b_stride,
+// each (r,N) with row stride ldb): row i applies group groups[i / rows], a
+// negative group none.  The SIMT route takes any rows; the wgmma route
+// refuses rows that are no multiple of its tile (64 rows for M <= 64, else
+// 128).
+extern "C" int tri_lora_fwd_grouped_launch(
+    int dtype, int small_dtype, const void* x, long long ldx, const void* w,
+    long long ldw, const void* p, long long ldp, const void* b, long long ldb,
+    long long b_stride, const void* groups, int rows, void* y, long long ldy,
+    int m, int k, int n, int r, void* stream) {
+  Groups gr;
+  if (!grouped(groups, rows, b_stride, &gr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (small_dtype == 0)
-    err = wg::fwd<float>(x, ldx, w, ldw, p, ldp, b, ldb, y, ldy, m, k, n, r,
-                         s);
-  else if (small_dtype == 1)
-    err = wg::fwd<__nv_bfloat16>(x, ldx, w, ldw, p, ldp, b, ldb, y, ldy, m, k,
-                                 n, r, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(fwd_simt(dtype, small_dtype, x, ldx, w, ldw, p, ldp,
+                                   b, ldb, gr, y, ldy, m, k, n, r,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int tri_lora_fwd_grouped_wgmma_launch(
+    int dtype, int small_dtype, const void* x, long long ldx, const void* w,
+    long long ldw, const void* p, long long ldp, const void* b, long long ldb,
+    long long b_stride, const void* groups, int rows, void* y, long long ldy,
+    int m, int k, int n, int r, void* stream) {
+  Groups gr;
+  if (!grouped(groups, rows, b_stride, &gr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fwd_wgmma(dtype, small_dtype, x, ldx, w, ldw, p,
+                                    ldp, b, ldb, gr, y, ldy, m, k, n, r,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
 // `dtype` is the type of g, W, Q and dx; `small_dtype` the type of A.
@@ -1168,25 +1328,24 @@ extern "C" int tri_lora_dx_launch(int dtype, int small_dtype, const void* g,
                                   const void* q, long long ldq, const void* a,
                                   long long lda, void* out, long long ldo,
                                   int m, int k, int n, int r, void* stream) {
-  if (bad_extent(m, k) || n < 1 || r < 1 || r > 64)
+  return static_cast<int>(dx_simt(dtype, small_dtype, g, ldg, w, ldw, q, ldq,
+                                  a, lda, kOne, out, ldo, m, k, n, r,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+// The grouped dx (A of group g at a + g*a_stride, each (K,r) with row
+// stride lda): row i applies group groups[i / rows], a negative group none.
+extern "C" int tri_lora_dx_grouped_launch(
+    int dtype, int small_dtype, const void* g, long long ldg, const void* w,
+    long long ldw, const void* q, long long ldq, const void* a, long long lda,
+    long long a_stride, const void* groups, int rows, void* out,
+    long long ldo, int m, int k, int n, int r, void* stream) {
+  Groups gr;
+  if (!grouped(groups, rows, a_stride, &gr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0 && small_dtype == 0)
-    err = simt::dx<float, float>(g, ldg, w, ldw, q, ldq, a, lda, out, ldo, m,
-                                 k, n, r, s);
-  else if (dtype == 0 && small_dtype == 1)
-    err = simt::dx<float, __nv_bfloat16>(g, ldg, w, ldw, q, ldq, a, lda, out,
-                                         ldo, m, k, n, r, s);
-  else if (dtype == 1 && small_dtype == 0)
-    err = simt::dx<__nv_bfloat16, float>(g, ldg, w, ldw, q, ldq, a, lda, out,
-                                         ldo, m, k, n, r, s);
-  else if (dtype == 1 && small_dtype == 1)
-    err = simt::dx<__nv_bfloat16, __nv_bfloat16>(g, ldg, w, ldw, q, ldq, a,
-                                                 lda, out, ldo, m, k, n, r, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(dx_simt(dtype, small_dtype, g, ldg, w, ldw, q, ldq,
+                                  a, lda, gr, out, ldo, m, k, n, r,
+                                  static_cast<cudaStream_t>(stream)));
 }
 
 // `dtype` is the type of x, g and dW.  The M contraction runs in `splits`

@@ -29,8 +29,26 @@ arguments (``bm/bn/bk``), ``interpret`` and ``fused_bwd`` have no
 counterpart: the kernels pick their own tiles and mask ragged edges rather
 than padding, there is no interpret mode on the card, and the backward is
 always the kernels on CUDA and the plain chain on the CPU.
+
+Grouped forms (vectorized clients, :func:`grouped_tri_lora_matmul`): the
+rows of x are the folded batches of m clients, and each leading row of x
+applies its own client's adapter (``groups``, one int32 index per leading
+row; negative: no delta).  The forward and dx kernels take the group index
+and a client stride for the factor that varies by client (B, A), so a
+strided view of a stacked client state is read in place; P and Q are plain
+per-client products (``bmm`` over the gathered factors), and dA, dC and dB
+plain per-client rank-r chains summed into each client by one product with
+a 0/1 client matrix (no atomics).  dW, where W needs a gradient, is the
+single-adapter dW kernel over all clients' rows.  ``LAUNCHES`` counts the
+grouped launches under their own keys (``tri_lora_fwd_grouped``,
+``tri_lora_dx_grouped``), ``ROUTES`` the grouped forward's routes
+(``fwd_grouped_wgmma``, ``fwd_grouped_simt``).  A group index at or past
+the number of adapters is not checked on the host (no device sync): the
+gather of the plain products raises on it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -38,9 +56,11 @@ from repro_torch.kernels import ffi
 from repro_torch.kernels.tri_lora import ref
 
 #: Kernel launches per kernel; incremented only where a kernel is launched.
-LAUNCHES = {"tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0}
-#: Forward launches by route (:func:`fwd_route`).
-ROUTES = {"fwd_wgmma": 0, "fwd_simt": 0}
+LAUNCHES = {"tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
+            "tri_lora_fwd_grouped": 0, "tri_lora_dx_grouped": 0}
+#: Forward launches by route (:func:`fwd_route`), single and grouped.
+ROUTES = {"fwd_wgmma": 0, "fwd_simt": 0, "fwd_grouped_wgmma": 0,
+          "fwd_grouped_simt": 0}
 
 MAX_RANK = 64
 #: TMA reads rows whose base and stride are multiples of 16 bytes.
@@ -57,6 +77,12 @@ _VP, _I, _LL = ffi.VP, ffi.I, ffi.LL
 _RANKED = [_I, _I] + [_VP, _LL] * 5 + [_I] * 4 + [_VP]
 _FWD_ENTRY = {"simt": "tri_lora_fwd_launch",
               "wgmma": "tri_lora_fwd_wgmma_launch"}
+#: the grouped entry points: the ranked arguments with the factor's client
+#: stride, the group indices and the rows per index after the factor
+_GROUPED = [_I, _I] + [_VP, _LL] * 4 + [_LL, _VP, _I, _VP, _LL] + [_I] * 4 \
+    + [_VP]
+_GROUPED_FWD_ENTRY = {"simt": "tri_lora_fwd_grouped_launch",
+                      "wgmma": "tri_lora_fwd_grouped_wgmma_launch"}
 
 
 def reset_launches() -> None:
@@ -102,12 +128,17 @@ def _tma_ok(t: torch.Tensor) -> bool:
             and t.data_ptr() % TMA_ALIGN == 0 and row % TMA_ALIGN == 0)
 
 
-def fwd_route(x: torch.Tensor, w: torch.Tensor) -> str:
+def fwd_route(x: torch.Tensor, w: torch.Tensor,
+              rows: int | None = None) -> str:
     """The forward kernel for x (M,K) and w (K,N): ``"wgmma"`` when both
-    are bf16 and TMA can read them in place, else ``"simt"``.  Decided from
-    dtypes, strides and base addresses alone, before any launch."""
+    are bf16 and TMA can read them in place, else ``"simt"``.  Grouped
+    (``rows`` rows per group index) takes ``"wgmma"`` only where its tiles
+    (64 rows for M <= 64, else 128) lie in one group.  Decided from dtypes,
+    shapes, strides and base addresses alone, before any launch."""
     bf16 = x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
-    return "wgmma" if bf16 and _tma_ok(x) and _tma_ok(w) else "simt"
+    whole = rows is None or rows % (64 if x.shape[0] <= 64 else 128) == 0
+    return "wgmma" if bf16 and whole and _tma_ok(x) and _tma_ok(w) \
+        else "simt"
 
 
 def tri_lora_fwd(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
@@ -150,6 +181,82 @@ def tri_lora_dx(g: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
               dx.data_ptr(), dx.stride(0), m, k, n, r, ffi.stream())
     ffi.check(_LIB, code)
     LAUNCHES["tri_lora_dx"] += 1
+    return dx
+
+
+def _check_groups(groups: torch.Tensor, rows: int, m: int,
+                  factor: tuple) -> None:
+    """``groups`` (m / rows,) int32, contiguous, on the factor's device;
+    ``factor`` (name, tensor, (r0, r1)): a stack (G, r0, r1) of one factor
+    per group, unit inner stride (any client and row strides)."""
+    name, f, shape = factor
+    ffi.require(groups.dtype == torch.int32 and groups.dim() == 1
+                and groups.is_contiguous(),
+                f"groups must be a contiguous 1-D int32 tensor; got "
+                f"{groups.dtype} {tuple(groups.shape)}")
+    ffi.require(rows >= 1 and m % rows == 0 and groups.numel() == m // rows,
+                f"{m} rows do not split into {groups.numel()} groups of "
+                f"{rows}")
+    ffi.require(f.dim() == 3 and tuple(f.shape[1:]) == shape
+                and f.shape[0] >= 1,
+                f"{name} has shape {tuple(f.shape)}, expected (G,) + "
+                f"{shape}")
+    ffi.require(f.stride(2) == 1 or shape[1] == 1,
+                f"{name} must be contiguous along its last axis; got "
+                f"strides {f.stride()}")
+    ffi.require(f.dtype in ffi.DTYPE_CODE, f"{name} is {f.dtype}")
+    ffi.require(ffi.on_cuda(groups, f), "the grouped kernels take CUDA "
+                "tensors")
+
+
+def tri_lora_fwd_grouped(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
+                         b: torch.Tensor, groups: torch.Tensor,
+                         rows: int) -> torch.Tensor:
+    """Grouped forward kernel: y[i] = x[i] @ w + p[i] @ b[g(i)] for x (M,K),
+    w (K,N), p (M,r), b (G,r,N) (any client stride) → (M,N) in x.dtype,
+    where g(i) = groups[i // rows]; a negative group adds nothing.  The
+    route by :func:`fwd_route` with ``rows``."""
+    m, k = x.shape
+    n = w.shape[1]
+    r = _rank_of(p.shape[1])
+    _check_ranked((("x", x, (m, k)), ("w", w, (k, n)), ("p", p, (m, r))),
+                  ())
+    _check_groups(groups, rows, m, ("b", b, (r, n)))
+    route = fwd_route(x, w, rows)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    fn = ffi.fn(_LIB, _GROUPED_FWD_ENTRY[route], _GROUPED)
+    code = fn(ffi.DTYPE_CODE[x.dtype], ffi.DTYPE_CODE[b.dtype],
+              x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
+              p.data_ptr(), p.stride(0), b.data_ptr(), b.stride(1),
+              b.stride(0), groups.data_ptr(), rows, y.data_ptr(),
+              y.stride(0), m, k, n, r, ffi.stream())
+    ffi.check(_LIB, code)
+    LAUNCHES["tri_lora_fwd_grouped"] += 1
+    ROUTES[f"fwd_grouped_{route}"] += 1
+    return y
+
+
+def tri_lora_dx_grouped(g: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
+                        a: torch.Tensor, groups: torch.Tensor,
+                        rows: int) -> torch.Tensor:
+    """Grouped dx kernel: dx[i] = g[i] @ wᵀ + q[i] @ a[g(i)]ᵀ for g (M,N),
+    w (K,N), q (M,r), a (G,K,r) (any client stride) → (M,K) in g.dtype,
+    where g(i) = groups[i // rows]; a negative group adds nothing."""
+    m, n = g.shape
+    k = w.shape[0]
+    r = _rank_of(q.shape[1])
+    _check_ranked((("g", g, (m, n)), ("w", w, (k, n)), ("q", q, (m, r))),
+                  ())
+    _check_groups(groups, rows, m, ("a", a, (k, r)))
+    dx = torch.empty((m, k), dtype=g.dtype, device=g.device)
+    fn = ffi.fn(_LIB, "tri_lora_dx_grouped_launch", _GROUPED)
+    code = fn(ffi.DTYPE_CODE[g.dtype], ffi.DTYPE_CODE[a.dtype],
+              g.data_ptr(), g.stride(0), w.data_ptr(), w.stride(0),
+              q.data_ptr(), q.stride(0), a.data_ptr(), a.stride(1),
+              a.stride(0), groups.data_ptr(), rows, dx.data_ptr(),
+              dx.stride(0), m, k, n, r, ffi.stream())
+    ffi.check(_LIB, code)
+    LAUNCHES["tri_lora_dx_grouped"] += 1
     return dx
 
 
@@ -261,3 +368,85 @@ def tri_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     *lead, k = x.shape
     y = _TriLora.apply(x.reshape(-1, k), w, a, c, b, float(scaling))
     return y.reshape(*lead, w.shape[1])
+
+
+class _GroupedTriLora(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, w, a, c, b, groups, rows, scaling):
+        ctx.cuda = ffi.on_cuda(x2, w, a, c, b, groups)
+        ctx.rows, ctx.scaling = rows, scaling
+        ctx.save_for_backward(x2, w, a, c, b, groups)
+        if not ctx.cuda:
+            return ref.grouped_tri_lora_matmul_ref(x2, w, a, c, b, groups,
+                                                   rows, scaling)
+        sel = groups.long().clamp_min(0)
+        xs = x2.float().reshape(groups.numel(), rows, -1)
+        p = scaling * ((xs @ a[sel].float()) @ c[sel].float())
+        return tri_lora_fwd_grouped(x2, w, p.reshape(x2.shape[0], -1).to(
+            x2.dtype), b, groups, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, a, c, b, groups = ctx.saved_tensors
+        need_x, need_w, need_a, need_c, need_b = ctx.needs_input_grad[:5]
+        s, rows = ctx.scaling, ctx.rows
+        if not ctx.cuda:
+            grads = ref.grouped_tri_lora_bwd_ref(x2, w, a, c, b, groups, g,
+                                                 rows, s)
+            return (*(gr if need else None for gr, need in
+                      zip(grads, ctx.needs_input_grad)), None, None, None)
+        g = g if g.stride(-1) == 1 else g.contiguous()
+        e, m = groups.numel(), x2.shape[0]
+        sel = groups.long().clamp_min(0)
+        af, cf = a[sel].float(), c[sel].float()       # (E, K, r), (E, r, r)
+        gs = g.float().reshape(e, rows, -1)
+        xs = x2.float().reshape(e, rows, -1)
+        gb = gs @ b[sel].float().transpose(1, 2)      # (E, rows, r)
+        # the per-entry rank-r grads summed into their groups by one product
+        # with the (G, E) 0/1 matrix (a negative group's column is zero)
+        onehot = (groups.long()[None, :] == torch.arange(
+            a.shape[0], device=g.device)[:, None]).float()
+        dx = dw = da = dc = db = gc = xa = None
+        if need_x or need_a:
+            gc = gb @ cf.transpose(1, 2)              # (E, rows, r)
+        if need_x:
+            dx = tri_lora_dx_grouped(g, w, (s * gc).reshape(m, -1).to(
+                g.dtype), a, groups, rows).to(x2.dtype)
+        if need_w:
+            dw = tri_lora_dw(x2, g).to(w.dtype)
+        if need_c or need_b:
+            xa = xs @ af                              # (E, rows, r)
+        if need_a:
+            da = _into_groups(onehot, s * (xs.transpose(1, 2) @ gc), a)
+        if need_c:
+            dc = _into_groups(onehot, s * (xa.transpose(1, 2) @ gb), c)
+        if need_b:
+            db = _into_groups(onehot, s * ((xa @ cf).transpose(1, 2) @ gs),
+                              b)
+        return dx, dw, da, dc, db, None, None, None
+
+
+def _into_groups(onehot: torch.Tensor, per_entry: torch.Tensor,
+                 like: torch.Tensor) -> torch.Tensor:
+    """Σ over the entries of each group: (G, E) @ (E, …) in like's type."""
+    g = onehot @ per_entry.reshape(per_entry.shape[0], -1)
+    return g.reshape(like.shape).to(like.dtype)
+
+
+def grouped_tri_lora_matmul(x: torch.Tensor, w: torch.Tensor,
+                            a: torch.Tensor, c: torch.Tensor,
+                            b: torch.Tensor, groups: torch.Tensor,
+                            scaling: float = 1.0) -> torch.Tensor:
+    """y[i] = x[i]@W + scaling·((x[i]@A[g])@C[g])@B[g], g = groups[i], for
+    each leading row i of x (E, …, K), with stacked factors a (G, K, r),
+    c (G, r, r), b (G, r, N) (views of a stacked client state need no
+    copy) and groups (E,) int → (E, …, N) in x.dtype; a negative group adds
+    no delta (the row keeps x@W).  Differentiable in x, W and the three
+    stacks.  The rows of one leading index (``rows`` = the product of x's
+    middle dims) share its group."""
+    k = x.shape[-1]
+    rows = math.prod(x.shape[1:-1])
+    y = _GroupedTriLora.apply(x.reshape(-1, k), w, a, c, b,
+                              groups.to(torch.int32).contiguous(), rows,
+                              float(scaling))
+    return y.reshape(*x.shape[:-1], w.shape[1])

@@ -10,7 +10,8 @@
 Builds the synthetic federated classification task (label skew and
 concept drift, ``data.synthetic.make_federated_classification``), a
 random backbone of ``--arch``, and runs :func:`repro_torch.core.federated.
-run_federated` on the eager engine's ``loop`` path, one line per round.
+run_federated` on the eager engine (``--client-parallelism vmap``, the
+default, or ``loop``), one line per round.
 Runs on ``--device cuda`` unless asked for the CPU.
 """
 from __future__ import annotations
@@ -46,6 +47,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--participation", type=float, default=1.0)
     ap.add_argument("--attn-impl", default="flash", choices=IMPLS)
+    ap.add_argument("--client-parallelism", default="vmap",
+                    choices=["loop", "vmap"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -63,7 +66,8 @@ def main(argv=None) -> dict:
                     rounds=args.rounds, local_steps=args.local_steps,
                     batch_size=args.batch, lr=args.lr, seed=args.seed,
                     participation=args.participation,
-                    attn_impl=args.attn_impl)
+                    attn_impl=args.attn_impl,
+                    client_parallelism=args.client_parallelism)
     t0 = time.perf_counter()
     out = run_federated(task, fed, ctrain, ctest, device=dev, verbose=True)
     print(f"{cfg.name} on {dev}: {args.rounds} rounds in "

@@ -1,5 +1,5 @@
 """Federated training driver (the end-to-end launcher): PyTorch port of
-``repro.launch.train``, the eager engine's ``loop`` path.
+``repro.launch.train``, the eager engine's ``loop`` and ``vmap`` paths.
 
 Runs CE-LoRA federated fine-tuning of a causal-LM backbone on synthetic
 Zipf-Markov data split across simulated clients:
@@ -23,10 +23,14 @@ the raw downlink.  With ``ckpt`` the run ends by saving client 0's adapter
 
 On CUDA every adapted projection runs the tri-LoRA kernels
 (``models.layers.dense``) and ``attn_impl="flash"`` the flash kernels.
-Clients train one after another (``client_parallelism="loop"``, the
-port's default; the JAX package defaults to ``"vmap"``).  The vectorized
-clients, the scan and async engines, the host and sharded client stores
-and ``resume`` are not ported and raise ``NotImplementedError``.
+``client_parallelism="vmap"`` (the default, as in the JAX package) trains
+all clients as one batch: their adapters stacked (leaves (m, …)), their
+batches folded into one of m·B sequences that each apply their own
+client's adapter (the grouped tri-LoRA kernels on the card), the SUM of
+the m per-client losses differentiated, and the server steps on the
+stacked payload; ``"loop"`` trains the clients one after another.  The
+scan and async engines, the host and sharded client stores and ``resume``
+are not ported and raise ``NotImplementedError``.
 
 The random draws the JAX package takes from ``jax.random`` — the backbone
 (``key(seed)``), client ``i``'s adapter (``key(seed + i)``), the CKA probes
@@ -44,7 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import save
-from repro_torch.core import aggregation, comm, compress, sampling, tri_lora
+from repro_torch.core import (aggregation, client_batch, comm, compress,
+                              sampling, tri_lora)
 from repro_torch.core.similarity import cka
 from repro_torch.data import synthetic
 from repro_torch.device import check_on, resolve_device
@@ -60,8 +65,8 @@ CKA_PROBES = 32
 def _not_ported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{option} is not ported yet (ROADMAP, Queue 1 item {item}); the "
-        f"port's LM driver runs the eager engine's client_parallelism="
-        f"'loop' path on the device store")
+        f"port's LM driver runs the eager engine's 'loop' and 'vmap' paths "
+        f"on the device store")
 
 
 def _validate(clients: int, participation: float, straggler_frac: float,
@@ -70,9 +75,6 @@ def _validate(clients: int, participation: float, straggler_frac: float,
     if client_parallelism not in ("loop", "vmap"):
         raise ValueError(f"client_parallelism={client_parallelism!r}; "
                          f"expected 'loop' or 'vmap'")
-    if client_parallelism == "vmap":
-        raise _not_ported("client_parallelism='vmap'",
-                          "'vectorized clients'")
     if engine not in ("eager", "scan", "async"):
         raise ValueError(f"engine={engine!r}; "
                          f"expected 'eager', 'scan', or 'async'")
@@ -115,11 +117,86 @@ def local_fit(cfg, base: dict, opt, adapter: dict, toks: torch.Tensor,
     return adapter, torch.stack(losses)
 
 
+def local_fit_stacked(cfg, base: dict, opt, stacked: dict,
+                      toks: torch.Tensor, labs: torch.Tensor):
+    """All clients' :func:`local_fit` as one batch: ``stacked`` adapters
+    (leaves (m, …)), ``toks`` / ``labs`` (m, steps, B, S), ``opt`` an
+    ``adamw(stacked=True)``.  Each step folds the m batches into one of
+    m·B sequences and differentiates the SUM of the m per-client losses,
+    so each client gets exactly its own gradient.  Returns the adapters
+    and each client's step losses (m, steps)."""
+    m, b = toks.shape[0], toks.shape[2]
+    rows = model.client_rows(m, b, toks.device)
+    state = opt.init(stacked)
+    losses = []
+    for step in range(toks.shape[1]):
+        ad = tree_map(lambda t: t.detach().requires_grad_(True), stacked)
+        loss, _ = model.loss_fn(
+            cfg, ad, base, {"tokens": toks[:, step].flatten(0, 1),
+                            "labels": labs[:, step].flatten(0, 1)},
+            adapter_rows=rows)
+        leaves = tree_leaves(ad)
+        grads = dict(zip(map(id, leaves), torch.autograd.grad(
+            loss.sum(), leaves)))
+        upd, state = opt.update(tree_map(lambda t: grads[id(t)], ad), state,
+                                stacked)
+        stacked = apply_updates(stacked, upd)
+        losses.append(loss.detach())
+    return stacked, torch.stack(losses, dim=1)
+
+
+def _vmap_round(cfg, base: dict, opt, stacked: dict, drawn: list, plan,
+                cmask, *, method: str, codec, payload_of, ef, cka_probes,
+                uniforms) -> tuple:
+    """One vectorized round of :func:`run`: every client's local fit as one
+    batch (the unsampled clients' results dropped), then the uplink (through
+    ``codec`` with the stacked residual ``ef`` and client i's ``uniforms[i]``
+    when a codec is on) and the server step on the stacked payload, the
+    participants installing.  Returns (stacked, ef, losses of the sampled
+    clients, RoundComm)."""
+    m = len(drawn)
+    partial = cmask is not None
+    toks = torch.stack([d[0] for d in drawn])
+    labs = torch.stack([d[1] for d in drawn])
+    new, ls = local_fit_stacked(cfg, base, opt, stacked, toks, labs)
+    stacked = (client_batch.select_clients(
+        plan.mask(m, which="sampled"), new, stacked) if partial else new)
+    losses = ls[:, -1].cpu().numpy()[plan.sampled].tolist()
+
+    def keep(new_tree, old_tree):       # the participants take the new
+        return (client_batch.select_clients(cmask, new_tree, old_tree)
+                if partial else new_tree)
+
+    rc = comm.RoundComm.zero()
+    if codec is not None:
+        payload = payload_of(stacked)
+        enc, served, ef_new = compress.encode_stacked(codec, payload, ef,
+                                                      uniforms)
+        rc = comm.round_comm_compressed_stacked(enc, payload,
+                                                plan.n_participants)
+        ef = keep(ef_new, ef)
+    if method == "celora":
+        if codec is None:
+            served = tri_lora.tree_payload(stacked)
+            rc = comm.round_comm_stacked(served, plan.n_participants)
+        s_model = cka.pairwise_model_similarity_stacked(served, cka_probes)
+        w = aggregation.personalized_weights(s_model, participants=cmask)
+        mixed = aggregation.aggregate_stacked(served, w)
+        stacked = keep(tri_lora.tree_load_payload(stacked, mixed), stacked)
+    elif method == "fedavg":
+        if codec is None:
+            served = stacked
+            rc = comm.round_comm_stacked(served, plan.n_participants)
+        g = aggregation.fedavg_stacked(served, [1] * m, cmask)
+        stacked = keep(client_batch.broadcast_to_clients(g, m), stacked)
+    return stacked, ef, losses, rc
+
+
 def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
         local_steps: int = 20, batch: int = 8, seq: int = 256,
         lr: float = 3e-3, seed: int = 0, method: str = "celora",
         ckpt: str | None = None, verbose: bool = True,
-        reduced: bool = False, client_parallelism: str = "loop",
+        reduced: bool = False, client_parallelism: str = "vmap",
         participation: float = 1.0, sampler: str = "uniform",
         straggler_frac: float = 0.0, engine: str = "eager",
         chunk_rounds: int = 8, resume: bool = False,
@@ -173,13 +250,16 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
     adapters = list(init_adapters)
     for a in adapters:
         check_on(a, dev, "init_adapters")
-    opt = adamw(lr=lr)
+    vectorized = client_parallelism == "vmap"
+    opt = adamw(lr=lr, stacked=vectorized)
+    stacked = client_batch.stack_states(adapters) if vectorized else None
 
     compressed = not codec.is_identity and method in ("celora", "fedavg")
     payload_of = tri_lora.tree_payload if method == "celora" else (
         lambda t: t)
     if compressed:
-        ef = [compress.init_ef(payload_of(a)) for a in adapters]
+        ef = (compress.init_ef(payload_of(stacked)) if vectorized
+              else [compress.init_ef(payload_of(a)) for a in adapters])
         sr_uniforms = sr_uniforms or (
             lambda rnd, i: compress.client_generator(seed, rnd, i))
     if method == "celora":
@@ -213,48 +293,59 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
         smask = plan.mask(clients, which="sampled")
         cmask = (torch.as_tensor(plan.mask(clients), device=dev) if partial
                  else None)
-        losses = []
-        for i in range(clients):
-            toks, labs = draw(i)          # ALWAYS draw: stream alignment
-            if not smask[i]:
-                continue                  # unsampled: frozen this round
-            adapters[i], ls = local_fit(cfg, base, opt, adapters[i], toks,
-                                        labs)
-            losses.append(float(ls[-1]))
+        if vectorized:
+            drawn = [draw(i) for i in range(clients)]   # all: stream parity
+            stacked, ef, losses, rc = _vmap_round(
+                cfg, base, opt, stacked, drawn, plan, cmask, method=method,
+                codec=codec if compressed else None, payload_of=payload_of,
+                ef=ef if compressed else None, cka_probes=cka_probes,
+                uniforms=([sr_uniforms(rnd, i) for i in range(clients)]
+                          if compressed else None))
+        else:
+            losses = []
+            for i in range(clients):
+                toks, labs = draw(i)          # ALWAYS draw: stream alignment
+                if not smask[i]:
+                    continue                  # unsampled: frozen this round
+                adapters[i], ls = local_fit(cfg, base, opt, adapters[i],
+                                            toks, labs)
+                losses.append(float(ls[-1]))
 
-        rc = comm.RoundComm.zero()
-        if compressed:
-            # bytes priced on the ENCODED trees, the server consumes the
-            # dequantized payloads, EF advances for delivered uploads only
-            payloads = [payload_of(a) for a in adapters]
-            encoded = [compress.encode_client(codec, payloads[i], ef[i],
-                                              sr_uniforms(rnd, i))
-                       for i in range(clients)]
-            rc = comm.round_comm_compressed_payloads(
-                [encoded[i][0] for i in plan.participants],
-                [payloads[i] for i in plan.participants])
-            served = [e[1] for e in encoded]
-            for i in plan.participants:
-                ef[i] = encoded[i][2]
-        if method == "celora":
-            if not compressed:
-                served = [tri_lora.tree_payload(a) for a in adapters]
-                rc = comm.round_comm_payloads(
-                    [served[i] for i in plan.participants])
-            s_model = cka.pairwise_model_similarity(served, cka_probes)
-            w = aggregation.personalized_weights(s_model, participants=cmask)
-            downs = aggregation.aggregate_payloads(served, w)
-            for i in plan.participants:
-                adapters[i] = tri_lora.tree_load_payload(adapters[i],
-                                                         downs[i])
-        elif method == "fedavg":
-            if not compressed:
-                served = adapters
-                rc = comm.round_comm_payloads(
-                    [served[i] for i in plan.participants])
-            g = aggregation.fedavg(served, [1] * clients, cmask)
-            for i in plan.participants:
-                adapters[i] = g
+            rc = comm.RoundComm.zero()
+            if compressed:
+                # bytes priced on the ENCODED trees, the server consumes
+                # the dequantized payloads, EF advances for delivered
+                # uploads only
+                payloads = [payload_of(a) for a in adapters]
+                encoded = [compress.encode_client(codec, payloads[i], ef[i],
+                                                  sr_uniforms(rnd, i))
+                           for i in range(clients)]
+                rc = comm.round_comm_compressed_payloads(
+                    [encoded[i][0] for i in plan.participants],
+                    [payloads[i] for i in plan.participants])
+                served = [e[1] for e in encoded]
+                for i in plan.participants:
+                    ef[i] = encoded[i][2]
+            if method == "celora":
+                if not compressed:
+                    served = [tri_lora.tree_payload(a) for a in adapters]
+                    rc = comm.round_comm_payloads(
+                        [served[i] for i in plan.participants])
+                s_model = cka.pairwise_model_similarity(served, cka_probes)
+                w = aggregation.personalized_weights(s_model,
+                                                     participants=cmask)
+                downs = aggregation.aggregate_payloads(served, w)
+                for i in plan.participants:
+                    adapters[i] = tri_lora.tree_load_payload(adapters[i],
+                                                             downs[i])
+            elif method == "fedavg":
+                if not compressed:
+                    served = adapters
+                    rc = comm.round_comm_payloads(
+                        [served[i] for i in plan.participants])
+                g = aggregation.fedavg(served, [1] * clients, cmask)
+                for i in plan.participants:
+                    adapters[i] = g
 
         rec = {"round": rnd, "loss": float(np.mean(losses)),
                "uplink_floats": rc.uplink_elems,
@@ -269,6 +360,8 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
                   f"({plan.n_participants}/{clients} clients)  "
                   f"{rec['wall_s']:.1f}s", flush=True)
 
+    if vectorized:
+        adapters = client_batch.unstack_states(stacked)
     if ckpt:
         save(ckpt, {"adapter_client0": adapters[0]},
              metadata={"arch": arch, "rounds": rounds, "method": method})
@@ -303,6 +396,9 @@ def main(argv=None) -> dict:
                     help="quantized uplink compression with error feedback")
     ap.add_argument("--attn-impl", default=None, choices=attention.IMPLS,
                     help="attention backend; default: the arch config's")
+    ap.add_argument("--client-parallelism", default="vmap",
+                    choices=["loop", "vmap"],
+                    help="clients one after another, or all as one batch")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = run(arch=args.arch, clients=args.clients, rounds=args.rounds,
@@ -312,7 +408,7 @@ def main(argv=None) -> dict:
               participation=args.participation, sampler=args.sampler,
               straggler_frac=args.straggler_frac,
               uplink_codec=args.uplink_codec, attn_impl=args.attn_impl,
-              device=args.device)
+              client_parallelism=args.client_parallelism, device=args.device)
     first, last = out["history"][0]["loss"], out["history"][-1]["loss"]
     print(f"loss {first:.4f} -> {last:.4f} over {args.rounds} rounds")
     return out

@@ -219,13 +219,20 @@ def select_impl(cfg: Optional[ModelConfig], seq_len: int, *,
 
 def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
                    adapters=None, *, window: int = 0,
-                   impl: Optional[str] = None) -> torch.Tensor:
+                   impl: Optional[str] = None,
+                   adapter_rows: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Causal self-attention of a full sequence x (B,S,D) → (B,S,D).
     ``impl`` (None defers to ``cfg.attn_impl``) resolves through
     :func:`select_impl`: 'ref', 'blockwise' or 'flash'.  The JAX package's
     mesh-specific 'blockwise_hp' and custom-VJP 'blockwise_cv' variants are
-    not ported (they resolve to 'ref' up to AUTO_REF_MAX_SEQ)."""
-    q, k, v = _project_qkv(cfg, p, x, adapters)
+    not ported (they resolve to 'ref' up to AUTO_REF_MAX_SEQ).
+
+    ``adapter_rows`` (B,) switches the q/k/v/o adapters to stacked (m, …)
+    factors, sequence ``i`` applying adapter ``adapter_rows[i]``: the
+    vectorized clients, whose batches fold into B (attention itself is the
+    same per sequence)."""
+    q, k, v = _project_qkv(cfg, p, x, adapters, adapter_rows=adapter_rows)
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
     impl = select_impl(cfg, q.shape[1], impl=impl)
@@ -243,7 +250,7 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     sc = cfg.lora_alpha / cfg.lora_rank
     ad = adapters or {}
     return layers.dense(out.reshape(b, s, -1), p["wo"], adapter=ad.get("wo"),
-                        lora_scaling=sc)
+                        lora_scaling=sc, adapter_rows=adapter_rows)
 
 
 # ---------------------------------------------------------------------------

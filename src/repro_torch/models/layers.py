@@ -30,10 +30,14 @@ def dense(x: torch.Tensor, w: torch.Tensor, *,
     ``adapter`` then holds STACKED (m, …) factors and each batch row ``i``
     applies bank row ``adapter_rows[i]`` (-1 = no delta).
 
-    On CUDA the grouped mode runs the grouped GEMV kernel, which computes
-    x·W and the delta in one f32 accumulation and writes an exactly-zero
-    row for a masked slot (the plain path keeps x·W there and drops only
-    the delta; serving discards masked rows either way).
+    On CUDA the grouped mode with one token per sequence and no gradient
+    (serving) runs the grouped GEMV kernel, which computes x·W and the
+    delta in one f32 accumulation and writes an exactly-zero row for a
+    masked slot (the plain path keeps x·W there and drops only the delta;
+    serving discards masked rows either way).  Every other grouped call
+    (vectorized clients in training: many tokens per sequence, or a
+    gradient) runs the grouped tri-LoRA kernels, forward and dx, where a
+    masked row keeps x·W as in the plain path.
 
     On CUDA a single adapter runs the tri-LoRA kernels (the forward, and
     dx / dW in the backward where x / W need a gradient), then the bias.
@@ -48,14 +52,18 @@ def dense(x: torch.Tensor, w: torch.Tensor, *,
         return y if bias is None else y + bias
     if adapter is not None and adapter_rows is not None and x.is_cuda:
         lead = x.shape[:-1]
-        if math.prod(lead[1:]) != 1:
-            raise ValueError(f"the grouped kernel takes one token per "
-                             f"sequence (decode); got x {tuple(x.shape)}")
-        y = decode_ops.grouped_dense(
-            adapter_rows.to(torch.int32),
-            x.reshape(-1, x.shape[-1]).contiguous(), w, adapter["A"],
-            adapter["C"], adapter["B"], scaling=lora_scaling)
-        y = y.reshape(*lead, w.shape[-1])
+        grad = torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in (w, *adapter.values())))
+        if math.prod(lead[1:]) == 1 and not grad:
+            y = decode_ops.grouped_dense(
+                adapter_rows.to(torch.int32),
+                x.reshape(-1, x.shape[-1]).contiguous(), w, adapter["A"],
+                adapter["C"], adapter["B"], scaling=lora_scaling)
+            y = y.reshape(*lead, w.shape[-1])
+        else:
+            y = tri_lora_ops.grouped_tri_lora_matmul(
+                x, w, adapter["A"], adapter["C"], adapter["B"], adapter_rows,
+                lora_scaling)
         return y if bias is None else y + bias
     y = x @ w
     if bias is not None:

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_leaves
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -49,14 +50,29 @@ def no_adapter(cfg: ModelConfig) -> dict:
     return {"groups": groups, "tail": tail}
 
 
+def client_rows(m: int, b: int, device) -> torch.Tensor:
+    """The ``adapter_rows`` of m clients' batches of b sequences folded
+    client-major into one batch of m·b: (m·b,) int32, client i's rows
+    i·b … i·b + b − 1."""
+    return torch.arange(m, dtype=torch.int32, device=device).repeat_interleave(
+        b)
+
+
 def forward_hidden(cfg: ModelConfig, base: dict, adapter: dict, batch: dict,
                    *, attn_impl: str | None = None,
-                   use_rwkv_kernel: bool = False):
+                   use_rwkv_kernel: bool = False,
+                   adapter_rows: torch.Tensor | None = None):
     """Embeddings → stack → final norm.  Returns (hidden (B,S,D), aux,
     n_prefix = 0) as the JAX package does.  ``attn_impl=None`` defers to
     ``cfg.attn_impl`` (``attention.select_impl``); ``use_rwkv_kernel`` runs
     the WKV recurrence of rwkv6 blocks through the forward-only wkv6
-    kernel (a gradient through it raises, as in the JAX package)."""
+    kernel (a gradient through it raises, as in the JAX package).
+
+    ``adapter_rows`` (B,) int: ``adapter`` is a stacked client state
+    (leaves (m, …), the client axis first; see ``transformer.run_stack``)
+    and sequence ``i`` applies client ``adapter_rows[i]``'s adapter, -1
+    none — the JAX package's ``jax.vmap`` over clients with their batches
+    folded into B (:func:`client_rows`)."""
     if cfg.enc_dec or cfg.vision_patches or cfg.pos_type == "mrope":
         raise NotImplementedError(
             f"{cfg.name!r}: only decoder-only text models are ported so far")
@@ -70,7 +86,8 @@ def forward_hidden(cfg: ModelConfig, base: dict, adapter: dict, batch: dict,
         x = x + base["pos_embed"][positions.long()]
     x, aux = transformer.run_stack(
         cfg, base["groups"], base["tail"], adapter["groups"], adapter["tail"],
-        x, positions, attn_impl=attn_impl, use_rwkv_kernel=use_rwkv_kernel)
+        x, positions, attn_impl=attn_impl, use_rwkv_kernel=use_rwkv_kernel,
+        adapter_rows=adapter_rows)
     x = layers.norm(x, base["final_norm"], cfg.norm_type)
     return x, aux, 0
 
@@ -87,28 +104,44 @@ def forward(cfg: ModelConfig, base: dict, adapter: dict, batch: dict,
     return logits, aux
 
 
-def _ce_stats(cfg: ModelConfig, hidden: torch.Tensor, table: torch.Tensor,
+def _ce_terms(cfg: ModelConfig, hidden: torch.Tensor, table: torch.Tensor,
               labels: torch.Tensor) -> tuple:
-    """(Σ nll·w, Σ correct·w, Σ w) over labels >= 0 for one hidden chunk."""
+    """(nll·w, correct·w, w) per token of one hidden chunk (B, s), with
+    w = 1 where the label is >= 0."""
     logits = layers.unembed(hidden, table, cfg.vocab_size)    # (B, s, Vp)
     weights = (labels >= 0).float()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.clamp_min(0).long()[..., None])[
         ..., 0]
     correct = (torch.argmax(logits, -1) == labels).float() * weights
-    return (nll * weights).sum(), correct.sum(), weights.sum()
+    return nll * weights, correct, weights
 
 
 def loss_fn(cfg: ModelConfig, adapter: dict, base: dict, batch: dict,
+            *, adapter_rows: torch.Tensor | None = None,
             **kw) -> tuple[torch.Tensor, dict]:
     """Causal-LM cross entropy over labels >= 0; returns (loss, {'ce',
     'aux', 'acc'}).  Adapter-first as in the JAX package.  The JAX package
     splits the loss into 512-token chunks above S·V = 2^28 to keep the
     logits out of memory; the port computes it in one piece (the sums are
-    the same)."""
-    hidden, aux, _ = forward_hidden(cfg, base, adapter, batch, **kw)
-    nll_sum, corr_sum, w_sum = _ce_stats(cfg, hidden, base["embed"],
-                                         batch["labels"])
+    the same).
+
+    With ``adapter_rows`` (:func:`forward_hidden`) the batch holds the
+    folded batches of the m clients of the stacked ``adapter``, and loss,
+    ce and acc are (m,) vectors, client i's over its own sequences — what
+    ``jax.vmap`` of this function over the clients returns.  Their SUM is
+    the scalar to differentiate: each client's adapter then gets exactly
+    its own gradient (a mean over the m·B batch would scale it by 1/m)."""
+    hidden, aux, _ = forward_hidden(cfg, base, adapter, batch,
+                                    adapter_rows=adapter_rows, **kw)
+    terms = _ce_terms(cfg, hidden, base["embed"], batch["labels"])
+    if adapter_rows is None:
+        nll_sum, corr_sum, w_sum = (t.sum() for t in terms)
+    else:                        # per client: a 0/1 (m, B) client matrix
+        m = tree_leaves(adapter)[0].shape[0]
+        own = (adapter_rows.long()[None, :] == torch.arange(
+            m, device=hidden.device)[:, None]).float()
+        nll_sum, corr_sum, w_sum = (own @ t.sum(-1) for t in terms)
     denom = w_sum.clamp_min(1.0)
     ce = nll_sum / denom
     loss = ce + cfg.router_aux_weight * aux

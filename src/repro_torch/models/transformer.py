@@ -80,16 +80,23 @@ def init_block(generator: torch.Generator, cfg: ModelConfig,
 
 def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
                 x: torch.Tensor, positions, *, attn_impl=None,
-                use_rwkv_kernel: bool = False) -> tuple:
+                use_rwkv_kernel: bool = False,
+                adapter_rows: Optional[torch.Tensor] = None) -> tuple:
     """One pre-norm block over a full sequence; returns (x, aux) with the
     MoE auxiliary loss aux = 0 for the blocks ported so far.
     ``use_rwkv_kernel`` runs an rwkv6 block's WKV recurrence through the
-    forward-only wkv6 kernel (``rwkv.time_mix``)."""
+    forward-only wkv6 kernel (``rwkv.time_mix``).  ``adapter_rows`` (B,)
+    gives each sequence its own adapter of the stacked (m, …) ``ad``
+    (attention blocks)."""
     _check_kind(cfg, kind)
     ad = ad or {}
     nt = cfg.norm_type
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv6":
+        if adapter_rows is not None:
+            raise NotImplementedError(
+                f"grouped adapters only support attention blocks; got "
+                f"layer kind {kind!r}")
         h = layers.norm(x, p["ln1"], nt)
         y, _ = rwkv.time_mix(cfg, p["tm"], h, None, ad.get("tm"),
                              use_kernel=use_rwkv_kernel)
@@ -99,10 +106,12 @@ def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
         return x + y, aux
     h = layers.norm(x, p["ln1"], nt)
     x = x + attention.self_attention(cfg, p["attn"], h, positions,
-                                     ad.get("attn"), impl=attn_impl)
+                                     ad.get("attn"), impl=attn_impl,
+                                     adapter_rows=adapter_rows)
     h = layers.norm(x, p["ln2"], nt)
     y = layers.mlp(h, p["mlp"], cfg.mlp_type, adapters=ad.get("mlp"),
-                   lora_scaling=cfg.lora_alpha / cfg.lora_rank)
+                   lora_scaling=cfg.lora_alpha / cfg.lora_rank,
+                   adapter_rows=adapter_rows)
     return x + y, aux
 
 
@@ -204,16 +213,30 @@ def _at(tree: Any, i: int) -> Any:
     return tree_map(lambda t: t[i], tree)
 
 
+def _at_layer(tree: Any, layer: int) -> Any:
+    """Layer ``layer`` of every client of a stacked client tree (leaves
+    (m, q, …) → (m, …)): strided views, no copy."""
+    return tree_map(lambda t: t[:, layer], tree)
+
+
 def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
               x: torch.Tensor, positions, *, attn_impl=None,
-              use_rwkv_kernel: bool = False) -> tuple:
+              use_rwkv_kernel: bool = False,
+              adapter_rows: Optional[torch.Tensor] = None) -> tuple:
     """Train-time forward through the whole stack.  Returns (x, aux_sum).
     ``attn_impl=None`` defers the backend choice to ``cfg.attn_impl``
     (``attention.select_impl``).  A Python loop over the group axis stands
     in for ``lax.scan``; autograd keeps every layer's activations (the JAX
-    package's ``remat`` has no counterpart here)."""
+    package's ``remat`` has no counterpart here).
+
+    With ``adapter_rows`` (B,) the adapter trees are a STACKED client state
+    — groups leaves (m, q, …), tail leaves (m, …), the client axis first as
+    in ``core.client_batch`` (unlike ``run_stack_decode``'s (q, m, …) bank)
+    — and sequence ``i`` applies client ``adapter_rows[i]``'s adapters."""
     q, pattern, rem = cfg.stack_plan()
-    kw = dict(attn_impl=attn_impl, use_rwkv_kernel=use_rwkv_kernel)
+    kw = dict(attn_impl=attn_impl, use_rwkv_kernel=use_rwkv_kernel,
+              adapter_rows=adapter_rows)
+    layer_of = _at if adapter_rows is None else _at_layer
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if groups_p is not None:
         for layer in range(q):
@@ -221,7 +244,7 @@ def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
                 key = str(i)
                 gad = groups_ad[key] if groups_ad is not None else None
                 x, a = block_apply(cfg, kind, _at(groups_p[key], layer),
-                                   _at(gad, layer), x, positions, **kw)
+                                   layer_of(gad, layer), x, positions, **kw)
                 aux = aux + a
     for i, kind in enumerate(rem):
         x, a = block_apply(cfg, kind, tail_p[i], tail_ad[i], x, positions,

@@ -13,6 +13,12 @@ correction ``1 - b**step``, ``eps`` added to ``sqrt(v̂)``, and decoupled
 weight decay inside the step.  ``torch.optim.AdamW`` puts ``eps`` and the
 weight decay elsewhere, so it is not used.  Gradients that are ``None``
 (a frozen leaf) count as zeros.
+
+``stacked=True`` updates a stacked client state (every leaf with a leading
+client axis m) as ``jax.vmap`` of the per-client update would: the moments
+are elementwise anyway, the step count is shared, and ``grad_clip`` clips
+each client by its own global norm (one norm over all clients would mix
+them).
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ def _f32(x: float) -> float:
 
 def adamw(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 0.0,
-          grad_clip: float = 0.0) -> Optimizer:
+          grad_clip: float = 0.0, stacked: bool = False) -> Optimizer:
     def init(params):
         return {"step": 0,
                 "mu": tree_map(lambda p: torch.zeros_like(
@@ -58,9 +64,10 @@ def adamw(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
         step = state["step"] + 1
         grads = tree_map(lambda p, g: _g(g, p), params, grads)
         if grad_clip:
-            gnorm = global_norm(grads)
+            gnorm = client_norms(grads) if stacked else global_norm(grads)
             scale = torch.clamp(grad_clip / gnorm.clamp_min(1e-12), max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
+            grads = tree_map(lambda g: g * scale.reshape(
+                scale.shape + (1,) * (g.dim() - scale.dim())), grads)
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state["nu"],
                       grads)
@@ -110,3 +117,10 @@ def global_norm(tree) -> torch.Tensor:
     leaves = [x for x in tree_leaves(tree) if x is not None]
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in leaves))
+
+
+def client_norms(tree) -> torch.Tensor:
+    """(m,) global norm of each client's slice of a stacked tree."""
+    leaves = [x for x in tree_leaves(tree) if x is not None]
+    return torch.sqrt(sum(torch.square(x.float()).reshape(x.shape[0], -1)
+                          .sum(-1) for x in leaves))

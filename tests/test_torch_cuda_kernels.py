@@ -35,6 +35,8 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+NO_GROUPED = {"tri_lora_fwd_grouped": 0, "tri_lora_dx_grouped": 0}
+NO_GROUPED_ROUTES = {"fwd_grouped_wgmma": 0, "fwd_grouped_simt": 0}
 
 
 @pytest.fixture
@@ -231,9 +233,15 @@ def test_grouped_gemv_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="rows"):
         ops.grouped_dense(torch.zeros(3, dtype=torch.int32, device=cuda),
                           x, w, a, c, b)
-    with pytest.raises(ValueError, match="one token per sequence"):
-        layers.dense(torch.zeros((2, 3, 16), device=cuda), w,
-                     adapter={"A": a, "C": c, "B": b}, adapter_rows=rows)
+    # many tokens a sequence are not the GEMV's: dense sends them to the
+    # grouped tri-LoRA kernels (vectorized clients)
+    before = (ops.LAUNCHES["grouped_gemv"],
+              tl_ops.LAUNCHES["tri_lora_fwd_grouped"])
+    layers.dense(torch.zeros((2, 3, 16), device=cuda), w,
+                 adapter={"A": a, "C": c, "B": b}, adapter_rows=rows)
+    assert (ops.LAUNCHES["grouped_gemv"],
+            tl_ops.LAUNCHES["tri_lora_fwd_grouped"]) == (before[0],
+                                                         before[1] + 1)
 
 
 @pytest.mark.parametrize("n,slots", [(5, 2), (45, 40)])
@@ -570,7 +578,7 @@ def test_tri_lora_kernels_match_plain(cuda, m, k, n, r, dtype):
     grads = torch.autograd.grad(y, leaves, ct)
     torch.cuda.synchronize()
     assert tl_ops.LAUNCHES == {"tri_lora_fwd": 1, "tri_lora_dx": 1,
-                               "tri_lora_dw": 1}
+                               "tri_lora_dw": 1, **NO_GROUPED}
     _close(y.detach(), tl_ref.tri_lora_matmul_ref(x, w, a, c, b, 2.0), dtype)
     tol = TOL[dtype]["rtol"]
     for got, want in zip(grads, tl_ref.tri_lora_bwd_ref(x, w, a, c, b, ct,
@@ -633,7 +641,7 @@ def test_dense_on_the_card_runs_the_tri_lora_kernels(cuda):
                      lora_scaling=2.0)
     torch.autograd.grad(y.sum(), list(ad.values()))
     assert tl_ops.LAUNCHES == {"tri_lora_fwd": 1, "tri_lora_dx": 0,
-                               "tri_lora_dw": 0}
+                               "tri_lora_dw": 0, **NO_GROUPED}
     want = layers.dense(x.cpu().reshape(2, 12, 64), w.cpu(),
                         bias=bias.cpu(),
                         adapter={k: v.detach().cpu() for k, v in ad.items()},
@@ -645,7 +653,7 @@ def test_dense_on_the_card_runs_the_tri_lora_kernels(cuda):
     y = layers.dense(xg, wg, adapter=ad, lora_scaling=2.0)
     torch.autograd.grad(y.sum(), [xg, wg])
     assert tl_ops.LAUNCHES == {"tri_lora_fwd": 1, "tri_lora_dx": 1,
-                               "tri_lora_dw": 1}
+                               "tri_lora_dw": 1, **NO_GROUPED}
 
 
 def _fwd_routed(cuda, x, w, a, c, b, dtype):
@@ -674,7 +682,96 @@ def test_tri_lora_forward_wgmma_route(cuda, m, k, n, r, b_dtype):
                                         m + k + r)
     a, c, b = (t.float().to(b_dtype) for t in (a, c, b))
     routes = _fwd_routed(cuda, x, w, a, c, b, torch.bfloat16)
-    assert routes == {"fwd_wgmma": 1, "fwd_simt": 0}
+    assert routes == {"fwd_wgmma": 1, "fwd_simt": 0,
+                      **NO_GROUPED_ROUTES}
+
+
+def _grouped_inputs(dev, groups, rows, k, n, r, dtype, seed):
+    """x, W, the stacked factors as strided views of a (G, 2, …) stack
+    (layer 1 of a stacked client state), the cotangent, int32 groups."""
+    x, w, _, _, _, ct = _tri_lora_inputs(dev, len(groups) * rows, k, n, r,
+                                         dtype, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    g_n = max(groups) + 1
+    a, c, b = ((0.2 * torch.randn((g_n, 2) + shape, generator=g,
+                                  device=dev)).to(dtype)[:, 1]
+               for shape in ((k, r), (r, r), (r, n)))
+    return x, w, a, c, b, ct, torch.tensor(groups, dtype=torch.int32,
+                                           device=dev)
+
+
+@pytest.mark.parametrize("groups,rows,k,n,r", [
+    ([i // 8 for i in range(32)], 256, 768, 256, 8),   # train_vmap wk/wv
+    ([0, 1, 2], 100, 96, 130, 8),                      # tiles straddle
+    ([0, 0, 1, -1, 2, 1], 40, 64, 72, 4),              # masked rows
+    ([2, 0, 1, -1, 0, 2, 1, 1], 1, 128, 96, 8)])       # a row a group
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_tri_lora_kernels_match_plain(cuda, groups, rows, k, n, r,
+                                              dtype):
+    """The grouped forward and dx kernels (one adapter per group of rows,
+    the factors read through their client stride), dW over all rows and
+    the rank-r grads against the plain grouped forward and backward; one
+    launch of each kernel."""
+    x, w, a, c, b, ct, gi = _grouped_inputs(cuda, groups, rows, k, n, r,
+                                            dtype, rows + k)
+    leaves = [t.detach().requires_grad_(True) for t in (x, w, a, c, b)]
+    tl_ops.reset_launches()
+    y = tl_ops.grouped_tri_lora_matmul(
+        leaves[0].reshape(len(groups), rows, k), *leaves[1:], gi, 2.0)
+    grads = torch.autograd.grad(y, leaves, ct.reshape(y.shape))
+    torch.cuda.synchronize()
+    assert tl_ops.LAUNCHES == {"tri_lora_fwd": 0, "tri_lora_dx": 0,
+                               "tri_lora_dw": 1, "tri_lora_fwd_grouped": 1,
+                               "tri_lora_dx_grouped": 1}
+    _close(y.detach().reshape(x.shape[0], n),
+           tl_ref.grouped_tri_lora_matmul_ref(x, w, a, c, b, gi, rows, 2.0),
+           dtype)
+    tol = TOL[dtype]["rtol"]
+    for got, want in zip(grads, tl_ref.grouped_tri_lora_bwd_ref(
+            x, w, a, c, b, gi, ct, rows, 2.0)):
+        scale = max(1.0, float(want.float().abs().max()))
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=tol,
+                                   atol=tol * scale)
+
+
+@pytest.mark.parametrize("rows,route", [(256, "wgmma"), (100, "simt")])
+def test_grouped_forward_routes(cuda, rows, route):
+    """bf16 groups whose rows fill whole wgmma tiles take the wgmma
+    kernel; others the SIMT kernel, chosen before the launch."""
+    x, w, a, c, b, _, gi = _grouped_inputs(cuda, [0, 1, -1, 2], rows, 512,
+                                           512, 8, torch.bfloat16, 21)
+    before = dict(tl_ops.ROUTES)
+    y = tl_ops.grouped_tri_lora_matmul(x.reshape(4, rows, 512), w, a, c, b,
+                                       gi, 2.0)
+    torch.cuda.synchronize()
+    _close(y.reshape(x.shape[0], -1), tl_ref.grouped_tri_lora_matmul_ref(
+        x, w, a, c, b, gi, rows, 2.0), torch.bfloat16)
+    assert {k: tl_ops.ROUTES[k] - before[k] for k in before} == {
+        "fwd_wgmma": 0, "fwd_simt": 0, "fwd_grouped_wgmma": route == "wgmma",
+        "fwd_grouped_simt": route == "simt"}
+
+
+def test_grouped_dense_on_the_card(cuda):
+    """``layers.dense`` in grouped mode: many tokens a sequence (training)
+    run the grouped tri-LoRA kernels, one token a sequence with no
+    gradient (serving) the grouped GEMV."""
+    x, w, a, c, b, _, gi = _grouped_inputs(cuda, [1, 0, 2, 1], 16, 64, 48,
+                                           4, torch.float32, 31)
+    ad = {"A": a, "C": c, "B": b}
+    tl_ops.reset_launches()
+    ops.reset_launches()
+    y = layers.dense(x.reshape(4, 16, 64), w, adapter=ad, lora_scaling=2.0,
+                     adapter_rows=gi)
+    want = layers.dense(x.cpu().reshape(4, 16, 64), w.cpu(),
+                        adapter={k: v.cpu() for k, v in ad.items()},
+                        lora_scaling=2.0, adapter_rows=gi.cpu())
+    _close(y.cpu(), want, torch.float32)
+    layers.dense(x[:4].reshape(4, 1, 64), w,   # the GEMV reads a dense bank
+                 adapter={k: v.contiguous() for k, v in ad.items()},
+                 lora_scaling=2.0, adapter_rows=gi)
+    assert tl_ops.LAUNCHES["tri_lora_fwd_grouped"] == 1
+    assert ops.LAUNCHES["grouped_gemv"] == 1
 
 
 def test_tri_lora_forward_wgmma_reads_a_strided_view(cuda):
@@ -691,7 +788,8 @@ def test_tri_lora_forward_wgmma_reads_a_strided_view(cuda):
     assert xv.reshape(-1, d).stride(0) == 5 * d
     assert xv.reshape(-1, d).data_ptr() == xv.data_ptr()
     routes = _fwd_routed(cuda, xv, w, a, c, b, torch.bfloat16)
-    assert routes == {"fwd_wgmma": 1, "fwd_simt": 0}
+    assert routes == {"fwd_wgmma": 1, "fwd_simt": 0,
+                      **NO_GROUPED_ROUTES}
     torch.testing.assert_close(tl_ops.tri_lora_matmul(xv, w, a, c, b, 2.0),
                                tl_ops.tri_lora_matmul(xv.contiguous(), w, a,
                                                       c, b, 2.0),
@@ -709,7 +807,8 @@ def test_tri_lora_forward_simt_route(cuda, m, k, n, r, dtype):
     kernel."""
     x, w, a, c, b, _ = _tri_lora_inputs(cuda, m, k, n, r, dtype, m + n)
     routes = _fwd_routed(cuda, x, w, a, c, b, dtype)
-    assert routes == {"fwd_wgmma": 0, "fwd_simt": 1}
+    assert routes == {"fwd_wgmma": 0, "fwd_simt": 1,
+                      **NO_GROUPED_ROUTES}
 
 
 @pytest.mark.parametrize("m,k,n,dtype", [
@@ -983,7 +1082,7 @@ def test_rwkv_forward_on_the_card_matches_plain_and_counts_launches(cuda,
         torch.cuda.synchronize()
         assert wkv_ops.LAUNCHES == {"wkv6": 3}
         assert tl_ops.LAUNCHES == {"tri_lora_fwd": 12, "tri_lora_dx": 0,
-                                   "tri_lora_dw": 0}
+                                   "tri_lora_dw": 0, **NO_GROUPED}
         plain, _ = model.forward(cfg, params["base"], params["adapter"],
                                  {"tokens": toks})
         assert wkv_ops.LAUNCHES == {"wkv6": 3}

@@ -144,15 +144,12 @@ def test_default_draws_train_every_strategy(setup):
 
 
 @pytest.mark.parametrize("override,exc", [
-    (dict(client_parallelism="vmap"), NotImplementedError),
     (dict(client_parallelism="shard"), NotImplementedError),
     (dict(client_parallelism="pmap"), ValueError),
     (dict(engine="scan"), NotImplementedError),
     (dict(engine="async"), NotImplementedError),
     (dict(client_store="host"), NotImplementedError),
     (dict(client_store="sharded"), NotImplementedError),
-    (dict(uplink_codec="int8", client_parallelism="vmap"),
-     NotImplementedError),          # codecs run on the loop path only
     (dict(uplink_codec="fp4"), ValueError),
     (dict(fault_loss=0.1), NotImplementedError),
     (dict(fault_crash=0.2), NotImplementedError),
@@ -170,13 +167,10 @@ def test_unported_options_raise(setup, override, exc):
 
 
 def test_fed_config_fields_match_jax():
-    """Every JAX FedConfig field exists with the same default, except the
-    port's ``client_parallelism='loop'``."""
+    """Every JAX FedConfig field exists with the same default."""
     ours = {f.name: f.default for f in dataclasses.fields(
         federated.FedConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(jfed.FedConfig)}
-    assert ours.pop("client_parallelism") == "loop"
-    assert theirs.pop("client_parallelism") == "vmap"
     assert ours == theirs
     assert {f.name for f in dataclasses.fields(federated.RoundRecord)} == \
         {f.name for f in dataclasses.fields(jfed.RoundRecord)}

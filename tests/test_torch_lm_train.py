@@ -95,7 +95,8 @@ def test_lm_driver_matches_jax_loop_path(case, tmp_path):
     like = (jtri_lora.tree_payload(adapters[0])
             if kw["method"] == "celora" else adapters[0])
     path = str(tmp_path / "lm.npz")
-    out = train.run(**kw, device="cpu", verbose=False, ckpt=path,
+    out = train.run(**kw, client_parallelism="loop", device="cpu",
+                    verbose=False, ckpt=path,
                     base=convert.params_from_numpy(base, "cpu"),
                     init_adapters=[convert.params_from_numpy(a, "cpu")
                                    for a in adapters],
@@ -115,8 +116,7 @@ def test_lm_driver_matches_jax_loop_path(case, tmp_path):
     _assert_trees_close(out["adapters"][0], back["adapter_client0"], 0.0)
 
 
-@pytest.mark.parametrize("override", [dict(client_parallelism="vmap"),
-                                      dict(engine="scan"),
+@pytest.mark.parametrize("override", [dict(engine="scan"),
                                       dict(engine="async"),
                                       dict(client_store="host"),
                                       dict(client_store="sharded"),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the ``train`` and ``lm_train`` phases of ``chip_smoke.py`` for one
-tree of this repository on the card and print their trained tokens/s, so
-that the host-bound training paths of two trees can be compared inside one
-run on one card:
+tree of this repository on the card (and, where the tree has them, their
+``client_parallelism="vmap"`` runs: ``train_vmap``, ``lm_train_vmap``) and
+print their trained tokens/s, so that the host-bound training paths of two
+trees can be compared inside one run on one card:
 
     python tools/time_training.py [--tree DIR] [--label NAME]
 
@@ -48,13 +49,21 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     lines = io.StringIO()
     with contextlib.redirect_stdout(lines):
-        cs.phase_train(torch, fa_ops, tl_ops, get_config, dev)
-        cs.phase_lm_train(torch, fa_ops, tl_ops, get_config, dev)
+        train = cs.phase_train(torch, fa_ops, tl_ops, get_config, dev)
+        lm = cs.phase_lm_train(torch, fa_ops, tl_ops, get_config, dev)
+        if hasattr(cs, "phase_train_vmap"):
+            cs.phase_train_vmap(torch, fa_ops, tl_ops, get_config, dev,
+                                train[1])
+            cs.phase_lm_train(torch, fa_ops, tl_ops, get_config, dev,
+                              "vmap", lm[1])
     tok_s = {}
     for line in lines.getvalue().splitlines():
         obj = json.loads(line) if line.startswith("{") else {}
-        if obj.get("phase") in ("train", "lm_train"):
-            tok_s[obj["phase"]] = obj["trained_tok_per_s"]
+        if obj.get("phase") in ("train", "train_vmap", "lm_train"):
+            vmap = obj["phase"] == "lm_train" and obj.get(
+                "client_parallelism") == "vmap"
+            tok_s[obj["phase"] + ("_vmap" if vmap else "")] = \
+                obj["trained_tok_per_s"]
     print(json.dumps({"tree": args.label or args.tree,
                       "trained_tok_per_s": tok_s}), flush=True)
     print(cs.card_line(), flush=True)
