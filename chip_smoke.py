@@ -118,6 +118,30 @@ Phases, one JSON line each (several for the case phases):
   rwkv_oracle  the same width in f32 at 2 layers (B=2, T=200): card vs CPU
                logits within 1e-4 of the largest, token-by-token decode on
                the card vs the forward at 2e-3
+  train_faults (after train_vmap) ``run_federated`` on fed-100m at full
+               width and depth, f32, flash, under the seeded fault storm
+               (seed 11: crashes, a lost upload, corrupted and divergent
+               uploads), int8 uplink with bit flips on the wire and the
+               norm gate: 4 clients, 3 rounds of 3 local steps of 8x256,
+               on loop and on vmap; the same failed / rejected lists and
+               ledgers, loss within 1e-3 + 1e-3·|loss| up to the first round
+               that admits a corrupted upload (1e-3 + 1e-2·|loss| after
+               it), accuracies within 0.05, everything finite, exactly the
+               fault-free job's launches; then one NaN-corruption round on
+               vmap (seed 5, rate 0.5) that the gate must cut, finite
+  lm_rwkv      ``launch.train.run`` on rwkv6-1.6b at full width and depth
+               (bf16 backbone, f32 adapters): 2 clients, 2 rounds of 2
+               local steps of 2x128, loop then vmap (the default); the
+               same ledger, round 0's loss within 1e-3 + 1e-3·|loss|,
+               exact tri-LoRA launches (grouped on vmap, 96 projections a
+               step) all on the wgmma routes, no wkv6 launch (training runs
+               the plain recurrence)
+  dense_configs qwen2.5-14b at full width and depth (bf16, ~28.0 GB of
+               weights) serving 8 requests from 4 users through 4 slots
+               (both decode kernels every step), then the oracle check at
+               full width, 2 layers, f32 for qwen2.5-14b (QKV bias),
+               qwen3-32b (qk RMSNorm) and starcoder2-7b (LayerNorm + GELU),
+               head dim 128; each model freed before the next
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the result line.  Exits non-zero, printing no result, on any failure and
 when no CUDA device is present.
@@ -1918,10 +1942,10 @@ TRAIN = dict(clients=4, rounds=3, local_steps=5, batch=8, seq=256,
 
 
 def train_job(torch, cfg, dev, attn_impl: str, job: dict = TRAIN,
-              mode: str = "loop"):
+              mode: str = "loop", **fed_kw):
     """``run_federated`` (celora, eager engine, client_parallelism
-    ``mode``) on ``cfg`` with a random backbone; returns (result, wall
-    seconds)."""
+    ``mode``, the FedConfig fields ``fed_kw`` on top) on ``cfg`` with a
+    random backbone; returns (result, wall seconds)."""
     from repro_torch.core.fed_model import FedTask
     from repro_torch.core.federated import FedConfig, run_federated
     from repro_torch.data import synthetic
@@ -1931,10 +1955,11 @@ def train_job(torch, cfg, dev, attn_impl: str, job: dict = TRAIN,
         cfg.vocab_size, job["classes"], drift=0.5)
     task = FedTask.create(torch.Generator(device=dev).manual_seed(0), cfg,
                           job["classes"])
-    fed = FedConfig(method="celora", n_clients=job["clients"],
-                    rounds=job["rounds"], local_steps=job["local_steps"],
-                    batch_size=job["batch"], lr=job["lr"], seed=0,
-                    client_parallelism=mode, attn_impl=attn_impl)
+    fed = FedConfig(**{**dict(
+        method="celora", n_clients=job["clients"], rounds=job["rounds"],
+        local_steps=job["local_steps"], batch_size=job["batch"],
+        lr=job["lr"], seed=0, client_parallelism=mode,
+        attn_impl=attn_impl), **fed_kw})
     t0 = time.perf_counter()
     out = run_federated(task, fed, ctrain, ctest, device=dev)
     if dev.type == "cuda":
@@ -1975,6 +2000,31 @@ def train_profile(torch, cfg, dev, job: dict = TRAIN, clients: int = 1,
                            shares=FLASH_SHARES + ("tri_lora",))}
 
 
+def fed_launches(cfg, hist, job: dict, mode: str) -> dict:
+    """The flash and tri-LoRA launches of a ``run_federated`` celora job
+    with S^data: the loop path launches per sampled client, the vmap path
+    (all clients as one batch) once per projection per local step and one
+    eval call per evaluated round.  The S^data feature batches (one per
+    client) run the frozen backbone with no adapter: flash, but plain x@W
+    projections.  Layer 0's q/k/v inputs come from the frozen embedding
+    and need no gradient."""
+    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    if mode == "loop":
+        steps = sum(len(r.sampled) for r in hist) * job["local_steps"]
+        evals = sum(r.evaluated for r in hist) * job["clients"]
+        tri = {"tri_lora_fwd": proj * (steps + evals),
+               "tri_lora_dx": (proj - 3) * steps, "tri_lora_dw": 0,
+               **NO_GROUPED}
+    else:
+        steps = len(hist) * job["local_steps"]
+        evals = sum(r.evaluated for r in hist)
+        tri = {"tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
+               "tri_lora_fwd_grouped": proj * (steps + evals),
+               "tri_lora_dx_grouped": (proj - 3) * steps}
+    return {"flash_fwd": layers * (steps + evals + job["clients"]),
+            "flash_dq": layers * steps, "flash_dkv": layers * steps, **tri}
+
+
 def phase_train(torch, fa_ops, tl_ops, get_config, dev):
     """fed-100m at full width and depth through the flash and tri-LoRA
     kernels, then the same job through the plain reference attention on
@@ -1990,16 +2040,8 @@ def phase_train(torch, fa_ops, tl_ops, get_config, dev):
     peak = torch.cuda.max_memory_allocated() / 1e9
     hist = out["history"]
     steps = sum(len(r.sampled) for r in hist) * job["local_steps"]
-    evals = sum(r.evaluated for r in hist) * job["clients"]
-    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
-    # the S^data feature batches (one per client) run the frozen backbone
-    # with no adapter: flash, but plain x@W projections.  Layer 0's q/k/v
-    # inputs come from the frozen embedding and need no gradient.
-    expected = {"flash_fwd": layers * (steps + evals + job["clients"]),
-                "flash_dq": layers * steps, "flash_dkv": layers * steps,
-                "tri_lora_fwd": proj * (steps + evals),
-                "tri_lora_dx": (proj - 3) * steps, "tri_lora_dw": 0,
-                **NO_GROUPED}
+    layers = cfg.n_layers
+    expected = fed_launches(cfg, hist, job, "loop")
     tokens = steps * job["batch"] * job["seq"]
     rounds = [{"round": r.round, "wall_s": r.wall_s,
                "train_loss": r.train_loss, "mean_acc": r.mean_acc,
@@ -2035,9 +2077,9 @@ def phase_train(torch, fa_ops, tl_ops, get_config, dev):
     return launches, out
 
 
-def same_run(what: str, hist, ref_hist) -> None:
-    """Identical ledgers, loss within 1e-3 + 1e-3·|loss| and accuracies
-    within 0.05, round by round (RoundRecords)."""
+def same_run(what: str, hist, ref_hist, loss_rtol: float = 1e-3) -> None:
+    """Identical ledgers, loss within 1e-3 + loss_rtol·|loss| and
+    accuracies within 0.05, round by round (RoundRecords)."""
     for a, b in zip(hist, ref_hist):
         require((a.sampled, a.participants, a.dropped, a.uplink_bytes,
                  a.downlink_bytes, a.uplink_elems)
@@ -2045,7 +2087,7 @@ def same_run(what: str, hist, ref_hist) -> None:
                     b.downlink_bytes, b.uplink_elems),
                 f"{what} round {a.round}: the ledgers differ")
         require(abs(a.train_loss - b.train_loss)
-                <= 1e-3 + 1e-3 * abs(b.train_loss),
+                <= 1e-3 + loss_rtol * abs(b.train_loss),
                 f"{what} round {a.round}: loss {a.train_loss} vs "
                 f"{b.train_loss}")
         require(max(abs(x - y) for x, y in zip(a.accs, b.accs)) <= 0.05,
@@ -2069,16 +2111,9 @@ def phase_train_vmap(torch, fa_ops, tl_ops, get_config, dev, loop_out):
     flash_routes, routes = dict(fa_ops.ROUTES), dict(tl_ops.ROUTES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     hist = out["history"]
-    # every round trains all clients as one batch: one launch per
-    # projection per local step, and one eval call per evaluated round
     steps = len(hist) * job["local_steps"]
-    evals = sum(r.evaluated for r in hist)
-    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
-    expected = {"flash_fwd": layers * (steps + evals + job["clients"]),
-                "flash_dq": layers * steps, "flash_dkv": layers * steps,
-                "tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
-                "tri_lora_fwd_grouped": proj * (steps + evals),
-                "tri_lora_dx_grouped": (proj - 3) * steps}
+    layers = cfg.n_layers
+    expected = fed_launches(cfg, hist, job, "vmap")
     tokens = (sum(len(r.sampled) for r in hist) * job["local_steps"]
               * job["batch"] * job["seq"])
     profiles = {mode: train_profile(torch, cfg, dev, job, job["clients"],
@@ -2235,6 +2270,331 @@ def lm_profile(torch, cfg, out, job, dev) -> dict:
         window_us = (time.perf_counter() - t1) * 1e6
     return {"window": "train.local_fit, 1 client, 3 steps",
             **device_split(prof, window_us, 12, shares=FLASH_SHARES)}
+
+
+# ---------------------------------------------------------------------------
+# train_faults: the robust round (fault injection and admission control)
+# ---------------------------------------------------------------------------
+
+#: the train_faults job: the train job's shape with 3 local steps, the
+#: int8 uplink, bit flips on the wire, the norm gate and the fault storm
+#: of tests/test_faults.py.  Seed 11 fires every event in 3 rounds of 4
+#: clients: crashes, a lost upload, corrupted and divergent ones.
+TRAIN_FAULTS = dict(TRAIN, local_steps=3)
+STORM = dict(fault_crash=0.15, fault_loss=0.2, fault_corrupt=0.25,
+             fault_divergent=0.15, fault_corrupt_mode="bitflip",
+             admission="norm", uplink_codec="int8", seed=11)
+#: one NaN-corruption round on vmap: seed 5 corrupts clients 1 and 2
+NAN_ROUND = dict(fault_corrupt=0.5, fault_corrupt_mode="nan",
+                 admission="norm", seed=5, rounds=1)
+
+
+def first_admitted_corrupt(draws, hist) -> int:
+    """The first round in which a corrupted upload reached the server and
+    passed the gate (the number of rounds if none did)."""
+    for d, rec in zip(draws, hist):
+        hit = d.corrupt & ~d.crash & ~d.loss
+        if any(i not in rec.rejected for i in hit.nonzero()[0]):
+            return rec.round
+    return len(hist)
+
+
+def finite_states(torch, out) -> bool:
+    from repro_torch.tree import tree_leaves
+    return all(bool(torch.isfinite(t).all()) for s in out["states"]
+               for t in tree_leaves(s) if t.is_floating_point())
+
+
+def phase_train_faults(torch, fa_ops, tl_ops, get_config, dev):
+    """fed-100m at full width and depth through ``run_federated`` under
+    the seeded fault storm with the int8 uplink, bit flips on the wire and
+    the norm gate, on the loop and the vmap path: the same fault outcomes
+    and ledgers on both, loss and accuracies within the train_vmap
+    phase's tolerances up to the first round that admits a corrupted
+    upload (the loss within 1e-2·|loss| after it), everything finite, and
+    exactly the fault-free job's kernel launches (crashed and divergent
+    clients still train).
+    Then one NaN-corruption round on vmap, which the gate must cut."""
+    import numpy as np
+
+    from repro_torch.core import faults
+
+    cfg = get_config("fed-100m")
+    job = TRAIN_FAULTS
+    fm = faults.FaultModel(crash=STORM["fault_crash"],
+                           loss=STORM["fault_loss"],
+                           corrupt=STORM["fault_corrupt"],
+                           divergent=STORM["fault_divergent"])
+    draws = [fm.draw(job["clients"], r, STORM["seed"])
+             for r in range(job["rounds"])]
+    fired = {ev: sum(int(getattr(d, ev).sum()) for d in draws)
+             for ev in faults.FAULT_EVENTS}
+    runs, lines = {}, {}
+    for mode in ("loop", "vmap"):
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.reset_launches()               # counts of this path only
+        tl_ops.reset_launches()
+        out, wall = train_job(torch, cfg, dev, "flash", job, mode, **STORM)
+        launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
+        hist = out["history"]
+        runs[mode] = out
+        lines[mode] = {
+            "wall_s": wall, "peak_mem_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches,
+            "expected_launches": fed_launches(cfg, hist, job, mode),
+            "routes": dict(tl_ops.ROUTES),
+            "rounds_detail": [{"round": r.round, "train_loss": r.train_loss,
+                               "mean_acc": r.mean_acc, "failed": r.failed,
+                               "rejected": r.rejected,
+                               "participants": r.participants,
+                               "uplink_bytes": r.uplink_bytes,
+                               "downlink_bytes": r.downlink_bytes}
+                              for r in hist]}
+    tl_ops.reset_launches()
+    fa_ops.reset_launches()
+    nan_out, nan_wall = train_job(torch, cfg, dev, "flash", job, "vmap",
+                                  **NAN_ROUND)
+    nan_rec = nan_out["history"][0]
+    gaps = [abs(a.train_loss - b.train_loss) for a, b in zip(
+        runs["vmap"]["history"], runs["loop"]["history"])]
+    emit({"phase": "train_faults", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "layers": cfg.n_layers, "method": "celora", "attn_impl": "flash",
+          **job, **STORM, "events_fired": fired, **lines,
+          "vmap_vs_loop_loss_gap": gaps,
+          "nan_round": {**NAN_ROUND, "wall_s": nan_wall,
+                        "rejected": nan_rec.rejected,
+                        "train_loss": nan_rec.train_loss,
+                        "mean_acc": nan_rec.mean_acc}})
+    require(all(fired.values()), f"the storm fired {fired}: every event "
+            f"must fire")
+    for mode, line in lines.items():
+        require(line["launches"] == line["expected_launches"],
+                f"train_faults {mode} launches {line['launches']} != "
+                f"expected {line['expected_launches']}")
+    loop_h, vmap_h = runs["loop"]["history"], runs["vmap"]["history"]
+    require(any(r.rejected for r in loop_h), "the gate rejected nothing")
+    for a, b in zip(vmap_h, loop_h):
+        require((a.failed, a.rejected) == (b.failed, b.rejected),
+                f"train_faults round {a.round}: vmap failed/rejected "
+                f"{a.failed}/{a.rejected}, loop {b.failed}/{b.rejected}")
+    # a corrupted upload that passes the gate (a bit flip moves each int8
+    # code by 64 quanta but may stay within the norm bound) is mixed into
+    # every client's C; from the next round on, the float orders of the
+    # two paths part by more than the train_vmap tolerance (4.1e-3 at round
+    # 2 of this job, where the loop path's own flash and ref attention part
+    # by 1.3e-3), so those rounds are held to 1e-2·|loss|
+    k = first_admitted_corrupt(draws, loop_h) + 1
+    same_run("train_faults vmap vs loop", vmap_h[:k], loop_h[:k])
+    same_run("train_faults vmap vs loop (after an admitted corruption)",
+             vmap_h[k:], loop_h[k:], loss_rtol=1e-2)
+    for mode, out in runs.items():
+        require(all(np.isfinite(r.train_loss) and np.all(np.isfinite(r.accs))
+                    for r in out["history"]) and finite_states(torch, out),
+                f"train_faults {mode}: a loss, accuracy or state is not "
+                f"finite")
+    require(nan_rec.rejected and np.isfinite(nan_rec.train_loss)
+            and np.all(np.isfinite(nan_rec.accs))
+            and finite_states(torch, nan_out),
+            f"the NaN round rejected {nan_rec.rejected}, loss "
+            f"{nan_rec.train_loss}; it must reject and stay finite")
+    del runs, nan_out
+
+
+# ---------------------------------------------------------------------------
+# lm_rwkv: the LM driver on rwkv6-1.6b, loop and vmap
+# ---------------------------------------------------------------------------
+
+#: the lm_rwkv job: rwkv6-1.6b at full width and depth (bf16 backbone, f32
+#: adapters) through ``launch.train.run``; 128 tokens a sequence, so that
+#: a grouped tile (128 rows) lies in one sequence and the grouped forward
+#: takes the wgmma route.  Training runs the plain recurrence (wkv6 is
+#: forward-only), whose autograd graph holds ~3 (B,H,hd,hd) f32 states a
+#: step a layer: ~10 GB at 2 sequences, ~19 GB for the vmap batch of 4.
+LM_RWKV = dict(arch="rwkv6-1.6b", clients=2, rounds=2, local_steps=2,
+               batch=2, seq=128, method="celora")
+
+
+def phase_lm_rwkv(torch, wkv_ops, tl_ops, get_config, dev):
+    """``launch.train.run`` on rwkv6-1.6b, loop then vmap (the default):
+    the same ledger, round 0's loss within 1e-3 + 1e-3·|loss| (later rounds
+    amplify bf16 rounding), every projection of the vmap run on the grouped
+    tri-LoRA kernels with exact launch counts (the routes printed), and no
+    wkv6 launch."""
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    cfg = get_config(LM_RWKV["arch"])
+    proj = 4 * cfg.n_layers             # the time mix's r/k/v/o per layer
+    out, lines = {}, {}
+    for mode in ("loop", "vmap"):
+        torch.cuda.reset_peak_memory_stats()
+        wkv_ops.reset_launches()              # counts of this path only
+        tl_ops.reset_launches()
+        t0 = time.perf_counter()
+        out[mode] = train.run(**LM_RWKV, client_parallelism=mode,
+                              verbose=False, device=dev)
+        torch.cuda.synchronize()
+        hist = out[mode]["history"]
+        steps = (sum(len(r["participants"]) for r in hist) if mode == "loop"
+                 else len(hist)) * LM_RWKV["local_steps"]
+        key = "" if mode == "loop" else "_grouped"
+        expected = {"wkv6": 0, "tri_lora_fwd": 0, "tri_lora_dx": 0,
+                    "tri_lora_dw": 0, **NO_GROUPED,
+                    f"tri_lora_fwd{key}": proj * steps,
+                    f"tri_lora_dx{key}": (proj - 3) * steps}
+        lines[mode] = {"wall_s": time.perf_counter() - t0,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES},
+                       "expected_launches": expected,
+                       "routes": dict(tl_ops.ROUTES),
+                       "rounds_detail": [{k: r[k] for k in (
+                           "round", "loss", "uplink_bytes",
+                           "downlink_bytes", "participants", "wall_s")}
+                           for r in hist]}
+    emit({"phase": "lm_rwkv", **LM_RWKV, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+          "adapter_dtype": "float32", "projections": proj, **lines})
+    for mode, line in lines.items():
+        require(line["launches"] == line["expected_launches"],
+                f"lm_rwkv {mode} launches {line['launches']} != expected "
+                f"{line['expected_launches']}")
+    for mode, key in (("loop", "fwd_wgmma"), ("vmap", "fwd_grouped_wgmma")):
+        fwd = sum(v for k, v in lines[mode]["expected_launches"].items()
+                  if k.startswith("tri_lora_fwd"))
+        want = {**{k: 0 for k in tl_ops.ROUTES}, key: fwd}
+        require(lines[mode]["routes"] == want,
+                f"lm_rwkv {mode} routes {lines[mode]['routes']} != {want}: "
+                f"every bf16 forward (128-token sequences when grouped) "
+                f"takes the wgmma route")
+    loop_h, vmap_h = out["loop"]["history"], out["vmap"]["history"]
+    for a, b in zip(vmap_h, loop_h):
+        require((a["participants"], a["uplink_bytes"], a["downlink_bytes"],
+                 a["uplink_floats"]) == (b["participants"], b["uplink_bytes"],
+                                         b["downlink_bytes"],
+                                         b["uplink_floats"]),
+                f"lm_rwkv round {a['round']}: the ledgers differ")
+    a, b = vmap_h[0]["loss"], loop_h[0]["loss"]
+    require(abs(a - b) <= 1e-3 + 1e-3 * abs(b),
+            f"lm_rwkv round 0: vmap loss {a} vs loop {b}")
+    require(all(np.isfinite(r["loss"]) for r in loop_h + vmap_h),
+            "lm_rwkv: a loss is not finite")
+    del out
+
+
+# ---------------------------------------------------------------------------
+# dense_configs: qwen2.5-14b, qwen3-32b, starcoder2-7b
+# ---------------------------------------------------------------------------
+
+DENSE_CONFIGS = ("qwen2.5-14b", "qwen3-32b", "starcoder2-7b")
+#: qwen2.5-14b's serving job: 8 requests from 4 users through 4 slots
+DENSE_SERVE = dict(arch="qwen2.5-14b", users=4, requests=8, slots=4,
+                   prompt_len=64, gen=16)
+
+
+def phase_dense_configs(torch, ops, serve, model, random_bank, get_config,
+                        dev):
+    """qwen2.5-14b at full width and depth (bf16, random weights) serving 8
+    requests from 4 users through ServeEngine: every request finishes and
+    every step launches both decode kernels.  Then each of the three dense
+    configs at full width, 2 layers, f32 (the oracle phase's check):
+    ServeEngine tokens equal serve_naive's, request for request — QKV bias
+    (qwen2.5, starcoder2), qk RMSNorm (qwen3), LayerNorm + GELU
+    (starcoder2), head dim 128.  Each model is freed before the next."""
+    from repro_torch.tree import tree_leaves
+
+    job = DENSE_SERVE
+    cfg = get_config(job["arch"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = model.init_params(cfg, gen)
+        bank = random_bank(cfg, job["users"], gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_weights = sum(t.numel() for t in tree_leaves(params["base"]))
+    max_len = job["prompt_len"] + job["gen"]
+    eng = serve.ServeEngine(cfg, params["base"], bank, slots=job["slots"],
+                            max_len=max_len, device=dev)
+    reqs = serve.make_requests(bank, job["requests"],
+                               prompt_len=job["prompt_len"], gen=job["gen"],
+                               vocab=cfg.vocab_size, seed=0)
+    ops.reset_launches()                      # counts of this path only
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes, steps = dict(ops.LAUNCHES), dict(ops.ROUTES), eng.steps
+    lens = sorted({len(v) for v in done.values()})
+    n_targets = len(cfg.lora_targets)
+    expected = {"grouped_gemv": n_targets * cfg.n_layers * steps,
+                "decode_attention": cfg.n_layers * steps}
+    emit({"phase": "dense_configs", "serve": {
+        "arch": cfg.name, "dtype": cfg.param_dtype, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "weights": n_weights,
+        "weight_gb": n_weights * 2 / 1e9, "init_s": init_s, **job,
+        "finished": len(done), "token_lengths": lens, "steps": steps,
+        "wall_s": wall, "ms_per_step": 1e3 * wall / steps,
+        "tok_per_s": sum(r.gen for r in reqs) / wall, "launches": launches,
+        "expected_launches": expected, "routes": routes,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}})
+    require(len(done) == len(reqs) and lens == [max_len],
+            f"{cfg.name} finished {len(done)}/{len(reqs)} requests, lengths "
+            f"{lens}")
+    require(launches == expected, f"{cfg.name} serve launches {launches} "
+            f"over {steps} steps != {expected}")
+    require(all(bool(((v >= 0) & (v < cfg.vocab_size)).all())
+                for v in done.values()), "token ids out of range")
+    del eng, params, bank, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in DENSE_CONFIGS:
+        dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
+                     name)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
+                 name: str) -> None:
+    """The oracle phase's check on ``name`` at full width, 2 layers, f32:
+    ServeEngine ≡ serve_naive per request."""
+    cfg = get_config(name).with_overrides(n_layers=2, param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.inference_mode():
+        params = model.init_params(cfg, gen)
+        bank = random_bank(cfg, 4, gen)
+    reqs = serve.make_requests(bank, 8, prompt_len=16, gen=8,
+                               vocab=cfg.vocab_size, seed=1)
+    ops.reset_launches()
+    eng = serve.ServeEngine(cfg, params["base"], bank, slots=4, max_len=24,
+                            device=dev)
+    t0 = time.perf_counter()
+    got = eng.run(reqs)
+    torch.cuda.synchronize()
+    engine_launches = dict(ops.LAUNCHES)
+    wall = time.perf_counter() - t0
+    want = serve.serve_naive(cfg, params["base"], bank, reqs, device=dev)
+    same = [bool(np_equal(got[r.rid], want[r.rid])) for r in reqs]
+    emit({"phase": "dense_configs", "oracle": {
+        "arch": cfg.name, "dtype": "float32", "layers": 2,
+        "d_model": cfg.d_model, "head_dim": cfg.hd,
+        "attn_bias": cfg.attn_bias, "qk_norm": cfg.qk_norm,
+        "norm": cfg.norm_type, "mlp": cfg.mlp_type, "users": 4,
+        "requests": len(reqs), "engine_steps": eng.steps,
+        "engine_wall_s": wall, "engine_launches": engine_launches,
+        "token_identical": sum(same),
+        "sample": [int(t) for t in got[reqs[0].rid][-8:]]}})
+    require(all(same) and len(got) == len(reqs),
+            f"{cfg.name}: ServeEngine diverged from serve_naive on "
+            f"{[r.rid for r, s in zip(reqs, same) if not s]}")
+    require(engine_launches["grouped_gemv"] > 0
+            and engine_launches["decode_attention"] > 0,
+            f"{cfg.name}: the oracle's engine launched {engine_launches}")
 
 
 def phase_pretrain(torch, tl_ops, get_config, dev):
@@ -2416,6 +2776,8 @@ def main() -> int:
         launches.update(tri_lora_fwd_grouped=vmap["tri_lora_fwd_grouped"],
                         tri_lora_dx_grouped=vmap["tri_lora_dx_grouped"])
         del loop_out
+        # fault injection and admission control on both paths
+        phase_train_faults(torch, fa_ops, tl_ops, get_config, dev)
         # the LM driver (forward and dx, then vectorized) and the backbone
         # warm-up (dW)
         lm, lm_hist = phase_lm_train(torch, fa_ops, tl_ops, get_config, dev)
@@ -2438,6 +2800,15 @@ def main() -> int:
         del rwkv_p
         torch.cuda.empty_cache()
         phase_rwkv_oracle(torch, wkv_ops, model, get_config, dev)
+        # the eleventh slice's paths: the LM driver on rwkv6-1.6b (loop,
+        # then vmap through the grouped kernels) and the dense configs
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_lm_rwkv(torch, wkv_ops, tl_ops, get_config, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dense_configs(torch, ops, serve, model, random_bank,
+                            get_config, dev)
     except Exception:                       # report, print no result, fail
         traceback.print_exc()
         return 1

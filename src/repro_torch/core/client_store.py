@@ -6,7 +6,7 @@ ported — the whole population as one stacked state (leaves (m, …)) on the
 device, which the eager vectorized round updates wholesale.  The
 ``"host"`` (cohort streaming from host memory) and ``"sharded"`` (client
 axis over a device mesh) backends raise ``NotImplementedError`` (ROADMAP,
-Queue 1 item 7).
+Queue 1: "host / sharded client stores").
 """
 from __future__ import annotations
 
@@ -27,13 +27,13 @@ def make_store(backend: str, states: Sequence[Any], *,
                          f"expected one of {STORE_BACKENDS}")
     if backend != "device":
         raise NotImplementedError(
-            f"client_store={backend!r} is not ported yet (ROADMAP, Queue 1 "
-            f"item 7, 'host / sharded client stores'); the port runs "
+            f"client_store={backend!r} is not ported yet (ROADMAP, Queue 1: "
+            f"'host / sharded client stores'); the port runs "
             f"client_store='device'")
     if parallelism == "shard":
         raise NotImplementedError(
-            "client_parallelism='shard' is not ported yet (ROADMAP, Queue 1 "
-            "item 10, 'launch/mesh.py'); the port runs 'loop' and 'vmap'")
+            "client_parallelism='shard' is not ported yet (ROADMAP, Queue 1: "
+            "'launch/mesh.py'); the port runs 'loop' and 'vmap'")
     return DeviceClientStore(states)
 
 

@@ -30,9 +30,21 @@ Client parallelism (``FedConfig.client_parallelism``):
   codecs run on the stacked payload.  Both paths consume the same
   per-client data streams, so they agree up to floating-point order.
 
+Fault injection and admission control (:mod:`.faults`,
+:mod:`.admission`) run on both paths.  Per round the seeded fault draw
+decides which clients crash or diverge (their state rolls back to the
+round start), which uploads are lost or corrupted in transit (a bit flip
+on the encoded wire tree under a codec), and a divergent upload is scaled
+by ``fault_divergent_scale``; the norm gate admits the delivered rows,
+error feedback advances and the server installs for accepted uploads only,
+S^model is refreshed row-masked from the initial Cs, and the rejected rows
+are zeroed before aggregation.  Bytes are priced per sent upload.  Every
+such op is gated on ``robust`` (a nonzero rate or ``admission="norm"``),
+so the fault-free config runs the fault-free code unchanged.
+
 The options whose machinery is not ported yet — ``"shard"`` clients, the
-scan and async engines, host or sharded client stores, fault injection and
-admission control — raise ``NotImplementedError``; nothing falls back to
+scan and async engines, host or sharded client stores — raise
+``NotImplementedError`` naming their ROADMAP item; nothing falls back to
 another path.
 
 Uplink codecs (:mod:`.compress`): each communicating client carries an
@@ -57,8 +69,9 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import (aggregation, client_batch, client_store, comm,
-                              compress, sampling, tri_lora)
+from repro_torch.core import (admission, aggregation, client_batch,
+                              client_store, comm, compress, faults, sampling,
+                              tri_lora)
 from repro_torch.core.baselines import Strategy, get_strategy
 from repro_torch.core.fed_model import FedTask
 from repro_torch.core.similarity import cka, gmm, ot
@@ -70,11 +83,8 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PARALLELISM_MODES = ("loop", "vmap", "shard")
 ENGINES = ("eager", "scan", "async")
-ADMISSION_MODES = ("none", "norm")
-FAULT_RATES = ("fault_crash", "fault_loss", "fault_corrupt",
-               "fault_divergent")
 
-_NOT_PORTED = ("is not ported yet (ROADMAP, Queue 1 item {item}); the port "
+_NOT_PORTED = ("is not ported yet (ROADMAP, Queue 1: '{item}'); the port "
                "runs {what}")
 
 
@@ -250,8 +260,7 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
         raise ValueError(f"client_parallelism={mode!r}; "
                          f"expected one of {PARALLELISM_MODES}")
     if mode == "shard":
-        raise _not_ported("client_parallelism='shard'",
-                          "10 ('launch/mesh.py')",
+        raise _not_ported("client_parallelism='shard'", "launch/mesh.py",
                           "client_parallelism='loop' or 'vmap'")
     if fed.sampler not in sampling.SAMPLERS:
         raise ValueError(f"sampler={fed.sampler!r}; "
@@ -259,8 +268,9 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
     if fed.engine not in ENGINES:
         raise ValueError(f"engine={fed.engine!r}; expected one of {ENGINES}")
     if fed.engine != "eager":
-        raise _not_ported(f"engine={fed.engine!r}", "'scan / async engines'",
-                          "engine='eager'")
+        raise _not_ported(f"engine={fed.engine!r}",
+                          "the scan engine" if fed.engine == "scan"
+                          else "core/async_engine.py", "engine='eager'")
     if fed.chunk_rounds < 1:
         raise ValueError(f"chunk_rounds must be >= 1; got {fed.chunk_rounds}")
     if fed.checkpoint_path or fed.resume:
@@ -273,7 +283,7 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
                          f"of {client_store.STORE_BACKENDS}")
     if fed.client_store != "device":
         raise _not_ported(f"client_store={fed.client_store!r}",
-                          "'host / sharded client stores'",
+                          "host / sharded client stores",
                           "client_store='device'")
     sampling.n_sampled(fed.n_clients, fed.participation)   # validates
     if not 0.0 <= fed.straggler_frac < 1.0:
@@ -283,19 +293,10 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
         raise ValueError(f"n_clients={fed.n_clients} but {n_train} client "
                          f"training sets were provided")
     compress.get_codec(fed.uplink_codec)              # validates
-    for name in FAULT_RATES:
-        rate = getattr(fed, name)
-        if not 0.0 <= rate <= 1.0:
-            raise ValueError(f"{name} must be in [0, 1]; got {rate}")
-        if rate > 0.0:
-            raise _not_ported(f"{name}={rate}", "'faults and admission'",
-                              "without fault injection")
-    if fed.admission not in ADMISSION_MODES:
-        raise ValueError(f"admission={fed.admission!r}; expected one of "
-                         f"{ADMISSION_MODES}")
-    if fed.admission != "none":
-        raise _not_ported(f"admission={fed.admission!r}",
-                          "'faults and admission'", "admission='none'")
+    faults.fault_model_of(fed)                        # validates
+    if admission.control_of(fed).enabled and strategy.aggregate == "none":
+        raise ValueError(f"admission control needs an aggregating method; "
+                         f"method={fed.method!r} has no uplink to admit")
     if fed.dispatch_timeout < 0:
         raise ValueError(f"dispatch_timeout must be >= 0; "
                          f"got {fed.dispatch_timeout}")
@@ -443,15 +444,14 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
             s_model_prev[0], cs, plan.sampled, cka_probes)
         return s_model_prev[0]
 
-    def personalized(plan, participants, cs) -> torch.Tensor:
-        """Eqn (3) weights from S = S^data (+ S^model this round over the
-        Cs the server holds, a callable returning them stacked (m,
-        n_modules, r, r))."""
+    def personalized(participants, model_sim_src) -> torch.Tensor:
+        """Eqn (3) weights from S = S^data (+ S^model this round, from the
+        callable ``model_sim_src``)."""
         sims = []
         if fed.use_data_sim and s_data is not None:
             sims.append(s_data)
         if fed.use_model_sim:
-            sims.append(model_sim(cs(), plan))
+            sims.append(model_sim_src())
         if not sims:
             raise ValueError(
                 f"celora needs at least one similarity term; got "
@@ -460,6 +460,84 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
         return aggregation.personalized_weights(sum(sims), fed.self_weight,
                                                 participants)
 
+    # ---- the robust round's setup, gated on `robust` so that the
+    # fault-free config keeps the fault-free paths
+    fm = faults.fault_model_of(fed)
+    adm = admission.control_of(fed)
+    robust = fm.active or adm.enabled
+    adm_state = admission.init_state(adm.window, dev) if adm.enabled else None
+    communicates = strategy.aggregate != "none"
+    per_b = per_down_b = per_e = 0
+    if robust and communicates:
+        # per-client byte constants: the robust round prices bytes per sent
+        # upload and per accepted downlink
+        one = strategy.uplink(states[0])
+        per_down_b, per_e = comm.tree_bytes(one), comm.tree_elems(one)
+        per_b = per_down_b
+        if compressed:
+            meta = tree_map(lambda t: torch.empty((m,) + tuple(t.shape),
+                                                  dtype=t.dtype,
+                                                  device="meta"), one)
+            per_b, per_e = comm.per_client_comm(
+                compress.wire_struct(codec, meta, m))
+    if robust and strategy.aggregate == "personalized" and fed.use_model_sim:
+        # the row-masked refresh needs a valid previous S^model from round
+        # 0: the initial Cs' (the JAX package's scan-engine init)
+        s_model_prev[0] = cka.pairwise_model_similarity(
+            [strategy.uplink(s) for s in states], cka_probes)
+
+    def masked_refresh(cs: torch.Tensor, sampled_ids, accept: torch.Tensor,
+                       smask: torch.Tensor) -> torch.Tensor:
+        """Robust S^model: refresh the rows of ACCEPTED clients only; a pair
+        touching a sampled client whose upload was not accepted (its served
+        C is stale, corrupt or undelivered) keeps its previous entry."""
+        refreshed = cka.refresh_rows_inline(s_model_prev[0], cs, sampled_ids,
+                                            cka_probes)
+        clean = ~smask | accept
+        valid = ((accept[:, None] & clean[None, :])
+                 | (accept[None, :] & clean[:, None]))
+        s_model_prev[0] = torch.where(valid, refreshed, s_model_prev[0])
+        return s_model_prev[0]
+
+    def outcome(plan, fd) -> tuple:
+        """(sent, delivered, corrupted, divergent) (m,) bool masks of a
+        round: sent left the device, delivered reached the server."""
+        pmask = plan.mask(m)
+        if fd is None:
+            none = np.zeros(m, bool)
+            return pmask, pmask, none, none
+        sent = pmask & ~fd.crash
+        delivered = sent & ~fd.loss
+        return (sent, delivered, delivered & fd.corrupt,
+                plan.mask(m, which="sampled") & fd.divergent)
+
+    def robust_comm(sent: np.ndarray, accept: np.ndarray) -> comm.RoundComm:
+        return comm.RoundComm(uplink_bytes=per_b * int(sent.sum()),
+                              downlink_bytes=per_down_b * int(accept.sum()),
+                              uplink_elems=per_e * int(sent.sum()))
+
+    def gate(served_stacked, delivered: np.ndarray) -> np.ndarray:
+        """The accepted rows: the delivered ones the admission gate passes
+        (all delivered with admission off), read back once a round."""
+        nonlocal adm_state
+        if not adm.enabled:
+            return delivered
+        norms, finite = admission.payload_stats(served_stacked)
+        acc, adm_state = admission.admit(norms, finite, delivered, adm_state,
+                                         adm)
+        return acc.cpu().numpy()
+
+    def record(rnd, losses, accs, rc, plan, t0, evaluated, fd, delivered,
+               accept) -> RoundRecord:
+        rec = _round_record(rnd, losses, accs, rc, plan, t0,
+                            evaluated=evaluated)
+        if robust:
+            rec.rejected = np.nonzero(delivered & ~accept)[0].tolist()
+        if fd is not None:
+            rec.failed = np.nonzero(plan.mask(m) & (fd.crash | fd.loss))[
+                0].tolist()
+        return rec
+
     history: list[RoundRecord] = []
     accs = [0.0] * m        # replaced on round 0 (always an eval round)
     if fed.client_parallelism == "loop":
@@ -467,6 +545,7 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
             plan = plans[rnd]
             t0 = time.perf_counter()
             in_sample = plan.mask(m, which="sampled")
+            fd = fm.draw(m, rnd, fed.seed) if fm.active else None
             losses = []
             for i in range(m):
                 # ALWAYS draw: keeps the per-client data streams aligned
@@ -478,15 +557,26 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
                                        device=dev)
                 labs = torch.as_tensor(np.stack([b["labels"] for b in bt]),
                                        device=dev)
+                prev_state = dict(states[i]) if fd is not None else None
                 tr, loss = local_fit(strategy.trainable(states[i]),
                                      states[i].get("w", {}), toks, labs)
                 states[i].update(tr)
                 states[i] = strategy.after_local(states[i], fed.pfedme_eta)
                 losses.append(float(loss))
+                if fd is not None and (fd.crash[i] or fd.divergent[i]):
+                    # crash: the round's local work is lost; divergent: the
+                    # client's divergence detection restarts from the
+                    # round start
+                    states[i] = prev_state
 
+            sent, delivered, corrupted, divergent = outcome(plan, fd)
             cmask = (torch.as_tensor(plan.mask(m), device=dev) if partial
                      else None)
             payloads = [strategy.uplink(s) for s in states]
+            if communicates:
+                for i in np.nonzero(divergent)[0]:
+                    payloads[i] = tree_map(
+                        lambda l: l * fm.divergent_scale, payloads[i])
             if compressed:
                 # encode all m (the JAX package keys every client's draw),
                 # price the participants' ENCODED trees, aggregate the
@@ -497,24 +587,55 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
                                                   sr_uniforms(rnd, i))
                            for i in range(m)]
                 served = [e[1] for e in encoded]
-                rc = comm.round_comm_compressed_payloads(
-                    [encoded[i][0] for i in plan.participants],
-                    [payloads[i] for i in plan.participants])
-                for i in plan.participants:
-                    states[i] = dict(states[i], ef=encoded[i][2])
+                if not robust:
+                    rc = comm.round_comm_compressed_payloads(
+                        [encoded[i][0] for i in plan.participants],
+                        [payloads[i] for i in plan.participants])
+                    for i in plan.participants:
+                        states[i] = dict(states[i], ef=encoded[i][2])
             else:
-                served = payloads
-                rc = comm.round_comm_payloads(
-                    [payloads[i] for i in plan.participants])
+                served = list(payloads)
+                if not (robust and communicates):
+                    rc = comm.round_comm_payloads(
+                        [payloads[i] for i in plan.participants])
+            if communicates:
+                for i in np.nonzero(corrupted)[0]:
+                    served[i] = faults.corrupt_one(
+                        codec if compressed else None,
+                        encoded[i][0] if compressed else None, served[i],
+                        fm.corrupt_mode)
+            accept = delivered
+            if robust and communicates:
+                accept = gate(client_batch.stack_states(served)
+                              if adm.enabled else None, delivered)
+                cmask = torch.as_tensor(accept, device=dev)
+                if compressed:
+                    # EF advances for ACCEPTED uploads only: a rejection
+                    # rolls the residual back by never installing the new
+                    for i in np.nonzero(accept)[0]:
+                        states[i] = dict(states[i], ef=encoded[i][2])
+                rc = robust_comm(sent, accept)
             weights = None
             if strategy.aggregate == "personalized":
-                c_trees = served if compressed else [
+                c_trees = served if compressed or robust else [
                     tri_lora.tree_payload(s["adapter"]) for s in states]
-                weights = personalized(
-                    plan, cmask, lambda: cka.stack_client_cs(c_trees))
+                if robust:
+                    weights = personalized(cmask, lambda: masked_refresh(
+                        cka.stack_client_cs(c_trees), plan.sampled, cmask,
+                        torch.as_tensor(in_sample, device=dev)))
+                else:
+                    weights = personalized(cmask, lambda: model_sim(
+                        cka.stack_client_cs(c_trees), plan))
+            install_ids = plan.participants
+            if robust and communicates:
+                # rejected or undelivered rows may hold NaN/Inf: their
+                # weight is 0, but 0 x NaN still poisons the mix
+                for i in np.nonzero(~accept)[0]:
+                    served[i] = tree_map(torch.zeros_like, served[i])
+                install_ids = np.nonzero(accept)[0]
             downs = strategy.server(served, sample_counts=sample_counts,
                                     weights=weights, participants=cmask)
-            for i in plan.participants:
+            for i in install_ids:
                 states[i] = strategy.install(states[i], downs[i])
 
             evaluated = _do_eval(rnd, fed)
@@ -522,8 +643,8 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
                 accs = [eval_acc(strategy.trainable(states[i]),
                                  test_toks[i], test_labs[i])[0]
                         for i in range(m)]
-            history.append(_round_record(rnd, losses, accs, rc, plan, t0,
-                                         evaluated=evaluated))
+            history.append(record(rnd, losses, accs, rc, plan, t0, evaluated,
+                                  fd, delivered, accept))
             if verbose:
                 _print_round(strategy, history[-1])
     else:
@@ -573,49 +694,86 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
             tr, losses = local_fit_stacked(
                 strategy.trainable(stacked), stacked.get("w", {}),
                 toks, labs)
+            in_sample = plan.mask(m, which="sampled")
+            fd = fm.draw(m, rnd, fed.seed) if fm.active else None
+            sent, delivered, corrupted, divergent = outcome(plan, fd)
             trained = strategy.after_local(dict(stacked, **tr),
                                            fed.pfedme_eta)
-            stacked = (client_batch.select_clients(
-                plan.mask(m, which="sampled"), trained, stacked)
-                if partial else trained)
+            if partial or fd is not None:
+                keep = in_sample
+                if fd is not None:
+                    # crash: the round's local work is lost; divergent:
+                    # the client restarts from the round start
+                    keep = keep & ~fd.crash & ~fd.divergent
+                stacked = client_batch.select_clients(keep, trained, stacked)
+            else:
+                stacked = trained
 
             cmask = (torch.as_tensor(plan.mask(m), device=dev) if partial
                      else None)
             payload = strategy.uplink(stacked)       # stacked tree or None
+            if payload is not None and divergent.any():
+                payload = faults.scale_rows(payload, divergent,
+                                            fm.divergent_scale)
+            enc = None
             if compressed:
                 enc, served, ef_new = compress.encode_stacked(
                     codec, payload, stacked["ef"],
                     [sr_uniforms(rnd, i) for i in range(m)])
                 rc = comm.round_comm_compressed_stacked(
                     enc, payload, plan.n_participants)
-                stacked = dict(stacked, ef=(
-                    client_batch.select_clients(cmask, ef_new,
-                                                stacked["ef"])
-                    if partial else ef_new))
+                if not robust:
+                    stacked = dict(stacked, ef=(
+                        client_batch.select_clients(cmask, ef_new,
+                                                    stacked["ef"])
+                        if partial else ef_new))
             else:
                 served = payload
                 rc = comm.round_comm_stacked(payload, plan.n_participants)
+            if payload is not None and corrupted.any():
+                served = faults.corrupt_served(
+                    codec if compressed else None, enc, served, corrupted,
+                    fm.corrupt_mode)
+            accept = delivered
+            if robust and payload is not None:
+                accept = gate(served, delivered)
+                cmask = torch.as_tensor(accept, device=dev)
+                if compressed:
+                    # EF advances for ACCEPTED uploads only
+                    stacked = dict(stacked, ef=client_batch.select_clients(
+                        cmask, ef_new, stacked["ef"]))
+                rc = robust_comm(sent, accept)
             weights = None
             if strategy.aggregate == "personalized":
-                c_tree = served if compressed else tri_lora.tree_payload(
-                    stacked["adapter"])
-                weights = personalized(plan, cmask,
-                                       lambda: cka.stacked_cs(c_tree))
+                c_tree = served if compressed or robust else \
+                    tri_lora.tree_payload(stacked["adapter"])
+                if robust:
+                    weights = personalized(cmask, lambda: masked_refresh(
+                        cka.stacked_cs(c_tree), plan.sampled, cmask,
+                        torch.as_tensor(in_sample, device=dev)))
+                else:
+                    weights = personalized(cmask, lambda: model_sim(
+                        cka.stacked_cs(c_tree), plan))
+            if robust and payload is not None:
+                # rejected or undelivered rows may hold NaN/Inf: their
+                # weight is 0, but 0 x NaN still poisons the mix
+                served = faults.zero_rows(served, cmask)
             down = strategy.server_stacked(served,
                                            sample_counts=sample_counts,
                                            weights=weights,
                                            participants=cmask)
             installed = strategy.install(stacked, down)
             stacked = (client_batch.select_clients(cmask, installed, stacked)
-                       if partial and down is not None else installed)
+                       if (partial or robust) and down is not None
+                       else installed)
 
             evaluated = _do_eval(rnd, fed)
             if evaluated:
                 accs = eval_acc(strategy.trainable(stacked), test_toks,
                                 test_labs)
-            history.append(_round_record(
+            history.append(record(
                 rnd, losses.cpu().numpy()[plan.sampled], accs, rc, plan, t0,
-                evaluated=evaluated))
+                evaluated, fd, delivered, accept))
             if verbose:
                 _print_round(strategy, history[-1])
         pstore.adopt(stacked)

@@ -90,6 +90,20 @@ def pairwise_model_similarity_stacked(c_tree: Any,
     return _pair_cka(cs, cs, probes).mean(-1)
 
 
+def refresh_rows_inline(prev: torch.Tensor, cs: torch.Tensor, ids,
+                        probes: torch.Tensor) -> torch.Tensor:
+    """Recompute rows and columns ``ids`` of the cached CKA matrix ``prev``
+    against the current (m, n_modules, r, r) stack ``cs`` — always the row
+    computation, even when ``ids`` covers every client (the robust round's
+    masked S^model refresh reads it as the JAX package's row refresh)."""
+    ids = torch.as_tensor(ids, dtype=torch.long, device=cs.device)
+    rows = _pair_cka(cs[ids], cs, probes).mean(-1)          # (k, m)
+    s = prev.to(rows.dtype).clone()
+    s[ids, :] = rows
+    s[:, ids] = rows.T
+    return s
+
+
 def refresh_pairwise_cka(prev: Optional[torch.Tensor], cs: torch.Tensor,
                          changed_ids, probes: torch.Tensor) -> torch.Tensor:
     """Partial-participation S^model update: recompute only the rows and
@@ -101,8 +115,4 @@ def refresh_pairwise_cka(prev: Optional[torch.Tensor], cs: torch.Tensor,
     ids = torch.as_tensor(changed_ids, dtype=torch.long, device=cs.device)
     if prev is None or int(ids.numel()) == int(cs.shape[0]):
         return _pair_cka(cs, cs, probes).mean(-1)
-    rows = _pair_cka(cs[ids], cs, probes).mean(-1)          # (k, m)
-    s = prev.to(rows.dtype).clone()
-    s[ids, :] = rows
-    s[:, ids] = rows.T
-    return s
+    return refresh_rows_inline(prev, cs, ids, probes)

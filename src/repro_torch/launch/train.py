@@ -64,7 +64,7 @@ CKA_PROBES = 32
 
 def _not_ported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{option} is not ported yet (ROADMAP, Queue 1 item {item}); the "
+        f"{option} is not ported yet (ROADMAP, Queue 1: {item}); the "
         f"port's LM driver runs the eager engine's 'loop' and 'vmap' paths "
         f"on the device store")
 
@@ -79,7 +79,9 @@ def _validate(clients: int, participation: float, straggler_frac: float,
         raise ValueError(f"engine={engine!r}; "
                          f"expected 'eager', 'scan', or 'async'")
     if engine != "eager":
-        raise _not_ported(f"engine={engine!r}", "'scan / async engines'")
+        raise _not_ported(f"engine={engine!r}",
+                          "'the scan engine'" if engine == "scan"
+                          else "'core/async_engine.py'")
     if client_store not in ("device", "sharded", "host"):
         raise ValueError(f"client_store={client_store!r}; expected one of "
                          f"('device', 'sharded', 'host')")
@@ -87,7 +89,8 @@ def _validate(clients: int, participation: float, straggler_frac: float,
         raise _not_ported(f"client_store={client_store!r}",
                           "'host / sharded client stores'")
     if resume:
-        raise _not_ported("resume", "12 (the scan engine's resumable state)")
+        raise _not_ported("resume", "'the scan engine' (its resumable "
+                          "state)")
     if method not in METHODS:
         raise ValueError(f"method={method!r}; expected one of {METHODS}")
     sampling.n_sampled(clients, participation)       # validates

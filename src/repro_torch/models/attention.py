@@ -77,7 +77,9 @@ def _rope(cfg: ModelConfig, x: torch.Tensor, positions) -> torch.Tensor:
     if cfg.pos_type == "rope":
         return layers.apply_rope(x, positions, cfg.rope_theta)
     if cfg.pos_type == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
+        raise NotImplementedError(
+            "M-RoPE is not ported yet (ROADMAP, Queue 1: 'M-RoPE / the VLM "
+            "path')")
     return x  # learned / none: positions handled at the embedding
 
 
@@ -245,7 +247,7 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     else:
         raise NotImplementedError(
             f"attn_impl={impl!r} beyond {AUTO_REF_MAX_SEQ} tokens is not "
-            f"ported (ROADMAP Queue 1, 'blockwise_hp / blockwise_cv')")
+            f"ported (ROADMAP, Queue 1: 'blockwise_hp / blockwise_cv')")
     b, s = x.shape[:2]
     sc = cfg.lora_alpha / cfg.lora_rank
     ad = adapters or {}

@@ -201,9 +201,13 @@ def unembed(x: torch.Tensor, table: torch.Tensor,
     """Tied LM head; logits in f32.  If the table is padded beyond
     ``true_vocab``, pad logits are set to -1e30 (softmax-exact)."""
     x2, t = x.reshape(-1, x.shape[-1]), table.to(x.dtype).T
-    if x.is_cuda and x.dtype != torch.float32:
+    grad = torch.is_grad_enabled() and (x2.requires_grad or t.requires_grad)
+    if x.is_cuda and x.dtype != torch.float32 and not grad:
         # operands in the param dtype, f32 accumulation AND f32 output (a
-        # bf16 product would round the logits before the argmax)
+        # bf16 product would round the logits before the argmax).  This
+        # form of mm has no derivative: with a gradient the operands go to
+        # f32 below (their products are exact there, only the order of the
+        # sum differs)
         logits = torch.mm(x2, t, out_dtype=torch.float32)
     else:
         logits = x2.float() @ t.float()

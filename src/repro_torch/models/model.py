@@ -22,7 +22,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random params drawn from ``generator``, on its device."""
     if cfg.enc_dec or cfg.vision_patches or cfg.pos_type == "mrope":
         raise NotImplementedError(
-            f"{cfg.name!r}: only decoder-only text models are ported so far")
+            f"{cfg.name!r}: only decoder-only text models are ported so far "
+            f"(ROADMAP, Queue 1: 'the encoder-decoder path' and 'M-RoPE / "
+            f"the VLM path')")
     dev = generator.device
     base: dict = {"embed": layers.init_embedding(generator, cfg.padded_vocab,
                                                  cfg.d_model, cfg.dtype),
@@ -75,7 +77,9 @@ def forward_hidden(cfg: ModelConfig, base: dict, adapter: dict, batch: dict,
     folded into B (:func:`client_rows`)."""
     if cfg.enc_dec or cfg.vision_patches or cfg.pos_type == "mrope":
         raise NotImplementedError(
-            f"{cfg.name!r}: only decoder-only text models are ported so far")
+            f"{cfg.name!r}: only decoder-only text models are ported so far "
+            f"(ROADMAP, Queue 1: 'the encoder-decoder path' and 'M-RoPE / "
+            f"the VLM path')")
     tokens = batch["tokens"]
     x = layers.embed(tokens, base["embed"])
     positions = batch.get("positions")

@@ -10,8 +10,10 @@ the WKV recurrence keeps a per-head (hd × hd) state:
 Channel-mix: squared-ReLU two-layer MLP with receptance gating.
 
 Tri-LoRA attaches to the r/k/v/o projections of the time-mix (they go
-through ``layers.dense``, so on the card they run the tri-LoRA forward
-kernel); the other projections stay plain ``x @ W``, as in the JAX package.
+through ``layers.dense``, so on the card they run the tri-LoRA kernels,
+and their grouped forms when the clients' adapters are stacked and each
+sequence names its own: ``adapter_rows``); the other projections stay
+plain ``x @ W``, as in the JAX package.
 
 The WKV recurrence runs through the wkv6 kernel with ``use_kernel=True``
 (:mod:`repro_torch.kernels.rwkv6`, forward only), else through the
@@ -83,13 +85,16 @@ def _ddlerp(p: dict, x: torch.Tensor, xx: torch.Tensor) -> list:
 
 
 def _rkvwg(cfg: ModelConfig, p: dict, x: torch.Tensor, xx: torch.Tensor,
-           adapters=None):
+           adapters=None, adapter_rows=None):
     ad = adapters or {}
     sc = cfg.lora_alpha / cfg.lora_rank
     xr, xk, xv, xw, xg = _ddlerp(p, x, xx)
-    r = layers.dense(xr, p["wr"], adapter=ad.get("wr"), lora_scaling=sc)
-    k = layers.dense(xk, p["wk"], adapter=ad.get("wk"), lora_scaling=sc)
-    v = layers.dense(xv, p["wv"], adapter=ad.get("wv"), lora_scaling=sc)
+    r = layers.dense(xr, p["wr"], adapter=ad.get("wr"), lora_scaling=sc,
+                     adapter_rows=adapter_rows)
+    k = layers.dense(xk, p["wk"], adapter=ad.get("wk"), lora_scaling=sc,
+                     adapter_rows=adapter_rows)
+    v = layers.dense(xv, p["wv"], adapter=ad.get("wv"), lora_scaling=sc,
+                     adapter_rows=adapter_rows)
     g = F.silu((xg @ p["wg"]).float())
     w_hat = p["w0"].float() + (torch.tanh(xw @ p["w_a"]) @ p["w_b"]).float()
     w = torch.exp(-torch.exp(w_hat))                          # (…, d) ∈ (0,1)
@@ -157,8 +162,11 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int = 64):
 
 
 def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, state,
-             adapters=None, *, use_kernel: bool = False):
+             adapters=None, *, use_kernel: bool = False, adapter_rows=None):
     """x (B,T,D); state {'shift': (B,D), 'wkv': (B,H,hd,hd)} or None (zeros).
+    ``adapter_rows`` (B,) int: ``adapters`` are stacked (m, …) client
+    adapters and sequence ``i`` applies client ``adapter_rows[i]``'s in the
+    r/k/v/o projections (the grouped tri-LoRA kernels on the card).
     Returns (out (B,T,D), new state)."""
     b, t, d = x.shape
     h, hd = cfg.n_heads, cfg.hd
@@ -168,7 +176,7 @@ def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, state,
                                     device=x.device)}
     prev = torch.cat([state["shift"][:, None], x[:, :-1]], dim=1)
     xx = prev - x
-    r, k, v, w, g = _rkvwg(cfg, p, x, xx, adapters)
+    r, k, v, w, g = _rkvwg(cfg, p, x, xx, adapters, adapter_rows)
     rh, kh, vh, wh = (a.reshape(b, t, h, hd) for a in (r, k, v, w))
     if use_kernel:
         from repro_torch.kernels.rwkv6 import ops as wkv_ops
@@ -181,7 +189,8 @@ def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, state,
     y = (y.float() * g).to(x.dtype)
     sc = cfg.lora_alpha / cfg.lora_rank
     ad = adapters or {}
-    out = layers.dense(y, p["wo"], adapter=ad.get("wo"), lora_scaling=sc)
+    out = layers.dense(y, p["wo"], adapter=ad.get("wo"), lora_scaling=sc,
+                       adapter_rows=adapter_rows)
     return out, {"shift": x[:, -1], "wkv": new_wkv}
 
 

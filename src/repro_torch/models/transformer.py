@@ -25,7 +25,8 @@ def _check_kind(cfg: ModelConfig, kind: str) -> None:
         raise NotImplementedError(
             f"the port so far builds dense 'attn' and 'rwkv6' blocks only; "
             f"{cfg.name!r} needs kind={kind!r} moe={cfg.is_moe} "
-            f"enc_dec={cfg.enc_dec}")
+            f"enc_dec={cfg.enc_dec} (ROADMAP, Queue 1: 'the swa block kind' "
+            f"and 'the other families')")
 
 
 # ---------------------------------------------------------------------------
@@ -87,19 +88,16 @@ def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
     ``use_rwkv_kernel`` runs an rwkv6 block's WKV recurrence through the
     forward-only wkv6 kernel (``rwkv.time_mix``).  ``adapter_rows`` (B,)
     gives each sequence its own adapter of the stacked (m, …) ``ad``
-    (attention blocks)."""
+    (the projections of attention and rwkv6 blocks alike)."""
     _check_kind(cfg, kind)
     ad = ad or {}
     nt = cfg.norm_type
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv6":
-        if adapter_rows is not None:
-            raise NotImplementedError(
-                f"grouped adapters only support attention blocks; got "
-                f"layer kind {kind!r}")
         h = layers.norm(x, p["ln1"], nt)
         y, _ = rwkv.time_mix(cfg, p["tm"], h, None, ad.get("tm"),
-                             use_kernel=use_rwkv_kernel)
+                             use_kernel=use_rwkv_kernel,
+                             adapter_rows=adapter_rows)
         x = x + y
         h = layers.norm(x, p["ln2"], nt)
         y, _ = rwkv.channel_mix(cfg, p["cm"], h, None)

@@ -151,9 +151,9 @@ def test_default_draws_train_every_strategy(setup):
     (dict(client_store="host"), NotImplementedError),
     (dict(client_store="sharded"), NotImplementedError),
     (dict(uplink_codec="fp4"), ValueError),
-    (dict(fault_loss=0.1), NotImplementedError),
-    (dict(fault_crash=0.2), NotImplementedError),
-    (dict(admission="norm"), NotImplementedError),
+    (dict(fault_crash=1.0), ValueError),
+    (dict(fault_corrupt_mode="zero"), ValueError),
+    (dict(admission="norm", method="lora_loc"), ValueError),
     (dict(eval_every=0), ValueError),
     (dict(checkpoint_path="x.npz"), ValueError),
     (dict(participation=0.0), ValueError),

@@ -332,7 +332,7 @@ def test_defaults_are_the_references():
             jtrain.run).parameters["client_parallelism"].default == "vmap"
     fed = dataclasses.replace(federated.FedConfig(**FED),
                               client_parallelism="shard")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="'launch/mesh.py'"):
         federated.run_federated(None, fed, [None] * M, [], device="cpu")
 
 
