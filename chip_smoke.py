@@ -22,17 +22,33 @@ Phases, one JSON line each (several for the case phases):
                attention at the long ring (danube heads, ring 4,096)
   flash_cases  the flash forward (out, lse) and backward (dq, dk, dv)
                kernels against the plain version: f32/bf16, causal /
-               window 64 and 96 / non-causal, GQA 12/4, 32/32, 8/1 and
-               16/1 (MQA), hd 64/128, S 256/512 and ragged 200; the
+               window 64 and 96 / non-causal, GQA 12/4, 32/32, 32/8, 8/1
+               and 16/1 (MQA), hd 64/120/128, S 256/512 and ragged 200; the
                forward and the backward twice (bitwise equal; the
-               forward's SHA-256 printed), on the 16-byte routes, and the
-               last case again on unaligned views (scalar routes)
+               forward's SHA-256 printed), on the 16-byte routes; a hd-128
+               and a hd-120 case again on unaligned views (scalar routes);
+               h2o-danube-3-4b's heads at h2o_train's shape (1x8192, hd
+               120, window 4096) in bf16, held to the plain version one KV
+               head at a time.  Every case is held twice: elementwise (TOL)
+               and, against the plain version in f32 on the same inputs,
+               in every 64-row tile of out, dq, dk and dv (RMS of the error
+               within FLASH_REL_TOL of the tile's RMS, max error within it
+               of the largest entry); at the 1x8192 shape two stand-ins
+               for a faulty kernel (the band one tile short, channels
+               96-119 lost) must fail that second hold; then the SHA-256
+               of the forward and the
+               backward at one hd-64 and one hd-128 shape, f32 and bf16
+               (``tools/time_flash.py --digest`` prints the same for
+               another tree)
   flash_timing forward, dq, dk/dv, the backward as the model runs it
                (softmax_delta + dq + dk/dv) and forward+backward at the
-               train shape (B=8, S=256, H=12, K=4, hd=64, f32) and at
-               S=512, beside the bound, the plain version and
+               train shape (B=8, S=256, H=12, K=4, hd=64, f32), at S=512,
+               at h2o-danube-3-4b's heads (32/8, hd 120) over 1x8192 bf16
+               with window 4096 (h2o_train's shape) and 4x256 f32, beside
+               the window-aware bound, the plain version and
                scaled_dot_product_attention (forward; backward, the
-               library time of dq and dk/dv)
+               library time of dq and dk/dv; the band as a boolean mask
+               under a window)
   serve        multi-tenant LLaMA-7B decode at full width and depth (bf16,
                random weights): 16 requests from 8 users through 8 slots;
                every request must finish and every step must launch both
@@ -142,6 +158,26 @@ Phases, one JSON line each (several for the case phases):
                full width, 2 layers, f32 for qwen2.5-14b (QKV bias),
                qwen3-32b (qk RMSNorm) and starcoder2-7b (LayerNorm + GELU),
                head dim 128; each model freed before the next
+  h2o_train    ``launch.train.run`` on h2o-danube-3-4b at full width and
+               depth (bf16 backbone, f32 adapters, ``swa`` blocks, head dim
+               120, window 4,096): 2 clients, 1 round of 1 local step of
+               one 8192-token sequence each, flash, on vmap (both clients
+               as one batch through the grouped tri-LoRA kernels) and then
+               on loop: exact flash launches (24 forward, dq and dk/dv a
+               step; every block swa at hd 120, so every one under the
+               window; 16-byte routes)
+               and tri-LoRA launches, their routes, a finite loss, the
+               plain ledger, round 0's loss within 1e-3 + 1e-3·|loss|
+               across the two, tokens/s and peak memory
+  h2o_oracle   the same model at full width, 2 layers, f32, one 8192-token
+               sequence: loss and adapter gradients through flash against
+               the plain blockwise attention (loss within 1e-4·|loss|,
+               gradients within 1e-3 of their largest entry)
+  h2o_serve    h2o-danube-3-4b at full width and depth (bf16) serving 8
+               requests of 64 + 16 tokens from 4 users through 4 slots
+               (both decode kernels every layer of every step, 16-byte
+               routes), ms a decode step and peak memory; then its f32
+               2-layer oracle (ServeEngine tokens equal serve_naive's)
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the result line.  Exits non-zero, printing no result, on any failure and
 when no CUDA device is present.
@@ -180,9 +216,38 @@ FLASH_CASES = (
     (2, 200, 32, 32, 128, False, 0),
     (2, 200, 16, 1, 64, True, 0),       # MQA: 16 heads on one KV head
     (1, 512, 8, 1, 128, True, 96),      # a group of 8, window 96
+    (2, 256, 32, 8, 120, True, 0),      # h2o-danube-3-4b heads: hd 120
+    (2, 200, 32, 8, 120, True, 0),      # ragged
+    (2, 200, 32, 8, 120, False, 0),     # non-causal ragged
+    (1, 512, 32, 8, 120, True, 96),     # window
 )
-#: the train phase's attention shape and the kernel table's bound shape
-FLASH_TIMED = ((8, 256, 12, 4, 64), (8, 512, 12, 4, 64))
+#: the flash cases run again on unaligned views of the same values (the
+#: scalar routes): a group of 8 at hd 128, and hd 120
+FLASH_SCALAR_CASES = ((1, 512, 8, 1, 128, True, 96),
+                      (2, 200, 32, 8, 120, True, 0))
+#: a flash case in bf16 only: the h2o_train phase's attention (one 8192-token
+#: sequence, window 4096), held to the plain version one KV head at a time
+FLASH_BF16_CASES = ((1, 8192, 32, 8, 120, True, 4096),)
+#: the flash outputs' relative hold: in every 64-row tile along the
+#: sequence, RMS(got - want) <= FLASH_REL_TOL * RMS(want), and max |got -
+#: want| <= FLASH_REL_TOL * max |want|, with want the plain version in f32
+#: on the same inputs.  Under randn inputs a row that averages over 4,096
+#: keys is ~0.03 in size, TOL's atol itself; this hold scales with it.
+FLASH_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+#: (B, S, H, K, hd, dtype, window) of the timed flash shapes (causal): the
+#: train phase's shape, the kernel table's bound shape, then h2o-danube-3-4b
+#: heads at h2o_train's shape (bf16, window 4096) and at a 4x256 f32 batch
+FLASH_TIMED = ((8, 256, 12, 4, 64, "float32", 0),
+               (8, 512, 12, 4, 64, "float32", 0),
+               (1, 8192, 32, 8, 120, "bfloat16", 4096),
+               (4, 256, 32, 8, 120, "float32", 0))
+#: (B, S, H, K, hd, dtype, seed) of the flash digest cases: one hd 64 and
+#: one hd 128 case whose forward and backward outputs' SHA-256 compare two
+#: trees (the same seed gives every tree the same inputs)
+FLASH_DIGEST_CASES = ((2, 200, 12, 4, 64, "float32", 31),
+                      (2, 200, 12, 4, 64, "bfloat16", 32),
+                      (1, 300, 32, 32, 128, "float32", 33),
+                      (1, 300, 32, 32, 128, "bfloat16", 34))
 #: the flash kernels (all, then the backward's two) whose share of device
 #: time the training profiles report
 FLASH_SHARES = ("flash_", "bwd::flash_")
@@ -675,20 +740,117 @@ def unaligned_view(torch, t):
     return view
 
 
+def flash_plain(torch, fa_ref, q, k, v, do, **kw):
+    """The plain version's (out, lse) and (dq, dk, dv) in f32, on the
+    inputs taken to f32 (the plain version on bf16 inputs gives these
+    rounded to bf16); from 4,096 tokens on one KV head (and its query
+    heads) at a time, which is the same function with a 1/K of its (S, S)
+    intermediates alive at once."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    kh, g = k.shape[2], q.shape[2] // k.shape[2]
+    if q.shape[1] < 4096:
+        return (fa_ref.flash_attention_fwd_ref(q, k, v, **kw),
+                fa_ref.flash_attention_bwd_ref(q, k, v, do, **kw))
+    outs, lses, grads = [], [], []
+    for j in range(kh):
+        qs, ks = slice(j * g, (j + 1) * g), slice(j, j + 1)
+        out, lse = fa_ref.flash_attention_fwd_ref(q[:, :, qs], k[:, :, ks],
+                                                  v[:, :, ks], **kw)
+        outs.append(out)
+        lses.append(lse)
+        grads.append(fa_ref.flash_attention_bwd_ref(
+            q[:, :, qs], k[:, :, ks], v[:, :, ks], do[:, :, qs], **kw))
+        torch.cuda.empty_cache()
+    return ((torch.cat(outs, 2), torch.cat(lses, 1)),
+            tuple(torch.cat(t, 2) for t in zip(*grads)))
+
+
+def flash_rel(torch, got, want) -> float:
+    """The largest, over 64-row tiles of the sequence axis (dim 1), of
+    RMS(got - want) / RMS(want) within the tile: a tile whose reference is
+    small is held as tightly as one whose reference is large."""
+    s = want.shape[1]
+    pad = (-s) % 64
+
+    def sq_tiles(x):
+        x = torch.nn.functional.pad(x.transpose(0, 1).reshape(s, -1),
+                                    (0, 0, 0, pad))
+        return x.reshape((s + pad) // 64, -1).pow(2).sum(1)
+
+    want = want.float()
+    e2, w2 = sq_tiles(got.float() - want), sq_tiles(want)
+    if bool(((w2 == 0) & (e2 > 0)).any()):
+        return math.inf
+    return float((e2 / w2.clamp_min(1e-30)).sqrt().max())
+
+
+def hold_flash(torch, got, want, dt_name):
+    """(out, dq, dk, dv) against the plain version's f32 ``want``:
+    elementwise at TOL against want rounded to the outputs' dtype (what the
+    plain version on that dtype gives), and relatively at FLASH_REL_TOL
+    (``flash_rel`` and max error over the largest entry).  Returns
+    ({name: max_abs_err}, {name: (tile rel RMS, max err / max)}, number
+    of failures)."""
+    errs, rel, bad = {}, {}, 0
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        errs[name], nbad = compare(torch, g, w.to(g.dtype), dt_name)
+        rel[name] = (flash_rel(torch, g, w),
+                     float((g.float() - w).abs().max())
+                     / max(float(w.abs().max()), 1e-30))
+        bad += nbad + sum(x > FLASH_REL_TOL[dt_name] for x in rel[name])
+    return errs, rel, bad
+
+
+def flash_faults(torch, fa_ref, q, k, v, do, want, dt_name, *, causal,
+                 window) -> dict:
+    """Two stand-ins for a faulty kernel at a windowed shape, each the
+    plain version with its outputs rounded to the inputs' dtype: the band
+    one 64-key tile short, and channels 96 and up lost (a staging pass
+    that skips them).  Each must fail hold_flash's relative hold on every
+    one of out, dq, dk and dv; returns each one's (tile rel RMS) and its
+    elementwise failures."""
+    lost = [t.clone() for t in (q, k, v, do)]
+    for t in lost:
+        t[..., 96:] = 0
+    runs = {"band_one_tile_short": ((q, k, v, do), window - 64),
+            "channels_96_up_lost": (lost, window)}
+    res = {}
+    for name, (ins, win) in runs.items():
+        (out, _), grads = flash_plain(torch, fa_ref, *ins, causal=causal,
+                                      window=win)
+        got = [t.to(q.dtype) for t in (out, *grads)]
+        del out, grads
+        _, rel, _ = hold_flash(torch, got, want, dt_name)
+        res[name] = {"rel": {n: r[0] for n, r in rel.items()},
+                     "n_out_of_tol": sum(compare(torch, g, w.to(g.dtype),
+                                                 dt_name)[1]
+                                         for g, w in zip(got, want))}
+        require(all(r[0] > FLASH_REL_TOL[dt_name] for r in rel.values()),
+                f"flash_cases: the stand-in {name} passes the relative "
+                f"hold: {res[name]}")
+        del got
+        torch.cuda.empty_cache()
+    return res
+
+
 def flash_cases(torch, fa_ops, fa_ref, dev):
     """Kernels vs plain version: out and lse of the forward, dq/dk/dv of
-    the backward, per case and dtype; the backward again on the same
-    inputs, which must give bitwise the same dq, dk and dv; each case once
-    more on unaligned views of the same values at the last case's shape,
-    through the backward's scalar route.  lse is f32 in both dtypes and is
-    held to the f32 tolerance."""
+    the backward, per case and dtype; the forward and the backward again
+    on the same inputs, which must give bitwise the same outputs; the
+    FLASH_SCALAR_CASES on unaligned views (the scalar routes), and the
+    FLASH_BF16_CASES in bf16, where flash_faults shows that the relative
+    hold (``hold_flash``) catches a band one tile short and lost channels.
+    lse is f32 in both dtypes and is held to the f32 tolerance.  Then the
+    SHA-256 of the FLASH_DIGEST_CASES."""
     gen = torch.Generator(device=dev).manual_seed(6)
     worst = {}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
-        for i, (b, s, h, kh, hd, causal, window) in enumerate(
-                FLASH_CASES + FLASH_CASES[-1:]):
-            route = "scalar" if i == len(FLASH_CASES) else "vec"
+        cases = ([(c, "vec") for c in FLASH_CASES]
+                 + [(c, "scalar") for c in FLASH_SCALAR_CASES]
+                 + [(c, "vec") for c in FLASH_BF16_CASES
+                    if dt_name == "bfloat16"])
+        for (b, s, h, kh, hd, causal, window), route in cases:
             q, k, v, do = flash_inputs(torch, dev, b, s, h, kh, hd, dt, gen)
             if route == "scalar":
                 q, k, v, do = (unaligned_view(torch, t) for t in (q, k, v, do))
@@ -703,27 +865,30 @@ def flash_cases(torch, fa_ops, fa_ref, dev):
             torch.cuda.synchronize()
             routes = dict(fa_ops.ROUTES)
             same = all(torch.equal(x, y) for x, y in zip(grads, again))
-            want_out, want_lse = fa_ref.flash_attention_fwd_ref(q, k, v,
-                                                                **kw)
-            want_grads = fa_ref.flash_attention_bwd_ref(q, k, v, do, **kw)
-            errs, bad = {}, 0
-            for name, got, want, tol_dt in (
-                    ("out", out, want_out, dt_name),
-                    ("lse", lse, want_lse, "float32"),
-                    *((n, g, w, dt_name) for n, g, w in
-                      zip(("dq", "dk", "dv"), grads, want_grads))):
-                errs[name], nbad = compare(torch, got, want, tol_dt)
-                bad += nbad
+            del again
+            (want_out, want_lse), want_grads = flash_plain(
+                torch, fa_ref, q, k, v, do, **kw)
+            want = (want_out, *want_grads)
+            errs, rel, bad = hold_flash(torch, (out, *grads), want, dt_name)
+            errs["lse"], nbad = compare(torch, lse, want_lse, "float32")
+            bad += nbad
             case = dict(b=b, s=s, h=h, kh=kh, hd=hd, causal=causal,
                         window=window)
+            faults = (flash_faults(torch, fa_ref, q, k, v, do, want,
+                                   dt_name, **kw)
+                      if (b, s, h, kh, hd, causal, window) in
+                      FLASH_BF16_CASES and dt_name == "bfloat16" else None)
             emit({"phase": "flash_cases", "dtype": dt_name, **case,
                   "routes": routes, "fwd_sha256": fwd_sha[0],
                   "fwd_bitwise_repeatable": fwd_sha[0] == fwd_sha[1],
                   "bwd_bitwise_repeatable": same,
-                  "max_abs_err": errs, "n_out_of_tol": bad,
-                  "tol": TOL[dt_name], "lse_tol": TOL["float32"]})
+                  "max_abs_err": errs, "rel_err": rel, "n_out_of_tol": bad,
+                  "tol": TOL[dt_name], "lse_tol": TOL["float32"],
+                  "rel_tol": FLASH_REL_TOL[dt_name],
+                  **({"faults": faults} if faults else {})})
             require(bad == 0, f"flash kernels disagree with the plain "
-                    f"version: {case} {dt_name} errors {errs}")
+                    f"version: {case} {dt_name} errors {errs}, relative "
+                    f"(tile RMS, max over max) {rel}")
             require(fwd_sha[0] == fwd_sha[1], f"flash forward not bitwise "
                     f"repeatable: {case} {dt_name}")
             require(same, f"flash backward not bitwise repeatable: {case} "
@@ -735,126 +900,178 @@ def flash_cases(torch, fa_ops, fa_ref, dev):
             require(routes == want_routes, f"flash routes {routes}, "
                     f"expected {want_routes}: {case} {dt_name}")
             worst[dt_name] = max(worst.get(dt_name, 0.0), *errs.values())
+            del q, k, v, do, out, lse, grads, want, want_out, want_lse
+            del want_grads
+        torch.cuda.empty_cache()
+    emit({"phase": "flash_cases", "digests": flash_digests(torch, fa_ops,
+                                                           dev)})
     return worst
 
 
-def flash_timed_sets(torch, fa_ops, dev, b, s, h, kh, hd, gen):
-    """Copies of (q, k, v, dO, out, lse, delta), f32 causal, that together
-    exceed the L2, at one FLASH_TIMED shape."""
-    one = 4 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
+def flash_digests(torch, fa_ops, dev) -> list:
+    """For each FLASH_DIGEST_CASES case (causal, from its own seed): the
+    SHA-256 of the forward's (out, lse) and of the backward's (dq, dk, dv),
+    so that two trees' kernels can be compared bitwise in one run."""
+    lines = []
+    for b, s, h, kh, hd, dt_name, seed in FLASH_DIGEST_CASES:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v, do = flash_inputs(torch, dev, b, s, h, kh, hd,
+                                   getattr(torch, dt_name), gen)
+        out, lse = fa_ops.flash_attention_fwd(q, k, v)
+        grads = fa_ops.flash_attention_bwd(q, k, v, out, lse, do)
+        lines.append({"b": b, "s": s, "h": h, "kh": kh, "hd": hd,
+                      "dtype": dt_name, "fwd_sha256": digest(torch, out, lse),
+                      "bwd_sha256": digest(torch, *grads)})
+    return lines
+
+
+def flash_timed_sets(torch, fa_ops, dev, b, s, h, kh, hd, gen,
+                     dtype: str = "float32", window: int = 0):
+    """Copies of (q, k, v, dO, out, lse, delta), causal with ``window``,
+    that together exceed the L2, at one FLASH_TIMED shape."""
+    one = getattr(torch, dtype).itemsize * (2 * b * s * h * hd
+                                            + 2 * b * s * kh * hd)
     sets = []
     for _ in range(copies_for(one)):
         q, k, v, do = flash_inputs(torch, dev, b, s, h, kh, hd,
-                                   torch.float32, gen)
-        out, lse = fa_ops.flash_attention_fwd(q, k, v)
+                                   getattr(torch, dtype), gen)
+        out, lse = fa_ops.flash_attention_fwd(q, k, v, window=window)
         sets.append((q, k, v, do, out, lse, fa_ops.softmax_delta(out, do)))
     return sets
 
 
-def flash_bwd_calls(fa_ops):
+def flash_bwd_calls(fa_ops, window: int = 0):
     """The backward as timed, each a function of one set: the dq kernel,
     the dk/dv kernel, and ``flash_attention_bwd`` as the model runs it
-    (``softmax_delta``, dq, dk/dv)."""
+    (``softmax_delta``, dq, dk/dv); causal with ``window``."""
+    kw = dict(window=window)
     return {
         "flash_dq": lambda q, k, v, do, o, lse, delta:
-            fa_ops.flash_attention_dq(q, k, v, do, lse, delta),
+            fa_ops.flash_attention_dq(q, k, v, do, lse, delta, **kw),
         "flash_dkv": lambda q, k, v, do, o, lse, delta:
-            fa_ops.flash_attention_dkv(q, k, v, do, lse, delta),
+            fa_ops.flash_attention_dkv(q, k, v, do, lse, delta, **kw),
         "flash_bwd": lambda q, k, v, do, o, lse, delta:
-            fa_ops.flash_attention_bwd(q, k, v, o, lse, do)}
+            fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)}
 
 
-def sdpa_causal(F, q, k, v):
+def sdpa_causal(F, q, k, v, window: int = 0):
     """scaled_dot_product_attention on the model-layout tensors (transposed
-    views), causal, grouped-query."""
-    return F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True)
+    views), causal, grouped-query; with a window, the band as a boolean
+    mask (True: attended)."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if not window:
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    import torch
+    pos = torch.arange(q.shape[1], device=q.device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                          enable_gqa=True)
 
 
-def sdpa_bwd_graphs(torch, F, sets):
+def sdpa_bwd_graphs(torch, F, sets, window: int = 0):
     """One SDPA forward graph per set, and the call that runs its backward
     (all three gradients) again and again."""
     def graph(q, k, v, do, *_):
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        return leaves, sdpa_causal(F, *leaves), do.transpose(1, 2)
+        return leaves, sdpa_causal(F, *leaves, window), do.transpose(1, 2)
+    return [graph(*t) for t in sets], grad_again(torch)
 
+
+def grad_again(torch):
+    """The call that runs a graph's backward again and again."""
     def run(leaves, y, dy):
         torch.autograd.grad(y, leaves, dy, retain_graph=True)
-    return [graph(*t) for t in sets], run
+    return run
 
 
 def time_flash(torch, F, fa_ops, fa_ref, bounds, dev):
-    """f32 causal at the train phase's shape and at S=512: each kernel, the
+    """Causal attention at each FLASH_TIMED shape: each kernel, the
     forward, the backward as the model runs it (``flash_attention_bwd``:
     ``softmax_delta`` + dq + dk/dv) and forward+backward, the plain
-    version and SDPA (``is_causal=True, enable_gqa=True`` on the
-    model-layout tensors, transposed views).  Returns the kernel-table rows
-    at the train shape; dq's and dk/dv's library time is SDPA's backward,
-    which computes all three gradients."""
+    version and SDPA (``enable_gqa=True`` on the model-layout tensors,
+    transposed views; ``is_causal=True``, or the band as a boolean mask
+    with a window), beside the window-aware bound.  Returns the
+    kernel-table rows at the train shape, then at h2o_train's (the keys
+    name the shape); dq's and dk/dv's library time is SDPA's backward,
+    which computes all three gradients.  At 4,096 tokens and more the
+    plain version and SDPA keep one or two sets of (S, S) intermediates
+    alive, and every call runs fewer times."""
     gen = torch.Generator(device=dev).manual_seed(7)
-    rows = None
-    bwd = flash_bwd_calls(fa_ops)
-    for (b, s, h, kh, hd) in FLASH_TIMED:
-        sets = flash_timed_sets(torch, fa_ops, dev, b, s, h, kh, hd, gen)
+    rows = []
+    for (b, s, h, kh, hd, dt_name, window) in FLASH_TIMED:
+        long = s >= 4096
+        kw = dict(window=window)
+        bwd = flash_bwd_calls(fa_ops, window)
+        sets = flash_timed_sets(torch, fa_ops, dev, b, s, h, kh, hd, gen,
+                                dt_name, window)
         q, k, v, do, out, lse, delta = sets[0]
-        want_out, _ = fa_ref.flash_attention_fwd_ref(q, k, v)
-        want = fa_ref.flash_attention_bwd_ref(q, k, v, do)
+        (want_out, _), want = flash_plain(torch, fa_ref, q, k, v, do,
+                                          causal=True, **kw)
         fa_ops.reset_launches()
         dq = bwd["flash_dq"](*sets[0])
         dk, dv = bwd["flash_dkv"](*sets[0])
         routes = dict(fa_ops.ROUTES)
-        checked = [compare(torch, got, w, "float32")
-                   for got, w in zip((dq, dk, dv), want)]
-        require(all(bad == 0 for _, bad in checked),
-                f"the timed backward disagrees with the plain version at "
-                f"S={s}: {checked}")
-        err = {"flash_fwd": float((out - want_out).abs().max()),
-               "flash_dq": checked[0][0],
-               "flash_dkv": max(checked[1][0], checked[2][0])}
+        checked, rel, bad = hold_flash(torch, (out, dq, dk, dv),
+                                       (want_out, *want), dt_name)
+        require(bad == 0, f"the timed kernels disagree with the plain "
+                f"version at S={s} hd={hd} {dt_name}: {checked}, relative "
+                f"{rel}")
+        err = {"flash_fwd": checked["out"], "flash_dq": checked["dq"],
+               "flash_dkv": max(checked["dk"], checked["dv"])}
         err["flash_bwd"] = max(err["flash_dq"], err["flash_dkv"])
+        del dq, dk, dv, want_out, want
+        torch.cuda.empty_cache()
 
         def plain_graph(q, k, v, do, *_):
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            return leaves, fa_ref.flash_attention_ref(*leaves), do
+            return leaves, fa_ref.flash_attention_ref(*leaves, **kw), do
 
-        def grad_of(graphs):
-            def run(leaves, y, dy):
-                torch.autograd.grad(y, leaves, dy, retain_graph=True)
-            return run
-
-        plain_graphs = [plain_graph(*t) for t in sets[:4]]
-        sdpa_graphs, sdpa_bwd = sdpa_bwd_graphs(torch, F, sets)
-        t = {
-            "flash_fwd": time_ms(torch, lambda q, k, v, *_:
-                                 fa_ops.flash_attention_fwd(q, k, v), sets),
-            **{n: time_ms(torch, fn, sets) for n, fn in bwd.items()},
-            "fwd_bwd": time_ms(torch, lambda q, k, v, do, *_:
-                               fa_ops.flash_attention_bwd(
-                                   q, k, v, *fa_ops.flash_attention_fwd(
-                                       q, k, v), do), sets),
-            "plain_fwd": time_ms(torch, lambda q, k, v, *_:
-                                 fa_ref.flash_attention_fwd_ref(q, k, v),
-                                 sets, iters=20, plain=True),
-            "plain_bwd": time_ms(torch, grad_of(plain_graphs), plain_graphs,
-                                 iters=20, plain=True),
-            "plain_fwd_bwd": time_ms(torch, lambda q, k, v, do, *_:
+        iters, plain_iters = (10, 5) if long else (60, 20)
+        t = {"flash_fwd": time_ms(torch, lambda q, k, v, *_:
+                                  fa_ops.flash_attention_fwd(q, k, v, **kw),
+                                  sets, iters),
+             **{n: time_ms(torch, fn, sets, iters) for n, fn in bwd.items()},
+             "fwd_bwd": time_ms(torch, lambda q, k, v, do, *_:
+                                fa_ops.flash_attention_bwd(
+                                    q, k, v, *fa_ops.flash_attention_fwd(
+                                        q, k, v, **kw), do, **kw), sets,
+                                iters),
+             "plain_fwd": time_ms(torch, lambda q, k, v, *_:
+                                  fa_ref.flash_attention_fwd_ref(q, k, v,
+                                                                 **kw),
+                                  sets[:1] if long else sets, plain_iters,
+                                  plain=True)}
+        graphs = [plain_graph(*x) for x in sets[:1 if long else 4]]
+        t["plain_bwd"] = time_ms(torch, grad_again(torch), graphs,
+                                 plain_iters, plain=True)
+        del graphs
+        torch.cuda.empty_cache()
+        t["plain_fwd_bwd"] = time_ms(torch, lambda q, k, v, do, *_:
                                      fa_ref.flash_attention_bwd_ref(
-                                         q, k, v, do), sets, iters=20,
-                                     plain=True),
-            "sdpa_fwd": time_ms(torch, lambda q, k, v, *_:
-                                sdpa_causal(F, q, k, v), sets),
-            "sdpa_bwd": time_ms(torch, sdpa_bwd, sdpa_graphs),
-        }
-        del plain_graphs, sdpa_graphs
-        bd = {"flash_fwd": bounds.flash_fwd(b, h, kh, s, hd, "float32"),
-              "flash_dq": bounds.flash_dq(b, h, kh, s, hd, "float32"),
-              "flash_dkv": bounds.flash_dkv(b, h, kh, s, hd, "float32"),
-              "flash_bwd": bounds.flash_bwd(b, h, kh, s, hd, "float32")}
+                                         q, k, v, do, **kw),
+                                     sets[:1] if long else sets, plain_iters,
+                                     plain=True)
+        torch.cuda.empty_cache()
+        t["sdpa_fwd"] = time_ms(torch, lambda q, k, v, *_:
+                                sdpa_causal(F, q, k, v, window), sets, iters)
+        graphs, sdpa_bwd = sdpa_bwd_graphs(torch, F,
+                                           sets[:2] if long else sets,
+                                           window)
+        t["sdpa_bwd"] = time_ms(torch, sdpa_bwd, graphs, iters)
+        del graphs
+        bd = {"flash_fwd": bounds.flash_fwd(b, h, kh, s, hd, dt_name,
+                                            window),
+              "flash_dq": bounds.flash_dq(b, h, kh, s, hd, dt_name, window),
+              "flash_dkv": bounds.flash_dkv(b, h, kh, s, hd, dt_name,
+                                            window),
+              "flash_bwd": bounds.flash_bwd(b, h, kh, s, hd, dt_name,
+                                            window)}
         bd_ms = {n: x.ms for n, x in bd.items()} | {
             "fwd_bwd": bd["flash_fwd"].ms + bd["flash_bwd"].ms}
         emit({"phase": "flash_timing", "b": b, "s": s, "h": h, "kh": kh,
-              "hd": hd, "dtype": "float32", "causal": True,
+              "hd": hd, "dtype": dt_name, "causal": True, "window": window,
               "kernel_ms": {n: t[n] for n in ("flash_fwd", "flash_dq",
                                               "flash_dkv", "flash_bwd",
                                               "fwd_bwd")},
@@ -862,28 +1079,38 @@ def time_flash(torch, F, fa_ops, fa_ref, bounds, dev):
               "plain_ms": {"fwd": t["plain_fwd"], "bwd": t["plain_bwd"],
                            "fwd_bwd": t["plain_fwd_bwd"]},
               "sdpa_ms": {"fwd": t["sdpa_fwd"], "bwd": t["sdpa_bwd"]},
+              "fwd_over_sdpa_fwd": t["flash_fwd"] / t["sdpa_fwd"],
               "bwd_over_sdpa_bwd": t["flash_bwd"] / t["sdpa_bwd"],
-              "routes": routes, "max_abs_err": err,
+              "routes": routes, "max_abs_err": err, "rel_err": rel,
               "stream_hold_x": holds_used()})
         require(routes == {"fwd_vec": 0, "fwd_scalar": 0, "bwd_vec": 2,
                            "bwd_scalar": 0},
                 f"the timed backward took routes {routes}")
-        if rows is None:          # the train phase's shape
-            rows = [dict(name=n, route="cuda", source=FLASH_SRC,
-                         replaces=FLASH_TPU[n], max_abs_err=err[n], ms=t[n],
-                         plain_ms=t["plain_fwd" if n == "flash_fwd"
-                                    else "plain_bwd"],
-                         library_ms=t["sdpa_fwd" if n == "flash_fwd"
-                                      else "sdpa_bwd"], **bound(bd[n]))
-                    for n in ("flash_fwd", "flash_dq", "flash_dkv",
-                              "flash_bwd")]
-            for r in rows[1:3]:
+        table = (b, s, h, kh, hd) == (8, 256, 12, 4, 64)   # the train shape
+        if table or long:
+            shape = None if table else "h2o train"
+            new = [dict(name=n, route="cuda", source=FLASH_SRC,
+                        replaces=FLASH_TPU[n], max_abs_err=err[n], ms=t[n],
+                        plain_ms=t["plain_fwd" if n == "flash_fwd"
+                                   else "plain_bwd"],
+                        library_ms=t["sdpa_fwd" if n == "flash_fwd"
+                                     else "sdpa_bwd"], **bound(bd[n]))
+                   for n in ("flash_fwd", "flash_dq", "flash_dkv",
+                             "flash_bwd")]
+            for r in new[1:3]:
                 r["note"] = ("library_ms is SDPA's whole backward (dq, dk "
                              "and dv); compare it with flash_bwd")
-            rows[3].update(launch_key="flash_dq", note=(
+            new[3].update(launch_key="flash_dq", note=(
                 "softmax_delta + flash_dq + flash_dkv as the model runs "
                 "them; launches counts its calls (one dq and one dk/dv "
                 "launch each)"))
+            if shape:
+                for r in new:
+                    r["shape"] = shape
+                    r["note"] = (r.get("note", "") + "; h2o-danube-3-4b "
+                                 "heads, 1x8192 bf16, window 4096").lstrip(
+                        "; ")
+            rows += new
         del sets
         torch.cuda.empty_cache()
     return rows
@@ -2502,9 +2729,25 @@ def phase_dense_configs(torch, ops, serve, model, random_bank, get_config,
     ServeEngine tokens equal serve_naive's, request for request — QKV bias
     (qwen2.5, starcoder2), qk RMSNorm (qwen3), LayerNorm + GELU
     (starcoder2), head dim 128.  Each model is freed before the next."""
+    serve_job(torch, ops, serve, model, random_bank, get_config, dev,
+              DENSE_SERVE, "dense_configs")
+    for name in DENSE_CONFIGS:
+        dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
+                     name)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_job(torch, ops, serve, model, random_bank, get_config, dev,
+              job: dict, phase: str) -> dict:
+    """``job["arch"]`` at full width and depth (its own dtype, random
+    weights) serving ``job["requests"]`` requests from ``job["users"]``
+    users through a ServeEngine of ``job["slots"]`` slots: every request
+    finishes, every step launches both decode kernels on every layer, all
+    on their 16-byte routes.  Emits one ``phase`` line, frees the model and
+    returns the launches."""
     from repro_torch.tree import tree_leaves
 
-    job = DENSE_SERVE
     cfg = get_config(job["arch"])
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
@@ -2531,9 +2774,12 @@ def phase_dense_configs(torch, ops, serve, model, random_bank, get_config,
     n_targets = len(cfg.lora_targets)
     expected = {"grouped_gemv": n_targets * cfg.n_layers * steps,
                 "decode_attention": cfg.n_layers * steps}
-    emit({"phase": "dense_configs", "serve": {
+    ring = model.init_decode_cache(cfg, 1, max_len, device="meta")[
+        "groups"]["0"]["k"].shape[2]              # (layers, B, ring, K, hd)
+    emit({"phase": phase, "serve": {
         "arch": cfg.name, "dtype": cfg.param_dtype, "layers": cfg.n_layers,
-        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kinds": sorted(set(cfg.kinds())), "window": cfg.window,
+        "ring": ring, "d_model": cfg.d_model, "heads": cfg.n_heads,
         "kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd, "d_ff": cfg.d_ff,
         "vocab": cfg.vocab_size, "weights": n_weights,
         "weight_gb": n_weights * 2 / 1e9, "init_s": init_s, **job,
@@ -2547,20 +2793,19 @@ def phase_dense_configs(torch, ops, serve, model, random_bank, get_config,
             f"{lens}")
     require(launches == expected, f"{cfg.name} serve launches {launches} "
             f"over {steps} steps != {expected}")
+    require(routes["gemv_vec"] == launches["grouped_gemv"]
+            and routes["attn_vec"] == launches["decode_attention"],
+            f"{cfg.name}: the serve path left the 16-byte routes: {routes}")
     require(all(bool(((v >= 0) & (v < cfg.vocab_size)).all())
                 for v in done.values()), "token ids out of range")
     del eng, params, bank, done
     gc.collect()
     torch.cuda.empty_cache()
-    for name in DENSE_CONFIGS:
-        dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
-                     name)
-        gc.collect()
-        torch.cuda.empty_cache()
+    return launches
 
 
 def dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
-                 name: str) -> None:
+                 name: str, phase: str = "dense_configs") -> None:
     """The oracle phase's check on ``name`` at full width, 2 layers, f32:
     ServeEngine ≡ serve_naive per request."""
     cfg = get_config(name).with_overrides(n_layers=2, param_dtype="float32")
@@ -2580,11 +2825,12 @@ def dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
     wall = time.perf_counter() - t0
     want = serve.serve_naive(cfg, params["base"], bank, reqs, device=dev)
     same = [bool(np_equal(got[r.rid], want[r.rid])) for r in reqs]
-    emit({"phase": "dense_configs", "oracle": {
+    emit({"phase": phase, "oracle": {
         "arch": cfg.name, "dtype": "float32", "layers": 2,
         "d_model": cfg.d_model, "head_dim": cfg.hd,
         "attn_bias": cfg.attn_bias, "qk_norm": cfg.qk_norm,
-        "norm": cfg.norm_type, "mlp": cfg.mlp_type, "users": 4,
+        "norm": cfg.norm_type, "mlp": cfg.mlp_type,
+        "kinds": sorted(set(cfg.kinds())), "users": 4,
         "requests": len(reqs), "engine_steps": eng.steps,
         "engine_wall_s": wall, "engine_launches": engine_launches,
         "token_identical": sum(same),
@@ -2595,6 +2841,185 @@ def dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
     require(engine_launches["grouped_gemv"] > 0
             and engine_launches["decode_attention"] > 0,
             f"{cfg.name}: the oracle's engine launched {engine_launches}")
+
+
+# ---------------------------------------------------------------------------
+# h2o-danube-3-4b: sliding-window attention at head dim 120
+# ---------------------------------------------------------------------------
+
+H2O = "h2o-danube-3-4b"
+#: h2o_train's job: the LM driver on 2 clients, 1 round of 1 local step of
+#: one 8192-token sequence each (twice the 4,096 window), full width and
+#: depth, bf16 backbone, f32 adapters, no uplink codec (the plain ledger);
+#: run on client_parallelism="vmap" (both clients as one batch of 2x8192
+#: tokens, ~71 GB at its peak: autograd keeps every layer's activations,
+#: activation checkpointing is not ported), then on "loop"
+H2O_TRAIN = dict(arch=H2O, clients=2, rounds=1, local_steps=1, batch=1,
+                 seq=8192, method="celora", attn_impl="flash")
+#: h2o_serve's job: 8 requests of 64 + 16 tokens from 4 users, 4 slots
+H2O_SERVE = dict(arch=H2O, users=4, requests=8, slots=4, prompt_len=64,
+                 gen=16)
+
+
+def phase_h2o_train(torch, fa_ops, tl_ops, get_config, dev) -> dict:
+    """``launch.train.run`` on h2o-danube-3-4b at full width and depth
+    (H2O_TRAIN) on client_parallelism="vmap", then "loop": exact flash
+    launches (24 forward, dq and dk/dv a local step: for both clients at
+    once on vmap, per client on loop; every block is ``swa`` at head dim
+    120, so every one runs under the 4,096 window, on the 16-byte routes)
+    and tri-LoRA launches (grouped on
+    vmap) with their routes, a finite loss, the plain ledger; tokens/s,
+    wall time, peak memory.  The loop run's round-0 loss (the forward on
+    the initial adapters: one local step) within 1e-3 + 1e-3·|loss| of the
+    vmap run's.  Returns the vmap run's launches."""
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    cfg = get_config(H2O)
+    # every block is swa: every flash call is at hd 120 under the window
+    require(set(cfg.kinds()) == {"swa"} and cfg.hd == 120
+            and cfg.window == 4096, f"{H2O}: kinds {set(cfg.kinds())}, "
+            f"hd {cfg.hd}, window {cfg.window}")
+    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    c_bytes = layers * len(cfg.lora_targets) * cfg.lora_rank ** 2 * 4
+    out_launches, losses = None, {}
+    for mode in ("vmap", "loop"):
+        job = dict(H2O_TRAIN, client_parallelism=mode)
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.reset_launches()               # counts of the main path only
+        tl_ops.reset_launches()
+        t0 = time.perf_counter()
+        out = train.run(**job, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
+        flash_routes, tri_routes = dict(fa_ops.ROUTES), dict(tl_ops.ROUTES)
+        hist = out["history"]
+        steps = job["rounds"] * job["local_steps"] * (
+            job["clients"] if mode == "loop" else 1)
+        if mode == "loop":
+            tri = {"tri_lora_fwd": proj * steps,
+                   "tri_lora_dx": (proj - 3) * steps, "tri_lora_dw": 0,
+                   **NO_GROUPED}
+        else:
+            tri = {"tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
+                   "tri_lora_fwd_grouped": proj * steps,
+                   "tri_lora_dx_grouped": (proj - 3) * steps}
+        expected = {"flash_fwd": layers * steps, "flash_dq": layers * steps,
+                    "flash_dkv": layers * steps, **tri}
+        tokens = job["rounds"] * job["local_steps"] * job["clients"] * \
+            job["batch"] * job["seq"]
+        round_wall = sum(r["wall_s"] for r in hist)
+        emit({"phase": "h2o_train", **job, "layers": layers,
+              "d_model": cfg.d_model, "heads": cfg.n_heads,
+              "kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+              "window": cfg.window, "dtype": cfg.param_dtype,
+              "rounds_detail": hist, "wall_s_with_init": wall,
+              "round_wall_s": round_wall, "trained_tokens": tokens,
+              "trained_tok_per_s": tokens / round_wall,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": launches, "expected_launches": expected,
+              "flash_routes": flash_routes,
+              "tri_lora_routes": tri_routes})
+        require(launches == expected,
+                f"h2o_train {mode} launches {launches} != {expected}")
+        require(flash_routes == {"fwd_vec": layers * steps, "fwd_scalar": 0,
+                                 "bwd_vec": 2 * layers * steps,
+                                 "bwd_scalar": 0},
+                f"h2o_train {mode} flash routes {flash_routes}")
+        require(all(np.isfinite(r["loss"]) for r in hist),
+                f"h2o_train {mode}: loss {[r['loss'] for r in hist]}")
+        n = job["clients"]
+        require(all(r["uplink_bytes"] == n * c_bytes
+                    and r["downlink_bytes"] == n * c_bytes for r in hist),
+                f"h2o_train {mode} bytes "
+                f"{[(r['uplink_bytes'], r['downlink_bytes']) for r in hist]}"
+                f", expected {n * c_bytes} each way")
+        out_launches = out_launches or launches
+        losses[mode] = hist[0]["loss"]
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    require(abs(losses["loop"] - losses["vmap"])
+            <= 1e-3 + 1e-3 * abs(losses["vmap"]),
+            f"h2o_train round 0: loop loss {losses['loop']} vs vmap "
+            f"{losses['vmap']}")
+    return out_launches
+
+
+def phase_h2o_oracle(torch, fa_ops, model, get_config, dev) -> None:
+    """h2o-danube-3-4b at full width, 2 layers, f32, on one 8192-token
+    sequence: the loss and the adapter gradients through the flash kernels
+    against the plain blockwise attention (``ref`` would build 32 x 8192^2
+    scores), both on the card.  C and B are moved off their zero-delta
+    init, as in card_vs_cpu, so that every factor has a gradient."""
+    import numpy as np
+
+    from repro_torch.core.tri_lora import is_adapter
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(H2O).with_overrides(n_layers=2, param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    params = model.init_params(cfg, gen)
+
+    def noise(t, scale):
+        return scale * torch.randn(t.shape, generator=gen, device=dev)
+
+    params["adapter"] = tree_map(
+        lambda a: {"A": a["A"], "C": a["C"] + noise(a["C"], 0.05),
+                   "B": noise(a["B"], 0.01)},
+        params["adapter"], is_leaf=is_adapter)
+    toks = np.random.default_rng(13).integers(0, cfg.vocab_size, (1, 8193))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]))}
+    res = {}
+    for impl in ("flash", "blockwise"):
+        ad = tree_map(lambda t: t.detach().requires_grad_(True),
+                      params["adapter"])
+        fa_ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(cfg, ad, params["base"], batch,
+                                attn_impl=impl)
+        grads = torch.autograd.grad(loss, tree_leaves(ad))
+        torch.cuda.synchronize()
+        res[impl] = (float(loss.detach()), grads, dict(fa_ops.LAUNCHES),
+                     time.perf_counter() - t0)
+        del loss, ad
+    (lf, gf, nf, tf), (lb, gb, nb, tb) = res["flash"], res["blockwise"]
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(gf, gb)]
+    rel = abs(lf - lb) / abs(lb)
+    emit({"phase": "h2o_oracle", "arch": cfg.name, "dtype": "float32",
+          "layers": 2, "seq": 8192, "window": cfg.window, "head_dim": cfg.hd,
+          "loss_flash": lf, "loss_blockwise": lb, "loss_rel_err": rel,
+          "grad_leaves": len(errs), "grad_max_err_over_max": max(errs),
+          "launches_flash": nf, "launches_blockwise": nb,
+          "wall_s": {"flash": tf, "blockwise": tb}})
+    require(rel <= 1e-4, f"h2o_oracle loss flash {lf} vs blockwise {lb}")
+    require(max(errs) <= 1e-3, f"h2o_oracle adapter gradients differ by "
+            f"{max(errs)} of their largest entry")
+    require(nf == {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}
+            and nb == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+            f"h2o_oracle launches: flash {nf}, blockwise {nb}")
+    del params, res, gf, gb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_h2o_serve(torch, ops, serve, model, random_bank, get_config,
+                    dev) -> None:
+    """h2o-danube-3-4b at full width and depth (bf16) serving H2O_SERVE
+    through ServeEngine (both decode kernels on every layer of every step,
+    decode attention at head dim 120 and a group of 4), then the f32
+    oracle at full width, 2 layers: ServeEngine tokens equal serve_naive's
+    request for request."""
+    serve_job(torch, ops, serve, model, random_bank, get_config, dev,
+              H2O_SERVE, "h2o_serve")
+    dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
+                 H2O, "h2o_serve")
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_pretrain(torch, tl_ops, get_config, dev):
@@ -2809,6 +3234,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_dense_configs(torch, ops, serve, model, random_bank,
                             get_config, dev)
+        # the twelfth slice's paths: h2o-danube-3-4b (swa blocks, head dim
+        # 120) trained, held to the plain attention, and served
+        h2o_launches = phase_h2o_train(torch, fa_ops, tl_ops, get_config,
+                                       dev)
+        phase_h2o_oracle(torch, fa_ops, model, get_config, dev)
+        phase_h2o_serve(torch, ops, serve, model, random_bank, get_config,
+                        dev)
     except Exception:                       # report, print no result, fail
         traceback.print_exc()
         return 1
@@ -2816,7 +3248,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows += flash_rows + tri_lora_rows + [wkv6_row]
     path_launches = {"rwkv prefill": rwkv_launches,
-                     "rwkv decode": decode_launches}
+                     "rwkv decode": decode_launches,
+                     "h2o train": h2o_launches}
     for r in rows:                    # the launches of the row's own path
         r["launches"] = path_launches.get(r.get("shape"), launches)[
             r.get("launch_key", r["name"])]

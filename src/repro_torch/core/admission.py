@@ -61,9 +61,11 @@ def control_of(fed: Any) -> AdmissionControl:
                             window=fed.admission_window)
 
 
-def init_state(window: int, device="cpu") -> dict:
-    """Fresh gate state on ``device``: an empty (window,) ring of accepted
-    round medians and the number of rounds that contributed one."""
+def init_state(window: int, device) -> dict:
+    """Fresh gate state on ``device`` (required: the run's device, so that
+    the gate never falls to the CPU unasked): an empty (window,) ring of
+    accepted round medians and the number of rounds that contributed
+    one."""
     return {"meds": torch.zeros((window,), dtype=torch.float32,
                                 device=device),
             "count": torch.zeros((), dtype=torch.int32, device=device)}

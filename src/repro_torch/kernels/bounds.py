@@ -105,21 +105,27 @@ def tri_lora_dw(m: int, k: int, n: int, dtype: str) -> Bound:
     return Bound(m * k * s + m * n * s + k * n * s, 2 * m * k * n, dtype)
 
 
-def _causal_pairs(sq: int) -> int:
-    return sq * (sq + 1) // 2
+def _causal_pairs(sq: int, window: int = 0) -> int:
+    """The (query, key) pairs of causal attention over ``sq`` positions:
+    query i sees keys (i - window, i], all of [0, i] when ``window`` is
+    0."""
+    if not window or window >= sq:
+        return sq * (sq + 1) // 2
+    return window * (window + 1) // 2 + (sq - window) * window
 
 
 def flash_fwd(b: int, h: int, kh: int, sq: int, hd: int,
-              dtype: str) -> Bound:
-    """Causal GQA forward with the f32 logsumexp output."""
+              dtype: str, window: int = 0) -> Bound:
+    """Causal GQA forward with the f32 logsumexp output; only the pairs in
+    the band of ``window`` (0: the whole causal prefix) count."""
     s = SIZE[dtype]
     nbytes = (2 * b * h * sq * hd * s + 2 * b * kh * sq * hd * s
               + b * h * sq * F32)
-    return Bound(nbytes, 4 * b * h * _causal_pairs(sq) * hd, dtype)
+    return Bound(nbytes, 4 * b * h * _causal_pairs(sq, window) * hd, dtype)
 
 
 def flash_bwd(b: int, h: int, kh: int, sq: int, hd: int,
-              dtype: str) -> Bound:
+              dtype: str, window: int = 0) -> Bound:
     """dq, dk, dv from q, k, v, o, dO and the logsumexp: the scores and
     probabilities are recomputed (2 products) and three gradient products
     follow, 5 products of the forward's size in all."""
@@ -127,27 +133,27 @@ def flash_bwd(b: int, h: int, kh: int, sq: int, hd: int,
     nbytes = (3 * b * h * sq * hd * s + 2 * b * kh * sq * hd * s
               + b * h * sq * F32 + b * h * sq * hd * s
               + 2 * b * kh * sq * hd * s)
-    return Bound(nbytes, 10 * b * h * _causal_pairs(sq) * hd, dtype)
+    return Bound(nbytes, 10 * b * h * _causal_pairs(sq, window) * hd, dtype)
 
 
 def flash_dq(b: int, h: int, kh: int, sq: int, hd: int,
-             dtype: str) -> Bound:
+             dtype: str, window: int = 0) -> Bound:
     """dq alone from q, k, v, dO, lse and delta: scores and dO·vᵀ
     recomputed, then ds·k — 3 products of the forward's size."""
     s = SIZE[dtype]
     nbytes = (3 * b * h * sq * hd * s + 2 * b * kh * sq * hd * s
               + 2 * b * h * sq * F32)
-    return Bound(nbytes, 6 * b * h * _causal_pairs(sq) * hd, dtype)
+    return Bound(nbytes, 6 * b * h * _causal_pairs(sq, window) * hd, dtype)
 
 
 def flash_dkv(b: int, h: int, kh: int, sq: int, hd: int,
-              dtype: str) -> Bound:
+              dtype: str, window: int = 0) -> Bound:
     """dk and dv from q, k, v, dO, lse and delta: scores and dO·vᵀ
     recomputed, then pᵀ·dO and dsᵀ·q — 4 products of the forward's size."""
     s = SIZE[dtype]
     nbytes = (2 * b * h * sq * hd * s + 4 * b * kh * sq * hd * s
               + 2 * b * h * sq * F32)
-    return Bound(nbytes, 8 * b * h * _causal_pairs(sq) * hd, dtype)
+    return Bound(nbytes, 8 * b * h * _causal_pairs(sq, window) * hd, dtype)
 
 
 def wkv6(b: int, h: int, t: int, hd: int, dtype: str) -> Bound:

@@ -62,6 +62,13 @@
 //   band q tiles in registers; the cluster then adds the blocks' partials
 //   through distributed shared memory in rank order.  No atomics: out, lse,
 //   dq, dk and dv are bitwise the same from call to call.
+// * Head dims 64, 120 and 128.  A head dim that is no multiple of 32 (120,
+//   h2o-danube-3-4b's) computes at the next multiple (128): rows are read
+//   and written at 120 channels in device memory (480 or 240 bytes, whole
+//   16-byte reads), staged into tiles of 128 + 4 floats, q.k sums the 120
+//   real channels, and the products over a staged tile carry 8 pad columns
+//   in registers that no store reads, about 128/120 of the exact FMAs.
+//   Shared memory and registers are those of head dim 128.
 // * q/k/v/dO are read in the model's (B,S,heads,hd) layout through their
 //   strides: no transpose, no padding, no repeat of K/V for GQA.  The ragged
 //   sequence edge is masked inside the kernel by the real lengths.  Rows
@@ -130,12 +137,24 @@ __device__ __forceinline__ float row_sum(float v) {
 // the micro-kernel's pieces, shared by the forward and the backward
 // ---------------------------------------------------------------------------
 
+// HD channels live in device memory; the tiles hold and compute kPD = HD
+// rounded up to 32.  Staging writes channels [0, HD) of a row; zero_pad
+// zeroes [HD, kPD) once at block start, so the pad stays zero: dot_rows
+// sums channels [0, HD) only, and score_times' pad columns go to
+// accumulators that are never stored.
 template <int HD>
 struct Geo {
-  static constexpr int kLd = HD + 4;          // padded [row][channel] row
+  static_assert(HD % 8 == 0, "16-byte bf16 rows and float4 stores");
+  static constexpr int kPD = (HD + 31) / 32 * 32;  // computed channels
+  static constexpr int kLd = kPD + 4;         // padded [row][channel] row
   static constexpr int kTileF = kTile * kLd;  // floats of a staged tile
   static constexpr int kScoreF = kTile * kLdS;
-  static constexpr int kNH = HD / 32;         // float4 channel groups
+  static constexpr int kNH = kPD / 32;        // float4 channel groups
+  static constexpr int kAcc = kPD / 8;        // accumulators of a row
+  // is output channel group h (channels 4tc + 32h + e) inside HD?
+  __device__ __forceinline__ static bool stored(int tc, int h) {
+    return HD == kPD || 4 * tc + 32 * h < HD;
+  }
   // forward: q, two k and two v stages, p.  dq: q, dO, two k stages, v,
   // ds.  dk/dv: k, v, two q stages, dO, p/ds, two lse stages and delta.
   static constexpr size_t kFwdSmem = sizeof(float) * (5 * kTileF + kScoreF);
@@ -171,20 +190,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [first, first + 64) of an (S, HD) slice with row stride `rs` into a
-// staged tile; rows at or beyond n are zero.  VEC: 16 bytes a read (f32 by
-// cp.async, bf16 eight at a time through registers); else one element a
-// read (f32 by cp.async, bf16 through registers).
+// rows [first, first + 64) of an (S, HD) slice with row stride `rs` into
+// channels [0, HD) of a staged tile; rows at or beyond n are zero.  VEC:
+// 16 bytes a read (f32 by cp.async, bf16 eight at a time through
+// registers); else one element a read (f32 by cp.async, bf16 through
+// registers).
 template <typename T, int HD, bool VEC>
 __device__ __forceinline__ void stage_tile(float* dst, const T* src,
                                            long long rs, int first, int n) {
   constexpr int kLd = Geo<HD>::kLd;
   constexpr int E = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
   constexpr int kPerRow = HD / E;
-  static_assert(kTile * kPerRow % kThreads == 0, "whole reads per thread");
+  constexpr int kReads = kTile * kPerRow;  // HD 120 bf16: 960, not whole
+  static_assert(HD % E == 0, "whole reads per row");
 #pragma unroll
-  for (int i = 0; i < kTile * kPerRow / kThreads; ++i) {
+  for (int i = 0; i < (kReads + kThreads - 1) / kThreads; ++i) {
     const int e = static_cast<int>(threadIdx.x) + i * kThreads;
+    if (kReads % kThreads != 0 && e >= kReads) break;
     const int r = e / kPerRow, c = (e % kPerRow) * E;
     const bool ok = first + r < n;
     const T* p = ok ? src + (first + r) * rs + c : src;
@@ -207,6 +229,21 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* src,
     } else {
       *to = ok ? __bfloat162float(*p) : 0.f;
     }
+  }
+}
+
+// channels [HD, kPD) of n staged tiles from dst to zero (none below HD
+// 120's padded width); staging never writes them
+template <int HD>
+__device__ __forceinline__ void zero_pad(float* dst, int n) {
+  using G = Geo<HD>;
+  if constexpr (G::kPD > HD) {
+    constexpr int kPer = (G::kPD - HD) / 4;  // float4 of a row's pad
+    for (int e = static_cast<int>(threadIdx.x); e < n * kTile * kPer;
+         e += kThreads)
+      *reinterpret_cast<float4*>(dst + (e / kPer) * G::kLd + HD +
+                                 4 * (e % kPer)) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -253,10 +290,10 @@ __device__ __forceinline__ void dot_rows(float (&acc)[4][8],
 }
 
 // acc[i][4h + e] += sum_c s[tr + 16i][c] m[c][4tc + 32h + e]: a staged
-// score tile times a staged tile, (4 + 4 HD/32) 16-byte reads for
-// 4 x 4 x HD/8 FMAs
+// score tile times a staged tile over its kPD channels, (4 + 4 kPD/32)
+// 16-byte reads for 4 x 4 x kPD/8 FMAs
 template <int HD>
-__device__ __forceinline__ void score_times(float (&acc)[4][HD / 8],
+__device__ __forceinline__ void score_times(float (&acc)[4][Geo<HD>::kAcc],
                                             const float* __restrict__ s,
                                             const float* __restrict__ m) {
   constexpr int kLd = Geo<HD>::kLd, kNH = Geo<HD>::kNH;
@@ -348,6 +385,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
 
   // groups: {q, k tile 0}, {v tile 0}; then {k, v} of the next tile at the
   // top of every iteration (empty after the last)
+  zero_pad<HD>(fsmem, 5);
   stage_tile<T, HD, VEC>(s_q, q + b * q_sb + h * q_sh, q_ss, q_first, sq);
   if (kr.x <= kr.y)
     stage_tile<T, HD, VEC>(s_k, kb, k_ss, kr.x * kTile, band.skv);
@@ -356,13 +394,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     stage_tile<T, HD, VEC>(s_v, vb, v_ss, kr.x * kTile, band.skv);
   cp_async_commit();
 
-  float m[4], l[4], acc[4][HD / 8];
+  float m[4], l[4], acc[4][G::kAcc];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < G::kAcc; ++c) acc[i][c] = 0.f;
   }
 
   for (int kt = kr.x; kt <= kr.y; ++kt) {
@@ -407,7 +445,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
       l[i] = alpha * l[i] + row_sum(rs);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < HD / 8; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < G::kAcc; ++c) acc[i][c] *= alpha;
     }
     cp_async_wait<2>();  // this v tile (the next k and v may not)
     __syncthreads();     // ... and p, for all
@@ -423,9 +461,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     T* row = o + ((static_cast<long long>(b) * sq + qi) * n_heads + h) * HD;
 #pragma unroll
     for (int c = 0; c < G::kNH; ++c)
-      store4(row + 4 * tc + 32 * c, acc[i][4 * c] / denom,
-             acc[i][4 * c + 1] / denom, acc[i][4 * c + 2] / denom,
-             acc[i][4 * c + 3] / denom);
+      if (G::stored(tc, c))
+        store4(row + 4 * tc + 32 * c, acc[i][4 * c] / denom,
+               acc[i][4 * c + 1] / denom, acc[i][4 * c + 2] / denom,
+               acc[i][4 * c + 3] / denom);
     if (tc == 0)
       lse[(static_cast<long long>(b) * n_heads + h) * sq + qi] =
           m[i] + logf(denom);
@@ -474,6 +513,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_kernel(
     return band.tiles(q_first, t * kTile);
   });
 
+  zero_pad<HD>(bsmem, 5);
   stage_tile<T, HD, VEC>(s_q, q + b * q_sb + h * q_sh, q_ss, q_first, sq);
   stage_tile<T, HD, VEC>(s_do, dout + b * do_sb + h * do_sh, do_ss, q_first,
                          sq);
@@ -484,7 +524,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_kernel(
     stage_tile<T, HD, VEC>(s_v, vb, v_ss, kr.x * kTile, band.skv);
     cp_async_commit();
   }
-  float row_lse[4], row_delta[4], acc[4][HD / 8];
+  float row_lse[4], row_delta[4], acc[4][G::kAcc];
   const long long row0 = (static_cast<long long>(b) * n_heads + h) * sq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -492,7 +532,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_kernel(
     row_lse[i] = qi < sq ? lse[row0 + qi] : 0.f;
     row_delta[i] = qi < sq ? delta[row0 + qi] : 0.f;
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < G::kAcc; ++c) acc[i][c] = 0.f;
   }
 
   for (int kt = kr.x; kt <= kr.y; ++kt) {
@@ -540,9 +580,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_kernel(
     T* row = dq + ((static_cast<long long>(b) * sq + qi) * n_heads + h) * HD;
 #pragma unroll
     for (int c = 0; c < G::kNH; ++c)
-      store4(row + 4 * tc + 32 * c, acc[i][4 * c] * scale,
-             acc[i][4 * c + 1] * scale, acc[i][4 * c + 2] * scale,
-             acc[i][4 * c + 3] * scale);
+      if (G::stored(tc, c))
+        store4(row + 4 * tc + 32 * c, acc[i][4 * c] * scale,
+               acc[i][4 * c + 1] * scale, acc[i][4 * c + 2] * scale,
+               acc[i][4 * c + 3] * scale);
   }
 }
 
@@ -601,6 +642,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
               0);
   };
 
+  zero_pad<HD>(bsmem, 5);
   stage_tile<T, HD, VEC>(s_k, k + b * k_sb + kvh * k_sh, k_ss, k_first,
                          band.skv);
   stage_tile<T, HD, VEC>(s_v, v + b * v_sb + kvh * v_sh, v_ss, k_first,
@@ -608,11 +650,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
   if (items > 0) stage_q(0);
   cp_async_commit();
 
-  float dk_acc[4][HD / 8], dv_acc[4][HD / 8];
+  float dk_acc[4][G::kAcc], dv_acc[4][G::kAcc];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+    for (int c = 0; c < G::kAcc; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
   for (int n = 0; n < items; ++n) {
     const int h = head_of(n), q_first = first_of(n);
@@ -664,11 +706,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
   cp_async_wait<0>();
   __syncthreads();  // the tile buffers now take this block's partials
 
-  float* part = bsmem;  // [2][64][HD]: dk, then dv
+  float* part = bsmem;  // [2][64][HD]: dk, then dv (no pad channels)
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < G::kNH; ++c) {
+      if (!G::stored(tc, c)) continue;
       const int at = (tr + 16 * i) * HD + 4 * tc + 32 * c;
       store4(part + at, dk_acc[i][4 * c], dk_acc[i][4 * c + 1],
              dk_acc[i][4 * c + 2], dk_acc[i][4 * c + 3]);
@@ -834,10 +877,14 @@ int dispatch(int dtype, int hd, Launch launch) {
   cudaError_t err;
   if (dtype == 0 && hd == 64)
     err = launch(float{}, std::integral_constant<int, 64>{});
+  else if (dtype == 0 && hd == 120)
+    err = launch(float{}, std::integral_constant<int, 120>{});
   else if (dtype == 0 && hd == 128)
     err = launch(float{}, std::integral_constant<int, 128>{});
   else if (dtype == 1 && hd == 64)
     err = launch(__nv_bfloat16{}, std::integral_constant<int, 64>{});
+  else if (dtype == 1 && hd == 120)
+    err = launch(__nv_bfloat16{}, std::integral_constant<int, 120>{});
   else if (dtype == 1 && hd == 128)
     err = launch(__nv_bfloat16{}, std::integral_constant<int, 128>{});
   else
@@ -927,8 +974,8 @@ int dkv_entry(int dtype, int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs alike); hd
-// is 64 or 128.  q (B,Sq,H,hd), k/v (B,Skv,K,hd), dO (B,Sq,H,hd) are read
-// through the given element strides (batch, sequence, head) with unit
+// is 64, 120 or 128.  q (B,Sq,H,hd), k/v (B,Skv,K,hd), dO (B,Sq,H,hd) are
+// read through the given element strides (batch, sequence, head) with unit
 // channel stride.  Outputs are contiguous: out and dq (B,Sq,H,hd), dk and dv
 // (B,Skv,K,hd), lse and delta (B,H,Sq) f32.  Each returns the cudaError_t of
 // its launch.  flash_fwd_launch, flash_dq_launch and flash_dkv_launch stage

@@ -29,7 +29,8 @@ ROUTES = {"fwd_vec": 0, "fwd_scalar": 0, "bwd_vec": 0, "bwd_scalar": 0}
 #: The 16-byte route reads rows whose base and strides are multiples of it.
 ALIGN = 16
 
-HEAD_DIMS = (64, 128)
+#: The head dims the kernels are built for (``dispatch`` in the .cu).
+HEAD_DIMS = (64, 120, 128)
 _LIB = "flash_attention"
 _VP, _I, _LL, _F = ffi.VP, ffi.I, ffi.LL, ffi.F
 

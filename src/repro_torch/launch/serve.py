@@ -4,16 +4,18 @@
       --users 8 --requests 16 --slots 8 --prompt-len 128 --gen 32
   python -m repro_torch.launch.serve --arch fed-100m --reduced \\
       --batch 4 --prompt-len 32 --gen 16            # single-adapter path
+  python -m repro_torch.launch.serve --arch h2o-danube-3-4b --users 4 \\
+      --requests 8 --slots 4 --prompt-len 64 --gen 16  # sliding window
 
 Three inference modes for paper eqn (10)'s per-client adapters:
 
 * :func:`generate` — single-adapter batched greedy decode (adapters stay
   factored; every row shares one adapter tree); attention and RWKV-6
   stacks alike, the latter carrying its recurrent state.
-* :class:`ServeEngine` — the multi-tenant path (attention stacks only, as
-  in the JAX package): a seeded stream of requests
-  from DISTINCT users is decoded in one continuously-batched loop, each
-  batch slot applying its own tri-LoRA row from an
+* :class:`ServeEngine` — the multi-tenant path (attention stacks only,
+  full or sliding-window, as in the JAX package): a seeded stream of
+  requests from DISTINCT users is decoded in one continuously-batched loop,
+  each batch slot applying its own tri-LoRA row from an
   :class:`~repro_torch.core.adapter_bank.AdapterBank` (on CUDA through the
   grouped GEMV and decode-attention kernels).  Finished requests free their
   slot for the next arrival; a reused slot restarts at position 0 and the
@@ -36,7 +38,7 @@ import torch
 
 from repro_torch.core.adapter_bank import AdapterBank, random_bank
 from repro_torch.device import check_on, resolve_device
-from repro_torch.models import model
+from repro_torch.models import model, transformer
 from repro_torch.models.config import get_config
 
 
@@ -119,7 +121,7 @@ class ServeEngine:
 
     def __init__(self, cfg, base: dict, bank: AdapterBank, *, slots: int = 8,
                  max_len: int = 128, device="cuda"):
-        if set(cfg.kinds()) != {"attn"}:
+        if not set(cfg.kinds()) <= set(transformer.ATTN_KINDS):
             raise NotImplementedError(
                 f"ServeEngine serves attention stacks only (grouped adapter "
                 f"banks need attention blocks); {cfg.name!r} has kinds "

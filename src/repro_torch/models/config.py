@@ -14,7 +14,7 @@ followed by ``rem`` leading-pattern layers.  Kinds:
 - ``rwkv6``  : RWKV-6 "Finch" time-mix + channel-mix (attention-free)
 - ``rglru``  : RG-LRU recurrent block (RecurrentGemma)
 
-Dense ``attn`` and ``rwkv6`` stacks are ported so far.
+Dense ``attn``, ``swa`` and ``rwkv6`` stacks are ported so far.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Block assembly for dense attention and RWKV-6 stacks: init, the
-full-sequence forward (training, prefill) and one-token decode.
+"""Block assembly for dense attention (full and sliding-window) and RWKV-6
+stacks: init, the full-sequence forward (training, prefill) and one-token
+decode.
 
 Layer stacking follows the config's ``layer_pattern`` exactly as in the JAX
 package: ``q = n_layers // len(pattern)`` repetitions of the pattern with
@@ -7,6 +8,11 @@ parameters stacked on a leading group axis, plus an unrolled remainder
 ("tail").  The trees therefore match the JAX ones key for key and shape for
 shape; a Python loop over the group axis stands in for ``lax.scan``.
 Caches and recurrent state mirror the same (groups, tail) structure.
+
+An ``swa`` block is an ``attn`` block whose self-attention sees the last
+``cfg.window`` positions only: the same parameter and adapter trees, the
+window passed to training attention, and a decode ring of
+``min(window, seq_len)`` slots, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,13 +26,22 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_map
 
 
+ATTN_KINDS = ("attn", "swa")
+
+
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in ("attn", "rwkv6") or cfg.is_moe or cfg.enc_dec:
+    if kind not in ATTN_KINDS + ("rwkv6",) or cfg.is_moe or cfg.enc_dec:
         raise NotImplementedError(
-            f"the port so far builds dense 'attn' and 'rwkv6' blocks only; "
-            f"{cfg.name!r} needs kind={kind!r} moe={cfg.is_moe} "
-            f"enc_dec={cfg.enc_dec} (ROADMAP, Queue 1: 'the swa block kind' "
-            f"and 'the other families')")
+            f"the port so far builds dense 'attn', 'swa' and 'rwkv6' blocks "
+            f"only; {cfg.name!r} needs kind={kind!r} moe={cfg.is_moe} "
+            f"enc_dec={cfg.enc_dec} (ROADMAP, Queue 1: 'the other "
+            f"families')")
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    """The attention window of a block: ``cfg.window`` for ``swa``, 0 (the
+    whole causal prefix) for ``attn``."""
+    return cfg.window if kind == "swa" else 0
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +119,9 @@ def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
         return x + y, aux
     h = layers.norm(x, p["ln1"], nt)
     x = x + attention.self_attention(cfg, p["attn"], h, positions,
-                                     ad.get("attn"), impl=attn_impl,
+                                     ad.get("attn"),
+                                     window=_window(cfg, kind),
+                                     impl=attn_impl,
                                      adapter_rows=adapter_rows)
     h = layers.norm(x, p["ln2"], nt)
     y = layers.mlp(h, p["mlp"], cfg.mlp_type, adapters=ad.get("mlp"),
@@ -194,7 +211,8 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
         _check_kind(cfg, kind)
         if kind == "rwkv6":
             return rwkv.init_state(cfg, batch, device=device)
-        return attention.init_kv_cache(cfg, batch, seq_len, device=device)
+        return attention.init_kv_cache(cfg, batch, seq_len, device=device,
+                                       window=_window(cfg, kind))
 
     groups = ({str(i): tree_map(
         lambda t: t.new_zeros((q,) + tuple(t.shape)), block_cache(kind))

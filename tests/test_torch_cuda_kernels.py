@@ -276,7 +276,9 @@ def test_engine_on_the_card_matches_naive_and_counts_launches(cuda, n, slots):
 
 #: (B, S, H, K, hd, causal, window): GQA 12/4 at fed-100m width, 32/32 at
 #: LLaMA-7B width, window 64, non-causal, and ragged lengths (200, 77) that
-#: are no multiple of the 64-row tile
+#: are no multiple of the 64-row tile; h2o-danube-3-4b's heads (32/8, hd
+#: 120, computed at 128 with 8 pad channels) causal, windowed and ragged
+#: non-causal
 FLASH_CASES = [
     (2, 256, 12, 4, 64, True, 0),
     (1, 512, 12, 4, 64, True, 64),
@@ -285,6 +287,9 @@ FLASH_CASES = [
     (1, 200, 32, 32, 128, True, 64),
     (2, 256, 12, 4, 64, False, 0),
     (2, 77, 8, 2, 128, False, 0),
+    (2, 256, 32, 8, 120, True, 0),
+    (1, 300, 32, 8, 120, True, 96),
+    (2, 77, 8, 2, 120, False, 0),
 ]
 
 
@@ -427,12 +432,13 @@ def test_flash_forward_is_bitwise_repeatable(cuda, dtype):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("hd", [64, 120])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_forward_unaligned_view_takes_scalar_route(cuda, dtype):
+def test_flash_forward_unaligned_view_takes_scalar_route(cuda, dtype, hd):
     """q, k and v one element past a 16-byte boundary take the forward's
     scalar route, which matches the plain version and gives bitwise the
     16-byte route's out and lse; the 16-byte entry point refuses them."""
-    q, k, v, _ = _flash_inputs(cuda, 2, 200, 12, 4, 64, dtype, 19)
+    q, k, v, _ = _flash_inputs(cuda, 2, 200, 12, 4, hd, dtype, 19)
 
     def moved(t):
         buf = torch.empty((*t.shape[:-1], t.shape[-1] + 1), dtype=t.dtype,
@@ -454,20 +460,21 @@ def test_flash_forward_unaligned_view_takes_scalar_route(cuda, dtype):
                        [fa_ops._I, fa_ops._I] + [fa_ops._VP] * 5
                        + [fa_ops._I] * 5 + [fa_ops._LL] * 9
                        + [fa_ops._F, fa_ops._I, fa_ops._I, fa_ops._VP])
-    code = fn(fa_ops.ffi.DTYPE_CODE[dtype], 64, views[0].data_ptr(),
+    code = fn(fa_ops.ffi.DTYPE_CODE[dtype], hd, views[0].data_ptr(),
               k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
               2, 200, 200, 12, 4, *fa_ops._strides(views[0]),
-              *fa_ops._strides(k), *fa_ops._strides(v), 0.125, 1, 0,
+              *fa_ops._strides(k), *fa_ops._strides(v), hd ** -0.5, 1, 0,
               fa_ops.ffi.stream())
     assert code != 0
 
 
+@pytest.mark.parametrize("hd", [64, 120])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
+def test_flash_backward_is_bitwise_repeatable(cuda, dtype, hd):
     """Two backward calls on the same inputs give bitwise-equal dq, dk and
     dv: the dk/dv cluster sums its heads' partials in rank order and no
     f32 sum uses atomics."""
-    q, k, v, do = _flash_inputs(cuda, 2, 200, 12, 4, 64, dtype, 21)
+    q, k, v, do = _flash_inputs(cuda, 2, 200, 12, 4, hd, dtype, 21)
     out, lse = fa_ops.flash_attention_fwd(q, k, v)
     first = fa_ops.flash_attention_bwd(q, k, v, out, lse, do)
     second = fa_ops.flash_attention_bwd(q, k, v, out, lse, do)
@@ -518,12 +525,13 @@ def test_flash_backward_fewer_queries_than_keys(cuda, window):
     _flash_bwd_vs_plain(q, k, v, do, torch.float32, window=window)
 
 
+@pytest.mark.parametrize("hd", [64, 120])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_unaligned_view_takes_scalar_route(cuda, dtype):
+def test_flash_backward_unaligned_view_takes_scalar_route(cuda, dtype, hd):
     """Operands one element past a 16-byte boundary take the scalar route,
     which gives bitwise the 16-byte route's values; the 16-byte entry point
     itself refuses them."""
-    q, k, v, do = _flash_inputs(cuda, 2, 200, 12, 4, 64, dtype, 17)
+    q, k, v, do = _flash_inputs(cuda, 2, 200, 12, 4, hd, dtype, 17)
 
     def moved(t):
         buf = torch.empty((*t.shape[:-1], t.shape[-1] + 1), dtype=t.dtype,
@@ -542,7 +550,7 @@ def test_flash_backward_unaligned_view_takes_scalar_route(cuda, dtype):
     delta = fa_ops.softmax_delta(out, do)
     fn = fa_ops._bwd_fn("dq", "vec", 7)
     dq = torch.empty(q.shape, dtype=dtype, device=cuda)
-    code = fn(fa_ops.ffi.DTYPE_CODE[dtype], 64, views[0].data_ptr(),
+    code = fn(fa_ops.ffi.DTYPE_CODE[dtype], hd, views[0].data_ptr(),
               k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
               delta.data_ptr(), dq.data_ptr(),
               *fa_ops._bwd_args(views[0], k, v, do, True, 0))

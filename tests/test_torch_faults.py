@@ -191,7 +191,7 @@ def test_payload_stats_and_admit_match_jax():
     np.testing.assert_array_equal(_np(finite), np.asarray(jf))
     ctl = admission.AdmissionControl(mode="norm", norm_mult=3.0, window=3)
     jctl = jadmission.AdmissionControl(mode="norm", norm_mult=3.0, window=3)
-    st, jst = admission.init_state(3), jadmission.init_state(3)
+    st, jst = admission.init_state(3, "cpu"), jadmission.init_state(3)
     rng = np.random.default_rng(5)
     n0 = np.asarray(jn)
     for rnd in range(6):       # past the ring's end; one round all rejected

@@ -26,13 +26,18 @@ from repro_torch.models.config import ModelConfig
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 #: (B, S, H, K, hd, causal, window): causal, window, non-causal, GQA and
-#: ragged lengths (no power of two)
+#: ragged lengths (no power of two); then h2o-danube-3-4b's head dim 120
+#: (no multiple of 32: the kernels compute it at 128) causal with GQA 4:1,
+#: windowed, and non-causal with GQA 4:1
 CASES = [
     (2, 16, 4, 2, 16, True, 0),
     (1, 37, 4, 4, 8, True, 0),
     (2, 24, 6, 2, 16, True, 5),
     (2, 19, 4, 1, 16, False, 0),
     (1, 33, 8, 2, 32, True, 0),
+    (1, 72, 8, 2, 120, True, 0),
+    (1, 100, 4, 4, 120, True, 24),
+    (2, 45, 8, 2, 120, False, 0),
 ]
 
 
