@@ -145,6 +145,25 @@ Phases, one JSON line each (several for the case phases):
                it), accuracies within 0.05, everything finite, exactly the
                fault-free job's launches; then one NaN-corruption round on
                vmap (seed 5, rate 0.5) that the gate must cut, finite
+  train_scan   (after train_faults) ``run_federated`` with engine="scan" on
+               fed-100m at full width and depth: the train_vmap job in
+               chunks of 2 (an odd tail), held to the eager vmap run
+               (ledgers, loss within 1e-3 + 1e-3·|loss|, accuracies within
+               0.05, exactly its launches on the same routes); the
+               train_faults storm on scan (the vmap run's failed / rejected
+               lists and ledgers, all finite); 4 rounds at participation
+               0.5 with int8 and the norm gate killed after 2 (the
+               checkpoint verifies) and resumed, history and states
+               bitwise the uninterrupted run's; the synchronizing calls of
+               2 rounds in one chunk equal to 4 rounds in one chunk
+               (``torch.cuda.set_sync_debug_mode("warn")``); wall per
+               round, host_s, device_s, tokens/s and peak memory beside the
+               eager vmap run's
+  lm_scan      (after lm_train) ``launch.train.run`` with engine="scan":
+               lm_train's job for 4 rounds in chunks of 2, exact grouped
+               launches, the int8 ledger, round 0's loss within 1e-3 +
+               1e-3·|loss| of the eager vmap run's, a falling loss, killed
+               after 2 rounds and resumed, bitwise
   lm_rwkv      ``launch.train.run`` on rwkv6-1.6b at full width and depth
                (bf16 backbone, f32 adapters): 2 clients, 2 rounds of 2
                local steps of 2x128, loop then vmap (the default); the
@@ -2378,7 +2397,9 @@ def phase_train_vmap(torch, fa_ops, tl_ops, get_config, dev, loop_out):
     losses = [r.train_loss for r in hist]
     require(all(b < a for a, b in zip(losses, losses[1:])),
             f"train_vmap loss did not decrease over the rounds: {losses}")
-    return launches
+    return launches, {"history": hist, "launches": launches, "wall_s": wall,
+                      "trained_tok_per_s": tokens / wall,
+                      "peak_mem_gb": peak}
 
 
 #: the lm_train phase's job: the causal-LM driver's call at full width and
@@ -2625,7 +2646,305 @@ def phase_train_faults(torch, fa_ops, tl_ops, get_config, dev):
             and finite_states(torch, nan_out),
             f"the NaN round rejected {nan_rec.rejected}, loss "
             f"{nan_rec.train_loss}; it must reject and stay finite")
-    del runs, nan_out
+    return vmap_h
+
+
+# ---------------------------------------------------------------------------
+# train_scan / lm_scan: the scan engine
+# ---------------------------------------------------------------------------
+
+#: the train_scan kill-and-resume and sync-count job: the train job at
+#: participation 0.5 with the int8 uplink and the norm gate, on the scan
+#: engine (4 rounds in chunks of 2, killed after 2 and resumed)
+SCAN_RESUME = dict(participation=0.5, uplink_codec="int8", admission="norm",
+                   engine="scan", chunk_rounds=2)
+#: the RoundRecord fields that are times (all the others must repeat)
+TIMES = ("wall_s", "host_s", "device_s")
+
+
+def same_records(what: str, hist, ref_hist) -> None:
+    """Every field of every round but the times, bitwise."""
+    require(len(hist) == len(ref_hist), f"{what}: {len(hist)} rounds vs "
+            f"{len(ref_hist)}")
+    for a, b in zip(hist, ref_hist):
+        fa = {k: v for k, v in vars(a).items() if k not in TIMES}
+        fb = {k: v for k, v in vars(b).items() if k not in TIMES}
+        require(fa == fb, f"{what} round {a.round}: {fa} != {fb}")
+
+
+def same_tensors(torch, a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def sync_sites(torch, fn):
+    """The synchronizing CUDA calls ``fn()`` makes, from the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``, counted by the Python line
+    that made each (a ``collections.Counter``)."""
+    import collections
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                               for w in caught
+                               if "synchroniz" in str(w.message))
+
+
+def scan_times(hist) -> dict:
+    """Per-round wall, host and device seconds of a scan run."""
+    return {k: [getattr(r, k) for r in hist] for k in TIMES}
+
+
+def phase_train_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_run,
+                     storm_hist):
+    """``run_federated`` with ``engine="scan"`` on fed-100m at full width
+    and depth: (a) the train_vmap job in chunks of 2 (an odd tail), held
+    to the eager vmap run (``vmap_run``): the same ledgers, loss within
+    1e-3 + 1e-3·|loss|, accuracies within 0.05, exactly its launches, all
+    on the 16-byte / SIMT routes; (b) the train_faults storm on scan: the
+    vmap run's failed / rejected lists and ledgers (``storm_hist``), all
+    finite; (c) 4 rounds at participation 0.5 with int8 and the norm gate,
+    killed after 2 (the checkpoint verifies) and resumed: history and
+    states bitwise the uninterrupted run's; (d) the same job at 2 rounds
+    in one chunk and at 4 in one chunk make the same number of
+    synchronizing calls."""
+    import numpy as np
+
+    from repro_torch import checkpoint
+
+    cfg = get_config("fed-100m")
+    job = TRAIN
+    layers = cfg.n_layers
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()                   # counts of the main path only
+    tl_ops.reset_launches()
+    out, wall = train_job(torch, cfg, dev, "flash", job, "vmap",
+                          engine="scan", chunk_rounds=2)
+    launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
+    flash_routes, routes = dict(fa_ops.ROUTES), dict(tl_ops.ROUTES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["history"]
+    steps = len(hist) * job["local_steps"]
+    tokens = (sum(len(r.sampled) for r in hist) * job["local_steps"]
+              * job["batch"] * job["seq"])
+    del out
+
+    fa_ops.reset_launches()
+    tl_ops.reset_launches()
+    storm, storm_wall = train_job(torch, cfg, dev, "flash", TRAIN_FAULTS,
+                                  "vmap", **STORM, engine="scan",
+                                  chunk_rounds=2)
+    storm_launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
+    storm_finite = (all(np.isfinite(r.train_loss)
+                        and np.all(np.isfinite(r.accs))
+                        for r in storm["history"])
+                    and finite_states(torch, storm))
+
+    path = ROOT / "build" / "chip_smoke" / "train_scan.npz"
+    if path.exists():
+        path.unlink()
+    four, two = dict(job, rounds=4), dict(job, rounds=2)
+    full, full_wall = train_job(torch, cfg, dev, "flash", four, "vmap",
+                                **SCAN_RESUME)
+    killed, _ = train_job(torch, cfg, dev, "flash", two, "vmap",
+                          **SCAN_RESUME, checkpoint_path=str(path))
+    checkpoint.verify(str(path))
+    meta = checkpoint.metadata(str(path))
+    resumed, _ = train_job(torch, cfg, dev, "flash", four, "vmap",
+                           **SCAN_RESUME, checkpoint_path=str(path),
+                           resume=True)
+    states_equal = all(same_tensors(torch, a, b) for a, b in
+                       zip(resumed["states"], full["states"]))
+
+    def one_chunk(rounds: int):
+        return lambda: train_job(torch, cfg, dev, "flash",
+                                 dict(job, rounds=rounds), "vmap",
+                                 **dict(SCAN_RESUME, chunk_rounds=rounds))
+    # a warm-up job first: what the first run of a configuration syncs
+    # once (a first allocation of a size, a lazy initialization) is no
+    # round's (its extra sites are printed)
+    warm = sync_sites(torch, one_chunk(2))
+    sites = {rounds: sync_sites(torch, one_chunk(rounds))
+             for rounds in (2, 4)}
+    syncs = {f"{rounds} rounds, one chunk": sum(c.values())
+             for rounds, c in sites.items()}
+    eager = {k: v for k, v in SCAN_RESUME.items()
+             if k not in ("engine", "chunk_rounds")}
+    eager_syncs = sum(sync_sites(torch, lambda: train_job(
+        torch, cfg, dev, "flash", dict(job, rounds=2), "vmap",
+        **eager)).values())
+
+    emit({"phase": "train_scan", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "layers": layers, "method": "celora", "attn_impl": "flash",
+          "engine": "scan", "chunk_rounds": 2, **job,
+          "rounds_detail": [{"round": r.round, "train_loss": r.train_loss,
+                             "mean_acc": r.mean_acc, "wall_s": r.wall_s,
+                             "host_s": r.host_s, "device_s": r.device_s,
+                             "uplink_bytes": r.uplink_bytes,
+                             "downlink_bytes": r.downlink_bytes}
+                            for r in hist],
+          "wall_s": wall, "trained_tokens": tokens,
+          "trained_tok_per_s": tokens / wall, "peak_mem_gb": peak,
+          "launches": launches, "routes": routes,
+          "flash_routes": flash_routes,
+          "vmap": {"wall_s": vmap_run["wall_s"],
+                   "round_wall_s": [r.wall_s for r in vmap_run["history"]],
+                   "trained_tok_per_s": vmap_run["trained_tok_per_s"],
+                   "peak_mem_gb": vmap_run["peak_mem_gb"],
+                   "train_loss": [r.train_loss
+                                  for r in vmap_run["history"]]},
+          "storm": {**STORM, "wall_s": storm_wall, "launches": storm_launches,
+                    "failed": [r.failed for r in storm["history"]],
+                    "rejected": [r.rejected for r in storm["history"]],
+                    "train_loss": [r.train_loss for r in storm["history"]],
+                    "finite": storm_finite},
+          "resume": {**SCAN_RESUME, "rounds": 4, "killed_after": 2,
+                     "wall_s": full_wall, **scan_times(full["history"]),
+                     "train_loss": [r.train_loss for r in full["history"]],
+                     "rejected": [r.rejected for r in full["history"]],
+                     "checkpoint_meta": meta, "states_equal": states_equal},
+          "syncs": syncs, "sync_sites": dict(sites[4]),
+          "warmup_syncs": sum(warm.values()),
+          "warmup_extra_sites": dict(warm - sites[2]),
+          "eager_vmap_syncs_2_rounds": eager_syncs,
+          "phase_s": time.perf_counter() - t_phase})
+    require(launches == vmap_run["launches"],
+            f"train_scan launches {launches} != the eager vmap run's "
+            f"{vmap_run['launches']}")
+    require(routes == {"fwd_wgmma": 0, "fwd_simt": 0, "fwd_grouped_wgmma": 0,
+                       "fwd_grouped_simt": launches["tri_lora_fwd_grouped"]},
+            f"train_scan forward routes {routes}: every f32 grouped forward "
+            f"takes the SIMT route")
+    require(flash_routes == {"fwd_vec": launches["flash_fwd"],
+                             "fwd_scalar": 0, "bwd_vec": 2 * layers * steps,
+                             "bwd_scalar": 0},
+            f"train_scan flash routes {flash_routes}: every launch should "
+            f"take the 16-byte route")
+    same_run("train_scan vs train_vmap", hist, vmap_run["history"])
+    require(storm_launches == fed_launches(cfg, storm["history"],
+                                           TRAIN_FAULTS, "vmap"),
+            f"train_scan storm launches {storm_launches}")
+    for a, b in zip(storm["history"], storm_hist):
+        require((a.failed, a.rejected, a.sampled, a.participants,
+                 a.uplink_bytes, a.downlink_bytes, a.uplink_elems)
+                == (b.failed, b.rejected, b.sampled, b.participants,
+                    b.uplink_bytes, b.downlink_bytes, b.uplink_elems),
+                f"train_scan storm round {a.round}: failed/rejected "
+                f"{a.failed}/{a.rejected} or ledger differ from the vmap "
+                f"run's {b.failed}/{b.rejected}")
+    require(storm_finite, "train_scan storm: a loss, accuracy or state is "
+            "not finite")
+    require(meta.get("rounds_done") == 2 and meta.get("engine") == "scan",
+            f"train_scan checkpoint metadata {meta}")
+    same_records("train_scan resumed vs uninterrupted", resumed["history"],
+                 full["history"])
+    same_records("train_scan killed vs uninterrupted", killed["history"],
+                 full["history"][:2])
+    require(states_equal, "train_scan: the resumed states are not bitwise "
+            "the uninterrupted run's")
+    require(len(set(syncs.values())) == 1,
+            f"train_scan host syncs {syncs} (sites {sites}): the rounds "
+            f"inside a chunk must add none")
+
+
+#: the lm_scan job: lm_train's job on the scan engine, 4 rounds in chunks
+#: of 2 (killed after 2 and resumed)
+LM_SCAN = dict(LM_TRAIN, rounds=4, client_parallelism="vmap", engine="scan",
+               chunk_rounds=2)
+
+
+def phase_lm_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_hist):
+    """``launch.train.run`` with ``engine="scan"`` on fed-100m at full width
+    and depth: exact grouped launches, lm_train's byte ledger, round 0's
+    loss within 1e-3 + 1e-3·|loss| of the eager vmap run's (``vmap_hist``,
+    see LM_TRAIN), a falling loss; killed after 2 rounds (the state file
+    verifies) and resumed to 4, bitwise the uninterrupted run."""
+    from repro_torch import checkpoint
+    from repro_torch.launch import train
+
+    job = LM_SCAN
+    cfg = get_config(job["arch"])
+    t_phase = time.perf_counter()
+    path = ROOT / "build" / "chip_smoke" / "lm_scan.npz"
+    if path.exists():
+        path.unlink()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()                   # counts of the main path only
+    tl_ops.reset_launches()
+    t0 = time.perf_counter()
+    full = train.run(**job, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = full["history"]
+    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    steps = len(hist) * job["local_steps"]
+    expected = {"flash_fwd": layers * steps, "flash_dq": layers * steps,
+                "flash_dkv": layers * steps, "tri_lora_fwd": 0,
+                "tri_lora_dx": 0, "tri_lora_dw": 0,
+                "tri_lora_fwd_grouped": proj * steps,
+                "tri_lora_dx_grouped": (proj - 3) * steps}
+    tokens = (sum(len(r["participants"]) for r in hist) * job["local_steps"]
+              * job["batch"] * job["seq"])
+    killed = train.run(**dict(job, rounds=2), ckpt=str(path), verbose=False,
+                       device=dev)
+    checkpoint.verify(str(path))
+    meta = checkpoint.metadata(str(path))
+    resumed = train.run(**job, ckpt=str(path), resume=True, verbose=False,
+                        device=dev)
+    adapters_equal = all(same_tensors(torch, a, b) for a, b in
+                         zip(resumed["adapters"], full["adapters"]))
+    vmap_tokens = (sum(len(r["participants"]) for r in vmap_hist)
+                   * job["local_steps"] * job["batch"] * job["seq"])
+    emit({"phase": "lm_scan", **job, "layers": layers,
+          "d_model": cfg.d_model, "rounds_detail": hist, "wall_s": wall,
+          "trained_tokens": tokens, "trained_tok_per_s": tokens / wall,
+          "peak_mem_gb": peak, "launches": launches,
+          "expected_launches": expected, "checkpoint_meta": meta,
+          "adapters_equal": adapters_equal,
+          "round_tok_per_s": tokens / sum(r["wall_s"] for r in hist),
+          "vmap": {"round_wall_s": [r["wall_s"] for r in vmap_hist],
+                   "round_tok_per_s": vmap_tokens / sum(
+                       r["wall_s"] for r in vmap_hist),
+                   "loss": [r["loss"] for r in vmap_hist]},
+          "phase_s": time.perf_counter() - t_phase})
+    require(launches == expected,
+            f"lm_scan launches {launches} != expected {expected}")
+    require(all(r["uplink_bytes"] == 8448 and r["downlink_bytes"] == 32768
+                for r in hist),
+            f"lm_scan bytes {[(r['uplink_bytes'], r['downlink_bytes']) for r in hist]}")
+    for a, b in zip(hist, vmap_hist):
+        require((a["participants"], a["uplink_bytes"], a["downlink_bytes"],
+                 a["uplink_floats"]) == (b["participants"], b["uplink_bytes"],
+                                         b["downlink_bytes"],
+                                         b["uplink_floats"]),
+                f"lm_scan round {a['round']}: the ledgers differ from the "
+                f"eager vmap run's")
+    a, b = hist[0]["loss"], vmap_hist[0]["loss"]
+    require(abs(a - b) <= 1e-3 + 1e-3 * abs(b),
+            f"lm_scan round 0: loss {a} vs the eager vmap run's {b}")
+    require(hist[-1]["loss"] < hist[0]["loss"],
+            f"lm_scan loss did not fall: {[r['loss'] for r in hist]}")
+    require(meta.get("rounds_done") == 2 and meta.get("engine") == "scan",
+            f"lm_scan checkpoint metadata {meta}")
+    for what, run, ref in (("resumed", resumed["history"], hist),
+                           ("killed", killed["history"], hist[:2])):
+        require([{k: v for k, v in r.items() if k not in TIMES} for r in run]
+                == [{k: v for k, v in r.items() if k not in TIMES}
+                    for r in ref],
+                f"lm_scan {what} history is not bitwise the uninterrupted "
+                f"run's")
+    require(adapters_equal, "lm_scan: the resumed adapters are not bitwise "
+            "the uninterrupted run's")
 
 
 # ---------------------------------------------------------------------------
@@ -3196,20 +3515,27 @@ def main() -> int:
                                                get_config, dev)
         launches.update(train_launches)
         # the vectorized clients: the grouped tri-LoRA kernels
-        vmap = phase_train_vmap(torch, fa_ops, tl_ops, get_config, dev,
-                                loop_out)
+        vmap, vmap_run = phase_train_vmap(torch, fa_ops, tl_ops, get_config,
+                                          dev, loop_out)
         launches.update(tri_lora_fwd_grouped=vmap["tri_lora_fwd_grouped"],
                         tri_lora_dx_grouped=vmap["tri_lora_dx_grouped"])
         del loop_out
         # fault injection and admission control on both paths
-        phase_train_faults(torch, fa_ops, tl_ops, get_config, dev)
+        storm_hist = phase_train_faults(torch, fa_ops, tl_ops, get_config,
+                                        dev)
+        # the scan engine: the same jobs in chunks of rounds, kill and
+        # resume, and the host syncs of a chunk
+        phase_train_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_run,
+                         storm_hist)
+        del vmap_run, storm_hist
         # the LM driver (forward and dx, then vectorized) and the backbone
         # warm-up (dW)
         lm, lm_hist = phase_lm_train(torch, fa_ops, tl_ops, get_config, dev)
         launches.update(tri_lora_fwd=lm["tri_lora_fwd"],
                         tri_lora_dx=lm["tri_lora_dx"])
-        phase_lm_train(torch, fa_ops, tl_ops, get_config, dev, "vmap",
-                       lm_hist)
+        _, lm_vmap_hist = phase_lm_train(torch, fa_ops, tl_ops, get_config,
+                                         dev, "vmap", lm_hist)
+        phase_lm_scan(torch, fa_ops, tl_ops, get_config, dev, lm_vmap_hist)
         launches["tri_lora_dw"] = phase_pretrain(torch, tl_ops, get_config,
                                                  dev)["tri_lora_dw"]
         phase_card_vs_cpu(torch, tl_ops, model, get_config, dev)

@@ -90,11 +90,16 @@ def payload_stats(served: Any) -> tuple[torch.Tensor, torch.Tensor]:
 def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Median of ``x[mask]`` without dynamic shapes: sort with +inf
     padding, average the two middle order statistics of the masked count.
-    0 when the mask is empty."""
+    0 when the mask is empty.  The order statistics are gathered by a
+    one-element index tensor: indexing with a 0-dim tensor would read it
+    back to the host (a sync per call on a card)."""
     s = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf"))))[0]
     n = mask.sum()
-    lo = s[torch.clamp_min(torch.div(n - 1, 2, rounding_mode="floor"), 0)]
-    hi = s[torch.clamp_min(torch.div(n, 2, rounding_mode="floor"), 0)]
+
+    def at(i):
+        return torch.index_select(s, 0, torch.clamp_min(i, 0).reshape(1))[0]
+    lo = at(torch.div(n - 1, 2, rounding_mode="floor"))
+    hi = at(torch.div(n, 2, rounding_mode="floor"))
     return torch.where(n > 0, 0.5 * (lo + hi), torch.zeros_like(lo))
 
 

@@ -38,8 +38,11 @@ axis m): :func:`encode_stacked` quantizes every client's slice of a leaf
 at once, each slice as the loop path quantizes that client's leaf, with
 client i's uniforms drawn from its own generator
 (:func:`client_generator` (seed, round, i)), so loop and vectorized runs
-encode bit for bit alike.  :func:`wire_struct` gives the stacked wire tree
-as meta tensors, its bytes reckoned from shapes alone.
+encode bit for bit alike.  :func:`stacked_uniforms` draws those uniforms
+ahead of the round (the scan engine draws a chunk's on its producer thread
+and hands them to :func:`encode_stacked` ready, on the device).
+:func:`wire_struct` gives the stacked wire tree as meta tensors, its bytes
+reckoned from shapes alone.
 """
 from __future__ import annotations
 
@@ -252,11 +255,12 @@ def encode_client(codec: Codec, payload: Any, ef: Any, u: Uniforms
     return enc, dec, ef_new
 
 
-def _stacked_uniforms(codec: Codec, tree: Any, us: Sequence[Uniforms]
-                      ) -> list:
-    """Per leaf of the sorted stacked ``tree`` (leaves (m, …)), the (m,
-    n_tiles, tile) uniforms: client i's row drawn from ``us[i]`` exactly as
-    :func:`encode` draws them for client i alone."""
+def stacked_uniforms(codec: Codec, tree: Any, us: Sequence[Uniforms]
+                     ) -> list:
+    """Per leaf of the stacked ``tree`` (leaves (m, …), dict keys sorted),
+    the (m, n_tiles, tile) f32 uniforms: client i's row drawn from
+    ``us[i]`` exactly as :func:`encode` draws them for client i alone.
+    Only the leaves' shapes are read, so ``tree`` may hold meta tensors."""
     m = int(tree_leaves(tree)[0].shape[0])
     if len(us) != m:
         raise ValueError(f"{len(us)} uniform sources for {m} clients")
@@ -266,13 +270,18 @@ def _stacked_uniforms(codec: Codec, tree: Any, us: Sequence[Uniforms]
 
 
 def encode_stacked(codec: Codec, payload: Any, ef: Any,
-                   us: Sequence[Uniforms]) -> tuple[dict, Any, Any]:
+                   us: Optional[Sequence[Uniforms]] = None, *,
+                   uniforms: Optional[Sequence[torch.Tensor]] = None
+                   ) -> tuple[dict, Any, Any]:
     """Stacked form of :func:`encode_client`: ``payload`` and ``ef`` carry a
     leading client axis (m, …) and ``us`` holds client i's uniform source
-    at i.  Returns the stacked (wire, served, e'), each client's slice bit
-    for bit what :func:`encode_client` gives that client."""
+    at i — or ``uniforms`` holds them drawn already, as
+    :func:`stacked_uniforms` gives them.  Returns the stacked (wire,
+    served, e'), each client's slice bit for bit what :func:`encode_client`
+    gives that client."""
     v = tree_map(lambda p, e: p.float() + e, payload, ef)
-    enc = _encode(codec, v, lambda t: _stacked_uniforms(codec, t, us), 1)
+    enc = _encode(codec, v, (lambda t: stacked_uniforms(codec, t, us))
+                  if uniforms is None else (lambda t: list(uniforms)), 1)
     dec = decode(codec, enc, v, lead=1)
     ef_new = tree_map(lambda a, b: a - b, v, dec)
     return enc, dec, ef_new

@@ -42,8 +42,13 @@ are zeroed before aggregation.  Bytes are priced per sent upload.  Every
 such op is gated on ``robust`` (a nonzero rate or ``admission="norm"``),
 so the fault-free config runs the fault-free code unchanged.
 
+The scan engine (``engine="scan"``, :mod:`.fed_engine`) runs the same
+round on the stacked clients in chunks of rounds, with one host sync per
+chunk, a checkpoint at every chunk boundary and ``resume``;
+``run_federated`` hands it the shared setup below.
+
 The options whose machinery is not ported yet — ``"shard"`` clients, the
-scan and async engines, host or sharded client stores — raise
+async engine, host or sharded client stores — raise
 ``NotImplementedError`` naming their ROADMAP item; nothing falls back to
 another path.
 
@@ -267,13 +272,12 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
                          f"expected one of {sampling.SAMPLERS}")
     if fed.engine not in ENGINES:
         raise ValueError(f"engine={fed.engine!r}; expected one of {ENGINES}")
-    if fed.engine != "eager":
-        raise _not_ported(f"engine={fed.engine!r}",
-                          "the scan engine" if fed.engine == "scan"
-                          else "core/async_engine.py", "engine='eager'")
+    if fed.engine == "async":
+        raise _not_ported("engine='async'", "core/async_engine.py",
+                          "engine='eager' or 'scan'")
     if fed.chunk_rounds < 1:
         raise ValueError(f"chunk_rounds must be >= 1; got {fed.chunk_rounds}")
-    if fed.checkpoint_path or fed.resume:
+    if fed.engine != "scan" and (fed.checkpoint_path or fed.resume):
         raise ValueError("checkpoint_path/resume require engine='scan' or "
                          "'async' (the eager engine does not checkpoint)")
     if fed.eval_every < 1:
@@ -302,7 +306,8 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
                          f"got {fed.dispatch_timeout}")
     if fed.dispatch_timeout > 0:
         raise ValueError("dispatch_timeout is the async engine's upload "
-                         "timeout; engine='eager' has no virtual clock")
+                         f"timeout; engine={fed.engine!r} has no virtual "
+                         "clock to time out on")
     if fed.retry_backoff <= 0:
         raise ValueError(f"retry_backoff must be > 0; got {fed.retry_backoff}")
     if fed.retry_cap < 0:
@@ -396,6 +401,36 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
             losses.append(loss.detach())
         return trainable, torch.stack(losses).mean()
 
+    vopt = adamw(lr=fed.lr, stacked=True)
+
+    def local_fit_stacked(trainable: dict, w_ref: Any, toks: torch.Tensor,
+                          labs: torch.Tensor):
+        """All m clients' ``local_fit`` as one batch: toks (m, steps, B,
+        T).  The scalar differentiated is the sum of the m per-client
+        losses, so each client's leaves get exactly their own gradient;
+        returns each client's mean loss (m,)."""
+        mask = strategy.grad_mask(trainable)
+        opt_state = vopt.init(trainable)
+        losses = []
+        for step in range(toks.shape[1]):
+            tr = tree_map(lambda t, on: t.detach().requires_grad_(on),
+                          trainable, mask)
+            loss, _ = task.loss({"adapter": strategy.effective_adapter(tr),
+                                 "head": tr["head"]}, toks[:, step],
+                                labs[:, step])
+            if strategy.prox:
+                loss = loss + strategy.local_penalty(tr, {"w": w_ref},
+                                                     stacked=True)
+            wrt = [t for t in tree_leaves(tr) if t.requires_grad]
+            grads = dict(zip(map(id, wrt), torch.autograd.grad(
+                loss.sum(), wrt)))
+            upd, opt_state = vopt.update(
+                tree_map(lambda t: grads.get(id(t)), tr), opt_state,
+                trainable)
+            trainable = apply_updates(trainable, upd)
+            losses.append(loss.detach())
+        return trainable, torch.stack(losses).mean(0)
+
     pad_to = max(-(-len(d["labels"]) // 32) * 32 for d in client_test)
     seq_lens = {d["tokens"].shape[1] for d in client_test}
     if len(seq_lens) != 1:
@@ -413,16 +448,21 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
     test_labs = torch.as_tensor(lb, device=dev)
 
     @torch.no_grad()
-    def eval_acc(trainable: dict, toks: torch.Tensor,
-                 labs: torch.Tensor) -> list:
-        """Accuracy over padded test sets (label -1 = pad): one client's
-        (pad, T), or all m clients' stacked (m, pad, T) in one call."""
+    def eval_stacked(trainable: dict, toks: torch.Tensor,
+                     labs: torch.Tensor) -> torch.Tensor:
+        """Accuracy over padded test sets (label -1 = pad), on the device:
+        one client's (pad, T) → (), or all m clients' stacked (m, pad, T)
+        in one call → (m,)."""
         logits = task.logits(strategy.effective_adapter(trainable),
                              trainable["head"], toks)
         w = (labs >= 0).float()
         correct = (torch.argmax(logits, -1) == labs).float() * w
-        return (correct.sum(-1) / w.sum(-1).clamp_min(1.0)).reshape(
-            -1).tolist()
+        return correct.sum(-1) / w.sum(-1).clamp_min(1.0)
+
+    def eval_acc(trainable: dict, toks: torch.Tensor,
+                 labs: torch.Tensor) -> list:
+        """:func:`eval_stacked` read back as a list of floats."""
+        return eval_stacked(trainable, toks, labs).reshape(-1).tolist()
 
     s_data = None
     if strategy.aggregate == "personalized" and fed.use_data_sim:
@@ -435,6 +475,20 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
                 fed.cka_probes, task.cfg.lora_rank)
         cka_probes = torch.as_tensor(cka_probes, dtype=torch.float32,
                                      device=dev)
+
+    # ---- engine dispatch: the scan engine runs the same round in chunks
+    # of rounds (repro_torch.core.fed_engine); the eager paths below are
+    # the reference it is held to
+    if fed.engine == "scan":
+        from repro_torch.core import fed_engine
+        return fed_engine.run_scan(
+            task=task, fed=fed, strategy=strategy, states=states,
+            loaders=loaders, sample_counts=sample_counts, plans=plans,
+            local_fit=local_fit_stacked, eval_acc=eval_stacked,
+            s_data=s_data, test_toks=test_toks, test_labs=test_labs,
+            cka_probes=cka_probes, sr_uniforms=sr_uniforms, device=dev,
+            verbose=verbose)
+
     s_model_prev: list = [None]
 
     def model_sim(cs: torch.Tensor, plan) -> torch.Tensor:
@@ -654,35 +708,6 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
         pstore = client_store.make_store(fed.client_store, states,
                                          parallelism=fed.client_parallelism)
         stacked = pstore.resident()
-        vopt = adamw(lr=fed.lr, stacked=True)
-
-        def local_fit_stacked(trainable: dict, w_ref: Any,
-                              toks: torch.Tensor, labs: torch.Tensor):
-            """All m clients' ``local_fit`` as one batch: toks (m, steps,
-            B, T).  The scalar differentiated is the sum of the m
-            per-client losses, so each client's leaves get exactly their
-            own gradient; returns each client's mean loss (m,)."""
-            mask = strategy.grad_mask(trainable)
-            opt_state = vopt.init(trainable)
-            losses = []
-            for step in range(toks.shape[1]):
-                tr = tree_map(lambda t, on: t.detach().requires_grad_(on),
-                              trainable, mask)
-                loss, _ = task.loss(
-                    {"adapter": strategy.effective_adapter(tr),
-                     "head": tr["head"]}, toks[:, step], labs[:, step])
-                if strategy.prox:
-                    loss = loss + strategy.local_penalty(tr, {"w": w_ref},
-                                                         stacked=True)
-                wrt = [t for t in tree_leaves(tr) if t.requires_grad]
-                grads = dict(zip(map(id, wrt), torch.autograd.grad(
-                    loss.sum(), wrt)))
-                upd, opt_state = vopt.update(
-                    tree_map(lambda t: grads.get(id(t)), tr), opt_state,
-                    trainable)
-                trainable = apply_updates(trainable, upd)
-                losses.append(loss.detach())
-            return trainable, torch.stack(losses).mean(0)
 
         for rnd in range(fed.rounds):
             plan = plans[rnd]

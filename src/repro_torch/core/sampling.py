@@ -19,8 +19,9 @@ round-keyed RNG stream independent of the sampler's), capped so at least
 one client always completes.
 
 All randomness is derived from ``np.random.default_rng((seed, round, tag))``.
-The async engine's ``LatencyModel`` and the scan engine's ``PlanStack``
-come with those engines.
+:func:`stack_plans` packs a run's plans into the scan engine's
+:class:`PlanStack`; the async engine's ``LatencyModel`` comes with that
+engine.
 """
 from __future__ import annotations
 
@@ -116,3 +117,36 @@ def full_plan(m: int, rnd: int) -> ParticipationPlan:
     fast path."""
     ids = np.arange(m)
     return ParticipationPlan(rnd, ids, np.empty(0, ids.dtype), ids)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanStack:
+    """All rounds' participation plans as arrays — the input layout of the
+    scan engine (:mod:`.fed_engine`), which reads one row per round instead
+    of one :class:`ParticipationPlan` per round.
+
+    Shapes are static across rounds by construction: with participation and
+    straggler fraction fixed, every round samples exactly ``k`` clients and
+    drops exactly ``floor(frac·k)`` of them, so ``sampled_ids`` packs to a
+    dense (rounds, k) matrix with no padding.
+    """
+    sampled_mask: np.ndarray      # (rounds, m) bool — trained this round
+    participant_mask: np.ndarray  # (rounds, m) bool — uplinked + installed
+    sampled_ids: np.ndarray       # (rounds, k) int32, each row sorted
+    n_participants: np.ndarray    # (rounds,) int64
+
+
+def stack_plans(plans: Sequence[ParticipationPlan], m: int) -> PlanStack:
+    """Stack per-round plans into the :class:`PlanStack` the scan engine
+    reads row by row.  Requires a round-invariant sampled count (true for
+    any fixed ``FedConfig``)."""
+    ks = {int(p.sampled.size) for p in plans}
+    if len(ks) != 1:
+        raise ValueError(f"stack_plans needs a round-invariant sampled "
+                         f"count; got sizes {sorted(ks)}")
+    return PlanStack(
+        sampled_mask=np.stack([p.mask(m, which="sampled") for p in plans]),
+        participant_mask=np.stack([p.mask(m) for p in plans]),
+        sampled_ids=np.stack([p.sampled.astype(np.int32) for p in plans]),
+        n_participants=np.asarray([p.n_participants for p in plans],
+                                  np.int64))

@@ -28,9 +28,23 @@ all clients as one batch: their adapters stacked (leaves (m, …)), their
 batches folded into one of m·B sequences that each apply their own
 client's adapter (the grouped tri-LoRA kernels on the card), the SUM of
 the m per-client losses differentiated, and the server steps on the
-stacked payload; ``"loop"`` trains the clients one after another.  The
-scan and async engines, the host and sharded client stores and ``resume``
-are not ported and raise ``NotImplementedError``.
+stacked payload; ``"loop"`` trains the clients one after another.
+
+``engine="scan"`` (on vmap) runs the same rounds in chunks of
+``chunk_rounds`` with one host sync per chunk (as
+:mod:`repro_torch.core.fed_engine` does for ``run_federated``): with
+``ckpt`` it writes the stacked adapters, the error-feedback residual and
+the history to that file at every chunk boundary (the JAX package's tree
+keys and metadata), and ``resume`` restores it, fast-forwards the data
+streams and continues, reproducing the uninterrupted run:
+
+    python -m repro_torch.launch.train --arch fed-100m --reduced \
+        --clients 2 --rounds 4 --engine scan --chunk-rounds 2 \
+        --ckpt /tmp/lm.npz --device cpu
+    python -m repro_torch.launch.train ... --rounds 8 --resume
+
+The async engine and the host and sharded client stores are not ported
+and raise ``NotImplementedError``.
 
 The random draws the JAX package takes from ``jax.random`` — the backbone
 (``key(seed)``), client ``i``'s adapter (``key(seed + i)``), the CKA probes
@@ -41,15 +55,19 @@ from generators seeded the same way, or ready-made from the caller
 from __future__ import annotations
 
 import argparse
+import os
 import time
+import warnings
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import save
+from repro_torch.checkpoint import (check_fingerprint, metadata, restore,
+                                    save)
 from repro_torch.core import (aggregation, client_batch, comm, compress,
                               sampling, tri_lora)
+from repro_torch.core.fed_engine import chunk_schedule, meta_like
 from repro_torch.core.similarity import cka
 from repro_torch.data import synthetic
 from repro_torch.device import check_on, resolve_device
@@ -65,32 +83,42 @@ CKA_PROBES = 32
 def _not_ported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{option} is not ported yet (ROADMAP, Queue 1: {item}); the "
-        f"port's LM driver runs the eager engine's 'loop' and 'vmap' paths "
-        f"on the device store")
+        f"port's LM driver runs the eager engine ('loop' and 'vmap') and "
+        f"the scan engine on the device store")
 
 
 def _validate(clients: int, participation: float, straggler_frac: float,
               method: str, client_parallelism: str, engine: str,
               client_store: str, resume: bool) -> None:
+    """The JAX package's checks, in its order; the options not ported
+    raise ``NotImplementedError``."""
     if client_parallelism not in ("loop", "vmap"):
         raise ValueError(f"client_parallelism={client_parallelism!r}; "
                          f"expected 'loop' or 'vmap'")
     if engine not in ("eager", "scan", "async"):
         raise ValueError(f"engine={engine!r}; "
                          f"expected 'eager', 'scan', or 'async'")
-    if engine != "eager":
-        raise _not_ported(f"engine={engine!r}",
-                          "'the scan engine'" if engine == "scan"
-                          else "'core/async_engine.py'")
+    if engine in ("scan", "async") and client_parallelism != "vmap":
+        raise ValueError(f"engine={engine!r} runs on the stacked client "
+                         f"axis; use client_parallelism='vmap'")
+    if engine == "async":
+        raise _not_ported("engine='async'", "'core/async_engine.py'")
     if client_store not in ("device", "sharded", "host"):
         raise ValueError(f"client_store={client_store!r}; expected one of "
                          f"('device', 'sharded', 'host')")
+    if client_store != "device" and client_parallelism != "vmap":
+        raise ValueError(f"client_store={client_store!r} requires "
+                         f"client_parallelism='vmap'")
+    if client_store == "host" and engine != "eager":
+        raise ValueError("the LM driver's host-backed store runs eager "
+                         "rounds only; use engine='eager' or "
+                         "client_store='device'/'sharded'")
     if client_store != "device":
         raise _not_ported(f"client_store={client_store!r}",
                           "'host / sharded client stores'")
-    if resume:
-        raise _not_ported("resume", "'the scan engine' (its resumable "
-                          "state)")
+    if resume and engine != "scan":
+        raise ValueError("resume requires engine='scan' (the eager driver "
+                         "does not write resumable state)")
     if method not in METHODS:
         raise ValueError(f"method={method!r}; expected one of {METHODS}")
     sampling.n_sampled(clients, participation)       # validates
@@ -214,10 +242,12 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
         cka_probes: Optional[torch.Tensor] = None,
         sr_uniforms: Optional[Callable[[int, int],
                                        compress.Uniforms]] = None) -> dict:
-    """The JAX package's ``run`` with its signature (the scan and async
-    engines' knobs are accepted and unused, as they are there on the eager
-    path), on ``device``.  Returns {"history", "adapters", "cfg",
-    "base"}."""
+    """The JAX package's ``run`` with its signature (the async engine's
+    knobs are accepted and unused, as they are there on the other engines),
+    on ``device``.  With ``engine="scan"``, ``ckpt`` names the state file
+    written at every chunk boundary (``resume`` continues from it), and
+    the history rows carry ``host_s`` / ``device_s``.  Returns {"history",
+    "adapters", "cfg", "base"}."""
     _validate(clients, participation, straggler_frac, method,
               client_parallelism, engine, client_store, resume)
     codec = compress.get_codec(uplink_codec)
@@ -273,12 +303,13 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
         cka_probes = torch.as_tensor(cka_probes, dtype=torch.float32,
                                      device=dev)
 
-    def draw(i: int):
+    def draw_np(i: int):
         bs = [next(iters[i]) for _ in range(local_steps)]
-        return (torch.as_tensor(np.stack([b["tokens"] for b in bs]),
-                                device=dev),
-                torch.as_tensor(np.stack([b["labels"] for b in bs]),
-                                device=dev))
+        return (np.stack([b["tokens"] for b in bs]),
+                np.stack([b["labels"] for b in bs]))
+
+    def draw(i: int):
+        return tuple(torch.as_tensor(a, device=dev) for a in draw_np(i))
 
     # per-round participation plans, deterministic in the seed (weighted
     # sampling sees the equal per-client stream sizes)
@@ -288,6 +319,18 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
                                   sample_counts=stream_sizes)
               if partial else sampling.full_plan(clients, rnd))
              for rnd in range(rounds)]
+
+    if engine == "scan":
+        history, adapters = _run_scan_lm(
+            cfg=cfg, base=base, opt=opt, stacked=stacked, draw_np=draw_np,
+            plans=plans, method=method, clients=clients, rounds=rounds,
+            chunk_rounds=chunk_rounds, seed=seed, ckpt=ckpt, resume=resume,
+            verbose=verbose, codec=codec, compressed=compressed,
+            payload_of=payload_of, donate=scan_donate,
+            prefetch=scan_prefetch, client_store=client_store,
+            cka_probes=cka_probes, sr_uniforms=sr_uniforms, device=dev)
+        return {"history": history, "adapters": adapters, "cfg": cfg,
+                "base": base}
 
     history = []
     for rnd in range(rounds):
@@ -374,6 +417,168 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
             "base": base}
 
 
+def _run_scan_lm(*, cfg, base: dict, opt, stacked: dict, draw_np, plans,
+                 method: str, clients: int, rounds: int, chunk_rounds: int,
+                 seed: int, ckpt: Optional[str], resume: bool,
+                 verbose: bool, codec, compressed: bool, payload_of,
+                 donate: bool, prefetch: bool, client_store: str,
+                 cka_probes, sr_uniforms, device) -> tuple[list, list]:
+    """The LM rounds in chunks (the JAX package's ``_run_scan_lm``): every
+    client's local fit as one batch, the select, the uplink with the
+    residual ``ef`` in the carry, the server step, the masked install —
+    no read-back inside a chunk; the chunk's losses come back in one sync.
+    With ``ckpt`` the stacked adapters, ``ef`` and the history are saved
+    at every chunk boundary; ``resume`` restores them, draws past the
+    completed rounds and continues.  Returns (history, adapters)."""
+    dev = torch.device(device)
+    chunk = max(1, int(chunk_rounds))
+    pstack = sampling.stack_plans(plans, clients)
+    meta = meta_like(stacked)
+    payload_struct = (tri_lora.tree_payload(meta) if method == "celora"
+                      else meta if method == "fedavg" else None)
+    if payload_struct is None:
+        per_b, per_e, per_down_b = 0, 0, 0
+    elif compressed:
+        # the uplink priced on the ENCODED tree, the downlink on the raw
+        # payload (the server broadcasts full-precision aggregates)
+        per_b, per_e = comm.per_client_comm(
+            compress.wire_struct(codec, payload_struct, clients))
+        per_down_b, _ = comm.per_client_comm(payload_struct)
+    else:
+        per_b, per_e = comm.per_client_comm(payload_struct)
+        per_down_b = per_b
+    ef = compress.init_ef(payload_of(stacked)) if compressed else {}
+    ones = torch.ones((clients,), dtype=torch.float32, device=dev)
+    fingerprint = {"arch": cfg.name, "method": method, "clients": clients,
+                   "seed": seed, "uplink_codec": codec.name,
+                   "client_store": client_store, "attn_impl": cfg.attn_impl}
+
+    hist_loss: list = []
+    hist_wall: list = []
+    hist_host: list = []
+    hist_dev: list = []
+    start = 0
+    if resume and ckpt and not os.path.exists(ckpt):
+        warnings.warn(f"resume: no checkpoint at {ckpt!r} — starting from "
+                      f"round 0 (checkpoints will be written there)")
+    if resume and ckpt and os.path.exists(ckpt):
+        meta_ck = metadata(ckpt)
+        if "rounds_done" not in meta_ck:
+            raise ValueError(f"{ckpt!r} is not a scan-engine checkpoint "
+                             f"(no rounds_done in metadata)")
+        check_fingerprint(ckpt, meta_ck, fingerprint,
+                          defaults={"uplink_codec": "none",
+                                    "client_store": "device",
+                                    "attn_impl": "auto"})
+        start = int(meta_ck["rounds_done"])
+        if start > rounds:
+            raise ValueError(f"checkpoint has {start} completed rounds but "
+                             f"the run asks for only {rounds}")
+        tree = restore(ckpt, {"state": stacked, "ef": ef,
+                              "loss": np.zeros(start, np.float32),
+                              "wall": np.zeros(start, np.float32)})
+        stacked, ef = tree["state"], tree["ef"]
+        hist_loss = [float(v) for v in tree["loss"]]
+        hist_wall = [float(v) for v in tree["wall"]]
+        hist_host = [0.0] * start
+        hist_dev = [0.0] * start
+        for _ in range(start):          # fast-forward the data streams
+            for i in range(clients):
+                draw_np(i)
+        if verbose:
+            print(f"resumed {start} rounds from {ckpt}", flush=True)
+
+    def round_step(carry, toks, labs, smask, pmask, u):
+        stk, ef = carry
+        new, ls = local_fit_stacked(cfg, base, opt, stk, toks, labs)
+        stk = client_batch.select_clients(smask, new, stk)
+        if compressed:
+            _, served, ef_new = compress.encode_stacked(
+                codec, payload_of(stk), ef, uniforms=u)
+            ef = client_batch.select_clients(pmask, ef_new, ef)
+        else:
+            served = payload_of(stk)
+        if method == "celora":
+            s_model = cka.pairwise_model_similarity_stacked(served,
+                                                            cka_probes)
+            w = aggregation.personalized_weights(s_model, participants=pmask)
+            mixed = aggregation.aggregate_stacked(served, w)
+            stk = client_batch.select_clients(
+                pmask, tri_lora.tree_load_payload(stk, mixed), stk)
+        elif method == "fedavg":
+            g = aggregation.fedavg_stacked(served, ones, pmask)
+            stk = client_batch.select_clients(
+                pmask, client_batch.broadcast_to_clients(g, clients), stk)
+        sm = smask.to(ls.dtype)
+        loss = torch.sum(ls[:, -1] * sm) / torch.clamp_min(torch.sum(sm),
+                                                           1.0)
+        return (stk, ef), loss
+
+    next_round = [start]
+
+    def produce(n_rounds: int):
+        """A chunk's batches (n_rounds, m, steps, B, S), drawn round-major
+        then client-minor, and the codec's uniforms per payload leaf."""
+        r0 = next_round[0]
+        next_round[0] += n_rounds
+        drawn = [[draw_np(i) for i in range(clients)]
+                 for _ in range(n_rounds)]
+        toks, labs = (client_batch.host_tensor(np.stack(
+            [np.stack([d[k] for d in rr]) for rr in drawn]), dev)
+            for k in (0, 1))
+        u = None
+        if compressed and codec.qmax is not None:
+            per_round = [compress.stacked_uniforms(
+                codec, payload_struct,
+                [sr_uniforms(r, i) for i in range(clients)])
+                for r in range(r0, r0 + n_rounds)]
+            u = [client_batch.host_tensor(torch.stack(leaf), dev)
+                 for leaf in zip(*per_round)]
+        return toks, labs, u
+
+    def dispatch(carry, batches, c0, c1):
+        toks, labs, u = client_batch.to_device(batches, dev)
+        smask, pmask = client_batch.to_device(
+            [client_batch.host_tensor(a[c0:c1], dev)
+             for a in (pstack.sampled_mask, pstack.participant_mask)], dev)
+        losses = []
+        for j in range(c1 - c0):
+            carry, loss = round_step(carry, toks[j], labs[j], smask[j],
+                                     pmask[j], [l[j] for l in u] if u
+                                     else None)
+            losses.append(loss)
+        return carry, torch.stack(losses).cpu().numpy()  # the one sync
+
+    def on_chunk(carry, c0, c1, losses, host_s, device_s, wall_s):
+        hist_loss.extend(float(v) for v in losses)
+        hist_wall.extend([wall_s] * (c1 - c0))
+        hist_host.extend([host_s] * (c1 - c0))
+        hist_dev.extend([device_s] * (c1 - c0))
+        if ckpt:
+            save(ckpt, {"state": carry[0], "ef": carry[1],
+                        "loss": np.asarray(hist_loss, np.float32),
+                        "wall": np.asarray(hist_wall, np.float32)},
+                 metadata={"rounds_done": c1, "engine": "scan",
+                           **fingerprint})
+        if verbose:
+            print(f"rounds {c0:3d}–{c1 - 1:3d}  loss "
+                  f"{hist_loss[-1]:.4f}  ({wall_s:.1f}s/round)", flush=True)
+
+    carry = client_batch.drive_chunks(
+        (stacked, ef), chunk_schedule(start, rounds, chunk), produce,
+        dispatch, on_chunk, donate=donate, prefetch=prefetch)
+
+    history = [{"round": rnd, "loss": hist_loss[rnd],
+                "uplink_floats": per_e * plans[rnd].n_participants,
+                "uplink_bytes": per_b * plans[rnd].n_participants,
+                "downlink_bytes": per_down_b * plans[rnd].n_participants,
+                "participants": plans[rnd].participants.tolist(),
+                "wall_s": hist_wall[rnd],
+                "host_s": hist_host[rnd], "device_s": hist_dev[rnd]}
+               for rnd in range(rounds)]
+    return history, client_batch.unstack_states(carry[0])
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="fed-100m")
@@ -402,6 +607,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--client-parallelism", default="vmap",
                     choices=["loop", "vmap"],
                     help="clients one after another, or all as one batch")
+    ap.add_argument("--engine", default="eager",
+                    choices=["eager", "scan", "async"],
+                    help="scan: rounds in chunks, one host sync a chunk, "
+                         "checkpoint and resume (async is not ported)")
+    ap.add_argument("--chunk-rounds", type=int, default=8,
+                    help="scan engine: rounds per chunk")
+    ap.add_argument("--resume", action="store_true",
+                    help="scan engine: restore --ckpt and continue")
+    ap.add_argument("--no-donate", action="store_true",
+                    help="scan engine: keep each chunk's old carry")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="scan engine: draw each chunk inline")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = run(arch=args.arch, clients=args.clients, rounds=args.rounds,
@@ -411,7 +628,10 @@ def main(argv=None) -> dict:
               participation=args.participation, sampler=args.sampler,
               straggler_frac=args.straggler_frac,
               uplink_codec=args.uplink_codec, attn_impl=args.attn_impl,
-              client_parallelism=args.client_parallelism, device=args.device)
+              client_parallelism=args.client_parallelism,
+              engine=args.engine, chunk_rounds=args.chunk_rounds,
+              resume=args.resume, scan_donate=not args.no_donate,
+              scan_prefetch=not args.no_prefetch, device=args.device)
     first, last = out["history"][0]["loss"], out["history"][-1]["loss"]
     print(f"loss {first:.4f} -> {last:.4f} over {args.rounds} rounds")
     return out

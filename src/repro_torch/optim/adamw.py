@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.tree import tree_leaves, tree_map
@@ -46,8 +47,9 @@ def _g(g, p):
 
 
 def _f32(x: float) -> float:
-    """Round a Python float to float32, as the JAX package's f32 scalars."""
-    return torch.tensor(x, dtype=torch.float32).item()
+    """Round a Python float to float32, as the JAX package's f32 scalars
+    (on the host: no tensor op in the optimizer's step)."""
+    return float(np.float32(x))
 
 
 def adamw(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,

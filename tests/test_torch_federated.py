@@ -146,7 +146,7 @@ def test_default_draws_train_every_strategy(setup):
 @pytest.mark.parametrize("override,exc", [
     (dict(client_parallelism="shard"), NotImplementedError),
     (dict(client_parallelism="pmap"), ValueError),
-    (dict(engine="scan"), NotImplementedError),
+    (dict(engine="scan", client_store="host"), NotImplementedError),
     (dict(engine="async"), NotImplementedError),
     (dict(client_store="host"), NotImplementedError),
     (dict(client_store="sharded"), NotImplementedError),
@@ -158,6 +158,9 @@ def test_default_draws_train_every_strategy(setup):
     (dict(checkpoint_path="x.npz"), ValueError),
     (dict(participation=0.0), ValueError),
     (dict(attn_impl="xla"), ValueError),
+    (dict(engine="scan", client_parallelism="shard"), NotImplementedError),
+    (dict(resume=True), ValueError),
+    (dict(engine="scan", dispatch_timeout=1.0), ValueError),
 ])
 def test_unported_options_raise(setup, override, exc):
     _, task, ctrain, ctest, _ = setup

@@ -116,13 +116,24 @@ def test_lm_driver_matches_jax_loop_path(case, tmp_path):
     _assert_trees_close(out["adapters"][0], back["adapter_client0"], 0.0)
 
 
-@pytest.mark.parametrize("override", [dict(engine="scan"),
-                                      dict(engine="async"),
-                                      dict(client_store="host"),
-                                      dict(client_store="sharded"),
-                                      dict(resume=True)])
-def test_unported_lm_options_raise(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("override,exc", [
+    pytest.param(dict(engine="scan", client_store="sharded"),
+                 NotImplementedError, id="override0"),
+    pytest.param(dict(engine="async"), NotImplementedError, id="override1"),
+    pytest.param(dict(client_store="host"), NotImplementedError,
+                 id="override2"),
+    pytest.param(dict(client_store="sharded"), NotImplementedError,
+                 id="override3"),
+    # resume needs the scan engine's state file: a ValueError, as in JAX
+    pytest.param(dict(resume=True), ValueError, id="override4"),
+    pytest.param(dict(engine="scan", client_parallelism="loop"),
+                 ValueError, id="override5"),
+    pytest.param(dict(engine="scan", client_store="host"), ValueError,
+                 id="override6"),
+])
+def test_unported_lm_options_raise(override, exc):
+    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
+                       else None):
         train.run(**{**RUN, "clients": 2, **override}, device="cpu",
                   verbose=False)
 
