@@ -159,11 +159,40 @@ Phases, one JSON line each (several for the case phases):
                (``torch.cuda.set_sync_debug_mode("warn")``); wall per
                round, host_s, device_s, tokens/s and peak memory beside the
                eager vmap run's
+  train_host   (after train_scan) ``run_federated`` with
+               client_store="host" on fed-100m at full width and depth:
+               64 clients, 8 a round (participation 0.125), celora, int8,
+               S^data off, 3 rounds of 2 local steps of 4x64, eager, on
+               each store: the JAX contract between them (ledgers equal,
+               loss 1e-4, accuracies 1e-3, states 5e-4), exactly the same
+               grouped launches (the 8-client cohort fit against the
+               device store's all-64 fit), the host population pinned
+               host memory and its device-resident bytes below the device
+               store's, a second host run bitwise the first; the host store
+               on the scan engine killed after round 2 and resumed,
+               bitwise; device-resident bytes, peak memory, host_s and
+               device_s per round of each store
+  train_async  ``run_federated`` with engine="async", 8 clients: (a) the
+               zero-staleness limit (uniform latency, K = k = 8, int8)
+               held to the eager vmap run within the same contract; (b) a
+               storm (lognormal latency, K = 4, concurrency 8, staleness
+               decay 0.5, crashes, lost and NaN-corrupted uploads, the
+               norm gate, a dispatch timeout, retries: rejections, drops,
+               stale uploads, fit groups of 1 to 6 clients) for 4
+               flushes, twice, bitwise alike, exactly its fit groups'
+               grouped launches; killed right after its flush-2
+               checkpoint and resumed, bitwise; wall per flush, staleness,
+               fit-group sizes and launches
   lm_scan      (after lm_train) ``launch.train.run`` with engine="scan":
                lm_train's job for 4 rounds in chunks of 2, exact grouped
                launches, the int8 ledger, round 0's loss within 1e-3 +
                1e-3·|loss| of the eager vmap run's, a falling loss, killed
                after 2 rounds and resumed, bitwise
+  lm_host / lm_async  (after lm_scan) ``launch.train.run`` on lm_train's
+               job for 2 rounds with client_store="host", then with
+               engine="async" at the zero-staleness limit: exact grouped
+               launches, the int8 ledger, round 0's loss within 1e-3 +
+               1e-3·|loss| of the eager vmap run's
   lm_rwkv      ``launch.train.run`` on rwkv6-1.6b at full width and depth
                (bf16 backbone, f32 adapters): 2 clients, 2 rounds of 2
                local steps of 2x128, loop then vmap (the default); the
@@ -2948,6 +2977,374 @@ def phase_lm_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_hist):
 
 
 # ---------------------------------------------------------------------------
+# train_host / train_async / lm_host / lm_async: the host client store and
+# the async engine
+# ---------------------------------------------------------------------------
+
+#: the train_host job: 64 clients of which 8 train a round (participation
+#: 0.125), celora, int8, S^data off (with S^data on the JAX package's host
+#: and device stores part, ROADMAP Queue 3), short sequences so that the
+#: device store's all-m fit (256 sequences a step) stays small
+TRAIN_HOST = dict(clients=64, rounds=3, local_steps=2, batch=4, seq=64,
+                  n_train=16, n_test=8, classes=4, lr=1e-3)
+HOST_FED = dict(participation=0.125, uplink_codec="int8", use_data_sim=False,
+                eval_every=2)
+#: the train_async jobs: 8 clients; (a) the zero-staleness limit (uniform
+#: latency, K = k = 8) beside the eager vmap run, (b) the storm: lognormal
+#: latency, K = 4, concurrency 8, staleness decay 0.5, crashes, lost and
+#: NaN-corrupted uploads, the norm gate, a dispatch timeout and retries;
+#: seed 15 drops 2 uploads for good, re-sends 2, rejects 3, and dispatches
+#: fit groups of 1, 2, 3, 4 and 6 clients
+TRAIN_ASYNC = dict(TRAIN_HOST, clients=8, rounds=3)
+ASYNC_STORM = dict(engine="async", uplink_codec="int8", latency="lognormal",
+                   latency_sigma=1.0, buffer_size=4, async_concurrency=8,
+                   staleness_decay=0.5, fault_crash=0.15, fault_loss=0.2,
+                   fault_corrupt=0.25, fault_corrupt_mode="nan",
+                   admission="norm", dispatch_timeout=3.0,
+                   retry_backoff=0.5, retry_cap=2, seed=15, rounds=4,
+                   chunk_rounds=1, use_data_sim=False)
+GROUPED = ("tri_lora_fwd_grouped", "tri_lora_dx_grouped")
+
+
+def grouped_launches(cfg, steps: int, evals: int) -> dict:
+    """The flash and grouped tri-LoRA launches of ``steps`` stacked local
+    steps and ``evals`` stacked eval calls of a celora job with S^data off
+    (layer 0's q/k/v need no input gradient)."""
+    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    return {"flash_fwd": layers * (steps + evals), "flash_dq": layers * steps,
+            "flash_dkv": layers * steps, "tri_lora_fwd": 0, "tri_lora_dx": 0,
+            "tri_lora_dw": 0, "tri_lora_fwd_grouped": proj * (steps + evals),
+            "tri_lora_dx_grouped": (proj - 3) * steps}
+
+
+def state_gaps(out, ref) -> dict:
+    """Per state leaf name (the path's first and last key, over clients,
+    layers and targets): the largest |difference| between two runs'
+    final states and the number of entries beyond 5e-4."""
+    gaps: dict = {}
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], path + (k,))
+        elif isinstance(a, (tuple, list)):
+            for x, y in zip(a, b):
+                walk(x, y, path)
+        elif a is not None:
+            d = (a.to(b.device).float() - b.float()).abs()
+            key = f"{path[0]}/{path[-1]}"
+            big, n = gaps.get(key, (0.0, 0))
+            gaps[key] = (max(big, float(d.max())), n + int((d > 5e-4).sum()))
+    for sa, sb in zip(out["states"], ref["states"], strict=True):
+        walk(sa, sb, ())
+    return gaps
+
+
+def held_to(what: str, torch, out, ref, states: bool = True) -> None:
+    """The JAX package's engine contract between two runs on the card:
+    identical sampled / participant / dropped / failed / rejected lists
+    and byte and element ledgers, loss within 1e-4, accuracies within
+    1e-3, and (``states``) every state entry within 5e-4."""
+    keys = ("sampled", "participants", "dropped", "failed", "rejected",
+            "uplink_bytes", "downlink_bytes", "uplink_elems")
+    require(len(out["history"]) == len(ref["history"]),
+            f"{what}: {len(out['history'])} rounds vs {len(ref['history'])}")
+    for a, b in zip(out["history"], ref["history"]):
+        require([getattr(a, k) for k in keys] == [getattr(b, k) for k in keys],
+                f"{what} round {a.round}: the ledgers differ")
+        require(abs(a.train_loss - b.train_loss) <= 1e-4,
+                f"{what} round {a.round}: loss {a.train_loss} vs "
+                f"{b.train_loss}")
+        require(max(abs(x - y) for x, y in zip(a.accs, b.accs)) <= 1e-3,
+                f"{what} round {a.round}: accs {a.accs} vs {b.accs}")
+    if states:
+        gaps = state_gaps(out, ref)
+        require(all(big <= 5e-4 for big, _ in gaps.values()),
+                f"{what}: states differ: {gaps}")
+
+
+def run_counted(torch, fa_ops, tl_ops, fn):
+    """``fn()`` with every kernel count set to 0 just before it; returns
+    (result, launches, wall seconds, peak GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()                   # counts of the main path only
+    tl_ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}, wall,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def per_round(hist) -> dict:
+    return {k: [getattr(r, k) for r in hist] for k in TIMES}
+
+
+def phase_train_host(torch, fa_ops, tl_ops, get_config, dev):
+    """``run_federated`` with ``client_store="host"`` on fed-100m at full
+    width and depth: 64 clients, 8 a round, celora, int8, eager, once on
+    each store — the same ledgers, loss within 1e-4, accuracies within
+    1e-3, the aggregated C and the head within 5e-4, the same launches
+    (the host store fits the 8-client cohort: one grouped launch a
+    projection a step, as the device store's all-64 fit), the host
+    store's population pinned on the host and its device-resident bytes
+    below the device store's; a second host run bitwise the first (the
+    pinned write-back's ordering); then the host store on the scan engine
+    killed after round 2 and resumed, bitwise its uninterrupted run.
+
+    The local factors A and B and the EF residual (the locally fitted C
+    less its code) are reported, not held to 5e-4: the device store fits
+    256 sequences a step and the host store 32, cuBLAS orders the MLP's
+    sums differently for the two, and AdamW's normalized step turns that
+    float-order noise in a near-zero gradient entry into ±lr (on one
+    H100: 3.5e-3 at lr 1e-3 in 459 of 12.6 M entries of A; PERF.md)."""
+    from repro_torch import checkpoint
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("fed-100m")
+    job = TRAIN_HOST
+    t_phase = time.perf_counter()
+    runs = {}
+    for store in ("device", "host", "host again"):
+        runs[store] = run_counted(torch, fa_ops, tl_ops, lambda: train_job(
+            torch, cfg, dev, "flash", job, "vmap", **HOST_FED,
+            client_store=store.split()[0])[0])
+    dev_out, host_out = runs["device"][0], runs["host"][0]
+    steps = job["rounds"] * job["local_steps"]
+    evals = sum(r.evaluated for r in host_out["history"])
+    expected = grouped_launches(cfg, steps, evals)
+    pop_leaves = [t for s in host_out["states"] for t in tree_leaves(s)]
+    device_bytes = sum(t.numel() * t.element_size()
+                       for s in dev_out["states"] for t in tree_leaves(s))
+
+    # every round evaluated: a run killed after round 2 evaluates its last
+    # round, so the uninterrupted run must too for the records to match
+    gaps = state_gaps(host_out, dev_out)
+    # every round evaluated: a run killed after round 2 evaluates its last
+    # round, so the uninterrupted run must too for the records to match
+    scan = dict(HOST_FED, eval_every=1, client_store="host", engine="scan",
+                chunk_rounds=2)
+    path = ROOT / "build" / "chip_smoke" / "train_host.npz"
+    if path.exists():
+        path.unlink()
+    full, _ = train_job(torch, cfg, dev, "flash", job, "vmap", **scan)
+    killed, _ = train_job(torch, cfg, dev, "flash", dict(job, rounds=2),
+                          "vmap", **scan, checkpoint_path=str(path))
+    checkpoint.verify(str(path))
+    meta = checkpoint.metadata(str(path))
+    resumed, _ = train_job(torch, cfg, dev, "flash", job, "vmap", **scan,
+                           checkpoint_path=str(path), resume=True)
+    emit({"phase": "train_host", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "method": "celora", "attn_impl": "flash", **job, **HOST_FED,
+          "stores": {store: {
+              "wall_s": wall, "peak_mem_gb": peak, "launches": launches,
+              "device_resident_bytes": out.get("device_resident_bytes",
+                                               device_bytes),
+              **per_round(out["history"]),
+              "train_loss": [r.train_loss for r in out["history"]],
+              "sampled": [r.sampled for r in out["history"]]}
+              for store, (out, launches, wall, peak) in runs.items()},
+          "expected_launches": expected,
+          "state_gaps": gaps,
+          "scan_resume": {"checkpoint_meta": meta,
+                          **per_round(resumed["history"])},
+          "phase_s": time.perf_counter() - t_phase})
+    for store, (_, launches, _, _) in runs.items():
+        require(launches == expected,
+                f"train_host {store} launches {launches} != {expected}")
+    held_to("train_host host vs device", torch, host_out, dev_out,
+            states=False)
+    require(all(gaps[k][0] <= 5e-4 for k in gaps
+                if k.endswith("/C") and k.startswith("adapter")
+                or k.startswith("head")),
+            f"train_host: the aggregated C or the head differ: {gaps}")
+    same_records("train_host host twice", runs["host again"][0]["history"],
+                 host_out["history"])
+    require(all(same_tensors(torch, a, b) for a, b in zip(
+        runs["host again"][0]["states"], host_out["states"])),
+        "train_host: two host-store runs are not bitwise alike")
+    require(all(t.device.type == "cpu" and t.is_pinned()
+                for t in pop_leaves),
+            "train_host: the host store's population is not pinned host "
+            "memory")
+    require(host_out["device_resident_bytes"] < device_bytes,
+            f"train_host: {host_out['device_resident_bytes']} B resident on "
+            f"the device for the host store, {device_bytes} B for the "
+            f"device store")
+    require(meta.get("rounds_done") == 2 and meta.get("client_store") == "host",
+            f"train_host checkpoint metadata {meta}")
+    same_records("train_host scan resumed vs uninterrupted",
+                 resumed["history"], full["history"])
+    same_records("train_host scan killed vs uninterrupted",
+                 killed["history"], full["history"][:2])
+    require(all(same_tensors(torch, a, b) for a, b in zip(
+        resumed["states"], full["states"])),
+        "train_host: the resumed states are not bitwise the uninterrupted "
+        "run's")
+
+
+class Killed(Exception):
+    """Raised right after an async checkpoint to stand for a kill."""
+
+
+def phase_train_async(torch, fa_ops, tl_ops, get_config, dev):
+    """``run_federated`` with ``engine="async"`` on fed-100m at full width
+    and depth, 8 clients: (a) the zero-staleness limit (uniform latency,
+    K = k = 8, int8) held to the eager vmap run within the JAX contract,
+    with its launches; (b) the storm (ASYNC_STORM) for 4 flushes, twice,
+    bitwise alike, its launches those of its fit groups (1…8 clients
+    each, grouped kernels) and evals, every value finite; then killed
+    right after its flush-2 checkpoint and resumed, bitwise the
+    uninterrupted run, virtual clock included."""
+    import numpy as np
+
+    from repro_torch import checkpoint
+    from repro_torch.core import async_engine
+
+    cfg = get_config("fed-100m")
+    job = TRAIN_ASYNC
+    t_phase = time.perf_counter()
+    zero = dict(uplink_codec="int8", use_data_sim=False)
+    eager = train_job(torch, cfg, dev, "flash", job, "vmap", **zero)[0]
+    limit, limit_launches, limit_wall, _ = run_counted(
+        torch, fa_ops, tl_ops, lambda: train_job(
+            torch, cfg, dev, "flash", job, "vmap", **zero,
+            engine="async")[0])
+    storm_job = dict(job, rounds=ASYNC_STORM["rounds"])
+    storm_kw = {k: v for k, v in ASYNC_STORM.items() if k != "rounds"}
+
+    def storm(**kw):
+        return train_job(torch, cfg, dev, "flash", storm_job, "vmap",
+                         **storm_kw, **kw)[0]
+    runs = [run_counted(torch, fa_ops, tl_ops, storm) for _ in range(2)]
+    (a, launches, wall, peak), (b, _, _, _) = runs
+    hist = a["history"]
+    expected = grouped_launches(cfg, len(a["fit_groups"]) * job[
+        "local_steps"], sum(r.evaluated for r in hist))
+
+    path = ROOT / "build" / "chip_smoke" / "train_async.npz"
+    if path.exists():
+        path.unlink()
+    save = async_engine._save_async
+
+    def save_then_die(fed, sched, *args, **kw):
+        save(fed, sched, *args, **kw)
+        if sched.version == 2:
+            raise Killed
+    async_engine._save_async = save_then_die
+    try:
+        storm(checkpoint_path=str(path))
+        killed_at = None
+    except Killed:
+        killed_at = 2
+    finally:
+        async_engine._save_async = save
+    checkpoint.verify(str(path))
+    meta = checkpoint.metadata(str(path))
+    resumed = storm(checkpoint_path=str(path), resume=True)
+    emit({"phase": "train_async", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "method": "celora", "attn_impl": "flash", **job,
+          "limit": {"wall_s": limit_wall, "launches": limit_launches,
+                    "flush_wall_s": [r.wall_s for r in limit["history"]],
+                    "eager_round_wall_s": [r.wall_s
+                                           for r in eager["history"]],
+                    "train_loss": [r.train_loss for r in limit["history"]],
+                    "staleness": limit["staleness_mean"],
+                    "fit_groups": limit["fit_groups"]},
+          "storm": {**ASYNC_STORM, "wall_s": wall, "peak_mem_gb": peak,
+                    "flush_wall_s": [r.wall_s for r in hist],
+                    "sim_times": a["sim_times"],
+                    "staleness": a["staleness_mean"],
+                    "fit_groups": a["fit_groups"], "launches": launches,
+                    "expected_launches": expected,
+                    "train_loss": [r.train_loss for r in hist],
+                    "participants": [r.participants for r in hist],
+                    "rejected": [r.rejected for r in hist],
+                    "failed": [r.failed for r in hist],
+                    "uplink_bytes": [r.uplink_bytes for r in hist]},
+          "resume": {"killed_after": killed_at, "checkpoint_meta": meta,
+                     "sim_times": resumed["sim_times"]},
+          "phase_s": time.perf_counter() - t_phase})
+    held_to("train_async zero-staleness vs eager vmap", torch, limit, eager)
+    require(limit_launches == grouped_launches(
+        cfg, len(limit["fit_groups"]) * job["local_steps"],
+        sum(r.evaluated for r in limit["history"])),
+        f"train_async limit launches {limit_launches}")
+    require(limit["fit_groups"] == [job["clients"]] * job["rounds"],
+            f"train_async limit fit groups {limit['fit_groups']}")
+    require(launches == expected,
+            f"train_async storm launches {launches} != {expected}")
+    require(any(r.rejected for r in hist) and any(r.failed for r in hist)
+            and max(a["staleness_mean"]) > 0 and 1 in a["fit_groups"],
+            "train_async: the storm did not fire (no rejection, drop, "
+            "stale upload or group of one)")
+    require(all(np.isfinite(r.train_loss) and np.all(np.isfinite(r.accs))
+                for r in hist) and finite_states(torch, a),
+            "train_async storm: a loss, accuracy or state is not finite")
+    same_records("train_async storm twice", b["history"], hist)
+    require(a["sim_times"] == b["sim_times"] and all(
+        same_tensors(torch, x, y) for x, y in zip(a["states"], b["states"])),
+        "train_async: two storm runs are not bitwise alike")
+    require(killed_at == 2 and meta.get("rounds_done") == 2
+            and meta.get("engine") == "async" and meta.get("n_pending", 0) > 0,
+            f"train_async: the kill after flush 2 left {meta}")
+    same_records("train_async resumed vs uninterrupted", resumed["history"],
+                 hist)
+    require(resumed["sim_times"] == a["sim_times"] and all(
+        same_tensors(torch, x, y)
+        for x, y in zip(resumed["states"], a["states"])),
+        "train_async: the resumed run is not bitwise the uninterrupted one")
+
+
+def phase_lm_host_async(torch, fa_ops, tl_ops, get_config, dev, vmap_hist):
+    """``launch.train.run`` with ``client_store="host"`` and then with
+    ``engine="async"`` (the zero-staleness limit) on lm_train's job for 2
+    rounds: exact grouped launches, lm_train's ledger, round 0's loss
+    within 1e-3 + 1e-3·|loss| of the eager vmap run's (``vmap_hist``), the
+    host store's adapters back on the host."""
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(LM_TRAIN["arch"])
+    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    for name, over in (("lm_host", dict(client_store="host")),
+                       ("lm_async", dict(engine="async"))):
+        job = dict(LM_TRAIN, rounds=2, client_parallelism="vmap", **over)
+        out, launches, wall, peak = run_counted(
+            torch, fa_ops, tl_ops,
+            lambda: train.run(**job, verbose=False, device=dev))
+        hist = out["history"]
+        steps = len(hist) * job["local_steps"]
+        expected = {"flash_fwd": layers * steps, "flash_dq": layers * steps,
+                    "flash_dkv": layers * steps, "tri_lora_fwd": 0,
+                    "tri_lora_dx": 0, "tri_lora_dw": 0,
+                    "tri_lora_fwd_grouped": proj * steps,
+                    "tri_lora_dx_grouped": (proj - 3) * steps}
+        on_host = all(t.device.type == "cpu" for a in out["adapters"]
+                      for t in tree_leaves(a))
+        emit({"phase": name, **job, "rounds_detail": hist, "wall_s": wall,
+              "peak_mem_gb": peak, "launches": launches,
+              "expected_launches": expected, "adapters_on_host": on_host,
+              "vmap_round0_loss": vmap_hist[0]["loss"]})
+        require(launches == expected,
+                f"{name} launches {launches} != expected {expected}")
+        for a, b in zip(hist, vmap_hist):
+            require((a["participants"], a["uplink_bytes"],
+                     a["downlink_bytes"], a["uplink_floats"])
+                    == (b["participants"], b["uplink_bytes"],
+                        b["downlink_bytes"], b["uplink_floats"]),
+                    f"{name} round {a['round']}: the ledgers differ from "
+                    f"the eager vmap run's")
+        a, b = hist[0]["loss"], vmap_hist[0]["loss"]
+        require(abs(a - b) <= 1e-3 + 1e-3 * abs(b),
+                f"{name} round 0: loss {a} vs the eager vmap run's {b}")
+        require(on_host == (name == "lm_host"),
+                f"{name}: adapters on the host: {on_host}")
+
+
+# ---------------------------------------------------------------------------
 # lm_rwkv: the LM driver on rwkv6-1.6b, loop and vmap
 # ---------------------------------------------------------------------------
 
@@ -3528,6 +3925,9 @@ def main() -> int:
         phase_train_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_run,
                          storm_hist)
         del vmap_run, storm_hist
+        # the host client store and the async engine
+        phase_train_host(torch, fa_ops, tl_ops, get_config, dev)
+        phase_train_async(torch, fa_ops, tl_ops, get_config, dev)
         # the LM driver (forward and dx, then vectorized) and the backbone
         # warm-up (dW)
         lm, lm_hist = phase_lm_train(torch, fa_ops, tl_ops, get_config, dev)
@@ -3536,6 +3936,8 @@ def main() -> int:
         _, lm_vmap_hist = phase_lm_train(torch, fa_ops, tl_ops, get_config,
                                          dev, "vmap", lm_hist)
         phase_lm_scan(torch, fa_ops, tl_ops, get_config, dev, lm_vmap_hist)
+        phase_lm_host_async(torch, fa_ops, tl_ops, get_config, dev,
+                            lm_vmap_hist)
         launches["tri_lora_dw"] = phase_pretrain(torch, tl_ops, get_config,
                                                  dev)["tri_lora_dw"]
         phase_card_vs_cpu(torch, tl_ops, model, get_config, dev)

@@ -24,15 +24,19 @@ from repro_torch.tree import tree_leaves, tree_map
 
 
 def personalized_weights(similarity: torch.Tensor, self_weight: float = 0.0,
-                         participants: Optional[torch.Tensor] = None
+                         participants: Optional[torch.Tensor] = None,
+                         col_scale: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """similarity: (m, m), symmetric, higher = more similar.  Returns the
     row-stochastic W (m, m): W[i] are client i's aggregation weights.
 
     ``participants`` (optional boolean (m,) mask): only participating
-    clients' columns carry weight and each row renormalizes over them.  A
-    row whose eligible similarities are all ≤ 0 falls back to UNIFORM over
-    the eligible others; a row with no eligible other keeps itself."""
+    clients' columns carry weight and each row renormalizes over them.
+    ``col_scale`` (optional (m,) float, the async engine's staleness
+    discount ``decay**staleness``) multiplies the columns before the row
+    normalization; ``None`` leaves eqn (3) bit for bit as it was.  A row
+    whose eligible similarities are all ≤ 0 falls back to UNIFORM over the
+    eligible others; a row with no eligible other keeps itself."""
     m = similarity.shape[0]
     dev = similarity.device
     eye = torch.eye(m, dtype=torch.bool, device=dev)
@@ -44,6 +48,8 @@ def personalized_weights(similarity: torch.Tensor, self_weight: float = 0.0,
         pmask = torch.as_tensor(participants, dtype=torch.bool, device=dev)
         s = torch.where(pmask[None, :], s, torch.zeros_like(s))
         eligible = eligible & pmask[None, :]
+    if col_scale is not None:
+        s = s * torch.as_tensor(col_scale, dtype=s.dtype, device=dev)[None, :]
     denom = s.sum(dim=1, keepdim=True)
     n_elig = eligible.sum(dim=1, keepdim=True)
     uniform = eligible.to(s.dtype) / n_elig.clamp_min(1).to(s.dtype)
@@ -85,18 +91,23 @@ def fedavg(payloads: Sequence[Any], sample_counts: Sequence[int],
 
 
 def fedavg_stacked(stacked: Any, sample_counts: Sequence[int],
-                   participants: Optional[torch.Tensor] = None) -> Any:
+                   participants: Optional[torch.Tensor] = None,
+                   col_scale: Optional[torch.Tensor] = None) -> Any:
     """FedAvg over a STACKED payload: leaves (m, …) → ONE global tree, the
     sample-count weighted mean over the client axis.  ``participants``
     zeroes absent clients' counts so the mean renormalizes over the
     participants (absent terms add exact zeros); with every eligible count
-    zero the mean is uniform over the eligible clients.  The async engine's
-    ``col_scale`` comes with that engine."""
+    zero the mean is uniform over the eligible clients.  ``col_scale``
+    (optional (m,) float, the async engine's staleness discount) multiplies
+    each contributor's count before the normalization; ``None`` leaves the
+    mean bit for bit as it was."""
     dev = tree_leaves(stacked)[0].device
     n = torch.as_tensor(sample_counts, dtype=torch.float32, device=dev)
     elig = (torch.ones_like(n) if participants is None else
             torch.as_tensor(participants, device=dev).to(torch.float32))
     n = n * elig
+    if col_scale is not None:
+        n = n * torch.as_tensor(col_scale, dtype=n.dtype, device=dev)
     tot = n.sum()
     uniform = elig / elig.sum().clamp_min(1.0)
     w = torch.where(tot > 0, n / torch.where(tot > 0, tot,

@@ -149,19 +149,22 @@ class Strategy:
         return aggregation.aggregate_payloads(payloads, weights)
 
     def server_stacked(self, payload: Any, *, sample_counts, weights=None,
-                       participants=None) -> Optional[Any]:
+                       participants=None, col_scale=None) -> Optional[Any]:
         """Stacked form of :meth:`server`: ``payload`` is ONE tree with a
         leading client axis (m, …); returns a stacked downlink of the same
         layout (a FedAvg result broadcast over the client axis), or None
         when the strategy never communicates.  ``participants`` masks the
         aggregation as in :meth:`server`; the caller installs the downlink
-        into the participants only (``client_batch.select_clients``)."""
+        into the participants only (``client_batch.select_clients``).
+        ``col_scale`` is the async engine's per-contributor staleness
+        discount: it reaches FedAvg directly, while the personalized path
+        bakes it into ``weights`` upstream."""
         if self.aggregate == "none":
             return None
         m = len(sample_counts)
         if self.aggregate == "fedavg":
             g = aggregation.fedavg_stacked(payload, sample_counts,
-                                           participants)
+                                           participants, col_scale=col_scale)
             return client_batch.broadcast_to_clients(g, m)
         if weights is None:
             raise ValueError(f"personalized aggregation needs weights; "

@@ -27,7 +27,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -69,6 +69,17 @@ def select_clients(mask: Any, new: Any, old: Any) -> Any:
     is boolean (m,)."""
     return tree_map(lambda n_, o_: torch.where(_rows_mask(mask, n_), n_, o_),
                     new, old)
+
+
+def id_mask(m: int, ids: torch.Tensor,
+            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The boolean (m,) mask holding ``rows`` (default all True) at the
+    unique client ids ``ids`` and False elsewhere, on ``ids``' device: a
+    cohort's or a buffer's rows as an all-m mask."""
+    if rows is None:
+        rows = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+    return torch.zeros(m, dtype=torch.bool, device=ids.device).index_copy(
+        0, ids, rows)
 
 
 def gather_clients(stacked: Any, ids: Any) -> Any:

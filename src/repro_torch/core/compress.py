@@ -52,6 +52,7 @@ from typing import Any, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core import comm
 from repro_torch.tree import tree_leaves, tree_map
 
 # Tile extent for per-tile scales (elements of the flattened leaf).
@@ -309,3 +310,19 @@ def wire_struct(codec: Codec, payload_struct: Any, m: int) -> dict:
             int(np.prod(l.shape[1:])), codec.pack), device="meta")
             for l in tree_leaves(tree)]
     return _encode(codec, tree_map(lambda t: t.float(), meta), leaf_u, 1)
+
+
+def per_client_traffic(codec: Codec, payload_struct: Any, m: int,
+                       compressed: bool) -> tuple[int, int, int]:
+    """(uplink bytes, uplink elements, downlink bytes) of one client's
+    round, from the shapes of a stacked payload of m clients alone: the
+    uplink priced on the ENCODED tree when ``compressed``, the downlink on
+    the raw payload (the server sends full-precision aggregates).  A
+    ``None`` payload (no uplink) costs nothing."""
+    if payload_struct is None:
+        return 0, 0, 0
+    raw_b, raw_e = comm.per_client_comm(payload_struct)
+    if not compressed:
+        return raw_b, raw_e, raw_b
+    up_b, up_e = comm.per_client_comm(wire_struct(codec, payload_struct, m))
+    return up_b, up_e, raw_b

@@ -60,7 +60,7 @@ import torch
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import (admission, aggregation, client_batch,
-                              client_store, comm, compress, faults, sampling,
+                              client_store, compress, faults, sampling,
                               tri_lora)
 from repro_torch.core.similarity import cka
 from repro_torch.tree import tree_map
@@ -216,12 +216,8 @@ def run_scan(*, task, fed, strategy, states: list, loaders: Sequence,
     # per-client byte constants from shapes alone: the uplink priced on the
     # ENCODED tree, the downlink on the raw payload
     payload_struct = strategy.uplink(meta_like(stacked))
-    per_down_b, _ = comm.per_client_comm(payload_struct)
-    per_b, per_e = comm.per_client_comm(
-        compress.wire_struct(codec, payload_struct, m)
-        if compressed and payload_struct is not None else payload_struct)
-    if not compressed:
-        per_down_b = per_b
+    per_b, per_e, per_down_b = compress.per_client_traffic(
+        codec, payload_struct, m, compressed)
 
     personalized = strategy.aggregate == "personalized"
     use_data = personalized and fed.use_data_sim and s_data is not None

@@ -47,10 +47,13 @@ round on the stacked clients in chunks of rounds, with one host sync per
 chunk, a checkpoint at every chunk boundary and ``resume``;
 ``run_federated`` hands it the shared setup below.
 
-The options whose machinery is not ported yet — ``"shard"`` clients, the
-async engine, host or sharded client stores — raise
-``NotImplementedError`` naming their ROADMAP item; nothing falls back to
-another path.
+``client_store="host"`` (:mod:`.client_store`) keeps the population in
+host memory and brings only each round's cohort to the device, on both
+engines; ``engine="async"`` (:mod:`.async_engine`) replaces the round
+barrier by a buffered, staleness-weighted server on a seeded virtual
+clock.  The options whose machinery is not ported yet — ``"shard"``
+clients and the sharded client store — raise ``NotImplementedError``
+naming their ROADMAP item; nothing falls back to another path.
 
 Uplink codecs (:mod:`.compress`): each communicating client carries an
 error-feedback residual ``ef`` in its state; the round encodes every
@@ -172,8 +175,9 @@ class RoundRecord:
     sampled: list = dataclasses.field(default_factory=list)
     dropped: list = dataclasses.field(default_factory=list)
     uplink_elems: int = 0  # dtype-blind element count
-    host_s: float = 0.0    # not measured by the eager paths
-    device_s: float = 0.0  # not measured by the eager paths
+    host_s: float = 0.0    # time drawing the batches on the host (0.0:
+    #                        not measured, the eager loop path)
+    device_s: float = 0.0  # the rest of the round: device work, read-backs
     evaluated: bool = True  # False: accs carried from the last eval round
     rejected: list = dataclasses.field(default_factory=list)
     failed: list = dataclasses.field(default_factory=list)
@@ -272,23 +276,37 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
                          f"expected one of {sampling.SAMPLERS}")
     if fed.engine not in ENGINES:
         raise ValueError(f"engine={fed.engine!r}; expected one of {ENGINES}")
-    if fed.engine == "async":
-        raise _not_ported("engine='async'", "core/async_engine.py",
-                          "engine='eager' or 'scan'")
     if fed.chunk_rounds < 1:
         raise ValueError(f"chunk_rounds must be >= 1; got {fed.chunk_rounds}")
-    if fed.engine != "scan" and (fed.checkpoint_path or fed.resume):
+    if fed.engine not in ("scan", "async") and (fed.checkpoint_path
+                                                or fed.resume):
         raise ValueError("checkpoint_path/resume require engine='scan' or "
                          "'async' (the eager engine does not checkpoint)")
+    if fed.engine == "async":
+        if fed.straggler_frac > 0.0:
+            raise ValueError(
+                "engine='async' replaces the straggler drop mask with the "
+                "latency model (FedConfig.latency); set straggler_frac=0")
+        if mode == "loop":
+            raise ValueError("engine='async' requires a vectorized "
+                             "client_parallelism ('vmap'/'shard')")
+        if fed.client_store != "device":
+            raise ValueError("engine='async' currently requires "
+                             "client_store='device'")
+        sampling.LatencyModel(fed.latency, fed.latency_scale,
+                              fed.latency_sigma)   # validates the knobs
     if fed.eval_every < 1:
         raise ValueError(f"eval_every must be >= 1; got {fed.eval_every}")
     if fed.client_store not in client_store.STORE_BACKENDS:
         raise ValueError(f"client_store={fed.client_store!r}; expected one "
                          f"of {client_store.STORE_BACKENDS}")
-    if fed.client_store != "device":
-        raise _not_ported(f"client_store={fed.client_store!r}",
-                          "host / sharded client stores",
-                          "client_store='device'")
+    if fed.client_store == "sharded":
+        raise _not_ported("client_store='sharded'", "launch/mesh.py",
+                          "client_store='device' or 'host'")
+    if fed.client_store != "device" and mode == "loop":
+        raise ValueError(f"client_store={fed.client_store!r} requires a "
+                         f"vectorized client_parallelism ('vmap'/'shard'); "
+                         f"the loop path is the device-store reference")
     sampling.n_sampled(fed.n_clients, fed.participation)   # validates
     if not 0.0 <= fed.straggler_frac < 1.0:
         raise ValueError(f"straggler_frac must be in [0, 1); "
@@ -304,7 +322,7 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
     if fed.dispatch_timeout < 0:
         raise ValueError(f"dispatch_timeout must be >= 0; "
                          f"got {fed.dispatch_timeout}")
-    if fed.dispatch_timeout > 0:
+    if fed.dispatch_timeout > 0 and fed.engine != "async":
         raise ValueError("dispatch_timeout is the async engine's upload "
                          f"timeout; engine={fed.engine!r} has no virtual "
                          "clock to time out on")
@@ -365,6 +383,10 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
                   for s in states]
         sr_uniforms = sr_uniforms or (
             lambda rnd, i: compress.client_generator(fed.seed, rnd, i))
+    if fed.client_store == "host":
+        # the population is host-resident from the start: the device holds
+        # the cohort, never the population
+        states = [tree_map(lambda t: t.detach().cpu(), s) for s in states]
     loaders = [Loader(client_train[i], fed.batch_size, seed=fed.seed + i)
                for i in range(m)]
     sample_counts = [len(d["labels"]) for d in client_train]
@@ -444,8 +466,13 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
         n = len(d["labels"])
         tk[i, :n] = d["tokens"]
         lb[i, :n] = d["labels"]
-    test_toks = torch.as_tensor(tk, device=dev)
-    test_labs = torch.as_tensor(lb, device=dev)
+    if fed.client_store == "host":
+        # the host store streams the test stacks through the device in
+        # slabs: the (m, pad, T) stack stays on the host
+        test_toks, test_labs = tk, lb
+    else:
+        test_toks = torch.as_tensor(tk, device=dev)
+        test_labs = torch.as_tensor(lb, device=dev)
 
     @torch.no_grad()
     def eval_stacked(trainable: dict, toks: torch.Tensor,
@@ -476,18 +503,27 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
         cka_probes = torch.as_tensor(cka_probes, dtype=torch.float32,
                                      device=dev)
 
+    # ---- store dispatch: the host-resident population runs its own
+    # cohort round loop on both engines (repro_torch.core.client_store)
+    engine_kw = dict(
+        task=task, fed=fed, strategy=strategy, states=states,
+        loaders=loaders, sample_counts=sample_counts, plans=plans,
+        local_fit=local_fit_stacked, eval_acc=eval_stacked, s_data=s_data,
+        test_toks=test_toks, test_labs=test_labs, cka_probes=cka_probes,
+        sr_uniforms=sr_uniforms, device=dev, verbose=verbose)
+    if fed.client_store == "host":
+        return client_store.run_cohort(**engine_kw)
+
     # ---- engine dispatch: the scan engine runs the same round in chunks
-    # of rounds (repro_torch.core.fed_engine); the eager paths below are
-    # the reference it is held to
+    # of rounds (repro_torch.core.fed_engine), the async engine buffers
+    # uploads on a virtual clock (repro_torch.core.async_engine); the eager
+    # paths below are the reference both are held to
+    if fed.engine == "async":
+        from repro_torch.core import async_engine
+        return async_engine.run_async(**engine_kw)
     if fed.engine == "scan":
         from repro_torch.core import fed_engine
-        return fed_engine.run_scan(
-            task=task, fed=fed, strategy=strategy, states=states,
-            loaders=loaders, sample_counts=sample_counts, plans=plans,
-            local_fit=local_fit_stacked, eval_acc=eval_stacked,
-            s_data=s_data, test_toks=test_toks, test_labs=test_labs,
-            cka_probes=cka_probes, sr_uniforms=sr_uniforms, device=dev,
-            verbose=verbose)
+        return fed_engine.run_scan(**engine_kw)
 
     s_model_prev: list = [None]
 
@@ -714,6 +750,7 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
             t0 = time.perf_counter()
             toks, labs = client_batch.stack_client_batches(
                 loaders, fed.local_steps, device=dev)
+            t_fetch = time.perf_counter()
             # all m train (one batch); the select below freezes the
             # unsampled clients' state exactly
             tr, losses = local_fit_stacked(
@@ -799,6 +836,8 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
             history.append(record(
                 rnd, losses.cpu().numpy()[plan.sampled], accs, rc, plan, t0,
                 evaluated, fd, delivered, accept))
+            history[-1].host_s = t_fetch - t0
+            history[-1].device_s = history[-1].wall_s - (t_fetch - t0)
             if verbose:
                 _print_round(strategy, history[-1])
         pstore.adopt(stacked)

@@ -20,8 +20,8 @@ one client always completes.
 
 All randomness is derived from ``np.random.default_rng((seed, round, tag))``.
 :func:`stack_plans` packs a run's plans into the scan engine's
-:class:`PlanStack`; the async engine's ``LatencyModel`` comes with that
-engine.
+:class:`PlanStack`; :class:`LatencyModel` draws the async engine's seeded
+per-client latencies (the JAX package's numpy streams, bit for bit).
 """
 from __future__ import annotations
 
@@ -31,9 +31,11 @@ from typing import Optional, Sequence
 import numpy as np
 
 SAMPLERS = ("uniform", "weighted", "round_robin")
+LATENCIES = ("uniform", "lognormal", "exp")
 
 _SAMPLE_TAG = 0x5A17
 _STRAGGLE_TAG = 0xD209
+_LATENCY_TAG = 0x1A7E
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +55,19 @@ class ParticipationPlan:
         out = np.zeros(m, bool)
         out[getattr(self, which)] = True
         return out
+
+    @property
+    def cohort(self) -> np.ndarray:
+        """The client ids whose state a host-resident store must bring to
+        the device this round: ``sampled`` (stragglers train too, so their
+        state advances although their upload is dropped)."""
+        return self.sampled
+
+    def cohort_mask(self) -> np.ndarray:
+        """Boolean (k,) participation mask over the sorted cohort: entry j
+        is True iff ``sampled[j]`` completed the round, i.e.
+        ``mask(m)[sampled]``."""
+        return np.isin(self.sampled, self.participants)
 
 
 def n_sampled(m: int, participation: float) -> int:
@@ -117,6 +132,52 @@ def full_plan(m: int, rnd: int) -> ParticipationPlan:
     fast path."""
     ids = np.arange(m)
     return ParticipationPlan(rnd, ids, np.empty(0, ids.dtype), ids)
+
+
+@dataclasses.dataclass(frozen=True)
+class LatencyModel:
+    """Seeded per-client round-trip latency of the async engine: every
+    dispatched client finishes after a latency drawn from a wave-keyed
+    ``default_rng`` stream, so the arrival order is a function of ``(seed,
+    config)`` alone.
+
+    Kinds: ``"uniform"`` (every draw is ``scale``: a whole wave arrives at
+    once, the zero-staleness limit), ``"lognormal"`` (``scale ·
+    exp(sigma·N(0,1))``, heavy-tailed) and ``"exp"`` (``scale · Exp(1)``).
+    """
+    kind: str = "uniform"
+    scale: float = 1.0
+    sigma: float = 0.5
+
+    def __post_init__(self):
+        if self.kind not in LATENCIES:
+            raise ValueError(
+                f"latency kind={self.kind!r}; expected one of {LATENCIES}")
+        if self.scale <= 0:
+            raise ValueError(f"latency scale must be > 0; got {self.scale}")
+
+    def draw(self, m: int, wave: int, seed: int) -> np.ndarray:
+        """Per-client latencies (m,) float64 of dispatch wave ``wave``."""
+        if self.kind == "uniform":
+            return np.full(m, self.scale, np.float64)
+        rng = np.random.default_rng((seed, wave, _LATENCY_TAG))
+        if self.kind == "lognormal":
+            return self.scale * np.exp(self.sigma * rng.standard_normal(m))
+        return self.scale * rng.exponential(1.0, size=m)
+
+    def draw_retry(self, wave: int, client: int, attempt: int,
+                   seed: int) -> float:
+        """One re-dispatch latency of ``(wave, client)``, ``attempt >= 1``,
+        keyed ``(seed, wave, client, attempt, tag)``: independent of the
+        wave's draw (attempt 0) and of every other client's stream."""
+        if self.kind == "uniform":
+            return float(self.scale)
+        rng = np.random.default_rng(
+            (seed, int(wave), int(client), int(attempt), _LATENCY_TAG))
+        if self.kind == "lognormal":
+            return float(self.scale * np.exp(
+                self.sigma * rng.standard_normal()))
+        return float(self.scale * rng.exponential(1.0))
 
 
 @dataclasses.dataclass(frozen=True)

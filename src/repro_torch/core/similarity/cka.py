@@ -18,6 +18,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.compress import _sorted_tree
 from repro_torch.tree import tree_leaves
 
 
@@ -59,21 +60,23 @@ def pairwise_cka(c_stack: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
 
 def stack_client_cs(c_trees: list) -> torch.Tensor:
     """Flatten each client's C tree to (n_modules, r, r) — leading
-    layer-stack axes fold into the module axis — and stack the clients:
-    (m, n_modules, r, r)."""
+    layer-stack axes fold into the module axis, modules in the JAX
+    package's order (dict keys sorted) — and stack the clients: (m,
+    n_modules, r, r)."""
     def flat(t):
         return torch.cat([leaf.reshape(-1, leaf.shape[-2], leaf.shape[-1])
-                          for leaf in tree_leaves(t)], dim=0)
+                          for leaf in tree_leaves(_sorted_tree(t))], dim=0)
     return torch.stack([flat(t) for t in c_trees])
 
 
 def stacked_cs(c_tree: Any) -> torch.Tensor:
     """Stacked-payload form of :func:`stack_client_cs`: ONE C tree whose
     leaves carry a leading client axis (m, …, r, r), folded to (m,
-    n_modules, r, r) in the same module order."""
+    n_modules, r, r) in the same module order, whatever the order of the
+    tree's dicts (a decoded payload's, a state's)."""
     return torch.cat([leaf.reshape(leaf.shape[0], -1, leaf.shape[-2],
                                    leaf.shape[-1])
-                      for leaf in tree_leaves(c_tree)], dim=1)
+                      for leaf in tree_leaves(_sorted_tree(c_tree))], dim=1)
 
 
 def pairwise_model_similarity(c_trees: list,

@@ -43,8 +43,24 @@ streams and continues, reproducing the uninterrupted run:
         --ckpt /tmp/lm.npz --device cpu
     python -m repro_torch.launch.train ... --rounds 8 --resume
 
-The async engine and the host and sharded client stores are not ported
-and raise ``NotImplementedError``.
+``client_store="host"`` (eager, vmap) keeps the m adapters in host
+memory and brings each round's sampled cohort to the device; for CE-LoRA
+a device bank of every client's C payload (and its error-feedback
+residual) backs the all-m CKA.  ``engine="async"`` (vmap, device store)
+runs the buffered server of :mod:`repro_torch.core.async_engine`: clients
+dispatch in plan order, arrive on the seeded virtual clock
+(``latency`` / ``latency_scale`` / ``latency_sigma``), and every
+``buffer_size`` arrivals the server aggregates with the
+``staleness_decay`` discount; at uniform latency with the buffer the
+cohort size it is the eager driver's history:
+
+    python -m repro_torch.launch.train --arch fed-100m --reduced \
+        --clients 4 --participation 0.5 --client-store host --device cpu
+    python -m repro_torch.launch.train --arch fed-100m --reduced \
+        --clients 4 --engine async --latency lognormal --buffer-size 2 \
+        --staleness-decay 0.5 --device cpu
+
+The sharded client store raises ``NotImplementedError``.
 
 The random draws the JAX package takes from ``jax.random`` — the backbone
 (``key(seed)``), client ``i``'s adapter (``key(seed + i)``), the CKA probes
@@ -65,8 +81,8 @@ import torch
 
 from repro_torch.checkpoint import (check_fingerprint, metadata, restore,
                                     save)
-from repro_torch.core import (aggregation, client_batch, comm, compress,
-                              sampling, tri_lora)
+from repro_torch.core import (aggregation, client_batch, client_store,
+                              comm, compress, sampling, tri_lora)
 from repro_torch.core.fed_engine import chunk_schedule, meta_like
 from repro_torch.core.similarity import cka
 from repro_torch.data import synthetic
@@ -80,18 +96,12 @@ METHODS = ("celora", "fedavg", "local")
 CKA_PROBES = 32
 
 
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported yet (ROADMAP, Queue 1: {item}); the "
-        f"port's LM driver runs the eager engine ('loop' and 'vmap') and "
-        f"the scan engine on the device store")
-
-
 def _validate(clients: int, participation: float, straggler_frac: float,
               method: str, client_parallelism: str, engine: str,
-              client_store: str, resume: bool) -> None:
-    """The JAX package's checks, in its order; the options not ported
-    raise ``NotImplementedError``."""
+              client_store_name: str, resume: bool,
+              latency: tuple) -> None:
+    """The JAX package's checks, in its order; the sharded store (not
+    ported) raises ``NotImplementedError``."""
     if client_parallelism not in ("loop", "vmap"):
         raise ValueError(f"client_parallelism={client_parallelism!r}; "
                          f"expected 'loop' or 'vmap'")
@@ -102,20 +112,32 @@ def _validate(clients: int, participation: float, straggler_frac: float,
         raise ValueError(f"engine={engine!r} runs on the stacked client "
                          f"axis; use client_parallelism='vmap'")
     if engine == "async":
-        raise _not_ported("engine='async'", "'core/async_engine.py'")
-    if client_store not in ("device", "sharded", "host"):
-        raise ValueError(f"client_store={client_store!r}; expected one of "
-                         f"('device', 'sharded', 'host')")
-    if client_store != "device" and client_parallelism != "vmap":
-        raise ValueError(f"client_store={client_store!r} requires "
+        if resume:
+            raise ValueError("resume is not supported by the LM driver's "
+                             "async engine (run_federated's async engine "
+                             "resumes)")
+        if straggler_frac > 0.0:
+            raise ValueError("engine='async' replaces the straggler drop "
+                             "mask with the latency model; set "
+                             "straggler_frac=0")
+        if client_store_name != "device":
+            raise ValueError("engine='async' requires client_store='device'")
+        sampling.LatencyModel(*latency)              # validates
+    if client_store_name not in client_store.STORE_BACKENDS:
+        raise ValueError(f"client_store={client_store_name!r}; expected one "
+                         f"of {client_store.STORE_BACKENDS}")
+    if client_store_name != "device" and client_parallelism != "vmap":
+        raise ValueError(f"client_store={client_store_name!r} requires "
                          f"client_parallelism='vmap'")
-    if client_store == "host" and engine != "eager":
+    if client_store_name == "host" and engine != "eager":
         raise ValueError("the LM driver's host-backed store runs eager "
                          "rounds only; use engine='eager' or "
                          "client_store='device'/'sharded'")
-    if client_store != "device":
-        raise _not_ported(f"client_store={client_store!r}",
-                          "'host / sharded client stores'")
+    if client_store_name == "sharded":
+        raise NotImplementedError(
+            "client_store='sharded' is not ported yet (ROADMAP, Queue 1: "
+            "'launch/mesh.py'); the port's LM driver runs the device and "
+            "host stores")
     if resume and engine != "scan":
         raise ValueError("resume requires engine='scan' (the eager driver "
                          "does not write resumable state)")
@@ -243,13 +265,15 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
         sr_uniforms: Optional[Callable[[int, int],
                                        compress.Uniforms]] = None) -> dict:
     """The JAX package's ``run`` with its signature (the async engine's
-    knobs are accepted and unused, as they are there on the other engines),
-    on ``device``.  With ``engine="scan"``, ``ckpt`` names the state file
-    written at every chunk boundary (``resume`` continues from it), and
-    the history rows carry ``host_s`` / ``device_s``.  Returns {"history",
-    "adapters", "cfg", "base"}."""
+    knobs are read by ``engine="async"`` only, as there), on ``device``.
+    With ``engine="scan"``, ``ckpt`` names the state file written at every
+    chunk boundary (``resume`` continues from it), and the history rows
+    carry ``host_s`` / ``device_s``; the async engine's rows carry the
+    virtual arrival time ``sim_t`` and the mean ``staleness`` of the
+    flush.  Returns {"history", "adapters", "cfg", "base"}."""
     _validate(clients, participation, straggler_frac, method,
-              client_parallelism, engine, client_store, resume)
+              client_parallelism, engine, client_store, resume,
+              (latency, latency_scale, latency_sigma))
     codec = compress.get_codec(uplink_codec)
     dev = resolve_device(device)
     partial = participation < 1.0 or straggler_frac > 0.0
@@ -285,13 +309,14 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
         check_on(a, dev, "init_adapters")
     vectorized = client_parallelism == "vmap"
     opt = adamw(lr=lr, stacked=vectorized)
-    stacked = client_batch.stack_states(adapters) if vectorized else None
+    stacked = (client_batch.stack_states(adapters)
+               if vectorized and client_store != "host" else None)
 
     compressed = not codec.is_identity and method in ("celora", "fedavg")
     payload_of = tri_lora.tree_payload if method == "celora" else (
         lambda t: t)
     if compressed:
-        ef = (compress.init_ef(payload_of(stacked)) if vectorized
+        ef = (compress.init_ef(payload_of(stacked)) if stacked is not None
               else [compress.init_ef(payload_of(a)) for a in adapters])
         sr_uniforms = sr_uniforms or (
             lambda rnd, i: compress.client_generator(seed, rnd, i))
@@ -320,17 +345,36 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
               if partial else sampling.full_plan(clients, rnd))
              for rnd in range(rounds)]
 
-    if engine == "scan":
-        history, adapters = _run_scan_lm(
-            cfg=cfg, base=base, opt=opt, stacked=stacked, draw_np=draw_np,
-            plans=plans, method=method, clients=clients, rounds=rounds,
-            chunk_rounds=chunk_rounds, seed=seed, ckpt=ckpt, resume=resume,
-            verbose=verbose, codec=codec, compressed=compressed,
-            payload_of=payload_of, donate=scan_donate,
-            prefetch=scan_prefetch, client_store=client_store,
-            cka_probes=cka_probes, sr_uniforms=sr_uniforms, device=dev)
+    def finish(history: list, adapters: list) -> dict:
+        """The result; with ``ckpt`` client 0's adapter saved first (the
+        scan engine's ``ckpt`` is its state file instead)."""
+        if ckpt and engine != "scan":
+            save(ckpt, {"adapter_client0": adapters[0]},
+                 metadata={"arch": arch, "rounds": rounds, "method": method})
+            if verbose:
+                print(f"saved adapter checkpoint -> {ckpt}")
         return {"history": history, "adapters": adapters, "cfg": cfg,
                 "base": base}
+
+    common = dict(cfg=cfg, base=base, opt=opt, draw_np=draw_np, plans=plans,
+                  method=method, clients=clients, codec=codec,
+                  compressed=compressed, payload_of=payload_of,
+                  cka_probes=cka_probes, sr_uniforms=sr_uniforms, device=dev,
+                  verbose=verbose)
+    if client_store == "host":
+        return finish(*_run_host_lm(adapters=adapters, **common))
+    if engine == "async":
+        return finish(*_run_async_lm(
+            stacked=stacked, rounds=rounds, seed=seed,
+            buffer_size=buffer_size, concurrency=async_concurrency,
+            staleness_decay=staleness_decay,
+            latency_model=sampling.LatencyModel(latency, latency_scale,
+                                                latency_sigma), **common))
+    if engine == "scan":
+        return finish(*_run_scan_lm(
+            stacked=stacked, rounds=rounds, chunk_rounds=chunk_rounds,
+            seed=seed, ckpt=ckpt, resume=resume, donate=scan_donate,
+            prefetch=scan_prefetch, client_store=client_store, **common))
 
     history = []
     for rnd in range(rounds):
@@ -393,28 +437,251 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
                 for i in plan.participants:
                     adapters[i] = g
 
-        rec = {"round": rnd, "loss": float(np.mean(losses)),
-               "uplink_floats": rc.uplink_elems,
-               "uplink_bytes": rc.uplink_bytes,
-               "downlink_bytes": rc.downlink_bytes,
-               "participants": plan.participants.tolist(),
-               "wall_s": time.perf_counter() - t0}
-        history.append(rec)
-        if verbose:
-            print(f"round {rnd:3d}  loss {rec['loss']:.4f}  "
-                  f"uplink {rc.uplink_bytes}B "
-                  f"({plan.n_participants}/{clients} clients)  "
-                  f"{rec['wall_s']:.1f}s", flush=True)
+        history.append(_lm_record(rnd, losses, rc,
+                                  plan.participants.tolist(), t0, verbose,
+                                  clients))
 
     if vectorized:
         adapters = client_batch.unstack_states(stacked)
-    if ckpt:
-        save(ckpt, {"adapter_client0": adapters[0]},
-             metadata={"arch": arch, "rounds": rounds, "method": method})
+    return finish(history, adapters)
+
+
+def _lm_record(rnd: int, losses, rc: comm.RoundComm, participants: list,
+               t0: float, verbose: bool, clients: int) -> dict:
+    """One eager round's history row (and its printed line)."""
+    rec = {"round": rnd, "loss": float(np.mean(losses)),
+           "uplink_floats": rc.uplink_elems,
+           "uplink_bytes": rc.uplink_bytes,
+           "downlink_bytes": rc.downlink_bytes,
+           "participants": participants,
+           "wall_s": time.perf_counter() - t0}
+    if verbose:
+        print(f"round {rnd:3d}  loss {rec['loss']:.4f}  "
+              f"uplink {rc.uplink_bytes}B "
+              f"({len(participants)}/{clients} clients)  "
+              f"{rec['wall_s']:.1f}s", flush=True)
+    return rec
+
+
+def _run_host_lm(*, cfg, base: dict, opt, adapters: list, draw_np, plans,
+                 method: str, clients: int, codec, compressed: bool,
+                 payload_of, cka_probes, sr_uniforms, device,
+                 verbose: bool) -> tuple[list, list]:
+    """Host-backed LM rounds (``client_store="host"``, the JAX package's
+    ``_run_host_lm``): the m adapters live in a
+    :class:`repro_torch.core.client_store.HostClientStore`; each round
+    gathers the sampled cohort to the device, fits it as one batch,
+    aggregates over the cohort and writes it back.  For CE-LoRA a device
+    bank of every client's C payload (plus its EF residual when
+    compressed) backs the all-m CKA; the adapters never stack on the
+    device.  Returns (history, adapters), the adapters on the host."""
+    dev = torch.device(device)
+    store = client_store.HostClientStore(adapters, device=dev)
+    bank = ef_bank = ef_store = None
+    if method == "celora":
+        bank = tree_map(lambda t: t.to(dev, copy=True),
+                        payload_of(store.population))
+        if compressed:
+            ef_bank = compress.init_ef(bank)
+    elif method == "fedavg" and compressed:
+        # FedAvg's EF residuals live on the host beside the adapters
+        ef_store = client_store.HostClientStore(
+            [compress.init_ef(payload_of(a)) for a in adapters], device=dev)
+
+    history = []
+    for rnd, plan in enumerate(plans):
+        t0 = time.perf_counter()
+        drawn = [draw_np(i) for i in range(clients)]   # all: stream parity
+        cids = plan.sampled
+        toks, labs = client_batch.to_device(
+            tuple(client_batch.host_tensor(
+                np.stack([drawn[i][j] for i in cids]), dev) for j in (0, 1)),
+            dev)
+        cohort, ls = local_fit_stacked(cfg, base, opt, store.gather(cids),
+                                       toks, labs)
+        losses = ls[:, -1].cpu().numpy().tolist()
+        pml, pmf, cdev = client_batch.to_device(
+            (client_batch.host_tensor(plan.cohort_mask(), dev),
+             client_batch.host_tensor(plan.mask(clients), dev),
+             client_batch.host_tensor(cids.astype(np.int64), dev)), dev)
+        payload = payload_of(cohort)
+        rc = comm.RoundComm.zero()
+        if method == "celora":
+            # the fresh cohort Cs join the all-m bank before the encode and
+            # the CKA; the bank is re-scattered after the install, so that
+            # its rows stay each client's current C
+            bank = client_batch.scatter_clients(bank, cdev, payload)
+            if compressed:
+                enc, served_all, ef_all = compress.encode_stacked(
+                    codec, bank, ef_bank,
+                    [sr_uniforms(rnd, i) for i in range(clients)])
+                ef_bank = client_batch.select_clients(pmf, ef_all, ef_bank)
+                rc = comm.round_comm_compressed_stacked(
+                    enc, bank, plan.n_participants)
+            else:
+                served_all = bank
+                rc = comm.round_comm_stacked(bank, plan.n_participants)
+            s_model = cka.pairwise_model_similarity_stacked(served_all,
+                                                            cka_probes)
+            w = aggregation.personalized_weights(s_model, participants=pmf)
+            # participants ⊆ cohort: every nonzero column is a cohort row
+            mixed = aggregation.aggregate_stacked(
+                client_batch.gather_clients(served_all, cdev),
+                w[cdev[:, None], cdev[None, :]])
+            cohort = client_batch.select_clients(
+                pml, tri_lora.tree_load_payload(cohort, mixed), cohort)
+            bank = client_batch.scatter_clients(bank, cdev,
+                                                payload_of(cohort))
+        elif method == "fedavg":
+            if compressed:
+                ef_c = ef_store.gather(cids)
+                enc, served, ef_new = compress.encode_stacked(
+                    codec, payload, ef_c,
+                    [sr_uniforms(rnd, int(i)) for i in cids])
+                rc = comm.round_comm_compressed_stacked(
+                    enc, payload, plan.n_participants)
+                ef_store.scatter(cids, client_batch.select_clients(
+                    pml, ef_new, ef_c))
+            else:
+                served = payload
+                rc = comm.round_comm_stacked(payload, plan.n_participants)
+            g = aggregation.fedavg_stacked(served, [1] * len(cids), pml)
+            cohort = client_batch.select_clients(
+                pml, client_batch.broadcast_to_clients(g, len(cids)), cohort)
+        store.scatter(cids, cohort)
+        history.append(_lm_record(rnd, losses, rc,
+                                  plan.participants.tolist(), t0, verbose,
+                                  clients))
+    return history, store.unstack()
+
+
+def _run_async_lm(*, cfg, base: dict, opt, stacked: dict, draw_np, plans,
+                  method: str, clients: int, rounds: int, seed: int,
+                  codec, compressed: bool, payload_of, buffer_size: int,
+                  concurrency: int, staleness_decay: float,
+                  latency_model: sampling.LatencyModel, cka_probes,
+                  sr_uniforms, device, verbose: bool) -> tuple[list, list]:
+    """Asynchronous buffered LM rounds (``engine="async"``, the JAX
+    package's ``_run_async_lm``): the
+    :class:`repro_torch.core.async_engine.AsyncScheduler` replays the
+    seeded virtual-time arrivals; each dispatched group fits as one batch
+    (its uplink encoded with each record's (wave, client) uniforms), the
+    uploads wait in the server's buffer, and every ``buffer_size``
+    arrivals the aggregate is rebuilt with the ``staleness_decay**s``
+    column discount.  At the zero-staleness limit this is the eager
+    driver's history.  Returns (history, adapters)."""
+    from repro_torch.core.async_engine import AsyncScheduler
+
+    dev = torch.device(device)
+    k = int(plans[0].sampled.size)
+    K = int(buffer_size) if buffer_size else k
+    if not 1 <= K <= k:
+        raise ValueError(f"buffer_size must be in [1, cohort size {k}]; "
+                         f"got {K}")
+    Mc = int(concurrency) if concurrency else k
+    decay = float(staleness_decay)
+    if not 0.0 < decay <= 1.0:
+        raise ValueError(f"staleness_decay must be in (0, 1]; got {decay}")
+    has_payload = method in ("celora", "fedavg")
+    per_b, per_e, per_down_b = compress.per_client_traffic(
+        codec, payload_of(meta_like(stacked)) if has_payload else None,
+        clients, compressed)
+    state = {"stacked": stacked,
+             "ef": compress.init_ef(payload_of(stacked))
+             if compressed else None}
+
+    def fit(stk, ef, ids, records, toks, labs):
+        rows = client_batch.gather_clients(stk, ids)
+        new, ls = local_fit_stacked(cfg, base, opt, rows, toks, labs)
+        if compressed:
+            _, served, ef_new = compress.encode_stacked(
+                codec, payload_of(new), client_batch.gather_clients(ef, ids),
+                [sr_uniforms(r.wave, r.client) for r in records])
+            ef = client_batch.scatter_clients(ef, ids, ef_new)
+        else:
+            served = payload_of(new) if has_payload else None
+        return client_batch.scatter_clients(stk, ids, new), ef, ls, served
+
+    def flush(stk, served_k, ids, stale):
+        pmask = client_batch.id_mask(clients, ids)
+        col = None
+        if decay != 1.0:
+            col = torch.ones(clients, dtype=torch.float32,
+                             device=dev).index_copy(
+                0, ids, torch.pow(decay, stale.to(torch.float32)))
+        served_m = client_batch.scatter_clients(payload_of(stk), ids,
+                                                served_k)
+        if method == "celora":
+            s_model = cka.pairwise_model_similarity_stacked(served_m,
+                                                            cka_probes)
+            w = aggregation.personalized_weights(s_model, participants=pmask,
+                                                 col_scale=col)
+            mixed = aggregation.aggregate_stacked(served_m, w)
+            return client_batch.select_clients(
+                pmask, tri_lora.tree_load_payload(stk, mixed), stk)
+        g = aggregation.fedavg_stacked(served_m, [1] * clients, pmask,
+                                       col_scale=col)
+        return client_batch.select_clients(
+            pmask, client_batch.broadcast_to_clients(g, clients), stk)
+
+    consumed = np.zeros(clients, np.int64)
+    history: list = []
+    t_last = [time.perf_counter()]
+
+    def fit_group(records):
+        toks, labs = [], []
+        for r in records:
+            # draw and discard over the waves the client was not
+            # dispatched for: one session per wave, the eager driver's
+            # stream positions
+            while consumed[r.client] < r.wave:
+                draw_np(r.client)
+                consumed[r.client] += 1
+            tk, lb = draw_np(r.client)
+            consumed[r.client] += 1
+            toks.append(tk)
+            labs.append(lb)
+        ids = torch.tensor([r.client for r in records], device=dev)
+        tk, lb = client_batch.to_device(
+            (client_batch.host_tensor(np.stack(toks), dev),
+             client_batch.host_tensor(np.stack(labs), dev)), dev)
+        state["stacked"], state["ef"], ls, served = fit(
+            state["stacked"], state["ef"], ids, records, tk, lb)
+        ls = ls[:, -1].cpu().numpy()
+        for j, r in enumerate(records):
+            r.loss = float(ls[j])
+            if served is not None:
+                r.upload = tree_map(lambda l, j=j: l[j], served)
+
+    def on_flush(records, f, sim_now):
+        stale = np.asarray([f - r.version for r in records], np.float64)
+        if has_payload:
+            state["stacked"] = flush(
+                state["stacked"],
+                tree_map(lambda *xs: torch.stack(xs),
+                         *[r.upload for r in records]),
+                torch.tensor([r.client for r in records], device=dev),
+                torch.as_tensor(stale, device=dev))
+        now = time.perf_counter()
+        rec = {"round": f,
+               "loss": float(np.mean([r.loss for r in records])),
+               "uplink_floats": per_e * K, "uplink_bytes": per_b * K,
+               "downlink_bytes": per_down_b * K,
+               "participants": sorted(r.client for r in records),
+               "wall_s": now - t_last[0], "sim_t": float(sim_now),
+               "staleness": float(np.mean(stale))}
+        t_last[0] = now
+        history.append(rec)
         if verbose:
-            print(f"saved adapter checkpoint -> {ckpt}")
-    return {"history": history, "adapters": adapters, "cfg": cfg,
-            "base": base}
+            print(f"flush {f:3d}  t={sim_now:8.2f}  loss {rec['loss']:.4f}"
+                  f"  uplink {rec['uplink_bytes']}B  stale "
+                  f"{rec['staleness']:.2f}", flush=True)
+
+    AsyncScheduler(waves=[np.asarray(p.sampled) for p in plans], m=clients,
+                   latency=latency_model, seed=seed, buffer_size=K,
+                   concurrency=Mc, rounds=rounds, fit_group=fit_group,
+                   flush_cb=on_flush).run()
+    return history, client_batch.unstack_states(state["stacked"])
 
 
 def _run_scan_lm(*, cfg, base: dict, opt, stacked: dict, draw_np, plans,
@@ -436,17 +703,8 @@ def _run_scan_lm(*, cfg, base: dict, opt, stacked: dict, draw_np, plans,
     meta = meta_like(stacked)
     payload_struct = (tri_lora.tree_payload(meta) if method == "celora"
                       else meta if method == "fedavg" else None)
-    if payload_struct is None:
-        per_b, per_e, per_down_b = 0, 0, 0
-    elif compressed:
-        # the uplink priced on the ENCODED tree, the downlink on the raw
-        # payload (the server broadcasts full-precision aggregates)
-        per_b, per_e = comm.per_client_comm(
-            compress.wire_struct(codec, payload_struct, clients))
-        per_down_b, _ = comm.per_client_comm(payload_struct)
-    else:
-        per_b, per_e = comm.per_client_comm(payload_struct)
-        per_down_b = per_b
+    per_b, per_e, per_down_b = compress.per_client_traffic(
+        codec, payload_struct, clients, compressed)
     ef = compress.init_ef(payload_of(stacked)) if compressed else {}
     ones = torch.ones((clients,), dtype=torch.float32, device=dev)
     fingerprint = {"arch": cfg.name, "method": method, "clients": clients,
@@ -610,7 +868,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--engine", default="eager",
                     choices=["eager", "scan", "async"],
                     help="scan: rounds in chunks, one host sync a chunk, "
-                         "checkpoint and resume (async is not ported)")
+                         "checkpoint and resume; async: the buffered, "
+                         "staleness-weighted server on a virtual clock")
     ap.add_argument("--chunk-rounds", type=int, default=8,
                     help="scan engine: rounds per chunk")
     ap.add_argument("--resume", action="store_true",
@@ -619,6 +878,26 @@ def main(argv=None) -> dict:
                     help="scan engine: keep each chunk's old carry")
     ap.add_argument("--no-prefetch", action="store_true",
                     help="scan engine: draw each chunk inline")
+    ap.add_argument("--buffer-size", type=int, default=0,
+                    help="async engine: aggregate every K arrivals "
+                         "(0 = cohort size, the zero-staleness limit)")
+    ap.add_argument("--async-concurrency", type=int, default=0,
+                    help="async engine: most clients in flight "
+                         "(0 = cohort size)")
+    ap.add_argument("--staleness-decay", type=float, default=1.0,
+                    help="async engine: contribution discount "
+                         "decay**staleness (1.0 = none)")
+    ap.add_argument("--latency", default="uniform",
+                    choices=list(sampling.LATENCIES),
+                    help="async engine: virtual client latency model")
+    ap.add_argument("--latency-scale", type=float, default=1.0)
+    ap.add_argument("--latency-sigma", type=float, default=0.5,
+                    help="async engine: lognormal latency sigma")
+    ap.add_argument("--client-store", default="device",
+                    choices=list(client_store.STORE_BACKENDS),
+                    help="population residency: the device-resident stack, "
+                         "or host-resident with a per-round cohort gather "
+                         "and write-back (sharded is not ported)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = run(arch=args.arch, clients=args.clients, rounds=args.rounds,
@@ -631,7 +910,12 @@ def main(argv=None) -> dict:
               client_parallelism=args.client_parallelism,
               engine=args.engine, chunk_rounds=args.chunk_rounds,
               resume=args.resume, scan_donate=not args.no_donate,
-              scan_prefetch=not args.no_prefetch, device=args.device)
+              scan_prefetch=not args.no_prefetch,
+              client_store=args.client_store, buffer_size=args.buffer_size,
+              async_concurrency=args.async_concurrency,
+              staleness_decay=args.staleness_decay, latency=args.latency,
+              latency_scale=args.latency_scale,
+              latency_sigma=args.latency_sigma, device=args.device)
     first, last = out["history"][0]["loss"], out["history"][-1]["loss"]
     print(f"loss {first:.4f} -> {last:.4f} over {args.rounds} rounds")
     return out

@@ -269,7 +269,7 @@ def test_device_store_and_unported_stores():
                     tree_leaves(states[0])):
         torch.testing.assert_close(a, b)
     store.adopt(tree_map(lambda t: t * 2, store.resident()))
-    for backend, kw in (("host", {}), ("sharded", {}),
+    for backend, kw in (("host", {"parallelism": "shard"}), ("sharded", {}),
                         ("device", {"parallelism": "shard"})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             client_store.make_store(backend, states, **kw)

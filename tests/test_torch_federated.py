@@ -146,9 +146,10 @@ def test_default_draws_train_every_strategy(setup):
 @pytest.mark.parametrize("override,exc", [
     (dict(client_parallelism="shard"), NotImplementedError),
     (dict(client_parallelism="pmap"), ValueError),
-    (dict(engine="scan", client_store="host"), NotImplementedError),
-    (dict(engine="async"), NotImplementedError),
-    (dict(client_store="host"), NotImplementedError),
+    (dict(engine="scan", client_store="sharded"), NotImplementedError),
+    (dict(engine="async", client_parallelism="shard"), NotImplementedError),
+    (dict(client_store="host", client_parallelism="shard"),
+     NotImplementedError),
     (dict(client_store="sharded"), NotImplementedError),
     (dict(uplink_codec="fp4"), ValueError),
     (dict(fault_crash=1.0), ValueError),

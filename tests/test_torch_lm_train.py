@@ -119,9 +119,11 @@ def test_lm_driver_matches_jax_loop_path(case, tmp_path):
 @pytest.mark.parametrize("override,exc", [
     pytest.param(dict(engine="scan", client_store="sharded"),
                  NotImplementedError, id="override0"),
-    pytest.param(dict(engine="async"), NotImplementedError, id="override1"),
-    pytest.param(dict(client_store="host"), NotImplementedError,
-                 id="override2"),
+    # async and the host store are ported: the JAX package's ValueErrors
+    pytest.param(dict(engine="async", client_parallelism="loop"), ValueError,
+                 id="override1"),
+    pytest.param(dict(client_store="host", client_parallelism="loop"),
+                 ValueError, id="override2"),
     pytest.param(dict(client_store="sharded"), NotImplementedError,
                  id="override3"),
     # resume needs the scan engine's state file: a ValueError, as in JAX
