@@ -211,9 +211,10 @@ Phases, one JSON line each (several for the case phases):
                120, window 4,096): 2 clients, 1 round of 1 local step of
                one 8192-token sequence each, flash, on vmap (both clients
                as one batch through the grouped tri-LoRA kernels) and then
-               on loop: exact flash launches (24 forward, dq and dk/dv a
-               step; every block swa at hd 120, so every one under the
-               window; 16-byte routes)
+               on loop: exact flash launches (48 forward, 24 of them the
+               ``cfg.remat`` recompute, and 24 dq and dk/dv a step; every
+               block swa at hd 120, so every one under the window; 16-byte
+               routes)
                and tri-LoRA launches, their routes, a finite loss, the
                plain ledger, round 0's loss within 1e-3 + 1e-3·|loss|
                across the two, tokens/s and peak memory
@@ -226,6 +227,53 @@ Phases, one JSON line each (several for the case phases):
                (both decode kernels every layer of every step, 16-byte
                routes), ms a decode step and peak memory; then its f32
                2-layer oracle (ServeEngine tokens equal serve_naive's)
+  steps_train  ``launch.steps.make_train_step`` on h2o-danube-3-4b at full
+               width and depth (bf16 backbone, f32 adapters, flash) at
+               train_4k's 4,096-token sequence, global batch 4 (of 256):
+               microbatches 1 and 4 from the same params and optimizer
+               state, exact flash and tri-LoRA launches, loss within 1e-3 +
+               1e-3·|loss|, the accumulation bitwise the one-sequence
+               gradients summed; the two runs' gradients at 2, 6 and 24
+               layers in bf16 and on the same weights in f32 (f32 within
+               1e-4 of each leaf's largest entry at 2 layers, 1e-3 at 24;
+               the bf16 gaps reported, each bf16 run within twice the
+               other's distance from f32), the updated adapters
+               reported; loss
+               and adapter gradients with ``cfg.remat`` on and off bitwise
+               equal on fed-100m (f32, 8x256) and h2o (1x4096), both peaks;
+               one qwen2.5-14b train step at 1x4096 through the chunked loss
+               (16 checkpointed 512-token chunk calls) within 1e-5 relative
+               of the unchunked loss, both peaks
+  (flash_timing, prefill_32k) the flash forward at 1x32768, h2o heads, bf16,
+               window 4096, beside its bound, blockwise_sdpa and SDPA,
+               held to blockwise_sdpa in f32 elementwise and relatively
+               (FLASH_REL_TOL); the band one tile short and lost
+               channels must fail the relative hold
+  steps_prefill ``make_prefill_step`` on h2o at full depth over 1x32,768
+               tokens (prefill_32k's batch 32 cut to 1): exactly 24 flash
+               forwards (16-byte route) and 96 tri-LoRA forwards, finite
+               (1, padded vocab) logits, tok/s, peak memory, the flash
+               forward's device time per call (profile); a 2-layer f32
+               oracle of the same shape, flash vs ``attn_impl="blockwise"``,
+               last-position logits within 1e-4 of the largest
+  steps_decode ``make_serve_step`` on h2o at full depth: decode_32k at batch
+               128 over full 4,096-slot rings (48.3 GB of bf16 K/V filled
+               from a seeded generator) from position 32,767, 24 decode
+               attention and 96 tri-LoRA launches a step, every attention
+               call of one step held to its plain version on its recorded
+               operands (elementwise and, per batch row, relatively at
+               FLASH_REL_TOL; the ring one 64-slot tile short must fail
+               that), wall and device time a step; long_500k (the
+               variant is h2o itself) at batch 1 from position 524,287
+  bank_serve   ``run_federated`` on fed-100m (celora, 4 clients, 2 rounds,
+               scan engine) on the device and on the host store, each
+               checkpointed; ``export_bank`` of both (within 5e-4, B != 0,
+               rows distinct); ServeEngine over the exported bank, exact
+               grouped-GEMV and decode-attention launches, tokens equal to
+               serve_naive's request for request
+  privacy      ``run_dlg_experiment`` on the card, 300 attack steps, seeds
+               0-4: F1 per method, the example's assertion at seed 0, the
+               observed gradients of every payload within 1e-5 of the CPU's
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the result line.  Exits non-zero, printing no result, on any failure and
 when no CUDA device is present.
@@ -514,6 +562,85 @@ def digest(torch, *ts) -> str:
     return h.hexdigest()[:16]
 
 
+def moved_adapter(torch, adapter, gen):
+    """C = I + 0.05·N, B = 0.01·N (as card_vs_cpu): every factor of the
+    adapter then has a gradient."""
+    from repro_torch.core.tri_lora import is_adapter
+    from repro_torch.tree import tree_map
+
+    def noise(t, scale):
+        return scale * torch.randn(t.shape, generator=gen, device=t.device)
+    return tree_map(lambda a: {"A": a["A"], "C": a["C"] + noise(a["C"], 0.05),
+                               "B": noise(a["B"], 0.01)},
+                    adapter, is_leaf=is_adapter)
+
+
+def lm_batch(torch, vocab: int, b: int, s: int, seed: int, dev) -> dict:
+    import numpy as np
+    toks = np.random.default_rng(seed).integers(0, vocab, (b, s + 1))
+    return {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+            "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+
+
+def random_params(torch, model, cfg, dev, seed: int) -> dict:
+    """Random params of ``cfg`` on the card, the adapters moved off their
+    zero-delta init."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        params = model.init_params(cfg, gen)
+        params["adapter"] = moved_adapter(torch, params["adapter"], gen)
+    return params
+
+
+def free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def grad_gaps(torch, got, want) -> dict:
+    """Per leaf path of two gradient trees: the largest |difference| over
+    the leaf's largest entry, worst first."""
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+    paths = tree_leaves(tree_map_with_path(
+        lambda p, _: "/".join(map(str, p)), want))
+    gaps = {k: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for k, a, b in zip(paths, tree_leaves(got), tree_leaves(want),
+                               strict=True)}
+    return dict(sorted(gaps.items(), key=lambda kv: -kv[1]))
+
+
+def row_rel(torch, got, want) -> tuple:
+    """(largest over rows (dim 0) of RMS(got - want) / RMS(want) in the
+    row, max |got - want| / max |want|), against the f32 ``want``: a row
+    whose reference is small is held as tightly as one whose reference is
+    large."""
+    want = want.float()
+    err = got.float() - want
+    e2 = err.reshape(err.shape[0], -1).pow(2).sum(1)
+    w2 = want.reshape(want.shape[0], -1).pow(2).sum(1)
+    row = (math.inf if bool(((w2 == 0) & (e2 > 0)).any())
+           else float((e2 / w2.clamp_min(1e-30)).sqrt().max()))
+    return row, float(err.abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def grad_rel(torch, got, want) -> float:
+    """|got - want| / |want| over all leaves of two gradient trees (the
+    2-norm of the whole tree)."""
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(got), tree_leaves(want)
+    e2 = sum(float((a.float() - b.float()).pow(2).sum())
+             for a, b in zip(la, lb, strict=True))
+    w2 = sum(float(b.float().pow(2).sum()) for b in lb)
+    return math.sqrt(e2 / max(w2, 1e-300))
+
+
+def same_bits(torch, a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -663,6 +790,7 @@ def gemv_cases(torch, ops, ref, dev):
 #: tools/time_decode.py also times recurrentgemma-2b's (10 on 1, hd 256)
 ATTN_TIMED = {"serve": (8, 32, 32, 128, 160),
               "long ring": (8, 32, 8, 120, 4096),
+              "decode 32k": (128, 32, 8, 120, 4096),
               "mqa hd 256": (8, 10, 1, 256, 2048)}
 
 
@@ -2275,29 +2403,52 @@ def train_profile(torch, cfg, dev, job: dict = TRAIN, clients: int = 1,
                            shares=FLASH_SHARES + ("tri_lora",))}
 
 
+def recomputed(cfg) -> int:
+    """The layers whose forward runs again in the backward of a training
+    step: with ``cfg.remat`` every layer of the stacked groups
+    (``transformer.run_stack`` checkpoints each group; the tail blocks are
+    not wrapped), none without it."""
+    q, pattern, _ = cfg.stack_plan()
+    return q * len(pattern) if cfg.remat else 0
+
+
+def step_launches(cfg, steps: int, evals: int = 0,
+                  grouped: bool = False) -> dict:
+    """The flash and tri-LoRA launches of ``steps`` training steps and
+    ``evals`` forward-only passes of a dense stack with every projection
+    of ``cfg.lora_targets`` adapted: a step runs each layer's forward, the
+    forward again for the ``recomputed(cfg)`` checkpointed layers, and the
+    backward (layer 0's q/k/v inputs come from the frozen embedding and
+    need no input gradient); one adapter (``tri_lora_*``) or one per
+    client (``grouped``: ``tri_lora_*_grouped``)."""
+    layers, per = cfg.n_layers, len(cfg.lora_targets)
+    again = recomputed(cfg)
+    key = "_grouped" if grouped else ""
+    return {"flash_fwd": layers * (steps + evals) + again * steps,
+            "flash_dq": layers * steps, "flash_dkv": layers * steps,
+            "tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
+            **NO_GROUPED,
+            f"tri_lora_fwd{key}": (layers * (steps + evals) + again * steps)
+            * per,
+            f"tri_lora_dx{key}": (layers * per - 3) * steps}
+
+
 def fed_launches(cfg, hist, job: dict, mode: str) -> dict:
     """The flash and tri-LoRA launches of a ``run_federated`` celora job
     with S^data: the loop path launches per sampled client, the vmap path
     (all clients as one batch) once per projection per local step and one
     eval call per evaluated round.  The S^data feature batches (one per
     client) run the frozen backbone with no adapter: flash, but plain x@W
-    projections.  Layer 0's q/k/v inputs come from the frozen embedding
-    and need no gradient."""
-    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    projections."""
     if mode == "loop":
         steps = sum(len(r.sampled) for r in hist) * job["local_steps"]
         evals = sum(r.evaluated for r in hist) * job["clients"]
-        tri = {"tri_lora_fwd": proj * (steps + evals),
-               "tri_lora_dx": (proj - 3) * steps, "tri_lora_dw": 0,
-               **NO_GROUPED}
     else:
         steps = len(hist) * job["local_steps"]
         evals = sum(r.evaluated for r in hist)
-        tri = {"tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
-               "tri_lora_fwd_grouped": proj * (steps + evals),
-               "tri_lora_dx_grouped": (proj - 3) * steps}
-    return {"flash_fwd": layers * (steps + evals + job["clients"]),
-            "flash_dq": layers * steps, "flash_dkv": layers * steps, **tri}
+    out = step_launches(cfg, steps, evals, grouped=mode == "vmap")
+    out["flash_fwd"] += cfg.n_layers * job["clients"]
+    return out
 
 
 def phase_train(torch, fa_ops, tl_ops, get_config, dev):
@@ -2469,17 +2620,11 @@ def phase_lm_train(torch, fa_ops, tl_ops, get_config, dev,
     peak = torch.cuda.max_memory_allocated() / 1e9
     hist = out["history"]
     steps = sum(len(r["participants"]) for r in hist) * job["local_steps"]
-    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
-    tri = {"tri_lora_fwd": proj * steps, "tri_lora_dx": (proj - 3) * steps,
-           "tri_lora_dw": 0, **NO_GROUPED}
+    layers = cfg.n_layers
     tokens = steps * job["batch"] * job["seq"]
     if mode == "vmap":          # all clients as one batch: one launch per
         steps = len(hist) * job["local_steps"]         # projection a step
-        tri = {"tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
-               "tri_lora_fwd_grouped": proj * steps,
-               "tri_lora_dx_grouped": (proj - 3) * steps}
-    expected = {"flash_fwd": layers * steps, "flash_dq": layers * steps,
-                "flash_dkv": layers * steps, **tri}
+    expected = step_launches(cfg, steps, grouped=mode == "vmap")
     restored = checkpoint.restore(str(path),
                                   {"adapter_client0": out["adapters"][0]})
     same = all(torch.equal(a, b) for a, b in zip(
@@ -2915,13 +3060,9 @@ def phase_lm_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_hist):
     launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 1e9
     hist = full["history"]
-    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    layers = cfg.n_layers
     steps = len(hist) * job["local_steps"]
-    expected = {"flash_fwd": layers * steps, "flash_dq": layers * steps,
-                "flash_dkv": layers * steps, "tri_lora_fwd": 0,
-                "tri_lora_dx": 0, "tri_lora_dw": 0,
-                "tri_lora_fwd_grouped": proj * steps,
-                "tri_lora_dx_grouped": (proj - 3) * steps}
+    expected = step_launches(cfg, steps, grouped=True)
     tokens = (sum(len(r["participants"]) for r in hist) * job["local_steps"]
               * job["batch"] * job["seq"])
     killed = train.run(**dict(job, rounds=2), ckpt=str(path), verbose=False,
@@ -3009,12 +3150,8 @@ GROUPED = ("tri_lora_fwd_grouped", "tri_lora_dx_grouped")
 def grouped_launches(cfg, steps: int, evals: int) -> dict:
     """The flash and grouped tri-LoRA launches of ``steps`` stacked local
     steps and ``evals`` stacked eval calls of a celora job with S^data off
-    (layer 0's q/k/v need no input gradient)."""
-    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
-    return {"flash_fwd": layers * (steps + evals), "flash_dq": layers * steps,
-            "flash_dkv": layers * steps, "tri_lora_fwd": 0, "tri_lora_dx": 0,
-            "tri_lora_dw": 0, "tri_lora_fwd_grouped": proj * (steps + evals),
-            "tri_lora_dx_grouped": (proj - 3) * steps}
+    (``step_launches``)."""
+    return step_launches(cfg, steps, evals, grouped=True)
 
 
 def state_gaps(out, ref) -> dict:
@@ -3308,7 +3445,6 @@ def phase_lm_host_async(torch, fa_ops, tl_ops, get_config, dev, vmap_hist):
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(LM_TRAIN["arch"])
-    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
     for name, over in (("lm_host", dict(client_store="host")),
                        ("lm_async", dict(engine="async"))):
         job = dict(LM_TRAIN, rounds=2, client_parallelism="vmap", **over)
@@ -3317,11 +3453,7 @@ def phase_lm_host_async(torch, fa_ops, tl_ops, get_config, dev, vmap_hist):
             lambda: train.run(**job, verbose=False, device=dev))
         hist = out["history"]
         steps = len(hist) * job["local_steps"]
-        expected = {"flash_fwd": layers * steps, "flash_dq": layers * steps,
-                    "flash_dkv": layers * steps, "tri_lora_fwd": 0,
-                    "tri_lora_dx": 0, "tri_lora_dw": 0,
-                    "tri_lora_fwd_grouped": proj * steps,
-                    "tri_lora_dx_grouped": (proj - 3) * steps}
+        expected = step_launches(cfg, steps, grouped=True)
         on_host = all(t.device.type == "cpu" for a in out["adapters"]
                       for t in tree_leaves(a))
         emit({"phase": name, **job, "rounds_detail": hist, "wall_s": wall,
@@ -3385,7 +3517,8 @@ def phase_lm_rwkv(torch, wkv_ops, tl_ops, get_config, dev):
         key = "" if mode == "loop" else "_grouped"
         expected = {"wkv6": 0, "tri_lora_fwd": 0, "tri_lora_dx": 0,
                     "tri_lora_dw": 0, **NO_GROUPED,
-                    f"tri_lora_fwd{key}": proj * steps,
+                    f"tri_lora_fwd{key}": (proj + 4 * recomputed(cfg))
+                    * steps,
                     f"tri_lora_dx{key}": (proj - 3) * steps}
         lines[mode] = {"wall_s": time.perf_counter() - t0,
                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -3568,8 +3701,9 @@ H2O = "h2o-danube-3-4b"
 #: one 8192-token sequence each (twice the 4,096 window), full width and
 #: depth, bf16 backbone, f32 adapters, no uplink codec (the plain ledger);
 #: run on client_parallelism="vmap" (both clients as one batch of 2x8192
-#: tokens, ~71 GB at its peak: autograd keeps every layer's activations,
-#: activation checkpointing is not ported), then on "loop"
+#: tokens; cfg.remat keeps each layer's input only and recomputes its
+#: forward in the backward, where 70.0 GB was the peak without it), then
+#: on "loop"
 H2O_TRAIN = dict(arch=H2O, clients=2, rounds=1, local_steps=1, batch=1,
                  seq=8192, method="celora", attn_impl="flash")
 #: h2o_serve's job: 8 requests of 64 + 16 tokens from 4 users, 4 slots
@@ -3597,7 +3731,7 @@ def phase_h2o_train(torch, fa_ops, tl_ops, get_config, dev) -> dict:
     require(set(cfg.kinds()) == {"swa"} and cfg.hd == 120
             and cfg.window == 4096, f"{H2O}: kinds {set(cfg.kinds())}, "
             f"hd {cfg.hd}, window {cfg.window}")
-    layers, proj = cfg.n_layers, cfg.n_layers * len(cfg.lora_targets)
+    layers = cfg.n_layers
     c_bytes = layers * len(cfg.lora_targets) * cfg.lora_rank ** 2 * 4
     out_launches, losses = None, {}
     for mode in ("vmap", "loop"):
@@ -3614,16 +3748,7 @@ def phase_h2o_train(torch, fa_ops, tl_ops, get_config, dev) -> dict:
         hist = out["history"]
         steps = job["rounds"] * job["local_steps"] * (
             job["clients"] if mode == "loop" else 1)
-        if mode == "loop":
-            tri = {"tri_lora_fwd": proj * steps,
-                   "tri_lora_dx": (proj - 3) * steps, "tri_lora_dw": 0,
-                   **NO_GROUPED}
-        else:
-            tri = {"tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
-                   "tri_lora_fwd_grouped": proj * steps,
-                   "tri_lora_dx_grouped": (proj - 3) * steps}
-        expected = {"flash_fwd": layers * steps, "flash_dq": layers * steps,
-                    "flash_dkv": layers * steps, **tri}
+        expected = step_launches(cfg, steps, grouped=mode == "vmap")
         tokens = job["rounds"] * job["local_steps"] * job["clients"] * \
             job["batch"] * job["seq"]
         round_wall = sum(r["wall_s"] for r in hist)
@@ -3640,7 +3765,8 @@ def phase_h2o_train(torch, fa_ops, tl_ops, get_config, dev) -> dict:
               "tri_lora_routes": tri_routes})
         require(launches == expected,
                 f"h2o_train {mode} launches {launches} != {expected}")
-        require(flash_routes == {"fwd_vec": layers * steps, "fwd_scalar": 0,
+        require(flash_routes == {"fwd_vec": expected["flash_fwd"],
+                                 "fwd_scalar": 0,
                                  "bwd_vec": 2 * layers * steps,
                                  "bwd_scalar": 0},
                 f"h2o_train {mode} flash routes {flash_routes}")
@@ -3670,25 +3796,11 @@ def phase_h2o_oracle(torch, fa_ops, model, get_config, dev) -> None:
     against the plain blockwise attention (``ref`` would build 32 x 8192^2
     scores), both on the card.  C and B are moved off their zero-delta
     init, as in card_vs_cpu, so that every factor has a gradient."""
-    import numpy as np
-
-    from repro_torch.core.tri_lora import is_adapter
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = get_config(H2O).with_overrides(n_layers=2, param_dtype="float32")
-    gen = torch.Generator(device=dev).manual_seed(13)
-    params = model.init_params(cfg, gen)
-
-    def noise(t, scale):
-        return scale * torch.randn(t.shape, generator=gen, device=dev)
-
-    params["adapter"] = tree_map(
-        lambda a: {"A": a["A"], "C": a["C"] + noise(a["C"], 0.05),
-                   "B": noise(a["B"], 0.01)},
-        params["adapter"], is_leaf=is_adapter)
-    toks = np.random.default_rng(13).integers(0, cfg.vocab_size, (1, 8193))
-    batch = {k: torch.as_tensor(v, device=dev)
-             for k, v in (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]))}
+    params = random_params(torch, model, cfg, dev, 13)
+    batch = lm_batch(torch, cfg.vocab_size, 1, 8192, 13, dev)
     res = {}
     for impl in ("flash", "blockwise"):
         ad = tree_map(lambda t: t.detach().requires_grad_(True),
@@ -3715,7 +3827,8 @@ def phase_h2o_oracle(torch, fa_ops, model, get_config, dev) -> None:
     require(rel <= 1e-4, f"h2o_oracle loss flash {lf} vs blockwise {lb}")
     require(max(errs) <= 1e-3, f"h2o_oracle adapter gradients differ by "
             f"{max(errs)} of their largest entry")
-    require(nf == {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}
+    require(nf == {"flash_fwd": 2 + recomputed(cfg), "flash_dq": 2,
+                   "flash_dkv": 2}
             and nb == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
             f"h2o_oracle launches: flash {nf}, blockwise {nb}")
     del params, res, gf, gb
@@ -3736,6 +3849,714 @@ def phase_h2o_serve(torch, ops, serve, model, random_bank, get_config,
                  H2O, "h2o_serve")
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the launch step factories at the assigned shapes, the exported bank, DLG
+# ---------------------------------------------------------------------------
+
+#: steps_train's h2o job: train_4k's 4,096-token sequences at a global batch
+#: of 4 (train_4k's 256, cut so that the phase fits in the run), bf16
+#: backbone, f32 adapters, flash; microbatches 1 and 4
+STEPS_TRAIN = dict(arch=H2O, batch=4, seq=4096, lr=1e-4, microbatches=(1, 4))
+#: the remat on/off pair: fed-100m (f32) at 8x256, h2o at 1x4096
+REMAT_PAIRS = (("fed-100m", 8, 256), (H2O, 1, 4096))
+#: the depths, beside the full 24, at which steps_train's gradients of
+#: microbatches 4 and 1 are compared in bf16 and in f32 (fresh weights)
+STEPS_DEPTHS = (2, 6)
+#: the chunked loss on the card: qwen2.5-14b at 1x4096 (S·V = 6.2e8 > 2^28)
+STEPS_CHUNKED = dict(arch="qwen2.5-14b", batch=1, seq=4096)
+#: steps_prefill: prefill_32k's 32,768 tokens at batch 1 (its 32 cut)
+STEPS_PREFILL = dict(arch=H2O, batch=1, seq=32768)
+#: steps_decode: decode_32k at its own batch (128) for a few steps from
+#: position 32,767, then long_500k's batch 1 at position 524,287
+STEPS_DECODE = dict(arch=H2O, steps=4)
+#: bank_serve: the train job for 2 rounds on the scan engine, once per
+#: client store, checkpointed; then 8 requests of 16 + 8 tokens from its 4
+#: clients through 4 slots
+BANK_SERVE = dict(rounds=2, stores=("device", "host"), requests=8,
+                  prompt_len=16, gen=8, slots=4)
+#: privacy: the example's run (300 attack steps) at seeds 0-4
+PRIVACY = dict(n_steps=300, seeds=(0, 1, 2, 3, 4))
+
+
+def phase_steps_train(torch, fa_ops, tl_ops, model, get_config, dev):
+    """``steps.make_train_step`` on h2o-danube-3-4b at full width and depth
+    (bf16 backbone, f32 adapters, flash) at train_4k's sequence, global
+    batch 4, microbatches 1 and 4 from the same params and optimizer
+    state: exact flash and tri-LoRA launches (16-byte flash routes), the
+    loss within 1e-3 + 1e-3·|loss|, AdamW on ``loss_and_grads``'s
+    gradients bitwise each step's update, microbatches 4's gradients
+    bitwise the four one-sequence gradients summed in f32 and divided by
+    4; the updated adapters' gap reported.  The two runs' gradients by
+    depth (2, 6 and 24 layers), each also on the same weights in f32: in
+    f32 microbatches 4 and 1 within 1e-4 of each leaf's largest entry at 2
+    layers and within 1e-3 at 24 (the gap grows with depth, as
+    card_vs_cpu and h2o_oracle hold two f32 orders of one gradient;
+    PERF.md §6, PR 25); the bf16 gaps reported, and the bf16 runs held
+    through f32: at every depth each bf16 run's distance from its f32 run
+    within twice the other's.  Then ``cfg.remat`` on and off: loss and
+    gradients bitwise equal on fed-100m (f32, 8x256) and h2o (1x4096),
+    with both peaks; and one train step of qwen2.5-14b at 1x4096 through
+    the chunked loss, its loss within 1e-5 relative of the unchunked loss
+    (the threshold raised), both peaks.
+    Returns the microbatches-1 step's launches."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import apply_updates
+    from repro_torch.tree import tree_leaves, tree_map
+
+    job = STEPS_TRAIN
+    cfg = get_config(job["arch"])
+    require(job["seq"] == steps.SHAPES["train_4k"].seq_len,
+            "steps_train runs train_4k's sequence length")
+    params = random_params(torch, model, cfg, dev, 25)
+    batch = lm_batch(torch, cfg.vocab_size, job["batch"], job["seq"], 25,
+                     dev)
+    runs = {}
+    for k in job["microbatches"]:
+        step = steps.make_train_step(cfg, job["lr"], attn_impl="flash",
+                                     microbatches=k)
+        opt0 = step.optimizer.init(params["adapter"])
+        (new, _, metrics), launches, wall, peak = run_counted(
+            torch, fa_ops, tl_ops, lambda: step(params, opt0, batch))
+        routes = dict(fa_ops.ROUTES), dict(tl_ops.ROUTES)
+        # the step's gradients: loss_and_grads is the step's first half and
+        # repeatable bit for bit, so AdamW on its gradients must give the
+        # step's updated adapters bit for bit
+        _, _, grads = steps.loss_and_grads(cfg, params, batch,
+                                           attn_impl="flash", microbatches=k)
+        upd, _ = step.optimizer.update(grads, opt0, params["adapter"])
+        runs[k] = dict(loss=float(metrics["loss"]), grads=grads,
+                       adapter=new["adapter"], launches=launches,
+                       expected=step_launches(cfg, k),
+                       flash_routes=routes[0], tri_routes=routes[1],
+                       wall_s=wall, peak_mem_gb=peak, step_is_grads=same_bits(
+                           torch, apply_updates(params["adapter"], upd),
+                           new["adapter"]))
+        del new, upd, grads
+    one, four = runs[1], runs[4]
+    # the accumulation itself: microbatches 4's gradients are the four
+    # one-sequence gradients summed in f32 from zero and divided by 4, bit
+    # for bit (each one-sequence pass is the same computation)
+    k, per = job["microbatches"][-1], job["batch"] // job["microbatches"][-1]
+    acc = [torch.zeros_like(t, dtype=torch.float32)
+           for t in tree_leaves(params["adapter"])]
+    for i in range(k):
+        _, _, g = steps.loss_and_grads(cfg, params, {
+            key: x[i * per:(i + 1) * per] for key, x in batch.items()},
+            attn_impl="flash")
+        acc = [a + b for a, b in zip(acc, tree_leaves(g))]
+    by_hand = all(torch.equal(a / k, b) for a, b in zip(
+        acc, tree_leaves(four["grads"]), strict=True))
+    del acc, g
+    loss_gap = abs(four["loss"] - one["loss"])
+    ad_gap = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(four["adapter"]), tree_leaves(one["adapter"])))
+    tokens = job["batch"] * job["seq"]
+    lines = {f"microbatches_{k}": {
+        key: r[key] for key in ("loss", "launches", "expected", "flash_routes",
+                                "tri_routes", "wall_s", "peak_mem_gb",
+                                "step_is_grads")}
+        | {"tok_per_s": tokens / r["wall_s"]} for k, r in runs.items()}
+    bf16_grads = {k: r["grads"] for k, r in runs.items()}
+    del runs, one, four
+    free(torch)
+    # the gradients by depth (STEPS_DEPTHS and the full 24 layers), each on
+    # the same batch: microbatches 4 against 1 in bf16 and, on the same
+    # weights in f32 (no GEMM rounds to bf16), in f32; and each bf16 run
+    # against the f32 run of its microbatches (the witness: two GEMM
+    # orders' roundings sit about equally far from f32, a kernel that
+    # fails at one batch shape puts its run far off)
+    depths = {}
+    for n in STEPS_DEPTHS + (cfg.n_layers,):
+        cn = cfg.with_overrides(n_layers=n)
+        pn = params if n == cfg.n_layers else random_params(
+            torch, model, cn, dev, 25)
+        c32 = cn.with_overrides(param_dtype="float32")
+        p32 = {"base": tree_map(lambda t: t.float(), pn["base"]),
+               "adapter": pn["adapter"]}
+        g16 = bf16_grads if n == cfg.n_layers else {
+            k: steps.loss_and_grads(cn, pn, batch, attn_impl="flash",
+                                    microbatches=k)[2]
+            for k in job["microbatches"]}
+        g32, f32_runs = {}, {}
+        for k in job["microbatches"]:
+            (loss, _, g32[k]), _, wall, peak = run_counted(
+                torch, fa_ops, tl_ops, lambda: steps.loss_and_grads(
+                    c32, p32, batch, attn_impl="flash", microbatches=k))
+            f32_runs[k] = {"loss": float(loss), "wall_s": wall,
+                           "peak_mem_gb": peak}
+        gaps16, gaps32 = (grad_gaps(torch, g[4], g[1]) for g in (g16, g32))
+        depths[n] = {"bf16_gap_over_max": next(iter(gaps16.values())),
+                     "bf16_worst_leaves": dict(list(gaps16.items())[:3]),
+                     "f32_gap_over_max": next(iter(gaps32.values())),
+                     "f32_worst_leaves": dict(list(gaps32.items())[:3]),
+                     "bf16_vs_f32_rel_norm": {k: grad_rel(torch, g16[k],
+                                                          g32[k])
+                                              for k in job["microbatches"]},
+                     "f32": f32_runs}
+        del pn, p32, g16, g32
+        free(torch)
+    del bf16_grads
+    free(torch)
+
+    pairs = {}
+    for arch, b, s in REMAT_PAIRS:
+        c = get_config(arch)
+        p = params if arch == H2O else random_params(torch, model, c, dev, 26)
+        mb = lm_batch(torch, c.vocab_size, b, s, 26, dev)
+        got = {}
+        for remat in (True, False):
+            (loss, _, grads), launches, wall, peak = run_counted(
+                torch, fa_ops, tl_ops, lambda: steps.loss_and_grads(
+                    c.with_overrides(remat=remat), p, mb, attn_impl="flash"))
+            got[remat] = (loss, grads, {"launches": launches, "wall_s": wall,
+                                        "peak_mem_gb": peak})
+        pairs[arch] = {"batch": [b, s],
+                       "loss": float(got[True][0]),
+                       "bitwise": bool(torch.equal(got[True][0],
+                                                   got[False][0]))
+                       and same_bits(torch, got[True][1], got[False][1]),
+                       "remat": got[True][2], "no_remat": got[False][2]}
+        del got, p, mb
+        free(torch)
+    del params
+    free(torch)
+
+    cj = STEPS_CHUNKED
+    qc = get_config(cj["arch"])
+    qp = random_params(torch, model, qc, dev, 27)
+    qb = lm_batch(torch, qc.vocab_size, cj["batch"], cj["seq"], 27, dev)
+    chunks, real, limit = [], model._ce_terms, model._CE_CHUNK_THRESHOLD
+
+    def counted(c, h, *a):
+        chunks.append(h.shape[1])
+        return real(c, h, *a)
+    chunked = {}
+    model._ce_terms = counted
+    try:
+        for name, threshold in (("chunked", limit), ("whole", 1 << 62)):
+            model._CE_CHUNK_THRESHOLD = threshold
+            chunks.clear()
+            step = steps.make_train_step(qc, attn_impl="flash")
+            (_, _, m), launches, wall, peak = run_counted(
+                torch, fa_ops, tl_ops,
+                lambda: step(qp, step.optimizer.init(qp["adapter"]), qb))
+            chunked[name] = {"loss": float(m["loss"]), "ce_calls":
+                             list(chunks), "wall_s": wall,
+                             "peak_mem_gb": peak, "launches": launches}
+    finally:
+        model._ce_terms, model._CE_CHUNK_THRESHOLD = real, limit
+    rel = abs(chunked["chunked"]["loss"] - chunked["whole"]["loss"]) / abs(
+        chunked["whole"]["loss"])
+    del qp, qb
+    free(torch)
+
+    emit({"phase": "steps_train", "arch": cfg.name, "layers": cfg.n_layers,
+          "dtype": cfg.param_dtype, "adapter_dtype": "float32",
+          "attn_impl": "flash", "shape": "train_4k",
+          "global_batch": [job["batch"], "of", 256], "seq": job["seq"],
+          **lines, "loss_gap": loss_gap,
+          "accumulation_bitwise_by_hand": by_hand,
+          "updated_adapter_max_gap": ad_gap, "grads_by_depth": depths,
+          "remat_pairs": pairs,
+          "chunked_loss": {"arch": qc.name, "batch": [cj["batch"],
+                                                     cj["seq"]],
+                           "s_times_vocab": cj["seq"] * qc.padded_vocab,
+                           **chunked, "loss_rel_gap": rel}})
+    for k, line in lines.items():
+        require(line["launches"] == line["expected"],
+                f"steps_train {k} launches {line['launches']} != "
+                f"{line['expected']}")
+        fl = line["expected"]["flash_fwd"]
+        require(line["flash_routes"] == {"fwd_vec": fl, "fwd_scalar": 0,
+                                         "bwd_vec": 2 * line["expected"][
+                                             "flash_dq"], "bwd_scalar": 0},
+                f"steps_train {k} flash routes {line['flash_routes']}")
+        require(line["step_is_grads"], f"steps_train {k}: AdamW on "
+                f"loss_and_grads's gradients is not the step's update")
+    require(loss_gap <= 1e-3 + 1e-3 * abs(lines["microbatches_1"]["loss"]),
+            f"steps_train microbatches 4 vs 1: loss gap {loss_gap}")
+    for n, d in depths.items():
+        l1, l4 = d["f32"][1]["loss"], d["f32"][4]["loss"]
+        require(abs(l4 - l1) <= 1e-3 + 1e-3 * abs(l1), f"steps_train "
+                f"{n} layers f32 microbatches 4 vs 1: losses {l4} / {l1}")
+        w = d["bf16_vs_f32_rel_norm"].values()
+        require(max(w) <= 2 * min(w), f"steps_train {n} layers: the bf16 "
+                f"runs of microbatches 1 and 4 sit unequally far from f32: "
+                f"{d['bf16_vs_f32_rel_norm']}")
+    require(by_hand, "steps_train: microbatches 4's gradients are not the "
+            "four one-sequence gradients summed and divided by 4")
+    shallow = depths[STEPS_DEPTHS[0]]
+    require(shallow["f32_gap_over_max"] <= 1e-4, f"steps_train "
+            f"{STEPS_DEPTHS[0]} layers f32 microbatches 4 vs 1: gradients "
+            f"part by {shallow['f32_worst_leaves']}")
+    require(depths[cfg.n_layers]["f32_gap_over_max"] <= 1e-3,
+            f"steps_train f32 microbatches 4 vs 1: gradients part by "
+            f"{depths[cfg.n_layers]['f32_worst_leaves']}")
+    for arch, pair in pairs.items():
+        require(pair["bitwise"], f"steps_train {arch}: remat on and off are "
+                f"not bitwise equal")
+    require(chunked["chunked"]["ce_calls"] == [512] * 16
+            and chunked["whole"]["ce_calls"] == [cj["seq"]],
+            f"steps_train chunked loss calls {chunked['chunked']['ce_calls']}"
+            f" / {chunked['whole']['ce_calls']}")
+    require(rel <= 1e-5, f"steps_train {qc.name}: chunked loss "
+            f"{chunked['chunked']['loss']} vs {chunked['whole']['loss']}")
+    return lines["microbatches_1"]["launches"]
+
+
+def time_flash_prefill(torch, F, fa_ops, bounds, dev) -> dict:
+    """The flash forward at prefill_32k's shape with h2o-danube-3-4b's
+    heads (1x32768, 32/8, hd 120, bf16, window 4096): the kernel beside
+    its bound, the plain version (``attention.blockwise_sdpa``, the model's
+    plain path at this length) and SDPA on its memory-efficient backend
+    (the band as a boolean mask, K/V expanded to the query heads
+    beforehand: with GQA and a mask SDPA takes the math backend, which
+    would materialize 32 x 32768^2 scores); held to the plain version in
+    f32 on the same inputs by ``hold_flash`` (elementwise at TOL and
+    relatively at FLASH_REL_TOL: under randn inputs a row over 4,096 keys
+    is about TOL's atol in size); the band one 64-key tile short and
+    channels 96 and up lost, each the plain version rounded to bf16, must
+    fail that relative hold.  Returns the kernel-table row."""
+    from repro_torch.models.attention import blockwise_sdpa
+
+    b, s, h, kh, hd, dt_name, window = 1, 32768, 32, 8, 120, "bfloat16", 4096
+    gen = torch.Generator(device=dev).manual_seed(28)
+    sets = flash_timed_sets(torch, fa_ops, dev, b, s, h, kh, hd, gen,
+                            dt_name, window)
+    q, k, v, _, out, _, _ = sets[0]
+    want = blockwise_sdpa(q.float(), k.float(), v.float(), window=window)
+    errs, rel, nbad = hold_flash(torch, (out,), (want,), dt_name)
+    err = errs["out"]
+    lost = [t.float() for t in (q, k, v)]
+    for t in lost:
+        t[..., 96:] = 0
+    faults = {}
+    for name, ins, win in (
+            ("band_one_tile_short", [t.float() for t in (q, k, v)],
+             window - 64),
+            ("channels_96_up_lost", lost, window)):
+        got = blockwise_sdpa(*ins, window=win).to(out.dtype)
+        del ins
+        _, f_rel, _ = hold_flash(torch, (got,), (want,), dt_name)
+        faults[name] = {"rel": f_rel["out"], "n_out_of_tol": compare(
+            torch, got, want.to(got.dtype), dt_name)[1]}
+        del got
+    del want, lost
+    fwd = time_ms(torch, lambda q, k, v, *_: fa_ops.flash_attention_fwd(
+        q, k, v, window=window), sets, 10)
+    plain = time_ms(torch, lambda q, k, v, *_: blockwise_sdpa(
+        q, k, v, window=window), sets[:1], 3, plain=True)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    pos = torch.arange(s, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    g = h // kh
+    full = [(q.transpose(1, 2), k.repeat_interleave(g, 2).transpose(1, 2),
+             v.repeat_interleave(g, 2).transpose(1, 2))]
+    torch.cuda.empty_cache()
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=band), full, 10)
+    bd = bounds.flash_fwd(b, h, kh, s, hd, dt_name, window)
+    row = dict(name="flash_fwd", route="cuda", source=FLASH_SRC,
+               replaces=FLASH_TPU["flash_fwd"], max_abs_err=err, ms=fwd,
+               plain_ms=plain, library_ms=lib, **bound(bd),
+               shape="prefill 32k",
+               note="h2o-danube-3-4b heads, 1x32768 bf16, window 4096; "
+                    "plain_ms is attention.blockwise_sdpa, library_ms SDPA "
+                    "(memory-efficient backend, boolean band mask) on K/V "
+                    "expanded to the 32 query heads")
+    emit({"phase": "flash_timing", "b": b, "s": s, "h": h, "kh": kh,
+          "hd": hd, "dtype": dt_name, "causal": True, "window": window,
+          "kernel_ms": {"flash_fwd": fwd}, "bound_ms": {"flash_fwd": bd.ms},
+          "plain_ms": {"fwd": plain}, "sdpa_ms": {"fwd": lib},
+          "fwd_over_sdpa_fwd": fwd / lib, "max_abs_err": {"flash_fwd": err},
+          "rel_err": rel["out"], "rel_tol": FLASH_REL_TOL[dt_name],
+          "n_out_of_tol": nbad, "faults": faults,
+          "stream_hold_x": holds_used()})
+    require(nbad == 0, f"the flash forward at prefill_32k's shape disagrees "
+            f"with blockwise_sdpa: {nbad} failures, max {err}, relative "
+            f"(tile RMS, max over max) {rel['out']}")
+    require(all(f["rel"][0] > FLASH_REL_TOL[dt_name]
+                for f in faults.values()),
+            f"flash at prefill_32k's shape: a stand-in passes the relative "
+            f"hold: {faults}")
+    del sets, full, band
+    free(torch)
+    return row
+
+
+def phase_steps_prefill(torch, fa_ops, tl_ops, model, get_config, dev):
+    """``steps.make_prefill_step`` on h2o-danube-3-4b at full depth (bf16)
+    over prefill_32k's 32,768 tokens at batch 1: exactly 24 flash-forward
+    launches on the 16-byte route and 96 tri-LoRA forwards, finite
+    (1, padded vocab) logits, tok/s, peak memory and the flash forward's
+    device time per call from a profile window; then the same shape at 2
+    layers in f32, flash against ``attn_impl="blockwise"`` on the card,
+    the last position's logits within 1e-4 of their largest.  Returns the
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+
+    job = STEPS_PREFILL
+    cfg = get_config(job["arch"])
+    require(job["seq"] == steps.SHAPES["prefill_32k"].seq_len,
+            "steps_prefill runs prefill_32k's sequence length")
+    params = random_params(torch, model, cfg, dev, 29)
+    toks = lm_batch(torch, cfg.vocab_size, job["batch"], job["seq"], 29,
+                    dev)["tokens"]
+    pf = steps.make_prefill_step(cfg, attn_impl="flash")
+    logits, launches, wall, peak = run_counted(
+        torch, fa_ops, tl_ops, lambda: pf(params, {"tokens": toks}))
+    flash_routes = dict(fa_ops.ROUTES)
+    expected = step_launches(cfg, 0, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pf(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    split = device_split(prof, wall2 * 1e6, 8, shares=("flash_fwd",
+                                                        "tri_lora"))
+    fwd_us = [e.time_range.elapsed_us() for e in prof.events()
+              if getattr(e.device_type, "name", "") == "CUDA"
+              and "flash_fwd" in e.name]
+    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+    shape_ok = tuple(logits.shape) == (job["batch"], cfg.padded_vocab)
+    del params, logits
+    free(torch)
+
+    c2 = cfg.with_overrides(n_layers=2, param_dtype="float32")
+    p2 = random_params(torch, model, c2, dev, 30)
+    oracle = {impl: steps.make_prefill_step(c2, attn_impl=impl)(
+        p2, {"tokens": toks}) for impl in ("flash", "blockwise")}
+    rel = float((oracle["flash"] - oracle["blockwise"])[:, :c2.vocab_size]
+                .abs().max()) / float(oracle["blockwise"][:, :c2.vocab_size]
+                                     .abs().max())
+    del p2, oracle
+    free(torch)
+    emit({"phase": "steps_prefill", "arch": cfg.name, "layers": cfg.n_layers,
+          "dtype": cfg.param_dtype, "shape": "prefill_32k",
+          "global_batch": [job["batch"], "of", 32], "seq": job["seq"],
+          "window": cfg.window, "wall_s": wall, "wall_s_profiled": wall2,
+          "tok_per_s": job["batch"] * job["seq"] / wall,
+          "peak_mem_gb": peak, "launches": launches,
+          "expected_launches": expected, "flash_routes": flash_routes,
+          "logits_shape": [job["batch"], cfg.padded_vocab],
+          "finite": finite, "profile": split,
+          "flash_fwd_device_us": {"calls": len(fwd_us),
+                                  "mean": sum(fwd_us) / max(len(fwd_us), 1)},
+          "oracle_2_layers_f32": {"logits_rel_gap": rel}})
+    require(launches == expected, f"steps_prefill launches {launches} != "
+            f"{expected}")
+    require(flash_routes == {"fwd_vec": cfg.n_layers, "fwd_scalar": 0,
+                             "bwd_vec": 0, "bwd_scalar": 0},
+            f"steps_prefill flash routes {flash_routes}")
+    require(finite and shape_ok, "steps_prefill logits not finite or of the "
+            "wrong shape")
+    require(len(fwd_us) == cfg.n_layers, f"steps_prefill profile saw "
+            f"{len(fwd_us)} flash forwards")
+    require(rel <= 1e-4, f"steps_prefill 2-layer f32 oracle: flash vs "
+            f"blockwise logits part by {rel} of the largest")
+    return launches
+
+
+def filled_cache(torch, model, cfg, batch: int, seq_len: int, pos: int,
+                 gen, dev) -> dict:
+    """A decode cache of ``batch`` x ``seq_len`` with every ring slot of
+    every layer filled in place from ``gen`` and the next position
+    ``pos``."""
+    from repro_torch.tree import tree_leaves
+    cache = model.init_decode_cache(cfg, batch, seq_len, device=dev)
+    for t in tree_leaves(cache):
+        if t.is_floating_point():
+            for layer in t:                  # one layer at a time
+                layer.normal_(generator=gen)
+        else:
+            t.fill_(pos)
+    return cache
+
+
+def phase_steps_decode(torch, ops, ref, tl_ops, model, get_config, dev):
+    """``steps.make_serve_step`` on h2o-danube-3-4b at full depth (bf16):
+    decode_32k at its own batch of 128 against full 4,096-slot rings (the
+    32,768-token cache's window; 48.3 GB of K/V filled from a seeded
+    generator), a few steps from position 32,767: 24 decode-attention and
+    96 tri-LoRA forward launches a step on the 16-byte routes, every
+    decode-attention call of the first step held to its plain version in
+    f32 on its recorded operands (elementwise at TOL, and per batch row
+    relatively at FLASH_REL_TOL: an output over 4,096 slots is about TOL's
+    atol in size), where the plain version over the ring one 64-slot tile
+    short must fail the relative hold; wall and device time per step;
+    then long_500k
+    (``shape_variant`` leaves h2o unchanged) at batch 1 from position
+    524,287, finite logits.  Returns the launches of one decode_32k
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    from repro_torch.launch import steps
+
+    job = STEPS_DECODE
+    cfg = get_config(job["arch"])
+    sh = steps.SHAPES["decode_32k"]
+    gen = torch.Generator(device=dev).manual_seed(31)
+    params = random_params(torch, model, cfg, dev, 31)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache = filled_cache(torch, model, cfg, sh.global_batch, sh.seq_len,
+                         sh.seq_len - 1, gen, dev)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    kv_gb = sum(t.numel() * t.element_size() for t in (
+        cache["groups"]["0"]["k"], cache["groups"]["0"]["v"])) / 1e9
+    serve = steps.make_serve_step(cfg)
+    toks = torch.as_tensor(np.random.default_rng(31).integers(
+        0, cfg.vocab_size, (sh.global_batch, 1)), device=dev)
+
+    def batch_at(pos):
+        return {"token": toks, "positions": torch.full(
+            (sh.global_batch, 1), pos, dtype=torch.int32, device=dev)}
+
+    calls, kernel = [], ops.decode_attention
+
+    def recorded(q, k, v, idx):
+        out = kernel(q, k, v, idx)
+        calls.append((q, k, v, idx, out))
+        return out
+    ops.reset_launches()
+    tl_ops.reset_launches()
+    ops.decode_attention = recorded
+    try:
+        logits, cache = serve(params, cache, batch_at(sh.seq_len - 1))
+        torch.cuda.synchronize()
+    finally:
+        ops.decode_attention = kernel
+    launches = {**ops.LAUNCHES, **tl_ops.LAUNCHES}
+    routes = {**ops.ROUTES, **{k: v for k, v in tl_ops.ROUTES.items() if v}}
+    errs, rels, bad, tol = [], [], 0, FLASH_REL_TOL["bfloat16"]
+    for i, (q, k, v, idx, out) in enumerate(calls):
+        want = ref.decode_attention_ref(q.float(), k, v, idx)
+        e, n = compare(torch, out, want.to(out.dtype), "bfloat16")
+        errs.append(e)
+        rels.append(row_rel(torch, out, want))
+        bad += n + sum(x > tol for x in rels[-1])
+        if i == 0:
+            # the stand-in: the plain version over the ring one 64-slot
+            # tile short (every slot is valid past the wrap)
+            short = ref.decode_attention_ref(q.float(), k[:, 64:],
+                                             v[:, 64:], idx).to(out.dtype)
+            fault = {"rel": row_rel(torch, short, want), "n_out_of_tol":
+                     compare(torch, short, want.to(out.dtype),
+                             "bfloat16")[1]}
+            del short
+        del want
+    n_calls = len(calls)
+    del calls
+    walls = []
+    for i in range(1, job["steps"]):
+        t0 = time.perf_counter()
+        logits, cache = serve(params, cache, batch_at(sh.seq_len - 1 + i))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = serve(params, cache,
+                              batch_at(sh.seq_len - 1 + job["steps"]))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    split = device_split(prof, prof_wall * 1e6, 8,
+                         shares=("decode_attention", "tri_lora"))
+    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del cache, logits
+    free(torch)
+
+    long_cfg = steps.shape_variant(cfg, "long_500k")
+    ls = steps.SHAPES["long_500k"]
+    lcache = filled_cache(torch, model, long_cfg, ls.global_batch,
+                          ls.seq_len, ls.seq_len - 1, gen, dev)
+    ring = lcache["groups"]["0"]["k"].shape[2]
+    ops.reset_launches()
+    llog, lcache = serve(params, lcache, {
+        "token": toks[:1], "positions": torch.full(
+            (1, 1), ls.seq_len - 1, dtype=torch.int32, device=dev)})
+    long_launches = dict(ops.LAUNCHES)
+    long_ok = (tuple(llog.shape) == (1, cfg.padded_vocab)
+               and bool(torch.isfinite(llog[:, :cfg.vocab_size]).all()))
+    del lcache, llog, params
+    free(torch)
+    expected = {"decode_attention": cfg.n_layers, "grouped_gemv": 0,
+                "tri_lora_fwd": cfg.n_layers * len(cfg.lora_targets),
+                "tri_lora_dx": 0, "tri_lora_dw": 0, **NO_GROUPED}
+    emit({"phase": "steps_decode", "arch": cfg.name, "layers": cfg.n_layers,
+          "dtype": cfg.param_dtype, "shape": "decode_32k",
+          "batch": sh.global_batch, "seq_len": sh.seq_len,
+          "ring": cfg.window, "kv_cache_gb": kv_gb, "fill_s": fill_s,
+          "launches_per_step": launches, "expected_per_step": expected,
+          "routes": routes, "attention_calls_held": n_calls,
+          "attention_max_abs_err": max(errs),
+          "attention_rel_err": [max(r[0] for r in rels),
+                                max(r[1] for r in rels)],
+          "rel_tol": tol, "n_out_of_tol": bad,
+          "fault_ring_one_tile_short": fault,
+          "wall_ms_per_step": [1e3 * w for w in walls],
+          "profiled_step": split, "finite": finite, "peak_mem_gb": peak,
+          "long_500k": {"variant_unchanged": long_cfg is cfg, "ring": ring,
+                        "position": ls.seq_len - 1,
+                        "launches": long_launches, "finite": long_ok}})
+    require(launches == expected, f"steps_decode launches {launches} != "
+            f"{expected}")
+    require(routes["attn_vec"] == cfg.n_layers and routes["attn_scalar"] == 0,
+            f"steps_decode attention routes {routes}")
+    require(n_calls == cfg.n_layers and bad == 0,
+            f"steps_decode: {bad} attention failures in {n_calls} calls "
+            f"against their plain version (max {max(errs)}, relative (row "
+            f"RMS, max over max) {rels})")
+    require(fault["rel"][0] > tol, f"steps_decode: the stand-in with the "
+            f"ring one tile short passes the relative hold: {fault}")
+    require(finite, "steps_decode logits not finite")
+    require(long_cfg is cfg and ring == cfg.window and long_ok
+            and long_launches["decode_attention"] == cfg.n_layers,
+            f"steps_decode long_500k: variant unchanged {long_cfg is cfg}, "
+            f"ring {ring}, finite {long_ok}, launches {long_launches}")
+    return launches
+
+
+def phase_bank_serve(torch, ops, fa_ops, tl_ops, serve, get_config, dev):
+    """The personalized train → serve path: ``run_federated`` on fed-100m
+    at full width and depth (celora, 4 clients, full participation, 2
+    rounds, the scan engine, flash) once on the device and once on the
+    host client store, each checkpointed; ``export_bank`` of both
+    checkpoints (within 5e-4 of each other, B non-zero, rows distinct);
+    ``ServeEngine`` over the exported bank with exact grouped-GEMV and
+    decode-attention launches, its tokens equal to ``serve_naive``'s
+    (merged weights, eqn. 10) request for request.  Returns the engine's
+    launches."""
+    from repro_torch.core.adapter_bank import export_bank
+    from repro_torch.core.fed_model import FedTask
+    from repro_torch.core.tri_lora import is_adapter
+    from repro_torch.tree import tree_leaves
+
+    job = BANK_SERVE
+    cfg = get_config("fed-100m")
+    fed_job = dict(TRAIN, rounds=job["rounds"])
+    banks, runs = {}, {}
+    for store in job["stores"]:
+        path = ROOT / "build" / "chip_smoke" / f"bank_{store}.npz"
+        if path.exists():
+            path.unlink()
+        out, wall = train_job(torch, cfg, dev, "flash", fed_job, "vmap",
+                              engine="scan", chunk_rounds=2,
+                              client_store=store, use_data_sim=False,
+                              checkpoint_path=str(path))
+        runs[store] = {"wall_s": wall, "train_loss": [
+            r.train_loss for r in out["history"]]}
+        banks[store] = export_bank(str(path), device=dev)
+        del out
+    dev_bank, host_bank = banks["device"], banks["host"]
+    gap = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(dev_bank.tree), tree_leaves(host_bank.tree),
+        strict=True))
+    ads = [a for a in tree_leaves(dev_bank.tree, is_leaf=is_adapter)
+           if is_adapter(a)]
+    b_nonzero = all(float(a["B"].abs().max()) > 0 for a in ads)
+    distinct = all(any(not torch.equal(x[i], x[0]) for x in tree_leaves(
+        dev_bank.tree)) for i in range(1, dev_bank.n_clients))
+    base = FedTask.create(torch.Generator(device=dev).manual_seed(0), cfg,
+                          TRAIN["classes"]).base
+    eng = serve.ServeEngine(cfg, base, dev_bank, slots=job["slots"],
+                            max_len=job["prompt_len"] + job["gen"],
+                            device=dev)
+    reqs = serve.make_requests(dev_bank, job["requests"],
+                               prompt_len=job["prompt_len"], gen=job["gen"],
+                               vocab=cfg.vocab_size, seed=0)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = dict(ops.LAUNCHES), dict(ops.ROUTES)
+    expected = {"grouped_gemv": len(cfg.lora_targets) * cfg.n_layers
+                * eng.steps, "decode_attention": cfg.n_layers * eng.steps}
+    naive = serve.serve_naive(cfg, base, dev_bank, reqs, device=dev)
+    same = sorted(done) == sorted(naive) and all(
+        np_equal(done[r], naive[r]) for r in naive)
+    emit({"phase": "bank_serve", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "clients": TRAIN["clients"], "rounds": job["rounds"],
+          "engine": "scan", "runs": runs, "bank_rows": dev_bank.n_clients,
+          "bank_rank": dev_bank.rank, "store_bank_max_gap": gap,
+          "b_nonzero": b_nonzero, "rows_distinct": distinct,
+          "serve": {**{k: job[k] for k in ("requests", "prompt_len", "gen",
+                                            "slots")},
+                    "users": len({r.user_id for r in reqs}),
+                    "steps": eng.steps, "wall_s": wall,
+                    "ms_per_step": 1e3 * wall / eng.steps,
+                    "launches": launches, "expected_launches": expected,
+                    "routes": routes},
+          "tokens_equal_serve_naive": same})
+    require(gap <= 5e-4, f"bank_serve: the device and host stores' banks "
+            f"part by {gap}")
+    require(b_nonzero and distinct, f"bank_serve: B non-zero {b_nonzero}, "
+            f"rows distinct {distinct}")
+    require(launches == expected, f"bank_serve launches {launches} != "
+            f"{expected}")
+    require(routes["gemv_vec"] == launches["grouped_gemv"]
+            and routes["attn_vec"] == launches["decode_attention"],
+            f"bank_serve left the 16-byte routes: {routes}")
+    require(same, "bank_serve: ServeEngine's tokens differ from "
+            "serve_naive's")
+    del eng, base, banks, dev_bank, host_bank
+    free(torch)
+    return launches
+
+
+def phase_privacy(torch, dev) -> None:
+    """``privacy.run_dlg_experiment`` on the card as the example runs it
+    (300 attack steps) at seeds 0-4: F1 per method, the example's
+    assertion at its seed 0 (celora F1 <= fedpetuning F1 + 0.05; the other
+    seeds' ordering reported), and each payload's observed gradients on the
+    card within 1e-5 of their largest entry of the CPU's on the same
+    model."""
+    from repro_torch.core import privacy
+
+    job = PRIVACY
+    f1, walls = {}, {}
+    for seed in job["seeds"]:
+        t0 = time.perf_counter()
+        res = privacy.run_dlg_experiment(seed=seed, n_steps=job["n_steps"],
+                                         device=dev)
+        torch.cuda.synchronize()
+        walls[seed] = time.perf_counter() - t0
+        f1[seed] = {m: v["f1"] for m, v in res.items()}
+    held = {s: f["celora"] <= f["fedpetuning"] + 0.05 for s, f in f1.items()}
+    model = privacy.make_model(torch.Generator(device=dev).manual_seed(0))
+    cpu = privacy.DLGModel(embed=model.embed.cpu(), w=model.w.cpu(),
+                           head=model.head.cpu(),
+                           adapter={k: t.cpu()
+                                    for k, t in model.adapter.items()})
+    true, labels = privacy.private_batch(0, 4, 6, 128)
+    gaps = {}
+    for method, payload in privacy.PAYLOADS.items():
+        got = privacy.observed_grads(model, payload, torch.as_tensor(
+            true, device=dev), torch.as_tensor(labels, device=dev))
+        want = privacy.observed_grads(cpu, payload, torch.from_numpy(true),
+                                      torch.from_numpy(labels))
+        gaps[method] = max(float((got[k].cpu() - want[k]).abs().max())
+                           / float(want[k].abs().max()) for k in want)
+    emit({"phase": "privacy", "n_steps": job["n_steps"], "f1": f1,
+          "wall_s": walls, "celora_le_fedpetuning_plus_0.05": held,
+          "grads_card_vs_cpu_rel": gaps})
+    require(held[0], f"privacy: the example's assertion fails at seed 0: "
+            f"{f1[0]}")
+    require(max(gaps.values()) <= 1e-5, f"privacy: the card's observed "
+            f"gradients part from the CPU's by {gaps}")
 
 
 def phase_pretrain(torch, tl_ops, get_config, dev):
@@ -3763,7 +4584,8 @@ def phase_pretrain(torch, tl_ops, get_config, dev):
         tree_leaves(task.base), tree_leaves(init["base"])))
     finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(task.base))
     per_step = cfg.n_layers * len(cfg.lora_targets)
-    expected = {"tri_lora_fwd": per_step * len(batches),
+    again = recomputed(cfg) * len(cfg.lora_targets)
+    expected = {"tri_lora_fwd": (per_step + again) * len(batches),
                 "tri_lora_dx": per_step * len(batches),
                 "tri_lora_dw": per_step * len(batches), **NO_GROUPED}
     emit({"phase": "pretrain", "arch": cfg.name, "batches": [2, 8, 256],
@@ -3784,31 +4606,17 @@ def phase_card_vs_cpu(torch, tl_ops, model, get_config, dev):
     not zero.  A delta as large as x·W itself (B = 0.05·N with A shifted
     too) saturates the random backbone's attention, and there f32 on the
     CPU alone is 6e-4 of the largest entry away from f64 at 4 layers."""
-    import numpy as np
-
-    from repro_torch.core.tri_lora import is_adapter
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = get_config("fed-100m")
-    gen = torch.Generator(device=dev).manual_seed(10)
-    params = model.init_params(cfg, gen)
-
-    def noise(t, scale):
-        return scale * torch.randn(t.shape, generator=gen, device=dev)
-
-    params["adapter"] = tree_map(
-        lambda a: {"A": a["A"], "C": a["C"] + noise(a["C"], 0.05),
-                   "B": noise(a["B"], 0.01)},
-        params["adapter"], is_leaf=is_adapter)
-    toks = np.random.default_rng(10).integers(0, cfg.vocab_size, (2, 257))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params = random_params(torch, model, cfg, dev, 10)
+    batch = lm_batch(torch, cfg.vocab_size, 2, 256, 10, dev)
 
     def loss_and_grads(where):
         base = tree_map(lambda t: t.to(where), params["base"])
         ad = tree_map(lambda t: t.detach().to(where).requires_grad_(True),
                       params["adapter"])
-        b = {key: torch.as_tensor(v, device=where) for key, v in
-             batch.items()}
+        b = {key: v.to(where) for key, v in batch.items()}
         loss, _ = model.loss_fn(cfg, ad, base, b, attn_impl="flash")
         grads = torch.autograd.grad(loss, tree_leaves(ad))
         return float(loss.detach()), [g.cpu() for g in grads]
@@ -3828,7 +4636,8 @@ def phase_card_vs_cpu(torch, tl_ops, model, get_config, dev):
     require(rel <= 1e-4, f"card loss {loss_card} vs CPU {loss_cpu}")
     require(max(errs) <= 1e-3,
             f"adapter gradients differ by {max(errs)} of their largest entry")
-    require(launched == {"tri_lora_fwd": projections,
+    again = recomputed(cfg) * len(cfg.lora_targets)
+    require(launched == {"tri_lora_fwd": projections + again,
                          "tri_lora_dx": projections - 3, "tri_lora_dw": 0,
                          **NO_GROUPED},
             f"one loss and gradient launched {launched}")
@@ -3892,11 +4701,13 @@ def main() -> int:
                 time_gemv(torch, ops, ref, bounds, dev)]
         long_ring = time_attention(torch, F, ops, ref, bounds, dev,
                                    "long ring")
+        decode32k_row = time_attention(torch, F, ops, ref, bounds, dev,
+                                       "decode 32k")
         flash_rows = time_flash(torch, F, fa_ops, fa_ref, bounds, dev)
         tri_lora_rows = (time_tri_lora(torch, tl_ops, bounds, dev)
                          + time_tri_lora_grouped(torch, tl_ops, bounds, dev))
         wkv6_row = time_wkv6(torch, wkv_ops, wkv_ref, rwkv, bounds, dev, card)
-        for r in rows + [long_ring]:
+        for r in rows + [long_ring, decode32k_row]:
             emit({"phase": "kernels", "timing": r["name"],
                   "kernel_ms": r["ms"], **{k: v for k, v in r.items()
                                            if k not in ("name", "ms")}})
@@ -3969,15 +4780,30 @@ def main() -> int:
         phase_h2o_oracle(torch, fa_ops, model, get_config, dev)
         phase_h2o_serve(torch, ops, serve, model, random_bank, get_config,
                         dev)
+        # the fifteenth slice's paths: the step factories at the assigned
+        # shapes (train_4k with remat and the chunked loss, prefill_32k,
+        # decode_32k, long_500k), the exported bank served, the DLG harness
+        phase_steps_train(torch, fa_ops, tl_ops, model, get_config, dev)
+        prefill_row = time_flash_prefill(torch, F, fa_ops, bounds, dev)
+        prefill_launches = phase_steps_prefill(torch, fa_ops, tl_ops, model,
+                                               get_config, dev)
+        decode32k_launches = phase_steps_decode(torch, ops, ref, tl_ops,
+                                                model, get_config, dev)
+        phase_bank_serve(torch, ops, fa_ops, tl_ops, serve, get_config, dev)
+        phase_privacy(torch, dev)
     except Exception:                       # report, print no result, fail
         traceback.print_exc()
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    rows += flash_rows + tri_lora_rows + [wkv6_row]
+    rows += flash_rows + tri_lora_rows + [wkv6_row, prefill_row,
+                                          decode32k_row]
+    decode32k_row["note"] = "launches: one decode_32k step (steps_decode)"
     path_launches = {"rwkv prefill": rwkv_launches,
                      "rwkv decode": decode_launches,
-                     "h2o train": h2o_launches}
+                     "h2o train": h2o_launches,
+                     "prefill 32k": prefill_launches,
+                     decode32k_row["shape"]: decode32k_launches}
     for r in rows:                    # the launches of the row's own path
         r["launches"] = path_launches.get(r.get("shape"), launches)[
             r.get("launch_key", r["name"])]

@@ -1,5 +1,5 @@
-"""Move parameter, adapter-bank and federated-task trees from numpy into
-the port.
+"""Move parameter, adapter-bank, federated-task and DLG-model trees from
+numpy into the port.
 
 The JAX package's trees become numpy trees with
 ``jax.tree.map(np.asarray, tree)``; these helpers turn such a tree into the
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.adapter_bank import AdapterBank
 from repro_torch.core.fed_model import FedTask
+from repro_torch.core.privacy import DLGModel
 from repro_torch.core.tri_lora import is_adapter
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -53,3 +54,13 @@ def fed_task_from_numpy(cfg, base: dict, n_classes: int, device) -> FedTask:
     :class:`~repro_torch.models.config.ModelConfig` of the same name."""
     return FedTask(cfg, params_from_numpy(base, device), n_classes)
 
+
+
+def dlg_model_from_numpy(arrays: dict, *, device,
+                         scaling: float = 2.0) -> DLGModel:
+    """A :class:`~repro_torch.core.privacy.DLGModel` from numpy arrays
+    ``{'embed', 'w', 'head', 'adapter': {'A', 'C', 'B'}}`` (the JAX
+    ``DLGModel``'s fields after ``np.asarray``)."""
+    t = params_from_numpy(arrays, device)
+    return DLGModel(embed=t["embed"], w=t["w"], head=t["head"],
+                    adapter=t["adapter"], scaling=float(scaling))

@@ -4,9 +4,12 @@ PyTorch port of ``repro.core.adapter_bank``.  CE-LoRA's personalized
 aggregation leaves ONE tri-factorized (A, C, B) adapter per client (paper
 eqn. 3/10), stacked on a leading (m, …) client axis.  :class:`AdapterBank`
 holds that stack plus the user → row map and the three views serving needs:
-``row(i)``, ``decode_tree()`` and ``merged_base()``.  :func:`random_bank`
-draws a synthetic bank with distinct non-zero deltas.  Exporting a bank
-from a federated checkpoint waits for the checkpoint port.
+``row(i)``, ``decode_tree()`` and ``merged_base()``.  :func:`export_bank`
+reads that stack from a federated checkpoint (the port's or the JAX
+package's: every engine and client store writes it under
+``state/adapter``) and nothing else of it — not the error-feedback carry,
+the optimizer state or the uplink codec.  :func:`random_bank` draws a
+synthetic bank with distinct non-zero deltas.
 """
 from __future__ import annotations
 
@@ -16,8 +19,27 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import tri_lora
+from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves, tree_map
+
+
+def _normalize_tail(tree: dict) -> dict:
+    """``ckpt.load_subtree`` rebuilds tuple indices as string dict keys;
+    decode consumes the tail as a tuple again."""
+    out = dict(tree)
+    tail = tree.get("tail", {})
+    if isinstance(tail, dict):
+        out["tail"] = tuple(tail[k] for k in sorted(tail, key=int))
+    if "groups" not in out:
+        out["groups"] = None
+    return out
+
+
+def _adapter_leaves(tree) -> list:
+    return [a for a in tree_leaves(tree, is_leaf=tri_lora.is_adapter)
+            if tri_lora.is_adapter(a)]
 
 
 @dataclasses.dataclass
@@ -91,6 +113,63 @@ class AdapterBank:
             out["groups"] = _merge(base["groups"], row["groups"])
         out["tail"] = _merge(base["tail"], row["tail"])
         return out
+
+
+def _validate(tree: dict, n_clients: int, path: str) -> int:
+    leaves = _adapter_leaves(tree)
+    if not leaves:
+        raise ValueError(
+            f"checkpoint {path!r} stores no tri-LoRA {{A,B,C}} nodes under "
+            f"state/adapter — not a federated fine-tuning checkpoint")
+    ranks = set()
+    for ad in leaves:
+        for k in ("A", "B", "C"):
+            if ad[k].shape[0] != n_clients:
+                raise ValueError(
+                    f"checkpoint {path!r}: adapter leaf {k} has leading dim "
+                    f"{ad[k].shape[0]} but metadata says n_clients="
+                    f"{n_clients} — stacked client axis mismatch")
+        ranks.add(int(ad["C"].shape[-1]))
+    if len(ranks) != 1:
+        raise ValueError(f"checkpoint {path!r}: inconsistent tri-LoRA ranks "
+                         f"{sorted(ranks)} across adapter leaves")
+    return ranks.pop()
+
+
+def export_bank(path: str, user_ids: Optional[Sequence[str]] = None, *,
+                device="cuda") -> AdapterBank:
+    """Export the stacked adapter bank of a federated checkpoint onto
+    ``device``.
+
+    Reads only ``state/adapter`` (stacked (m, …) on the client axis, the
+    same subtree from every engine and client store of either package)
+    and the ``n_clients`` metadata.  A checkpoint without that metadata,
+    without adapter leaves, or whose stacked client axis contradicts
+    ``n_clients`` raises ``ValueError``.  ``user_ids`` maps request
+    identities to bank rows positionally (default ``client-0 …
+    client-{m-1}``)."""
+    dev = resolve_device(device)
+    meta = ckpt.metadata(path)
+    if "n_clients" not in meta:
+        raise ValueError(
+            f"checkpoint {path!r} has no 'n_clients' in its metadata — not "
+            f"a federated checkpoint (or written before the adapter-bank "
+            f"layout, DESIGN.md §15); cannot export an adapter bank")
+    m = int(meta["n_clients"])
+    sub = ckpt.load_subtree(path, "state/adapter")
+    if not sub:
+        raise ValueError(
+            f"checkpoint {path!r} stores nothing under state/adapter — "
+            f"cannot export an adapter bank")
+    tree = _normalize_tail(sub)
+    rank = _validate(tree, m, path)
+    if user_ids is None:
+        user_ids = [f"client-{i}" for i in range(m)]
+    if len(user_ids) != m:
+        raise ValueError(f"{len(user_ids)} user_ids for {m} bank rows")
+    return AdapterBank(tree=tree_map(lambda t: t.to(dev), tree),
+                       n_clients=m, rank=rank,
+                       users={u: i for i, u in enumerate(user_ids)})
 
 
 def random_bank(cfg, m: int, generator: torch.Generator,

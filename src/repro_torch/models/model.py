@@ -12,6 +12,7 @@ decode:  {'token': (B,1) int, 'positions': (B,1) int} + the cache tree from
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig
@@ -108,6 +109,12 @@ def forward(cfg: ModelConfig, base: dict, adapter: dict, batch: dict,
     return logits, aux
 
 
+#: above S·V = _CE_CHUNK_THRESHOLD (and S a multiple of _CE_CHUNK) the loss
+#: runs over checkpointed sequence chunks, as in the JAX package
+_CE_CHUNK = 512
+_CE_CHUNK_THRESHOLD = 2 ** 28
+
+
 def _ce_terms(cfg: ModelConfig, hidden: torch.Tensor, table: torch.Tensor,
               labels: torch.Tensor) -> tuple:
     """(nll·w, correct·w, w) per token of one hidden chunk (B, s), with
@@ -121,14 +128,32 @@ def _ce_terms(cfg: ModelConfig, hidden: torch.Tensor, table: torch.Tensor,
     return nll * weights, correct, weights
 
 
+def _loss_terms(cfg: ModelConfig, hidden: torch.Tensor, table: torch.Tensor,
+                labels: torch.Tensor) -> tuple:
+    """:func:`_ce_terms` of the whole sequence; above the chunk threshold
+    computed one ``_CE_CHUNK``-token chunk at a time, each under
+    ``torch.utils.checkpoint`` while autograd records, so that no chunk's
+    (B, _CE_CHUNK, Vp) logits stay alive for the backward."""
+    s = hidden.shape[1]
+    if not (s * cfg.padded_vocab > _CE_CHUNK_THRESHOLD
+            and s % _CE_CHUNK == 0):
+        return _ce_terms(cfg, hidden, table, labels)
+    remat = torch.is_grad_enabled()
+    parts = [checkpoint(_ce_terms, cfg, h, table, lab, use_reentrant=False,
+                        preserve_rng_state=False)
+             if remat else _ce_terms(cfg, h, table, lab)
+             for h, lab in zip(hidden.split(_CE_CHUNK, 1),
+                               labels.split(_CE_CHUNK, 1))]
+    return tuple(torch.cat(t, dim=1) for t in zip(*parts))
+
+
 def loss_fn(cfg: ModelConfig, adapter: dict, base: dict, batch: dict,
             *, adapter_rows: torch.Tensor | None = None,
             **kw) -> tuple[torch.Tensor, dict]:
     """Causal-LM cross entropy over labels >= 0; returns (loss, {'ce',
-    'aux', 'acc'}).  Adapter-first as in the JAX package.  The JAX package
-    splits the loss into 512-token chunks above S·V = 2^28 to keep the
-    logits out of memory; the port computes it in one piece (the sums are
-    the same).
+    'aux', 'acc'}).  Adapter-first as in the JAX package.  Above S·V =
+    2^28 the loss runs over checkpointed 512-token chunks
+    (:func:`_loss_terms`), so the (B, S, V) logits never materialize.
 
     With ``adapter_rows`` (:func:`forward_hidden`) the batch holds the
     folded batches of the m clients of the stacked ``adapter``, and loss,
@@ -138,7 +163,7 @@ def loss_fn(cfg: ModelConfig, adapter: dict, base: dict, batch: dict,
     its own gradient (a mean over the m·B batch would scale it by 1/m)."""
     hidden, aux, _ = forward_hidden(cfg, base, adapter, batch,
                                     adapter_rows=adapter_rows, **kw)
-    terms = _ce_terms(cfg, hidden, base["embed"], batch["labels"])
+    terms = _loss_terms(cfg, hidden, base["embed"], batch["labels"])
     if adapter_rows is None:
         nll_sum, corr_sum, w_sum = (t.sum() for t in terms)
     else:                        # per client: a 0/1 (m, B) client matrix

@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import tri_lora
 from repro_torch.models import attention, layers, rwkv
@@ -242,8 +243,12 @@ def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
     """Train-time forward through the whole stack.  Returns (x, aux_sum).
     ``attn_impl=None`` defers the backend choice to ``cfg.attn_impl``
     (``attention.select_impl``).  A Python loop over the group axis stands
-    in for ``lax.scan``; autograd keeps every layer's activations (the JAX
-    package's ``remat`` has no counterpart here).
+    in for ``lax.scan``.  With ``cfg.remat`` and autograd recording, each
+    iteration of that loop (one pass through ``pattern``) runs under
+    non-reentrant ``torch.utils.checkpoint``, as the JAX package wraps the
+    scanned group in ``jax.checkpoint``: only the group's input is kept
+    and its forward runs again in the backward.  The tail blocks are not
+    wrapped, and nothing is under ``torch.no_grad`` (eval, prefill).
 
     With ``adapter_rows`` (B,) the adapter trees are a STACKED client state
     — groups leaves (m, q, …), tail leaves (m, …), the client axis first as
@@ -253,15 +258,26 @@ def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
     kw = dict(attn_impl=attn_impl, use_rwkv_kernel=use_rwkv_kernel,
               adapter_rows=adapter_rows)
     layer_of = _at if adapter_rows is None else _at_layer
+
+    def group(h, aux, layer):
+        for i, kind in enumerate(pattern):
+            key = str(i)
+            gad = groups_ad[key] if groups_ad is not None else None
+            h, a = block_apply(cfg, kind, _at(groups_p[key], layer),
+                               layer_of(gad, layer), h, positions, **kw)
+            aux = aux + a
+        return h, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if groups_p is not None:
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in range(q):
-            for i, kind in enumerate(pattern):
-                key = str(i)
-                gad = groups_ad[key] if groups_ad is not None else None
-                x, a = block_apply(cfg, kind, _at(groups_p[key], layer),
-                                   layer_of(gad, layer), x, positions, **kw)
-                aux = aux + a
+            if remat:
+                x, aux = checkpoint(group, x, aux, layer,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = group(x, aux, layer)
     for i, kind in enumerate(rem):
         x, a = block_apply(cfg, kind, tail_p[i], tail_ad[i], x, positions,
                            **kw)

@@ -46,6 +46,7 @@ from repro_torch.core.baselines import get_strategy
 from repro_torch.launch import train
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
@@ -66,16 +67,6 @@ JAX_RUNS = {
     "killed": dict(STORM, rounds=2),
     "resumed": dict(STORM, resume=True),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Many small torch ops: one thread each, so that beside other test
-    processes no op waits for a time slice on every core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from repro_torch.core import (aggregation, baselines, client_batch,
 from repro_torch.core.similarity import cka
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 M = 4
 

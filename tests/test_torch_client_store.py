@@ -39,6 +39,7 @@ from repro_torch.core import client_store, federated, sampling
 from repro_torch.launch import train
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
@@ -52,16 +53,6 @@ JAX_HOST = dict(FED, method="celora", participation=0.5, uplink_codec="int8",
 STORM = dict(fault_crash=0.15, fault_loss=0.2, fault_corrupt=0.25,
              fault_divergent=0.15, admission="norm")
 STORES = ("device", "host")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Many small torch ops: one thread each, so that beside other test
-    processes no op waits for a time slice on every core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------------------

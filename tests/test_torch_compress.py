@@ -17,6 +17,7 @@ from repro.core import comm as jcomm
 from repro.core import compress as jcompress
 from repro_torch import convert
 from repro_torch.core import comm, compress
+from torch_threads import one_torch_thread  # noqa: F401
 
 CODECS = ("none", "bf16", "int8", "int4")
 

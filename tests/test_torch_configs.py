@@ -26,6 +26,7 @@ from repro_torch.models import model
 from repro_torch.models.config import get_config, list_configs
 from repro_torch.optim import schedules
 from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 DENSE = ("qwen2.5-14b", "qwen3-32b", "starcoder2-7b")
 ROOT = Path(__file__).resolve().parent.parent

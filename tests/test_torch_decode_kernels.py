@@ -15,6 +15,7 @@ import torch
 from repro.kernels.decode_attention import ref as jref
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import ops, ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -31,6 +31,7 @@ from repro.models.config import ModelConfig as JConfig
 from repro_torch import convert
 from repro_torch.core import admission, compress, faults, federated
 from repro_torch.models.config import ModelConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,

@@ -21,6 +21,7 @@ from repro.models.config import get_config as jget_config
 from repro_torch import checkpoint, convert
 from repro_torch.launch import train
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 RUN = dict(arch="fed-100m", reduced=True, clients=2, rounds=2,
            local_steps=2, batch=2, seq=32, lr=3e-3, seed=5, method="celora",
@@ -28,18 +29,6 @@ RUN = dict(arch="fed-100m", reduced=True, clients=2, rounds=2,
            chunk_rounds=1)
 LEDGER = ("round", "participants", "uplink_bytes", "downlink_bytes",
           "uplink_floats")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The runs here are many small torch ops; beside other test
-    processes a parallel region per op on every core makes each op wait
-    for a time slice (~50x slower under 4 workers), so they run on one
-    thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_draws(kw):

@@ -29,6 +29,7 @@ from repro_torch import checkpoint, convert
 from repro_torch.core import federated
 from repro_torch.launch import train
 from repro_torch.models.config import ModelConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 RUN = dict(arch="fed-100m", reduced=True, rounds=2, local_steps=2, batch=2,
            seq=32, lr=3e-3, seed=5)

@@ -27,6 +27,7 @@ from repro_torch.core import tri_lora
 from repro_torch.models import layers, model
 from repro_torch.models.config import ModelConfig, get_config, list_configs
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,

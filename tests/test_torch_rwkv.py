@@ -48,6 +48,7 @@ from repro_torch.launch import serve
 from repro_torch.models import layers, model, rwkv, transformer
 from repro_torch.models.config import get_config
 from repro_torch.tree import tree_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "rwkv6-1.6b"

@@ -22,6 +22,7 @@ from repro_torch.launch import federated as fed_cli
 from repro_torch.launch import train
 from repro_torch.models import model, transformer
 from repro_torch.models.config import get_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 RUN = dict(arch="rwkv6-1.6b", reduced=True, clients=2, rounds=1,
            local_steps=2, batch=2, seq=16, lr=3e-3, seed=4, method="celora")

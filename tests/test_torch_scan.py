@@ -52,6 +52,7 @@ from repro_torch.core import client_batch, fed_engine, federated, sampling
 from repro_torch.data.pipeline import Loader
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
@@ -71,18 +72,6 @@ JAX_RUNS = {
     "pfedme": dict(FED, method="pfedme_lora", straggler_frac=0.3, rounds=3,
                    seed=1),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The runs here are many small torch ops; beside other test
-    processes a parallel region per op on every core makes each op wait
-    for a time slice (~50x slower under 4 workers), so they run on one
-    thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ from repro_torch import convert
 from repro_torch.core.adapter_bank import random_bank
 from repro_torch.launch import serve
 from repro_torch.models.config import ModelConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,

@@ -35,20 +35,10 @@ from repro_torch.launch import train
 from repro_torch.models import model
 from repro_torch.models.config import get_config, list_configs
 from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "h2o-danube-3-4b"
 ROOT = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """These tests run thousands of tiny torch ops (token-by-token decode);
-    beside other test processes, a parallel region per op on every core
-    makes each op wait for a time slice, so they run on one thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_config_fields_match_jax():

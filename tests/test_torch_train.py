@@ -44,6 +44,7 @@ from repro_torch.data import partition, pipeline, synthetic
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the packages export the function ``adamw`` under the module's name
 jadamw = importlib.import_module("repro.optim.adamw")

@@ -21,6 +21,7 @@ from repro.kernels.tri_lora import tri_lora_matmul_ref as jref
 from repro.models import layers as jlayers
 from repro_torch.kernels.tri_lora import ops, ref
 from repro_torch.models import layers
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(64, 64, 64, 4), (96, 160, 130, 8), (32, 256, 64, 16),
           (128, 64, 192, 2)]

@@ -39,6 +39,7 @@ from repro_torch.launch import train
 from repro_torch.models import layers, model
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
