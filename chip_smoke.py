@@ -22,14 +22,18 @@ Phases, one JSON line each (several for the case phases):
                attention at the long ring (danube heads, ring 4,096)
   flash_cases  the flash forward (out, lse) and backward (dq, dk, dv)
                kernels against the plain version: f32/bf16, causal /
-               window 64 and 96 / non-causal, GQA 12/4, 32/32, 32/8, 8/1
-               and 16/1 (MQA), hd 64/120/128, S 256/512 and ragged 200; the
+               window 64 and 96 / non-causal, GQA 12/4, 32/32, 32/8, 8/1,
+               16/1 (MQA), 10/1 and 8/2, hd 64/120/128/256, S 256/512 and
+               ragged 77/200/1000; the
                forward and the backward twice (bitwise equal; the
                forward's SHA-256 printed), on the 16-byte routes; a hd-128
                and a hd-120 case again on unaligned views (scalar routes);
                h2o-danube-3-4b's heads at h2o_train's shape (1x8192, hd
                120, window 4096) in bf16, held to the plain version one KV
-               head at a time.  Every case is held twice: elementwise (TOL)
+               head at a time, and recurrentgemma-2b's at rg_train's shape
+               (1x4096, hd 256, 10 on 1, window 2048) in bf16; a hd-256
+               case on unaligned views.  Every case is held twice:
+               elementwise (TOL)
                and, against the plain version in f32 on the same inputs,
                in every 64-row tile of out, dq, dk and dv (RMS of the error
                within FLASH_REL_TOL of the tile's RMS, max error within it
@@ -37,14 +41,16 @@ Phases, one JSON line each (several for the case phases):
                for a faulty kernel (the band one tile short, channels
                96-119 lost) must fail that second hold; then the SHA-256
                of the forward and the
-               backward at one hd-64 and one hd-128 shape, f32 and bf16
-               (``tools/time_flash.py --digest`` prints the same for
-               another tree)
+               backward at one hd-64, hd-128, hd-120 and hd-256 shape, f32
+               and bf16 (``tools/time_flash.py --digest`` prints the same
+               for another tree)
   flash_timing forward, dq, dk/dv, the backward as the model runs it
                (softmax_delta + dq + dk/dv) and forward+backward at the
                train shape (B=8, S=256, H=12, K=4, hd=64, f32), at S=512,
                at h2o-danube-3-4b's heads (32/8, hd 120) over 1x8192 bf16
-               with window 4096 (h2o_train's shape) and 4x256 f32, beside
+               with window 4096 (h2o_train's shape) and 4x256 f32, at
+               recurrentgemma-2b's heads (10/1, hd 256) over 1x4096 bf16
+               with window 2048 (rg_train's shape), beside
                the window-aware bound, the plain version and
                scaled_dot_product_attention (forward; backward, the
                library time of dq and dk/dv; the band as a boolean mask
@@ -274,6 +280,46 @@ Phases, one JSON line each (several for the case phases):
   privacy      ``run_dlg_experiment`` on the card, 300 attack steps, seeds
                0-4: F1 per method, the example's assertion at seed 0, the
                observed gradients of every payload within 1e-5 of the CPU's
+  moe_train    ``launch.train.run`` on llama4-scout-17b-a16e at full width,
+               8 of its 48 layers (~34 GB of bf16 weights, f32 adapters):
+               2 clients, 1 round of 1 local step of one 4096-token
+               sequence each (four 1024-token dispatch groups), flash, on
+               vmap then loop: exact flash and tri-LoRA launches (the
+               attention projections only: the experts are frozen), a
+               finite loss, each client's aux > 0 and equal across the
+               two (``LossTap``), round 0's loss within 1e-3 +
+               1e-3·|loss|, the plain ledger, the share of routed picks
+               dropped at capacity (``RouteTap``), tokens/s, peak memory
+  moe_oracle   llama4-scout at full width, 2 layers, f32, 1x2048: loss and
+               adapter gradients through flash against attn_impl="ref"
+               (1e-4·|loss|, 1e-3 of the largest entry), and the tokens
+               whose top-k expert set differs between the two runs
+  moe_serve    grok-1-314b at full width, 2 of its 64 layers (~21 GB,
+               bf16) serving 8 requests of 64 + 16 tokens from 4 users
+               through 4 slots (both decode kernels every layer of every
+               step; each decode token routes alone, capacity 1), ms a
+               step and peak memory; then llama4-scout's oracle at full
+               width, 2 layers, f32, capacity_factor = n_experts:
+               ServeEngine tokens equal serve_naive's
+  rg_train     ``launch.train.run`` on recurrentgemma-2b at full width and
+               depth (26 layers: 8 x (rglru, rglru, swa) + 2 rglru; bf16
+               backbone, f32 adapters, cfg.remat): 2 clients, 1 round of
+               1 local step of one 4096-token sequence each, flash at hd
+               256 under the 2,048 window, on vmap then loop: exact
+               launches (16 flash forwards, 8 dq, 8 dk/dv a step; 132
+               tri-LoRA forwards and 67 dx: 4 x 8 attention projections
+               and w_in / w_out x 18, again for the 24 checkpointed group
+               layers), a finite loss, round 0's loss within 1e-3 +
+               1e-3·|loss|, tokens/s, peak memory
+  rg_oracle    recurrentgemma-2b at full width, 3 layers, f32, 1x4096:
+               loss and adapter gradients through flash at hd 256 against
+               attn_impl="blockwise" (1e-4·|loss|, 1e-3 of the largest)
+  rg_decode    ``serve.generate`` on recurrentgemma-2b at full depth, bf16:
+               8 prompts of 32 tokens and 32 new ones, 8 decode-attention
+               launches (hd 256) and 68 tri-LoRA forwards a step, ms a
+               step; then 3 layers in f32, 2 x 64 tokens: decode against
+               the forward's logits at rtol = atol = 2e-3
+Every phase's wall seconds follow it on a ``{"phase": "wall"}`` line.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the result line.  Exits non-zero, printing no result, on any failure and
 when no CUDA device is present.
@@ -316,14 +362,21 @@ FLASH_CASES = (
     (2, 200, 32, 8, 120, True, 0),      # ragged
     (2, 200, 32, 8, 120, False, 0),     # non-causal ragged
     (1, 512, 32, 8, 120, True, 96),     # window
+    (2, 256, 10, 1, 256, True, 0),      # recurrentgemma-2b heads: hd 256
+    (1, 1000, 10, 1, 256, True, 96),    # ragged, window
+    (2, 77, 10, 1, 256, False, 0),      # non-causal ragged
+    (2, 256, 8, 2, 256, True, 0),       # a group of 4 at hd 256
 )
 #: the flash cases run again on unaligned views of the same values (the
-#: scalar routes): a group of 8 at hd 128, and hd 120
+#: scalar routes): a group of 8 at hd 128, hd 120, and hd 256 (10 on 1)
 FLASH_SCALAR_CASES = ((1, 512, 8, 1, 128, True, 96),
-                      (2, 200, 32, 8, 120, True, 0))
-#: a flash case in bf16 only: the h2o_train phase's attention (one 8192-token
-#: sequence, window 4096), held to the plain version one KV head at a time
-FLASH_BF16_CASES = ((1, 8192, 32, 8, 120, True, 4096),)
+                      (2, 200, 32, 8, 120, True, 0),
+                      (1, 200, 10, 1, 256, True, 64))
+#: flash cases in bf16 only: the h2o_train phase's attention (one 8192-token
+#: sequence, window 4096), held to the plain version one KV head at a time,
+#: and rg_train's (one 4096-token sequence, hd 256, 10 on 1, window 2048)
+FLASH_BF16_CASES = ((1, 8192, 32, 8, 120, True, 4096),
+                    (1, 4096, 10, 1, 256, True, 2048))
 #: the flash outputs' relative hold: in every 64-row tile along the
 #: sequence, RMS(got - want) <= FLASH_REL_TOL * RMS(want), and max |got -
 #: want| <= FLASH_REL_TOL * max |want|, with want the plain version in f32
@@ -332,18 +385,33 @@ FLASH_BF16_CASES = ((1, 8192, 32, 8, 120, True, 4096),)
 FLASH_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 #: (B, S, H, K, hd, dtype, window) of the timed flash shapes (causal): the
 #: train phase's shape, the kernel table's bound shape, then h2o-danube-3-4b
-#: heads at h2o_train's shape (bf16, window 4096) and at a 4x256 f32 batch
+#: heads at h2o_train's shape (bf16, window 4096) and at a 4x256 f32 batch,
+#: and recurrentgemma-2b heads (hd 256, 10 on 1) at rg_train's shape (bf16,
+#: window 2048)
 FLASH_TIMED = ((8, 256, 12, 4, 64, "float32", 0),
                (8, 512, 12, 4, 64, "float32", 0),
                (1, 8192, 32, 8, 120, "bfloat16", 4096),
-               (4, 256, 32, 8, 120, "float32", 0))
-#: (B, S, H, K, hd, dtype, seed) of the flash digest cases: one hd 64 and
-#: one hd 128 case whose forward and backward outputs' SHA-256 compare two
-#: trees (the same seed gives every tree the same inputs)
+               (4, 256, 32, 8, 120, "float32", 0),
+               (1, 4096, 10, 1, 256, "bfloat16", 2048))
+#: the kernel-table rows of the long FLASH_TIMED shapes: (B, S, H, K, hd)
+#: → (row shape, the note's description)
+FLASH_TIMED_ROWS = {
+    (1, 8192, 32, 8, 120): ("h2o train", "h2o-danube-3-4b heads, 1x8192 "
+                            "bf16, window 4096"),
+    (1, 4096, 10, 1, 256): ("rg train", "recurrentgemma-2b heads (hd 256, "
+                            "10 on 1), 1x4096 bf16, window 2048")}
+#: (B, S, H, K, hd, dtype, seed) of the flash digest cases: hd 64, 128,
+#: 120 and 256 cases whose forward and backward outputs' SHA-256 compare
+#: two trees (the same seed gives every tree the same inputs; a tree whose
+#: kernels refuse a head dim prints the refusal)
 FLASH_DIGEST_CASES = ((2, 200, 12, 4, 64, "float32", 31),
                       (2, 200, 12, 4, 64, "bfloat16", 32),
                       (1, 300, 32, 32, 128, "float32", 33),
-                      (1, 300, 32, 32, 128, "bfloat16", 34))
+                      (1, 300, 32, 32, 128, "bfloat16", 34),
+                      (2, 200, 32, 8, 120, "float32", 35),
+                      (2, 200, 32, 8, 120, "bfloat16", 36),
+                      (1, 300, 10, 1, 256, "float32", 37),
+                      (1, 300, 10, 1, 256, "bfloat16", 38))
 #: the flash kernels (all, then the backward's two) whose share of device
 #: time the training profiles report
 FLASH_SHARES = ("flash_", "bwd::flash_")
@@ -1090,6 +1158,10 @@ def flash_digests(torch, fa_ops, dev) -> list:
     so that two trees' kernels can be compared bitwise in one run."""
     lines = []
     for b, s, h, kh, hd, dt_name, seed in FLASH_DIGEST_CASES:
+        if hd not in getattr(fa_ops, "HEAD_DIMS", (hd,)):
+            lines.append({"hd": hd, "dtype": dt_name, "refused":
+                          f"head_dim {hd} not in {fa_ops.HEAD_DIMS}"})
+            continue
         gen = torch.Generator(device=dev).manual_seed(seed)
         q, k, v, do = flash_inputs(torch, dev, b, s, h, kh, hd,
                                    getattr(torch, dt_name), gen)
@@ -1264,7 +1336,8 @@ def time_flash(torch, F, fa_ops, fa_ref, bounds, dev):
                 f"the timed backward took routes {routes}")
         table = (b, s, h, kh, hd) == (8, 256, 12, 4, 64)   # the train shape
         if table or long:
-            shape = None if table else "h2o train"
+            shape, desc = FLASH_TIMED_ROWS.get((b, s, h, kh, hd),
+                                               (None, None))
             new = [dict(name=n, route="cuda", source=FLASH_SRC,
                         replaces=FLASH_TPU[n], max_abs_err=err[n], ms=t[n],
                         plain_ms=t["plain_fwd" if n == "flash_fwd"
@@ -1283,8 +1356,7 @@ def time_flash(torch, F, fa_ops, fa_ref, bounds, dev):
             if shape:
                 for r in new:
                     r["shape"] = shape
-                    r["note"] = (r.get("note", "") + "; h2o-danube-3-4b "
-                                 "heads, 1x8192 bf16, window 4096").lstrip(
+                    r["note"] = (r.get("note", "") + "; " + desc).lstrip(
                         "; ")
             rows += new
         del sets
@@ -2412,25 +2484,47 @@ def recomputed(cfg) -> int:
     return q * len(pattern) if cfg.remat else 0
 
 
+def adapted_per_layer(cfg, kind: str) -> int:
+    """Tri-LoRA adapters of one block: the attention projections of
+    ``cfg.lora_targets`` (and the MLP's with ``lora_mlp`` on a dense MLP),
+    rglru's w_in and w_out, rwkv6's four time-mix projections."""
+    if kind == "rglru":
+        return 2
+    if kind == "rwkv6":
+        return 4
+    mlp = 3 if cfg.lora_mlp and not cfg.is_moe else 0
+    return len([t for t in cfg.lora_targets
+                if t in ("wq", "wk", "wv", "wo")]) + mlp
+
+
 def step_launches(cfg, steps: int, evals: int = 0,
                   grouped: bool = False) -> dict:
     """The flash and tri-LoRA launches of ``steps`` training steps and
-    ``evals`` forward-only passes of a dense stack with every projection
-    of ``cfg.lora_targets`` adapted: a step runs each layer's forward, the
-    forward again for the ``recomputed(cfg)`` checkpointed layers, and the
-    backward (layer 0's q/k/v inputs come from the frozen embedding and
-    need no input gradient); one adapter (``tri_lora_*``) or one per
-    client (``grouped``: ``tri_lora_*_grouped``)."""
-    layers, per = cfg.n_layers, len(cfg.lora_targets)
-    again = recomputed(cfg)
+    ``evals`` forward-only passes of a stack of any block kinds: a step
+    runs each layer's forward, the forward again for the checkpointed
+    group layers (``recomputed``), and the backward.  Each attention layer
+    launches flash; each adapted projection (``adapted_per_layer``) the
+    tri-LoRA forward with its layer and dx in the backward, except layer
+    0's projections that read the frozen embedding (attention's q/k/v,
+    rwkv6's r/k/v, rglru's w_in), which need no input gradient; one
+    adapter (``tri_lora_*``) or one per client (``grouped``:
+    ``tri_lora_*_grouped``)."""
+    q, pattern, _ = cfg.stack_plan()
+    kinds = cfg.kinds()
+    again = [cfg.remat and i < q * len(pattern) for i in range(len(kinds))]
+    attn = [k in ("attn", "swa") for k in kinds]
+    per = [adapted_per_layer(cfg, k) for k in kinds]
+    first = {"rglru": 1, "rwkv6": 3}.get(
+        kinds[0], len({"wq", "wk", "wv"} & set(cfg.lora_targets)))
     key = "_grouped" if grouped else ""
-    return {"flash_fwd": layers * (steps + evals) + again * steps,
-            "flash_dq": layers * steps, "flash_dkv": layers * steps,
+    return {"flash_fwd": sum(a * (steps + evals + r * steps)
+                             for a, r in zip(attn, again)),
+            "flash_dq": sum(attn) * steps, "flash_dkv": sum(attn) * steps,
             "tri_lora_fwd": 0, "tri_lora_dx": 0, "tri_lora_dw": 0,
             **NO_GROUPED,
-            f"tri_lora_fwd{key}": (layers * (steps + evals) + again * steps)
-            * per,
-            f"tri_lora_dx{key}": (layers * per - 3) * steps}
+            f"tri_lora_fwd{key}": sum(p * (steps + evals + r * steps)
+                                      for p, r in zip(per, again)),
+            f"tri_lora_dx{key}": (sum(per) - first) * steps}
 
 
 def fed_launches(cfg, hist, job: dict, mode: str) -> dict:
@@ -3514,12 +3608,10 @@ def phase_lm_rwkv(torch, wkv_ops, tl_ops, get_config, dev):
         hist = out[mode]["history"]
         steps = (sum(len(r["participants"]) for r in hist) if mode == "loop"
                  else len(hist)) * LM_RWKV["local_steps"]
-        key = "" if mode == "loop" else "_grouped"
-        expected = {"wkv6": 0, "tri_lora_fwd": 0, "tri_lora_dx": 0,
-                    "tri_lora_dw": 0, **NO_GROUPED,
-                    f"tri_lora_fwd{key}": (proj + 4 * recomputed(cfg))
-                    * steps,
-                    f"tri_lora_dx{key}": (proj - 3) * steps}
+        expected = {"wkv6": 0, **{
+            k: v for k, v in step_launches(
+                cfg, steps, grouped=mode == "vmap").items()
+            if k.startswith("tri_lora")}}
         lines[mode] = {"wall_s": time.perf_counter() - t0,
                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                        "launches": {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES},
@@ -3654,10 +3746,13 @@ def serve_job(torch, ops, serve, model, random_bank, get_config, dev,
 
 
 def dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
-                 name: str, phase: str = "dense_configs") -> None:
-    """The oracle phase's check on ``name`` at full width, 2 layers, f32:
-    ServeEngine ≡ serve_naive per request."""
-    cfg = get_config(name).with_overrides(n_layers=2, param_dtype="float32")
+                 name: str, phase: str = "dense_configs",
+                 **overrides) -> None:
+    """The oracle phase's check on ``name`` at full width, 2 layers, f32
+    (and the config fields ``overrides``): ServeEngine ≡ serve_naive per
+    request."""
+    cfg = get_config(name).with_overrides(n_layers=2, param_dtype="float32",
+                                          **overrides)
     gen = torch.Generator(device=dev).manual_seed(5)
     with torch.inference_mode():
         params = model.init_params(cfg, gen)
@@ -3679,8 +3774,8 @@ def dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
         "d_model": cfg.d_model, "head_dim": cfg.hd,
         "attn_bias": cfg.attn_bias, "qk_norm": cfg.qk_norm,
         "norm": cfg.norm_type, "mlp": cfg.mlp_type,
-        "kinds": sorted(set(cfg.kinds())), "users": 4,
-        "requests": len(reqs), "engine_steps": eng.steps,
+        "kinds": sorted(set(cfg.kinds())), "overrides": overrides,
+        "users": 4, "requests": len(reqs), "engine_steps": eng.steps,
         "engine_wall_s": wall, "engine_launches": engine_launches,
         "token_identical": sum(same),
         "sample": [int(t) for t in got[reqs[0].rid][-8:]]}})
@@ -3849,6 +3944,485 @@ def phase_h2o_serve(torch, ops, serve, model, random_bank, get_config,
                  H2O, "h2o_serve")
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the MoE block (llama4-scout-17b-a16e, grok-1-314b) and the RG-LRU hybrid
+# (recurrentgemma-2b, flash at head dim 256)
+# ---------------------------------------------------------------------------
+
+LLAMA4 = "llama4-scout-17b-a16e"
+GROK = "grok-1-314b"
+RG = "recurrentgemma-2b"
+#: moe_train's job: the LM driver on llama4-scout at full width, 8 of its 48
+#: layers (~34 GB of bf16 weights), bf16 backbone, f32 adapters; 2 clients,
+#: 1 round of 1 local step of one 4096-token sequence each (four
+#: 1024-token dispatch groups a sequence), the plain ledger; vmap, then loop
+MOE_TRAIN = dict(arch=LLAMA4, layers=8, clients=2, rounds=1, local_steps=1,
+                 batch=1, seq=4096, method="celora", attn_impl="flash")
+#: moe_oracle: llama4-scout at full width, 2 layers, f32, one 2048-token
+#: sequence: flash against attn_impl="ref"
+MOE_ORACLE = dict(arch=LLAMA4, layers=2, seq=2048)
+#: moe_serve's job: grok-1 at full width, 2 of its 64 layers (~21 GB of
+#: bf16 weights): 8 requests of 64 + 16 tokens from 4 users, 4 slots
+MOE_SERVE = dict(arch=GROK, layers=2, users=4, requests=8, slots=4,
+                 prompt_len=64, gen=16)
+#: rg_train's job: the LM driver on recurrentgemma-2b at full width and
+#: depth (26 layers: 8 x (rglru, rglru, swa) + 2 rglru), bf16 backbone, f32
+#: adapters; 2 clients, 1 round of 1 local step of one 4096-token sequence
+#: each (past the 2,048 window, eight 512-step scan chunks); vmap, then loop
+RG_TRAIN = dict(arch=RG, clients=2, rounds=1, local_steps=1, batch=1,
+                seq=4096, method="celora", attn_impl="flash")
+#: rg_oracle: full width, 3 layers (one pattern), f32, 1 x 4096: flash at
+#: hd 256 against attn_impl="blockwise"
+RG_ORACLE = dict(layers=3, seq=4096)
+#: rg_decode: generate() at full depth, bf16: 8 prompts of 32 tokens and 32
+#: new ones; then 3 layers in f32, 2 x 64 tokens, decode against the forward
+RG_DECODE = dict(batch=8, prompt_len=32, gen=32)
+RG_DECODE_ORACLE = dict(layers=3, batch=2, seq=64)
+
+
+def cut_depth(get_config, name: str, layers: int) -> str:
+    """The registered name of ``name`` at ``layers`` layers (registered on
+    first use), so that the entry points that take an arch name build the
+    depth a phase cuts to; every other field is the config's."""
+    from repro_torch.models.config import register
+
+    cut = f"{name}@{layers}-layers"
+    try:
+        get_config(cut)
+    except KeyError:
+        register(get_config(name).with_overrides(name=cut, n_layers=layers))
+    return cut
+
+
+class RouteTap:
+    """Wraps ``moe._route`` while active: sums each call's router picks
+    (B·S·top_k) and the picks inside capacity (the dispatch tensor's sum)
+    on the device, and keeps each of the first ``keep`` calls' top-k
+    expert sets (sorted indices, (B, S, k)) for a comparison of two runs.
+    Calls repeated by activation checkpointing count again; the drop share
+    is a ratio of the two sums, which they leave as it is."""
+
+    def __init__(self, torch, keep: int = 0):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.keep = torch, moe, keep
+        self.picks, self.kept, self.sets = 0, [], []
+
+    def __enter__(self):
+        torch, orig = self.torch, self.moe._route
+
+        def tapped(cfg, router_w, x):
+            dispatch, combine, aux = orig(cfg, router_w, x)
+            with torch.no_grad():
+                self.picks += x.shape[0] * x.shape[1] * cfg.top_k
+                self.kept.append(dispatch.sum())
+                if len(self.sets) < self.keep:
+                    self.sets.append(torch.topk(
+                        x.float() @ router_w, cfg.top_k, dim=-1).indices
+                        .sort(-1).values)
+            return dispatch, combine, aux
+
+        self._orig = orig
+        self.moe._route = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self._orig
+        return False
+
+    def drop_share(self) -> float:
+        kept = float(self.torch.stack(self.kept).sum()) if self.kept else 0.0
+        return 1.0 - kept / max(self.picks, 1)
+
+
+class LossTap:
+    """Wraps ``model.loss_fn`` while active and keeps every call's metrics
+    (ce, aux, acc: scalars, or (m,) vectors under ``adapter_rows``) as
+    floats: the per-client aux of a driver run, which its history does not
+    carry."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, []
+
+    def __enter__(self):
+        orig = self.model.loss_fn
+
+        def tapped(*args, **kw):
+            loss, met = orig(*args, **kw)
+            self.calls.append({k: v.detach().float().cpu().reshape(-1)
+                               .tolist() for k, v in met.items()})
+            return loss, met
+
+        self._orig = orig
+        self.model.loss_fn = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.model.loss_fn = self._orig
+        return False
+
+
+def lm_job_phase(torch, fa_ops, tl_ops, model, get_config, dev, job: dict,
+                 phase: str, arch: str, route_tap: bool = False) -> dict:
+    """``launch.train.run`` on ``arch`` (job's shape) on
+    client_parallelism="vmap", then "loop": exact flash and tri-LoRA
+    launches (``step_launches``; grouped on vmap) on their routes (flash
+    on the 16-byte routes, every tri-LoRA forward on the wgmma route), a
+    finite loss, the plain ledger, tokens/s and
+    peak memory; round 0's loss within 1e-3 + 1e-3·|loss| across the two
+    and each client's aux (the loss_fn calls' metrics, ``LossTap``) too;
+    with ``route_tap`` the share of routed picks dropped at capacity.
+    Returns the vmap run's launches and each run's per-client aux."""
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    cfg = get_config(arch)
+    n_adapters = sum(adapted_per_layer(cfg, k) for k in cfg.kinds())
+    c_bytes = n_adapters * cfg.lora_rank ** 2 * 4
+    run_kw = {k: v for k, v in job.items() if k not in ("arch", "layers")}
+    out_launches, losses, auxes = None, {}, {}
+    for mode in ("vmap", "loop"):
+        steps = job["rounds"] * job["local_steps"] * (
+            job["clients"] if mode == "loop" else 1)
+        expected = step_launches(cfg, steps, grouped=mode == "vmap")
+        with LossTap(model) as lt, RouteTap(torch) as rt:
+            out, launches, wall, peak = run_counted(
+                torch, fa_ops, tl_ops, lambda: train.run(
+                    arch=arch, **run_kw, client_parallelism=mode,
+                    verbose=False, device=dev))
+            flash_routes = dict(fa_ops.ROUTES)
+            tri_routes = dict(tl_ops.ROUTES)
+        hist = out["history"]
+        aux = ([a for c in lt.calls for a in c["aux"]] if mode == "loop"
+               else lt.calls[0]["aux"])
+        tokens = job["rounds"] * job["local_steps"] * job["clients"] * \
+            job["batch"] * job["seq"]
+        round_wall = sum(r["wall_s"] for r in hist)
+        emit({"phase": phase, "arch": arch, **run_kw, "mode": mode,
+              "layers": cfg.n_layers, "kinds": sorted(set(cfg.kinds())),
+              "d_model": cfg.d_model, "heads": cfg.n_heads,
+              "kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+              "window": cfg.window, "experts": cfg.n_experts,
+              "top_k": cfg.top_k, "dtype": cfg.param_dtype,
+              "rounds_detail": hist, "client_aux": aux,
+              "loss_fn_calls": lt.calls,
+              **({"routed_picks": rt.picks,
+                  "dropped_share": rt.drop_share()} if route_tap else {}),
+              "wall_s_with_init": wall, "round_wall_s": round_wall,
+              "trained_tokens": tokens,
+              "trained_tok_per_s": tokens / round_wall,
+              "peak_mem_gb": peak, "launches": launches,
+              "expected_launches": expected, "flash_routes": flash_routes,
+              "tri_lora_routes": tri_routes})
+        require(launches == expected,
+                f"{phase} {mode} launches {launches} != {expected}")
+        require(flash_routes["fwd_scalar"] == 0
+                and flash_routes["bwd_scalar"] == 0,
+                f"{phase} {mode} flash routes {flash_routes}")
+        wgmma = "fwd_grouped_wgmma" if mode == "vmap" else "fwd_wgmma"
+        require(tri_routes == {**{k: 0 for k in tri_routes},
+                               wgmma: sum(v for k, v in expected.items()
+                                          if k.startswith("tri_lora_fwd"))},
+                f"{phase} {mode} tri-LoRA routes {tri_routes}: every bf16 "
+                f"forward of 4096-token sequences takes the wgmma route")
+        require(all(np.isfinite(r["loss"]) for r in hist),
+                f"{phase} {mode}: loss {[r['loss'] for r in hist]}")
+        n = job["clients"]
+        require(all(r["uplink_bytes"] == n * c_bytes
+                    and r["downlink_bytes"] == n * c_bytes for r in hist),
+                f"{phase} {mode} bytes "
+                f"{[(r['uplink_bytes'], r['downlink_bytes']) for r in hist]}"
+                f", expected {n * c_bytes} each way")
+        require(len(aux) == n and all(np.isfinite(a) for a in aux),
+                f"{phase} {mode}: per-client aux {aux}")
+        if cfg.is_moe:
+            require(all(a > 0 for a in aux),
+                    f"{phase} {mode}: MoE aux {aux} not > 0")
+        out_launches = out_launches or launches
+        losses[mode], auxes[mode] = hist[0]["loss"], aux
+        del out
+        free(torch)
+    require(abs(losses["loop"] - losses["vmap"])
+            <= 1e-3 + 1e-3 * abs(losses["vmap"]),
+            f"{phase} round 0: loop loss {losses['loop']} vs vmap "
+            f"{losses['vmap']}")
+    require(all(abs(a - b) <= 1e-3 + 1e-3 * abs(b)
+                for a, b in zip(auxes["loop"], auxes["vmap"])),
+            f"{phase} per-client aux: loop {auxes['loop']} vs vmap "
+            f"{auxes['vmap']}")
+    return out_launches
+
+
+def phase_moe_train(torch, fa_ops, tl_ops, model, get_config, dev) -> dict:
+    """llama4-scout at full width, MOE_TRAIN's depth, through the LM
+    driver on vmap and loop (``lm_job_phase``): the tri-LoRA launches are
+    the attention projections' only (the experts are frozen and take no
+    adapter), each client's aux > 0 and the same on both paths."""
+    arch = cut_depth(get_config, LLAMA4, MOE_TRAIN["layers"])
+    cfg = get_config(arch)
+    require(cfg.is_moe and cfg.top_k == 1 and cfg.n_experts == 16
+            and set(cfg.kinds()) == {"attn"},
+            f"{arch}: experts {cfg.n_experts}, top_k {cfg.top_k}")
+    return lm_job_phase(torch, fa_ops, tl_ops, model, get_config, dev,
+                        MOE_TRAIN, "moe_train", arch, route_tap=True)
+
+
+def phase_moe_oracle(torch, fa_ops, model, get_config, dev) -> None:
+    """llama4-scout at full width, 2 layers, f32, one 2048-token sequence:
+    the loss and adapter gradients through flash against ``ref`` (loss
+    within 1e-4·|loss|, gradients within 1e-3 of their largest entry), and
+    the tokens whose top-k expert set differs between the two runs
+    (``RouteTap``; reported, not re-drawn)."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    job = MOE_ORACLE
+    cfg = get_config(LLAMA4).with_overrides(n_layers=job["layers"],
+                                            param_dtype="float32")
+    params = random_params(torch, model, cfg, dev, 21)
+    batch = lm_batch(torch, cfg.vocab_size, 1, job["seq"], 21, dev)
+    res = {}
+    for impl in ("flash", "ref"):
+        ad = tree_map(lambda t: t.detach().requires_grad_(True),
+                      params["adapter"])
+        fa_ops.reset_launches()
+        t0 = time.perf_counter()
+        with RouteTap(torch, keep=cfg.n_layers) as rt:
+            loss, met = model.loss_fn(cfg, ad, params["base"], batch,
+                                      attn_impl=impl)
+            grads = torch.autograd.grad(loss, tree_leaves(ad))
+        torch.cuda.synchronize()
+        res[impl] = (float(loss.detach()), grads, dict(fa_ops.LAUNCHES),
+                     time.perf_counter() - t0, float(met["aux"].detach()),
+                     rt.sets, rt.drop_share())
+        del loss, ad
+    (lf, gf, nf, tf, af, sf, df), (lr, gr, nr, tr, ar, sr, dr) = \
+        res["flash"], res["ref"]
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(gf, gr)]
+    rel = abs(lf - lr) / abs(lr)
+    flips = [int((a != b).any(-1).sum()) for a, b in zip(sf, sr)]
+    emit({"phase": "moe_oracle", "arch": cfg.name, "dtype": "float32",
+          "layers": cfg.n_layers, "seq": job["seq"], "experts": cfg.n_experts,
+          "top_k": cfg.top_k, "loss_flash": lf, "loss_ref": lr,
+          "loss_rel_err": rel, "aux_flash": af, "aux_ref": ar,
+          "dropped_share": {"flash": df, "ref": dr},
+          "grad_leaves": len(errs), "grad_max_err_over_max": max(errs),
+          "routing_flips_per_layer": flips,
+          "launches_flash": nf, "launches_ref": nr,
+          "wall_s": {"flash": tf, "ref": tr}})
+    require(len(flips) == cfg.n_layers, f"moe_oracle tapped {len(flips)} "
+            f"routing calls, expected {cfg.n_layers}")
+    require(rel <= 1e-4, f"moe_oracle loss flash {lf} vs ref {lr} "
+            f"(routing flips per layer {flips})")
+    require(max(errs) <= 1e-3, f"moe_oracle adapter gradients differ by "
+            f"{max(errs)} of their largest entry (routing flips per layer "
+            f"{flips})")
+    require(nf == {"flash_fwd": 2 + recomputed(cfg), "flash_dq": 2,
+                   "flash_dkv": 2}
+            and nr == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+            f"moe_oracle launches: flash {nf}, ref {nr}")
+    del params, res, gf, gr
+    free(torch)
+
+
+def phase_moe_serve(torch, ops, serve, model, random_bank, get_config,
+                    dev) -> dict:
+    """grok-1 at full width, MOE_SERVE's depth, bf16, serving through
+    ServeEngine (``serve_job``: every request finishes, both decode kernels
+    on every layer of every step on the 16-byte routes; the MoE MLP routes
+    each token alone, capacity 1), then the oracle: llama4-scout at full
+    width, 2 layers, f32, with capacity_factor = n_experts (no drops, as
+    tests/test_decode_consistency.py sets it): ServeEngine tokens equal
+    serve_naive's request for request."""
+    arch = cut_depth(get_config, GROK, MOE_SERVE["layers"])
+    from repro_torch.models import moe
+    require(moe.capacity(get_config(arch), 1) == 1,
+            "one decode token must route with capacity 1")
+    job = {k: v for k, v in MOE_SERVE.items() if k != "layers"}
+    launches = serve_job(torch, ops, serve, model, random_bank, get_config,
+                         dev, dict(job, arch=arch), "moe_serve")
+    cfg = get_config(LLAMA4)
+    dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
+                 LLAMA4, "moe_serve",
+                 capacity_factor=float(cfg.n_experts))
+    free(torch)
+    return launches
+
+
+def phase_rg_train(torch, fa_ops, tl_ops, model, get_config, dev) -> dict:
+    """recurrentgemma-2b at full width and depth through the LM driver on
+    vmap and loop (``lm_job_phase``): 8 swa layers at hd 256 under the
+    2,048 window, each run's flash launches 8 forward + 8 recomputed (every
+    swa layer sits in a checkpointed group), 8 dq and 8 dk/dv a step;
+    tri-LoRA on the 4 attention projections of the 8 swa layers and on
+    w_in / w_out of the 18 rglru layers (68 a pass, 64 again for the 24
+    group layers, 67 dx: layer 0's w_in reads the frozen embedding)."""
+    cfg = get_config(RG)
+    require(cfg.kinds().count("swa") == 8 and cfg.kinds().count("rglru")
+            == 18 and cfg.hd == 256 and cfg.window == 2048,
+            f"{RG}: kinds {cfg.kinds()}, hd {cfg.hd}, window {cfg.window}")
+    want = step_launches(cfg, 1)
+    require(want["flash_fwd"] == 16 and want["tri_lora_fwd"] == 132
+            and want["tri_lora_dx"] == 67, f"{RG} step launches {want}")
+    return lm_job_phase(torch, fa_ops, tl_ops, model, get_config, dev,
+                        RG_TRAIN, "rg_train", RG)
+
+
+def phase_rg_oracle(torch, fa_ops, model, get_config, dev) -> None:
+    """recurrentgemma-2b at full width, 3 layers (one pattern), f32, one
+    4096-token sequence: the loss and adapter gradients through flash at
+    hd 256 against the plain blockwise attention (loss within
+    1e-4·|loss|, gradients within 1e-3 of their largest entry)."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    job = RG_ORACLE
+    cfg = get_config(RG).with_overrides(n_layers=job["layers"],
+                                        param_dtype="float32")
+    params = random_params(torch, model, cfg, dev, 23)
+    batch = lm_batch(torch, cfg.vocab_size, 1, job["seq"], 23, dev)
+    res = {}
+    for impl in ("flash", "blockwise"):
+        ad = tree_map(lambda t: t.detach().requires_grad_(True),
+                      params["adapter"])
+        fa_ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(cfg, ad, params["base"], batch,
+                                attn_impl=impl)
+        grads = torch.autograd.grad(loss, tree_leaves(ad))
+        torch.cuda.synchronize()
+        res[impl] = (float(loss.detach()), grads, dict(fa_ops.LAUNCHES),
+                     time.perf_counter() - t0)
+        del loss, ad
+    (lf, gf, nf, tf), (lb, gb, nb, tb) = res["flash"], res["blockwise"]
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(gf, gb)]
+    rel = abs(lf - lb) / abs(lb)
+    emit({"phase": "rg_oracle", "arch": cfg.name, "dtype": "float32",
+          "layers": cfg.n_layers, "kinds": list(cfg.kinds()),
+          "seq": job["seq"], "window": cfg.window, "head_dim": cfg.hd,
+          "loss_flash": lf, "loss_blockwise": lb, "loss_rel_err": rel,
+          "grad_leaves": len(errs), "grad_max_err_over_max": max(errs),
+          "launches_flash": nf, "launches_blockwise": nb,
+          "wall_s": {"flash": tf, "blockwise": tb}})
+    require(rel <= 1e-4, f"rg_oracle loss flash {lf} vs blockwise {lb}")
+    require(max(errs) <= 1e-3, f"rg_oracle adapter gradients differ by "
+            f"{max(errs)} of their largest entry")
+    require(nf == {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}
+            and nb == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+            f"rg_oracle launches: flash {nf}, blockwise {nb}")
+    del params, res, gf, gb
+    free(torch)
+
+
+def phase_rg_decode(torch, ops, tl_ops, serve, model, get_config,
+                    dev) -> dict:
+    """``serve.generate`` on recurrentgemma-2b at full width and depth,
+    bf16: 8 prompts of 32 tokens and 32 new ones; every step launches
+    decode attention at hd 256 once per swa layer (8) and the tri-LoRA
+    forward once per adapted projection (4 x 8 + 2 x 18 = 68); ms a step.
+    Then 3 layers in f32 (RG_DECODE_ORACLE): token-by-token decode on the
+    card against the forward's logits at rtol = atol = 2e-3
+    (tests/test_decode_consistency.py)."""
+    import numpy as np
+
+    cfg = get_config(RG)
+    job = RG_DECODE
+    params = random_params(torch, model, cfg, dev, 25)
+    prompts = np.random.default_rng(25).integers(
+        0, cfg.vocab_size, (job["batch"], job["prompt_len"]))
+    per_step, step_ms = [], []
+    decode_step = serve.model.decode_step
+
+    def counts():
+        return {**ops.LAUNCHES, **tl_ops.LAUNCHES}
+
+    def counted(*args, **kw):
+        before = counts()
+        t = time.perf_counter()
+        out = decode_step(*args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        per_step.append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                      # counts of the main path only
+    tl_ops.reset_launches()
+    serve.model.decode_step = counted
+    try:
+        t0 = time.perf_counter()
+        out = serve.generate(cfg, params, prompts, job["gen"], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        serve.model.decode_step = decode_step
+    launches = {**ops.LAUNCHES, **tl_ops.LAUNCHES}
+    steps = len(per_step)
+    n_swa = cfg.kinds().count("swa")
+    adapted = sum(adapted_per_layer(cfg, k) for k in cfg.kinds())
+    want_step = {"decode_attention": n_swa, "grouped_gemv": 0,
+                 "tri_lora_fwd": adapted, "tri_lora_dx": 0,
+                 "tri_lora_dw": 0, **NO_GROUPED}
+    srt = sorted(step_ms)
+    emit({"phase": "rg_decode", "arch": cfg.name, **job, "steps": steps,
+          "layers": cfg.n_layers, "swa_layers": n_swa, "head_dim": cfg.hd,
+          "out_shape": list(out.shape), "wall_s": wall,
+          "ms_per_step": 1e3 * wall / steps, "step_ms_p50": srt[steps // 2],
+          "step_ms_p95": srt[int(0.95 * (steps - 1))],
+          "first_step_ms": step_ms[0],
+          "tok_per_s": job["batch"] * job["gen"] / wall,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "launches_per_step": want_step,
+          "tri_lora_routes": dict(tl_ops.ROUTES),
+          "attn_routes": dict(ops.ROUTES),
+          "sample": out[0, -8:].tolist()})
+    require(tuple(out.shape) == (job["batch"], job["prompt_len"] + job["gen"])
+            and steps == job["prompt_len"] + job["gen"] - 1,
+            f"generate returned {tuple(out.shape)} after {steps} steps")
+    odd = [p for p in per_step if p != want_step]
+    require(not odd, f"decode steps launched {odd[:3]} (each step must "
+            f"launch {want_step})")
+    require(ops.ROUTES["attn_scalar"] == 0, f"rg_decode attention left the "
+            f"16-byte route: {ops.ROUTES}")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            "token ids out of range")
+    del params, out
+    free(torch)
+
+    job = RG_DECODE_ORACLE
+    cfg = get_config(RG).with_overrides(n_layers=job["layers"],
+                                        param_dtype="float32")
+    params = random_params(torch, model, cfg, dev, 26)
+    b, t = job["batch"], job["seq"]
+    toks = torch.as_tensor(np.random.default_rng(26).integers(
+        0, cfg.vocab_size, (b, t)), device=dev)
+    with torch.inference_mode():
+        full, _ = model.forward(cfg, params["base"], params["adapter"],
+                                {"tokens": toks})
+        cache = model.init_decode_cache(cfg, b, t, device=dev)
+        got = []
+        for i in range(t):
+            lg, cache = model.decode_step(
+                cfg, params["base"], params["adapter"], cache,
+                {"token": toks[:, i:i + 1],
+                 "positions": torch.full((b, 1), i, dtype=torch.int32,
+                                         device=dev)})
+            got.append(lg[:, 0])
+    dec_err = (torch.stack(got, 1) - full).abs()
+    dec_bad = int((dec_err > 2e-3 + 2e-3 * full.abs()).sum())
+    emit({"phase": "rg_decode", "oracle": {
+        "arch": cfg.name, "dtype": "float32", **job,
+        "kinds": list(cfg.kinds()),
+        "decode_vs_forward_max_abs_err": float(dec_err.max()),
+        "logits_max_abs": float(full.abs().max()),
+        "decode_n_out_of_tol": dec_bad, "decode_tol": "rtol=atol=2e-3"}})
+    require(dec_bad == 0, f"rg decode differs from the forward: "
+            f"{float(dec_err.max())}, {dec_bad} out of tolerance")
+    del params, full, got, cache
+    free(torch)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4656,6 +5230,23 @@ def card_line() -> str:
 
 
 START = time.perf_counter()
+#: wall seconds of each phase of this run, in order
+PHASE_WALL: dict = {}
+
+
+def wall_line(name: str, t0: float) -> None:
+    PHASE_WALL[name] = time.perf_counter() - t0
+    emit({"phase": "wall", "name": name, "s": PHASE_WALL[name],
+          "since_start_s": time.perf_counter() - START})
+
+
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds kept in PHASE_WALL and printed
+    on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    wall_line(name, t0)
+    return out
 
 
 def main() -> int:
@@ -4688,109 +5279,153 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     try:
-        phase_build(build)
-        phase_hold_check(torch, dev)
-        attn_err = attn_cases(torch, ops, ref, dev)
-        gemv_err = gemv_cases(torch, ops, ref, dev)
-        flash_err = flash_cases(torch, fa_ops, fa_ref, dev)
-        tri_lora_err = tri_lora_cases(torch, tl_ops, tl_ref, dev)
-        grouped_err = tri_lora_grouped_cases(torch, tl_ops, tl_ref, dev)
-        wkv6_err = wkv6_cases(torch, wkv_ops, wkv_ref, dev)
+        timed("build", phase_build, build)
+        timed("hold_check", phase_hold_check, torch, dev)
+        attn_err = timed("kernels (decode cases)", attn_cases, torch, ops,
+                         ref, dev)
+        gemv_err = timed("kernels (gemv cases)", gemv_cases, torch, ops, ref,
+                         dev)
+        flash_err = timed("flash_cases", flash_cases, torch, fa_ops, fa_ref,
+                          dev)
+        tri_lora_err = timed("tri_lora_cases", tri_lora_cases, torch, tl_ops,
+                             tl_ref, dev)
+        grouped_err = timed("tri_lora_cases (grouped)",
+                            tri_lora_grouped_cases, torch, tl_ops, tl_ref,
+                            dev)
+        wkv6_err = timed("wkv6_cases", wkv6_cases, torch, wkv_ops, wkv_ref,
+                         dev)
         card = card_line()
+        t0 = time.perf_counter()
         rows = [time_attention(torch, F, ops, ref, bounds, dev),
                 time_gemv(torch, ops, ref, bounds, dev)]
         long_ring = time_attention(torch, F, ops, ref, bounds, dev,
                                    "long ring")
         decode32k_row = time_attention(torch, F, ops, ref, bounds, dev,
                                        "decode 32k")
-        flash_rows = time_flash(torch, F, fa_ops, fa_ref, bounds, dev)
-        tri_lora_rows = (time_tri_lora(torch, tl_ops, bounds, dev)
-                         + time_tri_lora_grouped(torch, tl_ops, bounds, dev))
-        wkv6_row = time_wkv6(torch, wkv_ops, wkv_ref, rwkv, bounds, dev, card)
+        wall_line("kernels (decode timing)", t0)
+        flash_rows = timed("flash_timing", time_flash, torch, F, fa_ops,
+                           fa_ref, bounds, dev)
+        tri_lora_rows = timed("tri_lora_timing", lambda: time_tri_lora(
+            torch, tl_ops, bounds, dev) + time_tri_lora_grouped(
+            torch, tl_ops, bounds, dev))
+        wkv6_row = timed("wkv6_timing", time_wkv6, torch, wkv_ops, wkv_ref,
+                         rwkv, bounds, dev, card)
         for r in rows + [long_ring, decode32k_row]:
             emit({"phase": "kernels", "timing": r["name"],
                   "kernel_ms": r["ms"], **{k: v for k, v in r.items()
                                            if k not in ("name", "ms")}})
-        launches, state = phase_serve(torch, ops, serve, model, random_bank,
-                                      get_config, dev)
-        phase_profile(torch, state, dev)
+        launches, state = timed("serve", phase_serve, torch, ops, serve,
+                                model, random_bank, get_config, dev)
+        timed("profile", phase_profile, torch, state, dev)
         del state
         gc.collect()          # the timed engine sits in a reference cycle
         torch.cuda.empty_cache()
-        phase_oracle(torch, ops, serve, random_bank, get_config, model, dev)
+        timed("oracle", phase_oracle, torch, ops, serve, random_bank,
+              get_config, model, dev)
         torch.cuda.empty_cache()
-        train_launches, loop_out = phase_train(torch, fa_ops, tl_ops,
-                                               get_config, dev)
+        train_launches, loop_out = timed("train", phase_train, torch, fa_ops,
+                                         tl_ops, get_config, dev)
         launches.update(train_launches)
         # the vectorized clients: the grouped tri-LoRA kernels
-        vmap, vmap_run = phase_train_vmap(torch, fa_ops, tl_ops, get_config,
-                                          dev, loop_out)
+        vmap, vmap_run = timed("train_vmap", phase_train_vmap, torch, fa_ops,
+                               tl_ops, get_config, dev, loop_out)
         launches.update(tri_lora_fwd_grouped=vmap["tri_lora_fwd_grouped"],
                         tri_lora_dx_grouped=vmap["tri_lora_dx_grouped"])
         del loop_out
         # fault injection and admission control on both paths
-        storm_hist = phase_train_faults(torch, fa_ops, tl_ops, get_config,
-                                        dev)
+        storm_hist = timed("train_faults", phase_train_faults, torch, fa_ops,
+                           tl_ops, get_config, dev)
         # the scan engine: the same jobs in chunks of rounds, kill and
         # resume, and the host syncs of a chunk
-        phase_train_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_run,
-                         storm_hist)
+        timed("train_scan", phase_train_scan, torch, fa_ops, tl_ops,
+              get_config, dev, vmap_run, storm_hist)
         del vmap_run, storm_hist
         # the host client store and the async engine
-        phase_train_host(torch, fa_ops, tl_ops, get_config, dev)
-        phase_train_async(torch, fa_ops, tl_ops, get_config, dev)
+        timed("train_host", phase_train_host, torch, fa_ops, tl_ops,
+              get_config, dev)
+        timed("train_async", phase_train_async, torch, fa_ops, tl_ops,
+              get_config, dev)
         # the LM driver (forward and dx, then vectorized) and the backbone
         # warm-up (dW)
-        lm, lm_hist = phase_lm_train(torch, fa_ops, tl_ops, get_config, dev)
+        lm, lm_hist = timed("lm_train", phase_lm_train, torch, fa_ops,
+                            tl_ops, get_config, dev)
         launches.update(tri_lora_fwd=lm["tri_lora_fwd"],
                         tri_lora_dx=lm["tri_lora_dx"])
-        _, lm_vmap_hist = phase_lm_train(torch, fa_ops, tl_ops, get_config,
-                                         dev, "vmap", lm_hist)
-        phase_lm_scan(torch, fa_ops, tl_ops, get_config, dev, lm_vmap_hist)
-        phase_lm_host_async(torch, fa_ops, tl_ops, get_config, dev,
-                            lm_vmap_hist)
-        launches["tri_lora_dw"] = phase_pretrain(torch, tl_ops, get_config,
-                                                 dev)["tri_lora_dw"]
-        phase_card_vs_cpu(torch, tl_ops, model, get_config, dev)
+        _, lm_vmap_hist = timed("lm_train (vmap)", phase_lm_train, torch,
+                                fa_ops, tl_ops, get_config, dev, "vmap",
+                                lm_hist)
+        timed("lm_scan", phase_lm_scan, torch, fa_ops, tl_ops, get_config,
+              dev, lm_vmap_hist)
+        timed("lm_host / lm_async", phase_lm_host_async, torch, fa_ops,
+              tl_ops, get_config, dev, lm_vmap_hist)
+        launches["tri_lora_dw"] = timed("pretrain", phase_pretrain, torch,
+                                        tl_ops, get_config,
+                                        dev)["tri_lora_dw"]
+        timed("card_vs_cpu", phase_card_vs_cpu, torch, tl_ops, model,
+              get_config, dev)
         # this slice's paths: the RWKV-6 prefill (wkv6 and tri-LoRA
         # forward), its decode and the f32 oracle
         gc.collect()
         torch.cuda.empty_cache()
-        rwkv_launches, rwkv_p = phase_rwkv_prefill(
-            torch, wkv_ops, wkv_ref, tl_ops, model, get_config, dev)
+        rwkv_launches, rwkv_p = timed(
+            "rwkv_prefill", phase_rwkv_prefill, torch, wkv_ops, wkv_ref,
+            tl_ops, model, get_config, dev)
         launches["wkv6"] = rwkv_launches["wkv6"]
-        decode_launches = phase_rwkv_decode(torch, wkv_ops, tl_ops, serve,
-                                            get_config, rwkv_p, dev)
+        decode_launches = timed("rwkv_decode", phase_rwkv_decode, torch,
+                                wkv_ops, tl_ops, serve, get_config, rwkv_p,
+                                dev)
         del rwkv_p
         torch.cuda.empty_cache()
-        phase_rwkv_oracle(torch, wkv_ops, model, get_config, dev)
+        timed("rwkv_oracle", phase_rwkv_oracle, torch, wkv_ops, model,
+              get_config, dev)
         # the eleventh slice's paths: the LM driver on rwkv6-1.6b (loop,
         # then vmap through the grouped kernels) and the dense configs
         gc.collect()
         torch.cuda.empty_cache()
-        phase_lm_rwkv(torch, wkv_ops, tl_ops, get_config, dev)
+        timed("lm_rwkv", phase_lm_rwkv, torch, wkv_ops, tl_ops, get_config,
+              dev)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_dense_configs(torch, ops, serve, model, random_bank,
-                            get_config, dev)
+        timed("dense_configs", phase_dense_configs, torch, ops, serve, model,
+              random_bank, get_config, dev)
         # the twelfth slice's paths: h2o-danube-3-4b (swa blocks, head dim
         # 120) trained, held to the plain attention, and served
-        h2o_launches = phase_h2o_train(torch, fa_ops, tl_ops, get_config,
-                                       dev)
-        phase_h2o_oracle(torch, fa_ops, model, get_config, dev)
-        phase_h2o_serve(torch, ops, serve, model, random_bank, get_config,
-                        dev)
+        h2o_launches = timed("h2o_train", phase_h2o_train, torch, fa_ops,
+                             tl_ops, get_config, dev)
+        timed("h2o_oracle", phase_h2o_oracle, torch, fa_ops, model,
+              get_config, dev)
+        timed("h2o_serve", phase_h2o_serve, torch, ops, serve, model,
+              random_bank, get_config, dev)
         # the fifteenth slice's paths: the step factories at the assigned
         # shapes (train_4k with remat and the chunked loss, prefill_32k,
         # decode_32k, long_500k), the exported bank served, the DLG harness
-        phase_steps_train(torch, fa_ops, tl_ops, model, get_config, dev)
-        prefill_row = time_flash_prefill(torch, F, fa_ops, bounds, dev)
-        prefill_launches = phase_steps_prefill(torch, fa_ops, tl_ops, model,
-                                               get_config, dev)
-        decode32k_launches = phase_steps_decode(torch, ops, ref, tl_ops,
-                                                model, get_config, dev)
-        phase_bank_serve(torch, ops, fa_ops, tl_ops, serve, get_config, dev)
-        phase_privacy(torch, dev)
+        timed("steps_train", phase_steps_train, torch, fa_ops, tl_ops, model,
+              get_config, dev)
+        prefill_row = timed("flash_timing (prefill 32k)", time_flash_prefill,
+                            torch, F, fa_ops, bounds, dev)
+        prefill_launches = timed("steps_prefill", phase_steps_prefill, torch,
+                                 fa_ops, tl_ops, model, get_config, dev)
+        decode32k_launches = timed("steps_decode", phase_steps_decode, torch,
+                                   ops, ref, tl_ops, model, get_config, dev)
+        timed("bank_serve", phase_bank_serve, torch, ops, fa_ops, tl_ops,
+              serve, get_config, dev)
+        timed("privacy", phase_privacy, torch, dev)
+        # the sixteenth slice's paths: the MoE block (llama4-scout trained
+        # and held to ref, grok-1 served) and the RG-LRU hybrid
+        # (recurrentgemma-2b trained, held to blockwise, decoded)
+        free(torch)
+        moe_launches = timed("moe_train", phase_moe_train, torch, fa_ops,
+                             tl_ops, model, get_config, dev)
+        timed("moe_oracle", phase_moe_oracle, torch, fa_ops, model,
+              get_config, dev)
+        timed("moe_serve", phase_moe_serve, torch, ops, serve, model,
+              random_bank, get_config, dev)
+        rg_launches = timed("rg_train", phase_rg_train, torch, fa_ops,
+                            tl_ops, model, get_config, dev)
+        timed("rg_oracle", phase_rg_oracle, torch, fa_ops, model, get_config,
+              dev)
+        rg_decode_launches = timed("rg_decode", phase_rg_decode, torch, ops,
+                                   tl_ops, serve, model, get_config, dev)
     except Exception:                       # report, print no result, fail
         traceback.print_exc()
         return 1
@@ -4801,7 +5436,7 @@ def main() -> int:
     decode32k_row["note"] = "launches: one decode_32k step (steps_decode)"
     path_launches = {"rwkv prefill": rwkv_launches,
                      "rwkv decode": decode_launches,
-                     "h2o train": h2o_launches,
+                     "h2o train": h2o_launches, "rg train": rg_launches,
                      "prefill 32k": prefill_launches,
                      decode32k_row["shape"]: decode32k_launches}
     for r in rows:                    # the launches of the row's own path
@@ -4811,7 +5446,10 @@ def main() -> int:
         "decode_attention": attn_err, "grouped_gemv": gemv_err,
         "flash_attention": flash_err, "tri_lora": tri_lora_err,
         "tri_lora_grouped": grouped_err,
-        "wkv6": wkv6_err}, "wall_s": time.perf_counter() - START})
+        "wkv6": wkv6_err}, "phase_wall_s": PHASE_WALL,
+        "path_launches": {"moe train": moe_launches,
+                          "rg decode": rg_decode_launches},
+        "wall_s": time.perf_counter() - START})
     emit({"kernels": [{k: r[k] for k in keys + ("shape", "note") if k in r}
                       for r in rows]})
     print(card, flush=True)

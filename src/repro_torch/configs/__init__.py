@@ -4,14 +4,18 @@ Importing this package registers every ported config; ``--arch <id>``
 resolves via ``repro_torch.models.config.get_config``.  Registered so far:
 the paper's own models, the dense decoders qwen2.5-14b, qwen3-32b and
 starcoder2-7b, the sliding-window decoder h2o-danube-3-4b (``swa``
-blocks), and the RWKV-6 family; the other families follow with their
-block kinds.
+blocks), the RWKV-6 family, the MoE decoders grok-1-314b and
+llama4-scout-17b-a16e, and the RG-LRU hybrid recurrentgemma-2b; the
+encoder-decoder and VLM families follow.
 """
 from repro_torch.configs import (  # noqa: F401
+    grok_1_314b,
     h2o_danube_3_4b,
+    llama4_scout_17b_a16e,
     paper_models,
     qwen2_5_14b,
     qwen3_32b,
+    recurrentgemma_2b,
     rwkv6_1_6b,
     starcoder2_7b,
 )

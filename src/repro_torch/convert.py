@@ -4,9 +4,12 @@ numpy into the port.
 The JAX package's trees become numpy trees with
 ``jax.tree.map(np.asarray, tree)``; these helpers turn such a tree into the
 port's tree with the same key paths (dicts stay dicts, tuples stay tuples,
-``None`` stays ``None``).  bf16 arrives as ``ml_dtypes.bfloat16``, which
-``torch.from_numpy`` rejects: it goes through float32, which holds every
-bf16 value exactly, and then ``.to(torch.bfloat16)``.
+``None`` stays ``None``), and every leaf keeps its dtype: the MoE
+block's f32 router beside its bf16 experts and the RG-LRU block's f32
+``lam`` cross like any other leaf.  bf16 arrives as
+``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects: it goes
+through float32, which holds every bf16 value exactly, and then
+``.to(torch.bfloat16)``.
 """
 from __future__ import annotations
 

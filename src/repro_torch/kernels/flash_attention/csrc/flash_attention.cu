@@ -62,13 +62,28 @@
 //   band q tiles in registers; the cluster then adds the blocks' partials
 //   through distributed shared memory in rank order.  No atomics: out, lse,
 //   dq, dk and dv are bitwise the same from call to call.
-// * Head dims 64, 120 and 128.  A head dim that is no multiple of 32 (120,
-//   h2o-danube-3-4b's) computes at the next multiple (128): rows are read
+// * Head dims 64, 120, 128 and 256.  A head dim that is no multiple of 32
+//   (120, h2o-danube-3-4b's) computes at the next multiple (128): rows are read
 //   and written at 120 channels in device memory (480 or 240 bytes, whole
 //   16-byte reads), staged into tiles of 128 + 4 floats, q.k sums the 120
 //   real channels, and the products over a staged tile carry 8 pad columns
 //   in registers that no store reads, about 128/120 of the exact FMAs.
 //   Shared memory and registers are those of head dim 128.
+// * Head dim 256 (recurrentgemma-2b's) computes on 32-row tiles, every other
+//   head dim on 64-row ones (Geo<HD>::kT; the 64-row code is the same code
+//   with kT = 64, so its results are bit for bit those of the 64-only
+//   kernels).  At 64 rows, HD 256 would stage five f32 tiles of 64 x 260
+//   floats (333 KB) where a block may have 227 KB, hold 4 x 32 = 128
+//   accumulators a thread (256 in dk/dv) and a dk/dv partial of
+//   2 x 64 x 256 floats (128 KB).  At 32 rows a thread owns rows tr + 16i
+//   (i < 2) and score columns tc + 8j (j < 4): five tiles of 32 x 260 floats
+//   plus a 32 x 40 score tile are 171.5 KB (one block an SM), the
+//   accumulators 2 x 32 = 64 floats a thread (128 in dk/dv, which ptxas
+//   fits in 255 registers with spills of the size hd 120 and 128 already
+//   have), and the partial 2 x 32 x 256 floats = 64 KB, which fits in the
+//   freed tile buffers.  Each K/V tile then serves 32 query rows
+//   instead of 64: twice the K/V traffic from L2 per query row, which at
+//   hd 256 the 4x larger products per tile still cover.
 // * q/k/v/dO are read in the model's (B,S,heads,hd) layout through their
 //   strides: no transpose, no padding, no repeat of K/V for GQA.  The ragged
 //   sequence edge is masked inside the kernel by the real lengths.  Rows
@@ -87,29 +102,31 @@
 
 namespace {
 
-constexpr int kTile = 64;        // query rows and keys per tile
+constexpr int kMaxTile = 64;     // query rows and keys per tile, at most
 constexpr int kThreads = 128;    // threads of every block
-constexpr int kLdS = kTile + 8;  // padded row of a staged score tile
 constexpr float kNegInf = -1e30f;
 
 struct Band {
   int causal, window, q_off, skv;
-  // does the (q tile, k tile) pair hold any (query, key) of the band?
+  // does the (q tile, k tile) pair of T-row tiles hold any (query, key) of
+  // the band?
+  template <int T>
   __device__ __forceinline__ bool tiles(int q_first, int k_first) const {
     if (causal) {
-      if (k_first > q_first + q_off + kTile - 1) return false;
-      if (window && k_first + kTile - 1 <= q_first + q_off - window)
+      if (k_first > q_first + q_off + T - 1) return false;
+      if (window && k_first + T - 1 <= q_first + q_off - window)
         return false;
     }
     return true;
   }
   // does every (query, key) of the pair lie in the band?  (rows past Sq are
   // never stored, so they need no mask)
+  template <int T>
   __device__ __forceinline__ bool full(int q_first, int k_first) const {
-    if (k_first + kTile > skv) return false;
+    if (k_first + T > skv) return false;
     if (!causal) return true;
-    return k_first + kTile - 1 <= q_first + q_off &&
-           (window == 0 || k_first > q_first + q_off + kTile - 1 - window);
+    return k_first + T - 1 <= q_first + q_off &&
+           (window == 0 || k_first > q_first + q_off + T - 1 - window);
   }
   // element mask for query row qi (sequence index) and key kj
   __device__ __forceinline__ bool valid(int qi, int kj) const {
@@ -141,14 +158,19 @@ __device__ __forceinline__ float row_sum(float v) {
 // rounded up to 32.  Staging writes channels [0, HD) of a row; zero_pad
 // zeroes [HD, kPD) once at block start, so the pad stays zero: dot_rows
 // sums channels [0, HD) only, and score_times' pad columns go to
-// accumulators that are never stored.
+// accumulators that are never stored.  Tiles have kT rows (queries or
+// keys): 64, or 32 above head dim 128 (see the head comment).
 template <int HD>
 struct Geo {
   static_assert(HD % 8 == 0, "16-byte bf16 rows and float4 stores");
+  static constexpr int kT = HD > 128 ? 32 : kMaxTile;  // rows of a tile
+  static constexpr int kRI = kT / 16;         // rows tr + 16i of a thread
+  static constexpr int kCJ = kT / 8;          // score columns tc + 8j
+  static constexpr int kLdS = kT + 8;         // padded row of a score tile
   static constexpr int kPD = (HD + 31) / 32 * 32;  // computed channels
   static constexpr int kLd = kPD + 4;         // padded [row][channel] row
-  static constexpr int kTileF = kTile * kLd;  // floats of a staged tile
-  static constexpr int kScoreF = kTile * kLdS;
+  static constexpr int kTileF = kT * kLd;     // floats of a staged tile
+  static constexpr int kScoreF = kT * kLdS;
   static constexpr int kNH = kPD / 32;        // float4 channel groups
   static constexpr int kAcc = kPD / 8;        // accumulators of a row
   // is output channel group h (channels 4tc + 32h + e) inside HD?
@@ -160,7 +182,9 @@ struct Geo {
   static constexpr size_t kFwdSmem = sizeof(float) * (5 * kTileF + kScoreF);
   static constexpr size_t kDqSmem = sizeof(float) * (5 * kTileF + kScoreF);
   static constexpr size_t kDkvSmem =
-      sizeof(float) * (5 * kTileF + kScoreF + 3 * kTile);
+      sizeof(float) * (5 * kTileF + kScoreF + 3 * kT);
+  static_assert(kDkvSmem <= 227 * 1024, "a block has at most 227 KB");
+  static_assert(2 * kT * HD <= 5 * kTileF, "the dk/dv partial fits");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -190,7 +214,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [first, first + 64) of an (S, HD) slice with row stride `rs` into
+// rows [first, first + kT) of an (S, HD) slice with row stride `rs` into
 // channels [0, HD) of a staged tile; rows at or beyond n are zero.  VEC:
 // 16 bytes a read (f32 by cp.async, bf16 eight at a time through
 // registers); else one element a read (f32 by cp.async, bf16 through
@@ -201,7 +225,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* src,
   constexpr int kLd = Geo<HD>::kLd;
   constexpr int E = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
   constexpr int kPerRow = HD / E;
-  constexpr int kReads = kTile * kPerRow;  // HD 120 bf16: 960, not whole
+  constexpr int kReads = Geo<HD>::kT * kPerRow;  // HD 120 bf16: 960
   static_assert(HD % E == 0, "whole reads per row");
 #pragma unroll
   for (int i = 0; i < (kReads + kThreads - 1) / kThreads; ++i) {
@@ -239,7 +263,7 @@ __device__ __forceinline__ void zero_pad(float* dst, int n) {
   using G = Geo<HD>;
   if constexpr (G::kPD > HD) {
     constexpr int kPer = (G::kPD - HD) / 4;  // float4 of a row's pad
-    for (int e = static_cast<int>(threadIdx.x); e < n * kTile * kPer;
+    for (int e = static_cast<int>(threadIdx.x); e < n * G::kT * kPer;
          e += kThreads)
       *reinterpret_cast<float4*>(dst + (e / kPer) * G::kLd + HD +
                                  4 * (e % kPer)) =
@@ -247,39 +271,41 @@ __device__ __forceinline__ void zero_pad(float* dst, int n) {
   }
 }
 
-// 64 values src[first + i] (zero at or beyond n) into dst[i], by threads
-// [lane0, lane0 + 64)
+// kT values src[first + i] (zero at or beyond n) into dst[i], by threads
+// [lane0, lane0 + kT)
+template <int kT>
 __device__ __forceinline__ void stage_row(float* dst, const float* src,
                                           int first, int n, int lane0) {
   const int i = static_cast<int>(threadIdx.x) - lane0;
-  if (i >= 0 && i < kTile) {
+  if (i >= 0 && i < kT) {
     const bool ok = first + i < n;
     cp_async4(dst + i, ok ? src + first + i : src, ok);
   }
 }
 
 // acc[i][j] += a[tr + 16i] . b[tc + 8j]: rows of two staged tiles dotted
-// over their HD channels, 12 16-byte reads for 128 FMAs
+// over their HD channels, 12 16-byte reads for 128 FMAs (64-row tiles)
 template <int HD>
-__device__ __forceinline__ void dot_rows(float (&acc)[4][8],
-                                         const float* __restrict__ a,
-                                         const float* __restrict__ b) {
-  constexpr int kLd = Geo<HD>::kLd;
+__device__ __forceinline__ void dot_rows(
+    float (&acc)[Geo<HD>::kRI][Geo<HD>::kCJ], const float* __restrict__ a,
+    const float* __restrict__ b) {
+  using G = Geo<HD>;
+  constexpr int kLd = G::kLd;
   const float* pa = a + (threadIdx.x >> 3) * kLd;
   const float* pb = b + (threadIdx.x & 7) * kLd;
 #pragma unroll 4
   for (int d = 0; d < HD; d += 4) {
-    float4 av[4], bv[8];
+    float4 av[G::kRI], bv[G::kCJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < G::kRI; ++i)
       av[i] = *reinterpret_cast<const float4*>(pa + 16 * i * kLd + d);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < G::kCJ; ++j)
       bv[j] = *reinterpret_cast<const float4*>(pb + 8 * j * kLd + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < G::kRI; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < G::kCJ; ++j) {
         float s = acc[i][j];
         s = fmaf(av[i].x, bv[j].x, s);
         s = fmaf(av[i].y, bv[j].y, s);
@@ -293,17 +319,18 @@ __device__ __forceinline__ void dot_rows(float (&acc)[4][8],
 // score tile times a staged tile over its kPD channels, (4 + 4 kPD/32)
 // 16-byte reads for 4 x 4 x kPD/8 FMAs
 template <int HD>
-__device__ __forceinline__ void score_times(float (&acc)[4][Geo<HD>::kAcc],
-                                            const float* __restrict__ s,
-                                            const float* __restrict__ m) {
-  constexpr int kLd = Geo<HD>::kLd, kNH = Geo<HD>::kNH;
+__device__ __forceinline__ void score_times(
+    float (&acc)[Geo<HD>::kRI][Geo<HD>::kAcc], const float* __restrict__ s,
+    const float* __restrict__ m) {
+  using G = Geo<HD>;
+  constexpr int kLd = G::kLd, kNH = G::kNH, kLdS = G::kLdS;
   const float* ps = s + (threadIdx.x >> 3) * kLdS;
   const float* pm = m + 4 * (threadIdx.x & 7);
 #pragma unroll 2
-  for (int c = 0; c < kTile; c += 4) {
-    float4 sv[4];
+  for (int c = 0; c < G::kT; c += 4) {
+    float4 sv[G::kRI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < G::kRI; ++i)
       sv[i] = *reinterpret_cast<const float4*>(ps + 16 * i * kLdS + c);
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
@@ -312,7 +339,7 @@ __device__ __forceinline__ void score_times(float (&acc)[4][Geo<HD>::kAcc],
       for (int h = 0; h < kNH; ++h)
         mv[h] = *reinterpret_cast<const float4*>(pm + (c + cc) * kLd + 32 * h);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < G::kRI; ++i) {
         const float a = cc == 0   ? sv[i].x
                         : cc == 1 ? sv[i].y
                         : cc == 2 ? sv[i].z
@@ -353,7 +380,7 @@ __device__ __forceinline__ int2 tile_range(int n, F hit) {
 // forward
 // ---------------------------------------------------------------------------
 
-// out and lse per (64-row tile, head, batch row): grid (B*H, Sq/64), q
+// out and lse per (kT-row tile, head, batch row): grid (B*H, Sq/kT), q
 // tiles in reverse order, over the band's k tiles.  Per k tile: s = q k^T
 // (registers), the online softmax (registers), p staged, o += p v; the next
 // k and v tiles (the other stage) load meanwhile.
@@ -377,10 +404,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   const T* kb = k + b * k_sb + kvh * k_sh;
   const T* vb = v + b * v_sb + kvh * v_sh;
   // q tile n - 1 - y: under a causal band the heaviest tiles go first
-  const int n_qt = (sq + kTile - 1) / kTile;
-  const int q_first = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kTile;
-  const int2 kr = tile_range((band.skv + kTile - 1) / kTile, [&](int t) {
-    return band.tiles(q_first, t * kTile);
+  const int n_qt = (sq + G::kT - 1) / G::kT;
+  const int q_first = (n_qt - 1 - static_cast<int>(blockIdx.y)) * G::kT;
+  const int2 kr = tile_range((band.skv + G::kT - 1) / G::kT, [&](int t) {
+    return band.template tiles<G::kT>(q_first, t * G::kT);
   });
 
   // groups: {q, k tile 0}, {v tile 0}; then {k, v} of the next tile at the
@@ -388,15 +415,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   zero_pad<HD>(fsmem, 5);
   stage_tile<T, HD, VEC>(s_q, q + b * q_sb + h * q_sh, q_ss, q_first, sq);
   if (kr.x <= kr.y)
-    stage_tile<T, HD, VEC>(s_k, kb, k_ss, kr.x * kTile, band.skv);
+    stage_tile<T, HD, VEC>(s_k, kb, k_ss, kr.x * G::kT, band.skv);
   cp_async_commit();
   if (kr.x <= kr.y)
-    stage_tile<T, HD, VEC>(s_v, vb, v_ss, kr.x * kTile, band.skv);
+    stage_tile<T, HD, VEC>(s_v, vb, v_ss, kr.x * G::kT, band.skv);
   cp_async_commit();
 
-  float m[4], l[4], acc[4][G::kAcc];
+  float m[G::kRI], l[G::kRI], acc[G::kRI][G::kAcc];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < G::kRI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -404,31 +431,31 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   }
 
   for (int kt = kr.x; kt <= kr.y; ++kt) {
-    const int k_first = kt * kTile;
+    const int k_first = kt * G::kT;
     const int stage = (kt - kr.x) & 1;
     cp_async_wait<1>();  // q and this k tile have landed (v may not)
     __syncthreads();     // ... for all; the last tile's products are done
     if (kt < kr.y) {
       stage_tile<T, HD, VEC>(s_k + (stage ^ 1) * G::kTileF, kb, k_ss,
-                             k_first + kTile, band.skv);
+                             k_first + G::kT, band.skv);
       cp_async_commit();
       stage_tile<T, HD, VEC>(s_v + (stage ^ 1) * G::kTileF, vb, v_ss,
-                             k_first + kTile, band.skv);
+                             k_first + G::kT, band.skv);
     } else {
       cp_async_commit();
     }
     cp_async_commit();
 
-    float s[4][8] = {};
+    float s[G::kRI][G::kCJ] = {};
     dot_rows<HD>(s, s_q, s_k + stage * G::kTileF);
-    const bool full = band.full(q_first, k_first);
+    const bool full = band.template full<G::kT>(q_first, k_first);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < G::kRI; ++i) {
       const int qi = q_first + tr + 16 * i;
-      bool ok[8];
+      bool ok[G::kCJ];
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < G::kCJ; ++j) {
         ok[j] = full || band.valid(qi, k_first + tc + 8 * j);
         s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -437,10 +464,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < G::kCJ; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
         rs += p;
-        s_p[(tr + 16 * i) * kLdS + tc + 8 * j] = p;
+        s_p[(tr + 16 * i) * G::kLdS + tc + 8 * j] = p;
       }
       l[i] = alpha * l[i] + row_sum(rs);
       m[i] = m_new;
@@ -454,7 +481,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   cp_async_wait<0>();  // a block with no band tile still staged q
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < G::kRI; ++i) {
     const int qi = q_first + tr + 16 * i;
     if (qi >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
@@ -482,7 +509,7 @@ namespace cg = cooperative_groups;
 constexpr int kMaxCluster = 8;  // the portable cluster size
 
 
-// dq per (64-row tile, head, batch row): grid (B*H, Sq/64), q tiles in
+// dq per (kT-row tile, head, batch row): grid (B*H, Sq/kT), q tiles in
 // reverse order, over the band's k tiles.  Per k tile: s = q k^T and
 // p (registers), dp = dO v^T and ds (registers, then staged), dq += ds k;
 // the next k tile (second stage) and v tile load meanwhile.
@@ -505,12 +532,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_kernel(
 
   const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
   const int h = blockIdx.x % n_heads, b = blockIdx.x / n_heads;
-  const int q_first = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int q_first = (gridDim.y - 1 - blockIdx.y) * G::kT;
   const int kvh = h / group;
   const T* kb = k + b * k_sb + kvh * k_sh;
   const T* vb = v + b * v_sb + kvh * v_sh;
-  const int2 kr = tile_range((band.skv + kTile - 1) / kTile, [&](int t) {
-    return band.tiles(q_first, t * kTile);
+  const int2 kr = tile_range((band.skv + G::kT - 1) / G::kT, [&](int t) {
+    return band.template tiles<G::kT>(q_first, t * G::kT);
   });
 
   zero_pad<HD>(bsmem, 5);
@@ -519,15 +546,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_kernel(
                          sq);
   cp_async_commit();
   if (kr.x <= kr.y) {
-    stage_tile<T, HD, VEC>(s_k, kb, k_ss, kr.x * kTile, band.skv);
+    stage_tile<T, HD, VEC>(s_k, kb, k_ss, kr.x * G::kT, band.skv);
     cp_async_commit();
-    stage_tile<T, HD, VEC>(s_v, vb, v_ss, kr.x * kTile, band.skv);
+    stage_tile<T, HD, VEC>(s_v, vb, v_ss, kr.x * G::kT, band.skv);
     cp_async_commit();
   }
-  float row_lse[4], row_delta[4], acc[4][G::kAcc];
+  float row_lse[G::kRI], row_delta[G::kRI], acc[G::kRI][G::kAcc];
   const long long row0 = (static_cast<long long>(b) * n_heads + h) * sq;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < G::kRI; ++i) {
     const int qi = q_first + tr + 16 * i;
     row_lse[i] = qi < sq ? lse[row0 + qi] : 0.f;
     row_delta[i] = qi < sq ? delta[row0 + qi] : 0.f;
@@ -536,37 +563,37 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_kernel(
   }
 
   for (int kt = kr.x; kt <= kr.y; ++kt) {
-    const int k_first = kt * kTile;
+    const int k_first = kt * G::kT;
     const float* s_kc = s_k + ((kt - kr.x) & 1) * G::kTileF;
     cp_async_wait<1>();  // q, dO and this k tile have landed (v may not)
     __syncthreads();
-    float p[4][8] = {};
+    float p[G::kRI][G::kCJ] = {};
     dot_rows<HD>(p, s_q, s_kc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < G::kRI; ++i) {
       const int qi = q_first + tr + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < G::kCJ; ++j) {
         const bool ok = qi < sq && band.valid(qi, k_first + tc + 8 * j);
         p[i][j] = ok ? expf(p[i][j] * scale - row_lse[i]) : 0.f;
       }
     }
     cp_async_wait<0>();  // this v tile
     __syncthreads();
-    float dp[4][8] = {};
+    float dp[G::kRI][G::kCJ] = {};
     dot_rows<HD>(dp, s_do, s_v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < G::kRI; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        s_ds[(tr + 16 * i) * kLdS + tc + 8 * j] =
+      for (int j = 0; j < G::kCJ; ++j)
+        s_ds[(tr + 16 * i) * G::kLdS + tc + 8 * j] =
             p[i][j] * (dp[i][j] - row_delta[i]);
     __syncthreads();  // ds is staged; v and the other k stage are free
     if (kt < kr.y) {
       stage_tile<T, HD, VEC>(s_k + ((kt + 1 - kr.x) & 1) * G::kTileF, kb,
-                             k_ss, k_first + kTile, band.skv);
+                             k_ss, k_first + G::kT, band.skv);
       cp_async_commit();
-      stage_tile<T, HD, VEC>(s_v, vb, v_ss, k_first + kTile, band.skv);
+      stage_tile<T, HD, VEC>(s_v, vb, v_ss, k_first + G::kT, band.skv);
       cp_async_commit();
     }
     score_times<HD>(acc, s_ds, s_kc);
@@ -574,7 +601,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_kernel(
   cp_async_wait<0>();  // a block with no band tile still staged q and dO
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < G::kRI; ++i) {
     const int qi = q_first + tr + 16 * i;
     if (qi >= sq) continue;
     T* row = dq + ((static_cast<long long>(b) * sq + qi) * n_heads + h) * HD;
@@ -587,8 +614,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_kernel(
   }
 }
 
-// dk and dv per (64-key tile, KV head, batch row): a cluster of min(G, 8)
-// blocks along x, grid (ranks*K*B, Skv/64), key tile 0 (the heaviest under
+// dk and dv per (kT-key tile, KV head, batch row): a cluster of min(G, 8)
+// blocks along x, grid (ranks*K*B, Skv/kT), key tile 0 (the heaviest under
 // a causal band) first.  Block `rank` walks heads rank, rank + ranks, ... of
 // the group and, for each, the band's q tiles: s^T = k q^T and p (staged as
 // [key][query]), dv += p dO, dp^T = v dO^T and ds, then (staged) dk += ds q;
@@ -612,7 +639,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
   float* s_do = s_q + 2 * G::kTileF;
   float* s_ps = s_do + G::kTileF;         // p, then ds: [key][query]
   float* s_lse = s_ps + G::kScoreF;       // two stages
-  float* s_delta = s_lse + 2 * kTile;
+  float* s_delta = s_lse + 2 * G::kT;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int ranks = static_cast<int>(cluster.num_blocks());
@@ -620,9 +647,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
   const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
   const int unit = blockIdx.x / ranks;
   const int kvh = unit % n_kv_heads, b = unit / n_kv_heads;
-  const int k_first = blockIdx.y * kTile;
-  const int2 qr = tile_range((sq + kTile - 1) / kTile, [&](int t) {
-    return band.tiles(t * kTile, k_first);
+  const int k_first = blockIdx.y * G::kT;
+  const int2 qr = tile_range((sq + G::kT - 1) / G::kT, [&](int t) {
+    return band.template tiles<G::kT>(t * G::kT, k_first);
   });
   const int per_head = qr.y - qr.x + 1;  // q tiles of one head
   const int items =
@@ -632,14 +659,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
   auto head_of = [&](int n) {
     return kvh * group + rank + ranks * (n / per_head);
   };
-  auto first_of = [&](int n) { return (qr.x + n % per_head) * kTile; };
+  auto first_of = [&](int n) { return (qr.x + n % per_head) * G::kT; };
   auto stage_q = [&](int n) {
     const int h = head_of(n), first = first_of(n);
     stage_tile<T, HD, VEC>(s_q + (n & 1) * G::kTileF, q + b * q_sb + h * q_sh,
                            q_ss, first, sq);
-    stage_row(s_lse + (n & 1) * kTile,
-              lse + (static_cast<long long>(b) * n_heads + h) * sq, first, sq,
-              0);
+    stage_row<G::kT>(s_lse + (n & 1) * G::kT,
+                     lse + (static_cast<long long>(b) * n_heads + h) * sq,
+                     first, sq, 0);
   };
 
   zero_pad<HD>(bsmem, 5);
@@ -650,78 +677,79 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
   if (items > 0) stage_q(0);
   cp_async_commit();
 
-  float dk_acc[4][G::kAcc], dv_acc[4][G::kAcc];
+  float dk_acc[G::kRI][G::kAcc], dv_acc[G::kRI][G::kAcc];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < G::kRI; ++i)
 #pragma unroll
     for (int c = 0; c < G::kAcc; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
   for (int n = 0; n < items; ++n) {
     const int h = head_of(n), q_first = first_of(n);
     const float* s_qc = s_q + (n & 1) * G::kTileF;
-    const float* s_lc = s_lse + (n & 1) * kTile;
+    const float* s_lc = s_lse + (n & 1) * G::kT;
     cp_async_wait<0>();  // this q tile (and k, v) have landed
     __syncthreads();     // ... for all; the previous item's products are done
     stage_tile<T, HD, VEC>(s_do, dout + b * do_sb + h * do_sh, do_ss,
                            q_first, sq);
-    stage_row(s_delta, delta + (static_cast<long long>(b) * n_heads + h) * sq,
-              q_first, sq, kTile);
+    stage_row<G::kT>(s_delta,
+                     delta + (static_cast<long long>(b) * n_heads + h) * sq,
+                     q_first, sq, G::kT);
     cp_async_commit();
     if (n + 1 < items) stage_q(n + 1);
     cp_async_commit();
 
-    float s[4][8] = {};
+    float s[G::kRI][G::kCJ] = {};
     dot_rows<HD>(s, s_k, s_qc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < G::kRI; ++i) {
       const int kj = k_first + tr + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < G::kCJ; ++j) {
         const int qi = q_first + tc + 8 * j;
         const bool ok = qi < sq && band.valid(qi, kj);
-        s_ps[(tr + 16 * i) * kLdS + tc + 8 * j] =
+        s_ps[(tr + 16 * i) * G::kLdS + tc + 8 * j] =
             ok ? expf(s[i][j] * scale - s_lc[tc + 8 * j]) : 0.f;
       }
     }
     cp_async_wait<1>();  // this dO tile and delta (the next q may not)
     __syncthreads();
     score_times<HD>(dv_acc, s_ps, s_do);
-    float dp[4][8] = {};
+    float dp[G::kRI][G::kCJ] = {};
     dot_rows<HD>(dp, s_v, s_do);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < G::kRI; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        dp[i][j] = s_ps[(tr + 16 * i) * kLdS + tc + 8 * j] *
+      for (int j = 0; j < G::kCJ; ++j)
+        dp[i][j] = s_ps[(tr + 16 * i) * G::kLdS + tc + 8 * j] *
                    (dp[i][j] - s_delta[tc + 8 * j]);
     __syncthreads();  // every thread has read p
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < G::kRI; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        s_ps[(tr + 16 * i) * kLdS + tc + 8 * j] = dp[i][j];
+      for (int j = 0; j < G::kCJ; ++j)
+        s_ps[(tr + 16 * i) * G::kLdS + tc + 8 * j] = dp[i][j];
     __syncthreads();
     score_times<HD>(dk_acc, s_ps, s_qc);
   }
   cp_async_wait<0>();
   __syncthreads();  // the tile buffers now take this block's partials
 
-  float* part = bsmem;  // [2][64][HD]: dk, then dv (no pad channels)
+  float* part = bsmem;  // [2][kT][HD]: dk, then dv (no pad channels)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < G::kRI; ++i)
 #pragma unroll
     for (int c = 0; c < G::kNH; ++c) {
       if (!G::stored(tc, c)) continue;
       const int at = (tr + 16 * i) * HD + 4 * tc + 32 * c;
       store4(part + at, dk_acc[i][4 * c], dk_acc[i][4 * c + 1],
              dk_acc[i][4 * c + 2], dk_acc[i][4 * c + 3]);
-      store4(part + kTile * HD + at, dv_acc[i][4 * c], dv_acc[i][4 * c + 1],
+      store4(part + G::kT * HD + at, dv_acc[i][4 * c], dv_acc[i][4 * c + 1],
              dv_acc[i][4 * c + 2], dv_acc[i][4 * c + 3]);
     }
   cluster.sync();  // every partial of the cluster is written
 
   // block `rank` sums its share of the float4s over the ranks, in order
-  constexpr int kNV = 2 * kTile * HD / 4;
+  constexpr int kNV = 2 * G::kT * HD / 4;
   const int share = (kNV + ranks - 1) / ranks;
   const int end = min(kNV, (rank + 1) * share);
   for (int e = rank * share + static_cast<int>(threadIdx.x); e < end;
@@ -737,7 +765,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
       sum.w += x.w;
     }
     const bool is_dv = e >= kNV / 2;
-    const int key = (e / (HD / 4)) % kTile, ch = (e % (HD / 4)) * 4;
+    const int key = (e / (HD / 4)) % G::kT, ch = (e % (HD / 4)) * 4;
     const int kj = k_first + key;
     if (kj >= band.skv) continue;
     const long long at =
@@ -789,7 +817,8 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const int n_qt = (sq + kTile - 1) / kTile;
+  const int n_qt = (sq + G::kT - 1) / G::kT;
+  if (n_qt > 65535) return cudaErrorInvalidValue;
   const dim3 grid(batch * n_heads, n_qt);
   kernel<<<grid, kThreads, G::kFwdSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -815,7 +844,9 @@ cudaError_t dq(const BwdArgs& a, void* dq_out) {
   auto kernel = bwd::flash_dq_kernel<T, HD, VEC>;
   cudaError_t err = allow_smem(kernel, G::kDqSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.batch * a.n_heads, (a.sq + kTile - 1) / kTile);
+  const int n_qt = (a.sq + G::kT - 1) / G::kT;
+  if (n_qt > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(a.batch * a.n_heads, n_qt);
   kernel<<<grid, kThreads, G::kDqSmem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -833,9 +864,10 @@ cudaError_t dkv(const BwdArgs& a, void* dk, void* dv) {
   cudaError_t err = allow_smem(kernel, G::kDkvSmem);
   if (err != cudaSuccess) return err;
   const int ranks = a.group < bwd::kMaxCluster ? a.group : bwd::kMaxCluster;
+  const int n_kt = (a.band.skv + G::kT - 1) / G::kT;
+  if (n_kt > 65535) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ranks * a.n_kv_heads * a.batch,
-                     (a.band.skv + kTile - 1) / kTile);
+  cfg.gridDim = dim3(ranks * a.n_kv_heads * a.batch, n_kt);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = G::kDkvSmem;
   cfg.stream = a.stream;
@@ -862,7 +894,8 @@ bool bad_shape(int batch, int sq, int skv, int n_heads, int n_kv_heads) {
   return batch < 1 || batch > 65535 || sq < 1 || skv < 1 || n_heads < 1 ||
          n_heads > 65535 || n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
          static_cast<long long>(batch) * n_heads > (1LL << 30) ||
-         (sq + kTile - 1) / kTile > 65535 || (skv + kTile - 1) / kTile > 65535;
+         (sq + kMaxTile - 1) / kMaxTile > 65535 ||
+         (skv + kMaxTile - 1) / kMaxTile > 65535;
 }
 
 Band make_band(int causal, int window, int sq, int skv) {
@@ -881,12 +914,16 @@ int dispatch(int dtype, int hd, Launch launch) {
     err = launch(float{}, std::integral_constant<int, 120>{});
   else if (dtype == 0 && hd == 128)
     err = launch(float{}, std::integral_constant<int, 128>{});
+  else if (dtype == 0 && hd == 256)
+    err = launch(float{}, std::integral_constant<int, 256>{});
   else if (dtype == 1 && hd == 64)
     err = launch(__nv_bfloat16{}, std::integral_constant<int, 64>{});
   else if (dtype == 1 && hd == 120)
     err = launch(__nv_bfloat16{}, std::integral_constant<int, 120>{});
   else if (dtype == 1 && hd == 128)
     err = launch(__nv_bfloat16{}, std::integral_constant<int, 128>{});
+  else if (dtype == 1 && hd == 256)
+    err = launch(__nv_bfloat16{}, std::integral_constant<int, 256>{});
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -974,7 +1011,7 @@ int dkv_entry(int dtype, int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs alike); hd
-// is 64, 120 or 128.  q (B,Sq,H,hd), k/v (B,Skv,K,hd), dO (B,Sq,H,hd) are
+// is 64, 120, 128 or 256.  q (B,Sq,H,hd), k/v (B,Skv,K,hd), dO (B,Sq,H,hd) are
 // read through the given element strides (batch, sequence, head) with unit
 // channel stride.  Outputs are contiguous: out and dq (B,Sq,H,hd), dk and dv
 // (B,Skv,K,hd), lse and delta (B,H,Sq) f32.  Each returns the cudaError_t of

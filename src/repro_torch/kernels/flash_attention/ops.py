@@ -29,8 +29,10 @@ ROUTES = {"fwd_vec": 0, "fwd_scalar": 0, "bwd_vec": 0, "bwd_scalar": 0}
 #: The 16-byte route reads rows whose base and strides are multiples of it.
 ALIGN = 16
 
-#: The head dims the kernels are built for (``dispatch`` in the .cu).
-HEAD_DIMS = (64, 120, 128)
+#: The head dims the kernels are built for (``dispatch`` in the .cu); 256
+#: computes on 32-row tiles, the others on 64-row ones.  Any other head dim
+#: raises: there is no plain fallback on CUDA tensors.
+HEAD_DIMS = (64, 120, 128, 256)
 _LIB = "flash_attention"
 _VP, _I, _LL, _F = ffi.VP, ffi.I, ffi.LL, ffi.F
 

@@ -6,16 +6,19 @@
       --batch 4 --prompt-len 32 --gen 16            # single-adapter path
   python -m repro_torch.launch.serve --arch h2o-danube-3-4b --users 4 \\
       --requests 8 --slots 4 --prompt-len 64 --gen 16  # sliding window
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 8 \\
+      --prompt-len 32 --gen 32                      # RG-LRU hybrid
 
 Three inference modes for paper eqn (10)'s per-client adapters:
 
 * :func:`generate` — single-adapter batched greedy decode (adapters stay
-  factored; every row shares one adapter tree); attention and RWKV-6
-  stacks alike, the latter carrying its recurrent state.
+  factored; every row shares one adapter tree); attention, RWKV-6 and
+  RG-LRU hybrid stacks alike, the recurrent ones carrying their state.
 * :class:`ServeEngine` — the multi-tenant path (attention stacks only,
-  full or sliding-window, as in the JAX package): a seeded stream of
-  requests from DISTINCT users is decoded in one continuously-batched loop,
-  each batch slot applying its own tri-LoRA row from an
+  full or sliding-window, dense or MoE, as in the JAX package): a seeded
+  stream of requests from DISTINCT users is decoded in one
+  continuously-batched loop, each batch slot applying its own tri-LoRA row
+  from an
   :class:`~repro_torch.core.adapter_bank.AdapterBank` (on CUDA through the
   grouped GEMV and decode-attention kernels).  Finished requests free their
   slot for the next arrival; a reused slot restarts at position 0 and the
@@ -124,8 +127,10 @@ class ServeEngine:
         if not set(cfg.kinds()) <= set(transformer.ATTN_KINDS):
             raise NotImplementedError(
                 f"ServeEngine serves attention stacks only (grouped adapter "
-                f"banks need attention blocks); {cfg.name!r} has kinds "
-                f"{sorted(set(cfg.kinds()))}: use generate()")
+                f"banks need attention blocks, as in the JAX package); "
+                f"{cfg.name!r} has kinds {sorted(set(cfg.kinds()))}: use "
+                f"generate() (ROADMAP, Queue 1: 'raises kept from the JAX "
+                f"package')")
         self.device = resolve_device(device)
         check_on(base, self.device, "base params")
         check_on(bank.tree, self.device, "adapter bank")

@@ -14,7 +14,8 @@ followed by ``rem`` leading-pattern layers.  Kinds:
 - ``rwkv6``  : RWKV-6 "Finch" time-mix + channel-mix (attention-free)
 - ``rglru``  : RG-LRU recurrent block (RecurrentGemma)
 
-Dense ``attn``, ``swa`` and ``rwkv6`` stacks are ported so far.
+``attn`` and ``swa`` (dense or MoE MLP), ``rwkv6`` and ``rglru`` stacks are
+ported so far.
 """
 from __future__ import annotations
 

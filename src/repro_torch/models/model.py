@@ -1,5 +1,6 @@
 """Top-level model API of the port: init, the full-sequence forward and
-loss, and one-token decode (dense and RWKV-6 decoders).
+loss, and one-token decode (dense, MoE, RWKV-6 and RG-LRU hybrid
+decoders).
 
 params = {'base': …frozen…, 'adapter': …tri-LoRA…}, with the JAX package's
 key paths and shapes (``repro_torch.convert`` moves a JAX tree across).
@@ -160,7 +161,10 @@ def loss_fn(cfg: ModelConfig, adapter: dict, base: dict, batch: dict,
     ce and acc are (m,) vectors, client i's over its own sequences — what
     ``jax.vmap`` of this function over the clients returns.  Their SUM is
     the scalar to differentiate: each client's adapter then gets exactly
-    its own gradient (a mean over the m·B batch would scale it by 1/m)."""
+    its own gradient (a mean over the m·B batch would scale it by 1/m).
+    So is aux: client i's MoE aux is the mean over its own sequences'
+    terms, as its single-client run computes it (a row of -1 belongs to no
+    client), and the dense stacks' 0 a vector of zeros."""
     hidden, aux, _ = forward_hidden(cfg, base, adapter, batch,
                                     adapter_rows=adapter_rows, **kw)
     terms = _loss_terms(cfg, hidden, base["embed"], batch["labels"])
@@ -171,6 +175,7 @@ def loss_fn(cfg: ModelConfig, adapter: dict, base: dict, batch: dict,
         own = (adapter_rows.long()[None, :] == torch.arange(
             m, device=hidden.device)[:, None]).float()
         nll_sum, corr_sum, w_sum = (own @ t.sum(-1) for t in terms)
+        aux = (own @ aux.expand(own.shape[1])) / own.sum(-1).clamp_min(1.0)
     denom = w_sum.clamp_min(1.0)
     ce = nll_sum / denom
     loss = ce + cfg.router_aux_weight * aux

@@ -1,6 +1,6 @@
-"""Block assembly for dense attention (full and sliding-window) and RWKV-6
-stacks: init, the full-sequence forward (training, prefill) and one-token
-decode.
+"""Block assembly for attention (full and sliding-window, with a dense or
+a Mixture-of-Experts MLP), RWKV-6 and RG-LRU stacks: init, the
+full-sequence forward (training, prefill) and one-token decode.
 
 Layer stacking follows the config's ``layer_pattern`` exactly as in the JAX
 package: ``q = n_layers // len(pattern)`` repetitions of the pattern with
@@ -13,6 +13,13 @@ An ``swa`` block is an ``attn`` block whose self-attention sees the last
 ``cfg.window`` positions only: the same parameter and adapter trees, the
 window passed to training attention, and a decode ring of
 ``min(window, seq_len)`` slots, as in the JAX package.
+
+An MoE config (``cfg.is_moe``) gives its attention blocks a ``moe``
+subtree in place of ``mlp`` (:mod:`repro_torch.models.moe`); the experts
+are frozen and take no adapter, and the block's forward returns the
+router's aux loss.  An ``rglru`` block (RecurrentGemma) is
+``{ln1, rec, ln2, mlp}`` (:mod:`repro_torch.models.rglru`), its adapters on
+the recurrence's ``w_in`` / ``w_out`` whatever ``lora_targets`` says.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import tri_lora
-from repro_torch.models import attention, layers, rwkv
+from repro_torch.models import attention, layers, moe, rglru, rwkv
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_map
 
@@ -31,12 +38,13 @@ ATTN_KINDS = ("attn", "swa")
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in ATTN_KINDS + ("rwkv6",) or cfg.is_moe or cfg.enc_dec:
+    if kind not in ATTN_KINDS + ("rwkv6", "rglru") or cfg.enc_dec \
+            or (cfg.is_moe and kind not in ATTN_KINDS):
         raise NotImplementedError(
-            f"the port so far builds dense 'attn', 'swa' and 'rwkv6' blocks "
-            f"only; {cfg.name!r} needs kind={kind!r} moe={cfg.is_moe} "
-            f"enc_dec={cfg.enc_dec} (ROADMAP, Queue 1: 'the other "
-            f"families')")
+            f"the port so far builds 'attn' and 'swa' blocks (dense or "
+            f"MoE), 'rwkv6' and 'rglru'; {cfg.name!r} needs kind={kind!r} "
+            f"moe={cfg.is_moe} enc_dec={cfg.enc_dec} (ROADMAP, Queue 1: "
+            f"'the encoder-decoder path')")
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -56,10 +64,13 @@ def _adapter_shapes(cfg: ModelConfig, kind: str) -> dict:
         # the paper's attention attachment point does not exist; adapt the
         # time-mix r/k/v/o projections instead, whatever lora_targets says
         return {"tm": {t: (d, d) for t in ("wr", "wk", "wv", "wo")}}
+    if kind == "rglru":
+        rd = cfg.rnn_d
+        return {"rec": {"w_in": (d, 2 * rd), "w_out": (rd, d)}}
     shapes = {"wq": (d, h * hd), "wk": (d, k * hd),
               "wv": (d, k * hd), "wo": (h * hd, d)}
     out = {"attn": {t: shapes[t] for t in cfg.lora_targets if t in shapes}}
-    if cfg.lora_mlp:
+    if cfg.lora_mlp and not cfg.is_moe:     # the experts stay frozen
         if cfg.mlp_type == "swiglu":
             out["mlp"] = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
         else:
@@ -84,11 +95,21 @@ def init_block(generator: torch.Generator, cfg: ModelConfig,
                 "tm": rwkv.init_time_mix(generator, cfg),
                 "ln2": layers.init_norm(d, nt, cfg.dtype, dev),
                 "cm": rwkv.init_channel_mix(generator, cfg)}
-    return {"ln1": layers.init_norm(d, nt, cfg.dtype, dev),
-            "attn": attention.init_attn(generator, cfg),
-            "ln2": layers.init_norm(d, nt, cfg.dtype, dev),
-            "mlp": layers.init_mlp(generator, d, cfg.d_ff, cfg.mlp_type,
-                                   cfg.dtype)}
+    if kind == "rglru":
+        return {"ln1": layers.init_norm(d, nt, cfg.dtype, dev),
+                "rec": rglru.init_rglru_block(generator, cfg),
+                "ln2": layers.init_norm(d, nt, cfg.dtype, dev),
+                "mlp": layers.init_mlp(generator, d, cfg.d_ff, cfg.mlp_type,
+                                       cfg.dtype)}
+    p = {"ln1": layers.init_norm(d, nt, cfg.dtype, dev),
+         "attn": attention.init_attn(generator, cfg),
+         "ln2": layers.init_norm(d, nt, cfg.dtype, dev)}
+    if cfg.is_moe:
+        p["moe"] = moe.init_moe(generator, cfg)
+    else:
+        p["mlp"] = layers.init_mlp(generator, d, cfg.d_ff, cfg.mlp_type,
+                                   cfg.dtype)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -99,12 +120,13 @@ def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
                 x: torch.Tensor, positions, *, attn_impl=None,
                 use_rwkv_kernel: bool = False,
                 adapter_rows: Optional[torch.Tensor] = None) -> tuple:
-    """One pre-norm block over a full sequence; returns (x, aux) with the
-    MoE auxiliary loss aux = 0 for the blocks ported so far.
-    ``use_rwkv_kernel`` runs an rwkv6 block's WKV recurrence through the
-    forward-only wkv6 kernel (``rwkv.time_mix``).  ``adapter_rows`` (B,)
-    gives each sequence its own adapter of the stacked (m, …) ``ad``
-    (the projections of attention and rwkv6 blocks alike)."""
+    """One pre-norm block over a full sequence; returns (x, aux): the MoE
+    router's auxiliary loss (a scalar, or with ``adapter_rows`` a (B,)
+    vector of each sequence's own term, :func:`moe.moe_mlp`'s ``by_row``),
+    0 for the other blocks.  ``use_rwkv_kernel`` runs an rwkv6 block's WKV
+    recurrence through the forward-only wkv6 kernel (``rwkv.time_mix``).
+    ``adapter_rows`` (B,) gives each sequence its own adapter of the
+    stacked (m, …) ``ad`` (the adapted projections of every block kind)."""
     _check_kind(cfg, kind)
     ad = ad or {}
     nt = cfg.norm_type
@@ -118,6 +140,13 @@ def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
         h = layers.norm(x, p["ln2"], nt)
         y, _ = rwkv.channel_mix(cfg, p["cm"], h, None)
         return x + y, aux
+    if kind == "rglru":
+        h = layers.norm(x, p["ln1"], nt)
+        y, _ = rglru.rglru_block(cfg, p["rec"], h, None, ad.get("rec"),
+                                 adapter_rows=adapter_rows)
+        x = x + y
+        h = layers.norm(x, p["ln2"], nt)
+        return x + layers.mlp(h, p["mlp"], cfg.mlp_type), aux
     h = layers.norm(x, p["ln1"], nt)
     x = x + attention.self_attention(cfg, p["attn"], h, positions,
                                      ad.get("attn"),
@@ -125,9 +154,13 @@ def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
                                      impl=attn_impl,
                                      adapter_rows=adapter_rows)
     h = layers.norm(x, p["ln2"], nt)
-    y = layers.mlp(h, p["mlp"], cfg.mlp_type, adapters=ad.get("mlp"),
-                   lora_scaling=cfg.lora_alpha / cfg.lora_rank,
-                   adapter_rows=adapter_rows)
+    if cfg.is_moe:
+        y, aux = moe.moe_mlp(cfg, p["moe"], h,
+                             by_row=adapter_rows is not None)
+    else:
+        y = layers.mlp(h, p["mlp"], cfg.mlp_type, adapters=ad.get("mlp"),
+                       lora_scaling=cfg.lora_alpha / cfg.lora_rank,
+                       adapter_rows=adapter_rows)
     return x + y, aux
 
 
@@ -141,26 +174,36 @@ def block_decode(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
     _check_kind(cfg, kind)
     ad = ad or {}
     nt = cfg.norm_type
+    if kind in ("rwkv6", "rglru") and adapter_rows is not None:
+        raise NotImplementedError(
+            f"grouped adapter banks only support attention blocks, as in "
+            f"the JAX package; got layer kind {kind!r} (ROADMAP, Queue 1: "
+            f"'raises kept from the JAX package')")
     if kind == "rwkv6":
-        if adapter_rows is not None:
-            raise NotImplementedError(
-                f"grouped adapter banks only support attention blocks; got "
-                f"layer kind {kind!r}")
         h = layers.norm(x, p["ln1"], nt)
         y, tm = rwkv.time_mix(cfg, p["tm"], h, cache["tm"], ad.get("tm"))
         x = x + y
         h = layers.norm(x, p["ln2"], nt)
         y, cm = rwkv.channel_mix(cfg, p["cm"], h, cache["cm"])
         return x + y, {"tm": tm, "cm": cm}
+    if kind == "rglru":
+        h = layers.norm(x, p["ln1"], nt)
+        y, state = rglru.rglru_block(cfg, p["rec"], h, cache, ad.get("rec"))
+        x = x + y
+        h = layers.norm(x, p["ln2"], nt)
+        return x + layers.mlp(h, p["mlp"], cfg.mlp_type), state
     h = layers.norm(x, p["ln1"], nt)
     y, new_cache = attention.decode_self_attention(
         cfg, p["attn"], h, cache, positions, ad.get("attn"),
         adapter_rows=adapter_rows)
     x = x + y
     h = layers.norm(x, p["ln2"], nt)
-    y = layers.mlp(h, p["mlp"], cfg.mlp_type, adapters=ad.get("mlp"),
-                   lora_scaling=cfg.lora_alpha / cfg.lora_rank,
-                   adapter_rows=adapter_rows)
+    if cfg.is_moe:              # one token a group: capacity 1 per expert
+        y, _ = moe.moe_mlp(cfg, p["moe"], h)
+    else:
+        y = layers.mlp(h, p["mlp"], cfg.mlp_type, adapters=ad.get("mlp"),
+                       lora_scaling=cfg.lora_alpha / cfg.lora_rank,
+                       adapter_rows=adapter_rows)
     return x + y, new_cache
 
 
@@ -212,6 +255,8 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
         _check_kind(cfg, kind)
         if kind == "rwkv6":
             return rwkv.init_state(cfg, batch, device=device)
+        if kind == "rglru":
+            return rglru.init_state(cfg, batch, device=device)
         return attention.init_kv_cache(cfg, batch, seq_len, device=device,
                                        window=_window(cfg, kind))
 
@@ -253,7 +298,9 @@ def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
     With ``adapter_rows`` (B,) the adapter trees are a STACKED client state
     — groups leaves (m, q, …), tail leaves (m, …), the client axis first as
     in ``core.client_batch`` (unlike ``run_stack_decode``'s (q, m, …) bank)
-    — and sequence ``i`` applies client ``adapter_rows[i]``'s adapters."""
+    — and sequence ``i`` applies client ``adapter_rows[i]``'s adapters;
+    an MoE stack's aux is then the (B,) vector of each sequence's own sum
+    over the layers (:func:`block_apply`)."""
     q, pattern, rem = cfg.stack_plan()
     kw = dict(attn_impl=attn_impl, use_rwkv_kernel=use_rwkv_kernel,
               adapter_rows=adapter_rows)

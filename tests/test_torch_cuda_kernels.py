@@ -278,7 +278,8 @@ def test_engine_on_the_card_matches_naive_and_counts_launches(cuda, n, slots):
 #: LLaMA-7B width, window 64, non-causal, and ragged lengths (200, 77) that
 #: are no multiple of the 64-row tile; h2o-danube-3-4b's heads (32/8, hd
 #: 120, computed at 128 with 8 pad channels) causal, windowed and ragged
-#: non-causal
+#: non-causal; recurrentgemma-2b's heads (10 on 1, hd 256, 32-row tiles)
+#: causal, windowed and ragged, and a group of 4 at hd 256 non-causal
 FLASH_CASES = [
     (2, 256, 12, 4, 64, True, 0),
     (1, 512, 12, 4, 64, True, 64),
@@ -290,6 +291,9 @@ FLASH_CASES = [
     (2, 256, 32, 8, 120, True, 0),
     (1, 300, 32, 8, 120, True, 96),
     (2, 77, 8, 2, 120, False, 0),
+    (2, 256, 10, 1, 256, True, 0),
+    (1, 300, 10, 1, 256, True, 96),
+    (2, 77, 8, 2, 256, False, 0),
 ]
 
 
@@ -360,6 +364,10 @@ def test_flash_wrapper_refuses_what_the_kernels_cannot_take(cuda):
     k = torch.zeros((1, 16, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa_ops.flash_attention(q[..., :32], k[..., :32], k[..., :32])
+    q96 = torch.zeros((1, 16, 4, 96), device=cuda)
+    k96 = torch.zeros((1, 16, 2, 96), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fa_ops.flash_attention(q96, k96, k96)
     with pytest.raises(ValueError, match="dtypes"):
         fa_ops.flash_attention(q.double(), k.double(), k.double())
     with pytest.raises(ValueError, match="query heads"):
@@ -372,7 +380,9 @@ def test_flash_wrapper_refuses_what_the_kernels_cannot_take(cuda):
 def test_fed_task_grads_through_flash_kernels_match_ref(cuda):
     """A small model (hd 64) on the card: FedTask.loss and its adapter and
     head gradients through the flash kernels equal those through the plain
-    reference attention; one forward and one dq + dk/dv launch per layer."""
+    reference attention; one forward and one dq + dk/dv launch per layer,
+    and with ``cfg.remat`` (on by default) one more forward per layer for
+    the recompute in the backward."""
     from repro_torch.core.fed_model import FedTask
     from repro_torch.tree import tree_leaves, tree_map
     cfg = ModelConfig(name="tiny-gpu", family="dense", n_layers=2,
@@ -397,7 +407,8 @@ def test_fed_task_grads_through_flash_kernels_match_ref(cuda):
         torch.cuda.synchronize()
         out[impl] = (loss.item(), [t.grad for t in tree_leaves(tr)],
                      dict(fa_ops.LAUNCHES))
-    assert out["flash"][2] == {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}
+    assert cfg.remat
+    assert out["flash"][2] == {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}
     assert out["ref"][2] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
     np.testing.assert_allclose(out["flash"][0], out["ref"][0], rtol=1e-5)
     for a, b in zip(out["flash"][1], out["ref"][1]):
@@ -432,7 +443,7 @@ def test_flash_forward_is_bitwise_repeatable(cuda, dtype):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("hd", [64, 120])
+@pytest.mark.parametrize("hd", [64, 120, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_forward_unaligned_view_takes_scalar_route(cuda, dtype, hd):
     """q, k and v one element past a 16-byte boundary take the forward's
@@ -525,7 +536,7 @@ def test_flash_backward_fewer_queries_than_keys(cuda, window):
     _flash_bwd_vs_plain(q, k, v, do, torch.float32, window=window)
 
 
-@pytest.mark.parametrize("hd", [64, 120])
+@pytest.mark.parametrize("hd", [64, 120, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_unaligned_view_takes_scalar_route(cuda, dtype, hd):
     """Operands one element past a 16-byte boundary take the scalar route,

@@ -9,7 +9,8 @@ and the JAX ``dlg_attack``'s dummy (the two normals of the split key
 ``seed + 7``) as ``dummy``.  Held: the observed gradients of every payload
 within 1e-5 of their largest entry, 20 attack steps' recovered bag within
 1e-4, and ``run_dlg_experiment``'s F1 per method at 120 steps equal to the
-JAX run's.  The port's own ``make_model`` draws must be pairwise
+JAX run's (and at 300 steps at seeds 1-4, where the example's ordering
+must hold on those draws).  The port's own ``make_model`` draws must be pairwise
 decorrelated, as ``tests/test_drivers.py`` requires of the JAX package's.
 """
 import dataclasses
@@ -28,21 +29,28 @@ from torch_threads import one_torch_thread  # noqa: F401
 SEED = 0
 
 
-@pytest.fixture(scope="module")
-def models():
+def _jax_draws(seed: int):
+    """The JAX run's draws at ``seed`` in both packages: the JAX model, the
+    port's model on its arrays, the dummy (the two normals of the split key
+    ``seed + 7``), and the private batch."""
     fields = jax.jit(lambda k: dataclasses.astuple(jprivacy.make_model(k))[
-        :4])(jax.random.key(SEED))
+        :4])(jax.random.key(seed))
     jm = jprivacy.DLGModel(*fields)
     arrays = {"embed": jm.embed, "w": jm.w, "head": jm.head,
               "adapter": jm.adapter}
     m = convert.dlg_model_from_numpy(jax.tree.map(np.asarray, arrays),
                                      device="cpu", scaling=jm.scaling)
-    k1, k2 = jax.random.split(jax.random.key(SEED + 7))
+    k1, k2 = jax.random.split(jax.random.key(seed + 7))
     dummy = {"x": np.asarray(jax.random.normal(k1, (4, 128)) * 0.1),
              "y": np.asarray(jax.random.normal(k2, (4, 4)) * 0.1)}
-    true, labels = privacy.private_batch(SEED, 4, 6, 128)
+    true, labels = privacy.private_batch(seed, 4, 6, 128)
     return jm, m, {k: torch.from_numpy(v.copy()) for k, v in dummy.items()}, \
         true, labels
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _jax_draws(SEED)
 
 
 def test_private_batch_is_the_jax_stream():
@@ -100,6 +108,26 @@ def test_run_dlg_experiment_f1_matches_jax(models):
         for k in ("precision", "recall", "f1"):
             assert got[method][k] == pytest.approx(want[method][k],
                                                    abs=1e-12), (method, k)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_run_dlg_experiment_f1_matches_jax_at_other_seeds(seed):
+    """At 300 attack steps the port on the JAX run's draws gives the JAX
+    run's F1, method for method, at seeds 1-4 too; and on those draws the
+    example's ordering (celora F1 <= fedpetuning F1 + 0.05) holds, so a
+    run that breaks it on other draws (the card's torch generators at
+    seeds 2 and 3) shows the spread of 4 x 6 private tokens, not a fault
+    of the port."""
+    _, m, dummy, _, _ = _jax_draws(seed)
+    want = jprivacy.run_dlg_experiment(seed=seed, n_steps=300)
+    got = privacy.run_dlg_experiment(seed=seed, n_steps=300, device="cpu",
+                                     model=m, dummy=dummy)
+    assert list(got) == list(want)
+    for method in want:
+        for k in ("precision", "recall", "f1"):
+            assert got[method][k] == pytest.approx(want[method][k],
+                                                   abs=1e-12), (method, k)
+    assert got["celora"]["f1"] <= got["fedpetuning"]["f1"] + 0.05
 
 
 def test_make_model_draws_decorrelated():

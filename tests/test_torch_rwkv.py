@@ -534,8 +534,10 @@ def test_adapter_rows_and_serve_engine_on_rwkv_raise(rwkv_params):
                            "positions": torch.zeros((2, 1),
                                                     dtype=torch.int32)},
                           adapter_rows=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="the other families"):
-        transformer.init_block(torch.Generator(), cfg, "rglru")
+    with pytest.raises(NotImplementedError,
+                       match="the encoder-decoder path"):
+        transformer.init_block(torch.Generator(),
+                               cfg.with_overrides(enc_dec=True), "attn")
     bank = random_bank(cfg, 2, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="attention stacks only"):
         serve.ServeEngine(cfg, tp["base"], bank, slots=2, device="cpu")

@@ -2,8 +2,9 @@
 """Time the flash-attention kernels of one tree of this repository on the
 card, at the shapes ``chip_smoke.py`` times them (``FLASH_TIMED``, causal:
 f32 B=8, H=12, K=4, hd=64, S=256 and 512; h2o-danube-3-4b heads, H=32,
-K=8, hd=120, bf16 1x8192 with window 4096 and f32 4x256), so that two
-trees can be compared inside one run on one card:
+K=8, hd=120, bf16 1x8192 with window 4096 and f32 4x256;
+recurrentgemma-2b heads, H=10, K=1, hd=256, bf16 1x4096 with window
+2048), so that two trees can be compared inside one run on one card:
 
     python tools/time_flash.py [--tree DIR] [--label NAME] [--sweep]
     python tools/time_flash.py [--tree DIR] [--label NAME] --digest
@@ -26,7 +27,7 @@ every 64-row tile relative to the f32 plain version's size).  To compare a chang
 change, change, parent in one call.
 
 ``--digest`` prints instead, for ``chip_smoke.FLASH_DIGEST_CASES`` (hd
-64 and 128, f32 and bf16), the SHA-256 of the forward's and the
+64, 128, 120 and 256, f32 and bf16), the SHA-256 of the forward's and the
 backward's outputs, and times nothing: a tree whose digests equal
 another's computes bitwise the same values there.  A tree whose kernels
 refuse a head dim of ``FLASH_TIMED`` prints the refusal for that shape.
