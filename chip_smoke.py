@@ -264,7 +264,7 @@ Phases, one JSON line each (several for the case phases):
                last-position logits within 1e-4 of the largest
   steps_decode ``make_serve_step`` on h2o at full depth: decode_32k at batch
                128 over full 4,096-slot rings (48.3 GB of bf16 K/V filled
-               from a seeded generator) from position 32,767, 24 decode
+               from a seeded generator) up to position 32,767, 24 decode
                attention and 96 tri-LoRA launches a step, every attention
                call of one step held to its plain version on its recorded
                operands (elementwise and, per batch row, relatively at
@@ -319,6 +319,48 @@ Phases, one JSON line each (several for the case phases):
                launches (hd 256) and 68 tri-LoRA forwards a step, ms a
                step; then 3 layers in f32, 2 x 64 tokens: decode against
                the forward's logits at rtol = atol = 2e-3
+  whisper_train  ``steps.make_train_step`` on whisper-small whole (12 + 12
+               layers, bf16, f32 adapters, flash): 4 x 4096 decoder tokens
+               (train_4k's batch 256 cut to 4) over 1,500 stub frames, 3
+               steps on one batch: a finite loss falling each step, exact
+               launches (24 flash forwards, 12 dq, 12 dk/dv, 192 tri-LoRA
+               forwards and 69 dx a step: self and cross q/k/v/o, the cross
+               wk / wv on the 6,000 encoder rows with no dx; the encoder
+               launches nothing), the tri-LoRA routes fwd_route predicts for
+               each row count, the 16-byte flash routes
+  flash_timing (whisper prefill)  the flash forward at 1 x 32768, 12 / 12
+               heads of 64, causal, bf16, held to blockwise_sdpa as the
+               prefill_32k row is (with its two stand-ins), beside its
+               bound, SDPA and one call of the plain version
+  whisper_prefill  ``make_prefill_step`` at 1 x 32768 and 1,500 frames: 12
+               flash forwards, 96 tri-LoRA forwards, finite logits, tok/s
+  whisper_decode  ``make_serve_step`` at decode_32k, batch 32 (its 128
+               cut; 38.7 GB of rings, 1.8 GB of cross K/V filled from the
+               encoder): 12 decode-attention and 48 tri-LoRA launches a
+               step, every attention call of the first step held to its
+               plain version (the ring one tile short must fail that), ms
+               a step
+  whisper_oracle  whole width, 2 + 2 layers, f32: flash (cross-attention
+               on the blockwise tiles) against ref over 1 x 4096 (loss
+               1e-4·|loss|, gradients 1e-3 of the largest);
+               12 decode steps from a filled cross cache against the
+               forward at 2e-3, the adapters off zero but xattn's
+  vlm_train    ``make_train_step`` on qwen2-vl-72b at full width, 8 of 80
+               layers, 2 x (256 patches + 4096 text tokens) on Qwen2-VL
+               position triplets, 3 steps: as whisper_train, with the
+               chunked loss (8 chunks of 512 a pass) and flash at a GQA
+               group of 8
+  vlm_prefill  2 layers, 1 x (32768 + 256): 2 flash forwards, 8 tri-LoRA
+               forwards, tok/s, a profile
+  vlm_decode   2 layers, decode_32k at batch 128 (34.4 GB of rings),
+               positions (t, t, t), as whisper_decode
+  vlm_serve    2 layers bf16 through ServeEngine (8 requests of 64 + 16
+               from 4 users, 4 slots); then the f32 oracle at 2 layers:
+               ServeEngine tokens equal serve_naive's
+  vlm_oracle   2 layers, f32, 1 x 4352 on Qwen2-VL triplets: loss and
+               adapter gradients under flash and blockwise_cv against ref
+  flash_timing also times flash at vlm_train's shape (1 x 4352, 64 / 8
+               heads of 128, causal, bf16: rows "vlm train")
 Every phase's wall seconds follow it on a ``{"phase": "wall"}`` line.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the result line.  Exits non-zero, printing no result, on any failure and
@@ -392,14 +434,17 @@ FLASH_TIMED = ((8, 256, 12, 4, 64, "float32", 0),
                (8, 512, 12, 4, 64, "float32", 0),
                (1, 8192, 32, 8, 120, "bfloat16", 4096),
                (4, 256, 32, 8, 120, "float32", 0),
-               (1, 4096, 10, 1, 256, "bfloat16", 2048))
+               (1, 4096, 10, 1, 256, "bfloat16", 2048),
+               (1, 4352, 64, 8, 128, "bfloat16", 0))
 #: the kernel-table rows of the long FLASH_TIMED shapes: (B, S, H, K, hd)
 #: → (row shape, the note's description)
 FLASH_TIMED_ROWS = {
     (1, 8192, 32, 8, 120): ("h2o train", "h2o-danube-3-4b heads, 1x8192 "
                             "bf16, window 4096"),
     (1, 4096, 10, 1, 256): ("rg train", "recurrentgemma-2b heads (hd 256, "
-                            "10 on 1), 1x4096 bf16, window 2048")}
+                            "10 on 1), 1x4096 bf16, window 2048"),
+    (1, 4352, 64, 8, 128): ("vlm train", "qwen2-vl-72b heads (64 on 8, hd "
+                            "128), 1x(4096 + 256) bf16, causal")}
 #: (B, S, H, K, hd, dtype, seed) of the flash digest cases: hd 64, 128,
 #: 120 and 256 cases whose forward and backward outputs' SHA-256 compare
 #: two trees (the same seed gives every tree the same inputs; a tree whose
@@ -2486,15 +2531,18 @@ def recomputed(cfg) -> int:
 
 def adapted_per_layer(cfg, kind: str) -> int:
     """Tri-LoRA adapters of one block: the attention projections of
-    ``cfg.lora_targets`` (and the MLP's with ``lora_mlp`` on a dense MLP),
-    rglru's w_in and w_out, rwkv6's four time-mix projections."""
+    ``cfg.lora_targets``, twice in an encoder-decoder's decoder block (its
+    ``xattn`` takes the same targets), and the MLP's with ``lora_mlp`` on a
+    dense MLP; rglru's w_in and w_out, rwkv6's four time-mix
+    projections."""
     if kind == "rglru":
         return 2
     if kind == "rwkv6":
         return 4
     mlp = 3 if cfg.lora_mlp and not cfg.is_moe else 0
     return len([t for t in cfg.lora_targets
-                if t in ("wq", "wk", "wv", "wo")]) + mlp
+                if t in ("wq", "wk", "wv", "wo")]) * (
+        2 if cfg.enc_dec else 1) + mlp
 
 
 def step_launches(cfg, steps: int, evals: int = 0,
@@ -2506,9 +2554,12 @@ def step_launches(cfg, steps: int, evals: int = 0,
     launches flash; each adapted projection (``adapted_per_layer``) the
     tri-LoRA forward with its layer and dx in the backward, except layer
     0's projections that read the frozen embedding (attention's q/k/v,
-    rwkv6's r/k/v, rglru's w_in), which need no input gradient; one
+    rwkv6's r/k/v, rglru's w_in; a vision prefix is frozen too) and every
+    cross-attention wk / wv, which read the encoder's output (no adapter
+    in the encoder, so no gradient): these need no input gradient; one
     adapter (``tri_lora_*``) or one per client (``grouped``:
-    ``tri_lora_*_grouped``)."""
+    ``tri_lora_*_grouped``).  The encoder launches nothing (plain
+    ``sdpa``, plain x@W)."""
     q, pattern, _ = cfg.stack_plan()
     kinds = cfg.kinds()
     again = [cfg.remat and i < q * len(pattern) for i in range(len(kinds))]
@@ -2516,6 +2567,8 @@ def step_launches(cfg, steps: int, evals: int = 0,
     per = [adapted_per_layer(cfg, k) for k in kinds]
     first = {"rglru": 1, "rwkv6": 3}.get(
         kinds[0], len({"wq", "wk", "wv"} & set(cfg.lora_targets)))
+    if cfg.enc_dec:                     # xattn wk / wv of every layer
+        first += len({"wk", "wv"} & set(cfg.lora_targets)) * len(kinds)
     key = "_grouped" if grouped else ""
     return {"flash_fwd": sum(a * (steps + evals + r * steps)
                              for a, r in zip(attn, again)),
@@ -4442,8 +4495,8 @@ STEPS_DEPTHS = (2, 6)
 STEPS_CHUNKED = dict(arch="qwen2.5-14b", batch=1, seq=4096)
 #: steps_prefill: prefill_32k's 32,768 tokens at batch 1 (its 32 cut)
 STEPS_PREFILL = dict(arch=H2O, batch=1, seq=32768)
-#: steps_decode: decode_32k at its own batch (128) for a few steps from
-#: position 32,767, then long_500k's batch 1 at position 524,287
+#: steps_decode: decode_32k at its own batch (128) for a few steps ending
+#: at position 32,767, then long_500k's batch 1 at position 524,287
 STEPS_DECODE = dict(arch=H2O, steps=4)
 #: bank_serve: the train job for 2 rounds on the scan engine, once per
 #: client store, checkpointed; then 8 requests of 16 + 8 tokens from its 4
@@ -4680,37 +4733,62 @@ def phase_steps_train(torch, fa_ops, tl_ops, model, get_config, dev):
     return lines["microbatches_1"]["launches"]
 
 
-def time_flash_prefill(torch, F, fa_ops, bounds, dev) -> dict:
-    """The flash forward at prefill_32k's shape with h2o-danube-3-4b's
-    heads (1x32768, 32/8, hd 120, bf16, window 4096): the kernel beside
-    its bound, the plain version (``attention.blockwise_sdpa``, the model's
-    plain path at this length) and SDPA on its memory-efficient backend
-    (the band as a boolean mask, K/V expanded to the query heads
-    beforehand: with GQA and a mask SDPA takes the math backend, which
-    would materialize 32 x 32768^2 scores); held to the plain version in
-    f32 on the same inputs by ``hold_flash`` (elementwise at TOL and
-    relatively at FLASH_REL_TOL: under randn inputs a row over 4,096 keys
-    is about TOL's atol in size); the band one 64-key tile short and
-    channels 96 and up lost, each the plain version rounded to bf16, must
-    fail that relative hold.  Returns the kernel-table row."""
+#: the flash forward's 32,768-token prefill rows: query / KV heads, head
+#: dim, window (0: the whole causal band), the first channel the
+#: channels-lost stand-in drops (the top fifth of hd 120, quarter of 64),
+#: the seed and the row's note
+FLASH_PREFILL = {
+    "prefill 32k": dict(
+        h=32, kh=8, hd=120, window=4096, lost_from=96, seed=28,
+        note="h2o-danube-3-4b heads, 1x32768 bf16, window 4096; plain_ms "
+             "is one synchronized call of attention.blockwise_sdpa (wall), "
+             "library_ms SDPA (memory-efficient backend, boolean band "
+             "mask) on K/V expanded to the 32 query heads"),
+    "whisper prefill": dict(
+        h=12, kh=12, hd=64, window=0, lost_from=48, seed=53,
+        note="whisper-small decoder heads, 1x32768 bf16, causal; plain_ms "
+             "is one synchronized call of attention.blockwise_sdpa (wall), "
+             "library_ms SDPA (is_causal)")}
+
+
+def time_flash_prefill(torch, F, fa_ops, bounds, dev,
+                       shape: str = "prefill 32k") -> dict:
+    """The flash forward at a FLASH_PREFILL shape (1 x 32768, bf16, causal
+    with the row's window): the kernel beside its bound, the plain version
+    (``attention.blockwise_sdpa``, the model's plain path at this length;
+    one synchronized call, its wall time: a host-bound yardstick of
+    correctness whose repeats behind time_ms's growing holds would cost
+    tens of seconds) and SDPA (with a window on its memory-efficient
+    backend, the band as a boolean mask and K/V expanded to the query
+    heads beforehand: with GQA and a mask SDPA takes the math backend,
+    which would materialize h x 32768^2 scores; without one ``is_causal``);
+    held to the plain version in f32 on the same inputs by ``hold_flash``
+    (elementwise at TOL and relatively at FLASH_REL_TOL: under randn
+    inputs a row over thousands of keys is about TOL's atol in size); the
+    band one 64-key tile short (the whole band: a window of 32,768 - 64)
+    and the row's top channels lost, each the plain version rounded to
+    bf16, must fail that relative hold.  Returns the kernel-table row."""
     from repro_torch.models.attention import blockwise_sdpa
 
-    b, s, h, kh, hd, dt_name, window = 1, 32768, 32, 8, 120, "bfloat16", 4096
-    gen = torch.Generator(device=dev).manual_seed(28)
+    spec = FLASH_PREFILL[shape]
+    b, s, dt_name = 1, 32768, "bfloat16"
+    h, kh, hd, window = spec["h"], spec["kh"], spec["hd"], spec["window"]
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
     sets = flash_timed_sets(torch, fa_ops, dev, b, s, h, kh, hd, gen,
                             dt_name, window)
     q, k, v, _, out, _, _ = sets[0]
     want = blockwise_sdpa(q.float(), k.float(), v.float(), window=window)
     errs, rel, nbad = hold_flash(torch, (out,), (want,), dt_name)
     err = errs["out"]
+    c = spec["lost_from"]
     lost = [t.float() for t in (q, k, v)]
     for t in lost:
-        t[..., 96:] = 0
+        t[..., c:] = 0
     faults = {}
     for name, ins, win in (
             ("band_one_tile_short", [t.float() for t in (q, k, v)],
-             window - 64),
-            ("channels_96_up_lost", lost, window)):
+             (window or s) - 64),
+            (f"channels_{c}_up_lost", lost, window)):
         got = blockwise_sdpa(*ins, window=win).to(out.dtype)
         del ins
         _, f_rel, _ = hold_flash(torch, (got,), (want,), dt_name)
@@ -4720,90 +4798,69 @@ def time_flash_prefill(torch, F, fa_ops, bounds, dev) -> dict:
     del want, lost
     fwd = time_ms(torch, lambda q, k, v, *_: fa_ops.flash_attention_fwd(
         q, k, v, window=window), sets, 10)
-    plain = time_ms(torch, lambda q, k, v, *_: blockwise_sdpa(
-        q, k, v, window=window), sets[:1], 3, plain=True)
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    pos = torch.arange(s, device=dev)
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
-                                             > pos[:, None] - window)
-    g = h // kh
-    full = [(q.transpose(1, 2), k.repeat_interleave(g, 2).transpose(1, 2),
-             v.repeat_interleave(g, 2).transpose(1, 2))]
-    torch.cuda.empty_cache()
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-        lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=band), full, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blockwise_sdpa(q, k, v, window=window)
+    torch.cuda.synchronize()
+    plain = 1e3 * (time.perf_counter() - t0)
+    free(torch)
+    if window:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        pos = torch.arange(s, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                                 > pos[:, None] - window)
+        g = h // kh
+        full = [(q.transpose(1, 2),
+                 k.repeat_interleave(g, 2).transpose(1, 2),
+                 v.repeat_interleave(g, 2).transpose(1, 2))]
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            lib = time_ms(torch, lambda q, k, v:
+                          F.scaled_dot_product_attention(
+                              q, k, v, attn_mask=band), full, 10)
+        del full, band
+    else:
+        lib = time_ms(torch, lambda q, k, v, *_: sdpa_causal(F, q, k, v),
+                      sets, 10)
     bd = bounds.flash_fwd(b, h, kh, s, hd, dt_name, window)
     row = dict(name="flash_fwd", route="cuda", source=FLASH_SRC,
                replaces=FLASH_TPU["flash_fwd"], max_abs_err=err, ms=fwd,
-               plain_ms=plain, library_ms=lib, **bound(bd),
-               shape="prefill 32k",
-               note="h2o-danube-3-4b heads, 1x32768 bf16, window 4096; "
-                    "plain_ms is attention.blockwise_sdpa, library_ms SDPA "
-                    "(memory-efficient backend, boolean band mask) on K/V "
-                    "expanded to the 32 query heads")
-    emit({"phase": "flash_timing", "b": b, "s": s, "h": h, "kh": kh,
-          "hd": hd, "dtype": dt_name, "causal": True, "window": window,
-          "kernel_ms": {"flash_fwd": fwd}, "bound_ms": {"flash_fwd": bd.ms},
-          "plain_ms": {"fwd": plain}, "sdpa_ms": {"fwd": lib},
-          "fwd_over_sdpa_fwd": fwd / lib, "max_abs_err": {"flash_fwd": err},
-          "rel_err": rel["out"], "rel_tol": FLASH_REL_TOL[dt_name],
-          "n_out_of_tol": nbad, "faults": faults,
-          "stream_hold_x": holds_used()})
-    require(nbad == 0, f"the flash forward at prefill_32k's shape disagrees "
+               plain_ms=plain, library_ms=lib, **bound(bd), shape=shape,
+               note=spec["note"])
+    emit({"phase": "flash_timing", "shape": shape, "b": b, "s": s, "h": h,
+          "kh": kh, "hd": hd, "dtype": dt_name, "causal": True,
+          "window": window, "kernel_ms": {"flash_fwd": fwd},
+          "bound_ms": {"flash_fwd": bd.ms}, "plain_ms": {"fwd": plain},
+          "sdpa_ms": {"fwd": lib}, "fwd_over_sdpa_fwd": fwd / lib,
+          "max_abs_err": {"flash_fwd": err}, "rel_err": rel["out"],
+          "rel_tol": FLASH_REL_TOL[dt_name], "n_out_of_tol": nbad,
+          "faults": faults, "stream_hold_x": holds_used()})
+    require(nbad == 0, f"the flash forward at {shape}'s shape disagrees "
             f"with blockwise_sdpa: {nbad} failures, max {err}, relative "
             f"(tile RMS, max over max) {rel['out']}")
     require(all(f["rel"][0] > FLASH_REL_TOL[dt_name]
                 for f in faults.values()),
-            f"flash at prefill_32k's shape: a stand-in passes the relative "
+            f"flash at {shape}'s shape: a stand-in passes the relative "
             f"hold: {faults}")
-    del sets, full, band
+    del sets
     free(torch)
     return row
 
 
 def phase_steps_prefill(torch, fa_ops, tl_ops, model, get_config, dev):
     """``steps.make_prefill_step`` on h2o-danube-3-4b at full depth (bf16)
-    over prefill_32k's 32,768 tokens at batch 1: exactly 24 flash-forward
-    launches on the 16-byte route and 96 tri-LoRA forwards, finite
-    (1, padded vocab) logits, tok/s, peak memory and the flash forward's
-    device time per call from a profile window; then the same shape at 2
-    layers in f32, flash against ``attn_impl="blockwise"`` on the card,
-    the last position's logits within 1e-4 of their largest.  Returns the
-    launches."""
-    from torch.profiler import ProfilerActivity, profile
-
+    over prefill_32k's 32,768 tokens at batch 1 (``prefill_steps_phase``,
+    profiled): exactly 24 flash-forward launches on the 16-byte route and
+    96 tri-LoRA forwards; then the same shape at 2 layers in f32, flash
+    against ``attn_impl="blockwise"`` on the card, the last position's
+    logits within 1e-4 of their largest.  Returns the launches."""
     from repro_torch.launch import steps
 
     job = STEPS_PREFILL
     cfg = get_config(job["arch"])
-    require(job["seq"] == steps.SHAPES["prefill_32k"].seq_len,
-            "steps_prefill runs prefill_32k's sequence length")
-    params = random_params(torch, model, cfg, dev, 29)
-    toks = lm_batch(torch, cfg.vocab_size, job["batch"], job["seq"], 29,
+    launches = prefill_steps_phase(torch, fa_ops, tl_ops, model, cfg, job,
+                                   "steps_prefill", dev, True)
+    toks = lm_batch(torch, cfg.vocab_size, job["batch"], job["seq"], 30,
                     dev)["tokens"]
-    pf = steps.make_prefill_step(cfg, attn_impl="flash")
-    logits, launches, wall, peak = run_counted(
-        torch, fa_ops, tl_ops, lambda: pf(params, {"tokens": toks}))
-    flash_routes = dict(fa_ops.ROUTES)
-    expected = step_launches(cfg, 0, 1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pf(params, {"tokens": toks})
-        torch.cuda.synchronize()
-        wall2 = time.perf_counter() - t0
-    split = device_split(prof, wall2 * 1e6, 8, shares=("flash_fwd",
-                                                        "tri_lora"))
-    fwd_us = [e.time_range.elapsed_us() for e in prof.events()
-              if getattr(e.device_type, "name", "") == "CUDA"
-              and "flash_fwd" in e.name]
-    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
-    shape_ok = tuple(logits.shape) == (job["batch"], cfg.padded_vocab)
-    del params, logits
-    free(torch)
-
     c2 = cfg.with_overrides(n_layers=2, param_dtype="float32")
     p2 = random_params(torch, model, c2, dev, 30)
     oracle = {impl: steps.make_prefill_step(c2, attn_impl=impl)(
@@ -4813,27 +4870,8 @@ def phase_steps_prefill(torch, fa_ops, tl_ops, model, get_config, dev):
                                      .abs().max())
     del p2, oracle
     free(torch)
-    emit({"phase": "steps_prefill", "arch": cfg.name, "layers": cfg.n_layers,
-          "dtype": cfg.param_dtype, "shape": "prefill_32k",
-          "global_batch": [job["batch"], "of", 32], "seq": job["seq"],
-          "window": cfg.window, "wall_s": wall, "wall_s_profiled": wall2,
-          "tok_per_s": job["batch"] * job["seq"] / wall,
-          "peak_mem_gb": peak, "launches": launches,
-          "expected_launches": expected, "flash_routes": flash_routes,
-          "logits_shape": [job["batch"], cfg.padded_vocab],
-          "finite": finite, "profile": split,
-          "flash_fwd_device_us": {"calls": len(fwd_us),
-                                  "mean": sum(fwd_us) / max(len(fwd_us), 1)},
+    emit({"phase": "steps_prefill (oracle)", "arch": cfg.name,
           "oracle_2_layers_f32": {"logits_rel_gap": rel}})
-    require(launches == expected, f"steps_prefill launches {launches} != "
-            f"{expected}")
-    require(flash_routes == {"fwd_vec": cfg.n_layers, "fwd_scalar": 0,
-                             "bwd_vec": 0, "bwd_scalar": 0},
-            f"steps_prefill flash routes {flash_routes}")
-    require(finite and shape_ok, "steps_prefill logits not finite or of the "
-            "wrong shape")
-    require(len(fwd_us) == cfg.n_layers, f"steps_prefill profile saw "
-            f"{len(fwd_us)} flash forwards")
     require(rel <= 1e-4, f"steps_prefill 2-layer f32 oracle: flash vs "
             f"blockwise logits part by {rel} of the largest")
     return launches
@@ -4859,19 +4897,10 @@ def phase_steps_decode(torch, ops, ref, tl_ops, model, get_config, dev):
     """``steps.make_serve_step`` on h2o-danube-3-4b at full depth (bf16):
     decode_32k at its own batch of 128 against full 4,096-slot rings (the
     32,768-token cache's window; 48.3 GB of K/V filled from a seeded
-    generator), a few steps from position 32,767: 24 decode-attention and
-    96 tri-LoRA forward launches a step on the 16-byte routes, every
-    decode-attention call of the first step held to its plain version in
-    f32 on its recorded operands (elementwise at TOL, and per batch row
-    relatively at FLASH_REL_TOL: an output over 4,096 slots is about TOL's
-    atol in size), where the plain version over the ring one 64-slot tile
-    short must fail the relative hold; wall and device time per step;
-    then long_500k
+    generator) (``serve_steps_phase``); then long_500k
     (``shape_variant`` leaves h2o unchanged) at batch 1 from position
     524,287, finite logits.  Returns the launches of one decode_32k
     step."""
-    from torch.profiler import ProfilerActivity, profile
-
     import numpy as np
 
     from repro_torch.launch import steps
@@ -4879,123 +4908,32 @@ def phase_steps_decode(torch, ops, ref, tl_ops, model, get_config, dev):
     job = STEPS_DECODE
     cfg = get_config(job["arch"])
     sh = steps.SHAPES["decode_32k"]
-    gen = torch.Generator(device=dev).manual_seed(31)
-    params = random_params(torch, model, cfg, dev, 31)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cache = filled_cache(torch, model, cfg, sh.global_batch, sh.seq_len,
-                         sh.seq_len - 1, gen, dev)
-    torch.cuda.synchronize()
-    fill_s = time.perf_counter() - t0
-    kv_gb = sum(t.numel() * t.element_size() for t in (
-        cache["groups"]["0"]["k"], cache["groups"]["0"]["v"])) / 1e9
-    serve = steps.make_serve_step(cfg)
-    toks = torch.as_tensor(np.random.default_rng(31).integers(
-        0, cfg.vocab_size, (sh.global_batch, 1)), device=dev)
-
-    def batch_at(pos):
-        return {"token": toks, "positions": torch.full(
-            (sh.global_batch, 1), pos, dtype=torch.int32, device=dev)}
-
-    calls, kernel = [], ops.decode_attention
-
-    def recorded(q, k, v, idx):
-        out = kernel(q, k, v, idx)
-        calls.append((q, k, v, idx, out))
-        return out
-    ops.reset_launches()
-    tl_ops.reset_launches()
-    ops.decode_attention = recorded
-    try:
-        logits, cache = serve(params, cache, batch_at(sh.seq_len - 1))
-        torch.cuda.synchronize()
-    finally:
-        ops.decode_attention = kernel
-    launches = {**ops.LAUNCHES, **tl_ops.LAUNCHES}
-    routes = {**ops.ROUTES, **{k: v for k, v in tl_ops.ROUTES.items() if v}}
-    errs, rels, bad, tol = [], [], 0, FLASH_REL_TOL["bfloat16"]
-    for i, (q, k, v, idx, out) in enumerate(calls):
-        want = ref.decode_attention_ref(q.float(), k, v, idx)
-        e, n = compare(torch, out, want.to(out.dtype), "bfloat16")
-        errs.append(e)
-        rels.append(row_rel(torch, out, want))
-        bad += n + sum(x > tol for x in rels[-1])
-        if i == 0:
-            # the stand-in: the plain version over the ring one 64-slot
-            # tile short (every slot is valid past the wrap)
-            short = ref.decode_attention_ref(q.float(), k[:, 64:],
-                                             v[:, 64:], idx).to(out.dtype)
-            fault = {"rel": row_rel(torch, short, want), "n_out_of_tol":
-                     compare(torch, short, want.to(out.dtype),
-                             "bfloat16")[1]}
-            del short
-        del want
-    n_calls = len(calls)
-    del calls
-    walls = []
-    for i in range(1, job["steps"]):
-        t0 = time.perf_counter()
-        logits, cache = serve(params, cache, batch_at(sh.seq_len - 1 + i))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        logits, cache = serve(params, cache,
-                              batch_at(sh.seq_len - 1 + job["steps"]))
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    split = device_split(prof, prof_wall * 1e6, 8,
-                         shares=("decode_attention", "tri_lora"))
-    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    del cache, logits
-    free(torch)
-
+    params = random_params(torch, model, cfg, dev, 45)
+    launches = serve_steps_phase(torch, ops, ref, tl_ops, model, cfg,
+                                 sh.global_batch, job["steps"],
+                                 "steps_decode", dev, params)
+    require(cfg.window < sh.seq_len, "steps_decode's rings must wrap")
     long_cfg = steps.shape_variant(cfg, "long_500k")
     ls = steps.SHAPES["long_500k"]
+    gen = torch.Generator(device=dev).manual_seed(32)
     lcache = filled_cache(torch, model, long_cfg, ls.global_batch,
                           ls.seq_len, ls.seq_len - 1, gen, dev)
     ring = lcache["groups"]["0"]["k"].shape[2]
     ops.reset_launches()
-    llog, lcache = serve(params, lcache, {
-        "token": toks[:1], "positions": torch.full(
-            (1, 1), ls.seq_len - 1, dtype=torch.int32, device=dev)})
+    llog, lcache = steps.make_serve_step(cfg)(params, lcache, {
+        "token": torch.as_tensor(np.random.default_rng(32).integers(
+            0, cfg.vocab_size, (1, 1)), device=dev),
+        "positions": torch.full((1, 1), ls.seq_len - 1, dtype=torch.int32,
+                                device=dev)})
     long_launches = dict(ops.LAUNCHES)
     long_ok = (tuple(llog.shape) == (1, cfg.padded_vocab)
                and bool(torch.isfinite(llog[:, :cfg.vocab_size]).all()))
     del lcache, llog, params
     free(torch)
-    expected = {"decode_attention": cfg.n_layers, "grouped_gemv": 0,
-                "tri_lora_fwd": cfg.n_layers * len(cfg.lora_targets),
-                "tri_lora_dx": 0, "tri_lora_dw": 0, **NO_GROUPED}
-    emit({"phase": "steps_decode", "arch": cfg.name, "layers": cfg.n_layers,
-          "dtype": cfg.param_dtype, "shape": "decode_32k",
-          "batch": sh.global_batch, "seq_len": sh.seq_len,
-          "ring": cfg.window, "kv_cache_gb": kv_gb, "fill_s": fill_s,
-          "launches_per_step": launches, "expected_per_step": expected,
-          "routes": routes, "attention_calls_held": n_calls,
-          "attention_max_abs_err": max(errs),
-          "attention_rel_err": [max(r[0] for r in rels),
-                                max(r[1] for r in rels)],
-          "rel_tol": tol, "n_out_of_tol": bad,
-          "fault_ring_one_tile_short": fault,
-          "wall_ms_per_step": [1e3 * w for w in walls],
-          "profiled_step": split, "finite": finite, "peak_mem_gb": peak,
-          "long_500k": {"variant_unchanged": long_cfg is cfg, "ring": ring,
-                        "position": ls.seq_len - 1,
-                        "launches": long_launches, "finite": long_ok}})
-    require(launches == expected, f"steps_decode launches {launches} != "
-            f"{expected}")
-    require(routes["attn_vec"] == cfg.n_layers and routes["attn_scalar"] == 0,
-            f"steps_decode attention routes {routes}")
-    require(n_calls == cfg.n_layers and bad == 0,
-            f"steps_decode: {bad} attention failures in {n_calls} calls "
-            f"against their plain version (max {max(errs)}, relative (row "
-            f"RMS, max over max) {rels})")
-    require(fault["rel"][0] > tol, f"steps_decode: the stand-in with the "
-            f"ring one tile short passes the relative hold: {fault}")
-    require(finite, "steps_decode logits not finite")
+    emit({"phase": "steps_decode (long_500k)", "arch": cfg.name,
+          "variant_unchanged": long_cfg is cfg, "ring": ring,
+          "position": ls.seq_len - 1, "launches": long_launches,
+          "finite": long_ok})
     require(long_cfg is cfg and ring == cfg.window and long_ok
             and long_launches["decode_attention"] == cfg.n_layers,
             f"steps_decode long_500k: variant unchanged {long_cfg is cfg}, "
@@ -5217,6 +5155,697 @@ def phase_card_vs_cpu(torch, tl_ops, model, get_config, dev):
             f"one loss and gradient launched {launched}")
 
 
+# ---------------------------------------------------------------------------
+# whisper-small (encoder-decoder) and qwen2-vl-72b (M-RoPE, vision prefix)
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-small"
+VLM = "qwen2-vl-72b"
+#: whisper_train: train_4k's 4,096-token decoder sequences at a global
+#: batch of 4 (train_4k's 256, cut), 1,500 stub frames each, the whole
+#: model (12 + 12 layers), bf16 backbone, f32 adapters, flash; 3 steps on
+#: one batch
+WHISPER_TRAIN = dict(batch=4, seq=4096, steps=3, lr=1e-3)
+#: whisper_prefill: prefill_32k's 32,768 tokens at batch 1 (its 32 cut)
+WHISPER_PREFILL = dict(batch=1, seq=32768)
+#: whisper_decode: decode_32k at batch 32 (its 128 cut: 38.7 GB of K/V
+#: rings and 1.8 GB of cross K/V), a few steps ending at position 32,767
+WHISPER_DECODE = dict(batch=32, steps=4)
+#: whisper_oracle: the whole width at 2 + 2 layers, f32, 1 x 4096 tokens
+#: (flash against ref: train_4k's length, where cross-attention over the
+#: 1,500 frames takes the blockwise tiles), then 2 x 12 decode steps
+#: against the forward
+WHISPER_ORACLE = dict(layers=2, seq=4096, dec_batch=2, dec_steps=12)
+#: vlm_train: qwen2-vl-72b at full width, 8 of its 80 layers (~16.5 GB of
+#: bf16 weights), 2 x (4096 text + 256 patches), bf16, f32 adapters, flash,
+#: the chunked loss; 3 steps on one batch
+VLM_TRAIN = dict(layers=8, batch=2, seq=4096, steps=3, lr=1e-3)
+#: vlm_prefill: 2 layers, 1 x (32,768 + 256)
+VLM_PREFILL = dict(layers=2, batch=1, seq=32768)
+#: vlm_decode: 2 layers, decode_32k at its own batch of 128 (34.4 GB of K/V)
+VLM_DECODE = dict(layers=2, steps=4)
+#: vlm_serve: 2 layers bf16, 8 requests of 64 + 16 from 4 users, 4 slots;
+#: then the f32 oracle at 2 layers (ServeEngine against serve_naive)
+VLM_SERVE = dict(layers=2, users=4, requests=8, slots=4, prompt_len=64,
+                 gen=16)
+#: vlm_oracle: 2 layers, f32, one 4,352-token sequence (256 patches and
+#: 4,096 text tokens), flash / blockwise_cv / ref
+VLM_ORACLE = dict(layers=2, seq=4096)
+
+
+def vlm_positions(torch, b: int, patches: int, text: int, dev):
+    """(b, patches + text, 3) int32 Qwen2-VL position ids: the patches a
+    √P × √P grid at t = 0, h = row, w = col, the text from the grid's
+    largest id + 1 on with t = h = w."""
+    side = math.isqrt(patches)
+    require(side * side == patches, f"{patches} patches are not a square")
+    i = torch.arange(patches, device=dev)
+    grid = torch.stack([torch.zeros_like(i), i // side, i % side], -1)
+    t = torch.arange(text, device=dev) + (side if patches else 0)
+    pos = torch.cat([grid, torch.stack([t, t, t], -1)])
+    return pos.to(torch.int32)[None].expand(b, -1, -1).contiguous()
+
+
+def enc_dec_batch(torch, cfg, b: int, s: int, seed: int, dev) -> dict:
+    """An LM batch plus ``frames`` (b, enc_frames, d) of stub audio frame
+    embeddings, or ``vision`` (b, P, d) patch embeddings with Qwen2-VL
+    position triplets, as the config needs."""
+    batch = lm_batch(torch, cfg.vocab_size, b, s, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((b, cfg.enc_frames, cfg.d_model),
+                                      generator=gen, device=dev)
+    if cfg.vision_patches:
+        batch["vision"] = torch.randn((b, cfg.vision_patches, cfg.d_model),
+                                      generator=gen, device=dev)
+        batch["positions"] = vlm_positions(torch, b, cfg.vision_patches, s,
+                                           dev)
+    return batch
+
+
+def fill_cross_cache(torch, model, cfg, base, cache, frames,
+                     chunk: int = 8) -> None:
+    """Every decoder block's cross K/V from the encoder's output over
+    ``frames`` (``enc_out @ xattn.wk / wv``, no adapter, no bias), in place,
+    ``chunk`` sequences at a time: this script's copy of the helper that
+    tests/test_decode_consistency.py keeps (the JAX package fills the
+    cross cache nowhere else)."""
+    q, _, _ = cfg.stack_plan()
+    with torch.no_grad():
+        for r0 in range(0, frames.shape[0], chunk):
+            enc = model.encode(cfg, base, frames[r0:r0 + chunk])
+            b = enc.shape[0]
+            for key, blk in (cache["groups"] or {}).items():
+                xp = base["groups"][key]["xattn"]
+                for layer in range(q):
+                    for name, w in (("xk", "wk"), ("xv", "wv")):
+                        blk[name][layer, r0:r0 + b] = (
+                            enc @ xp[w][layer]).reshape(b, -1, cfg.n_heads,
+                                                        cfg.hd)
+            for blk, p in zip(cache["tail"], base["tail"]):
+                for name, w in (("xk", "wk"), ("xv", "wv")):
+                    blk[name][r0:r0 + b] = (enc @ p["xattn"][w]).reshape(
+                        b, -1, cfg.n_heads, cfg.hd)
+            del enc
+
+
+class RowTap:
+    """Wraps ``tri_lora_ops.tri_lora_fwd`` while active and counts its
+    launches by the rows of x (M)."""
+
+    def __init__(self, tl_ops):
+        self.tl_ops, self.rows = tl_ops, {}
+
+    def __enter__(self):
+        orig = self.tl_ops.tri_lora_fwd
+
+        def tapped(x, *a, **kw):
+            self.rows[x.shape[0]] = self.rows.get(x.shape[0], 0) + 1
+            return orig(x, *a, **kw)
+
+        self._orig = orig
+        self.tl_ops.tri_lora_fwd = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.tl_ops.tri_lora_fwd = self._orig
+        return False
+
+
+def predicted_routes(torch, tl_ops, cfg, rows: dict, dev) -> dict:
+    """The tri-LoRA forward routes ``tl_ops.fwd_route`` gives bf16
+    operands of each row count in ``rows`` (M → launches): x (M, d) and W
+    (d, d) as the model allocates them."""
+    w = torch.empty((cfg.d_model, cfg.d_model), dtype=cfg.dtype, device=dev)
+    out = {}
+    for m, n in rows.items():
+        x = torch.empty((m, cfg.d_model), dtype=cfg.dtype, device=dev)
+        key = f"fwd_{tl_ops.fwd_route(x, w)}"
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def train_steps_phase(torch, fa_ops, tl_ops, model, cfg, job: dict,
+                      phase: str, dev, ce_tap: bool = False,
+                      want_rows: dict | None = None,
+                      profiled: bool = True) -> dict:
+    """``steps.make_train_step`` (flash) on ``cfg``, ``job["steps"]`` steps
+    on one batch from the same params: every loss finite and each below
+    the one before; exactly ``step_launches`` flash and tri-LoRA launches,
+    flash on its 16-byte routes, the tri-LoRA forwards on the routes
+    ``fwd_route`` predicts for each row count (``RowTap``), the row counts
+    ``want_rows`` where given; with ``ce_tap`` the chunked loss's calls.
+    Emits one line (with ``profiled`` a profile of one more step) and
+    returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+
+    params = random_params(torch, model, cfg, dev, 41)
+    batch = enc_dec_batch(torch, cfg, job["batch"], job["seq"], 41, dev)
+    step = steps.make_train_step(cfg, job["lr"], attn_impl="flash")
+    chunks, real = [], model._ce_terms
+
+    def counted(c, h, *a):
+        chunks.append(h.shape[1])
+        return real(c, h, *a)
+
+    def run():
+        p, o, losses = params, step.optimizer.init(params["adapter"]), []
+        for _ in range(job["steps"]):
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+        return losses, p, o
+
+    step_s = []
+
+    model._ce_terms = counted
+    try:
+        with RowTap(tl_ops) as rt:
+            (losses, p, o), launches, wall, peak = run_counted(
+                torch, fa_ops, tl_ops, run)
+    finally:
+        model._ce_terms = real
+    flash_routes, tri_routes = dict(fa_ops.ROUTES), dict(tl_ops.ROUTES)
+    split = None
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(p, o, batch)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        split = device_split(prof, prof_wall * 1e6, 8,
+                             shares=FLASH_SHARES + ("tri_lora",))
+        del prof
+    del p, o
+    expected = step_launches(cfg, job["steps"])
+    want_routes = predicted_routes(torch, tl_ops, cfg, rt.rows, dev)
+    text = job["batch"] * job["seq"]
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "enc_layers": cfg.n_enc_layers if cfg.enc_dec else 0,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+          "dtype": cfg.param_dtype, "adapter_dtype": "float32",
+          "attn_impl": "flash", "shape": "train_4k",
+          "global_batch": [job["batch"], "of", 256], "seq": job["seq"],
+          "prefix": cfg.vision_patches, "frames": cfg.enc_frames
+          if cfg.enc_dec else 0, "steps": job["steps"], "lr": job["lr"],
+          "losses": losses, "wall_s": wall, "step_s": step_s,
+          "s_per_step": wall / job["steps"], "profiled_step": split,
+          "text_tok_per_s": text * job["steps"] / wall, "peak_mem_gb": peak,
+          "launches": launches, "expected_launches": expected,
+          "tri_lora_fwd_rows": rt.rows, "flash_routes": flash_routes,
+          "tri_lora_routes": tri_routes, "predicted_routes": want_routes,
+          "ce_calls": len(chunks), "ce_chunk_tokens": sorted(set(chunks))})
+    require(launches == expected, f"{phase} launches {launches} != "
+            f"{expected}")
+    require(flash_routes == {"fwd_vec": expected["flash_fwd"],
+                             "fwd_scalar": 0, "bwd_vec": 2 * expected[
+                                 "flash_dq"], "bwd_scalar": 0},
+            f"{phase} flash routes {flash_routes}")
+    require({k: v for k, v in tri_routes.items() if v} == want_routes,
+            f"{phase} tri-LoRA routes {tri_routes}, predicted {want_routes}")
+    require(want_rows is None or rt.rows == want_rows,
+            f"{phase} tri-LoRA forwards by rows {rt.rows}, expected "
+            f"{want_rows}")
+    require(all(math.isfinite(x) for x in losses)
+            and all(b < a for a, b in zip(losses, losses[1:])),
+            f"{phase} losses {losses}: not finite and falling")
+    if ce_tap:
+        n = job["seq"] // model._CE_CHUNK
+        require(chunks == [model._CE_CHUNK] * (2 * n * job["steps"]),
+                f"{phase}: the chunked loss ran {chunks}")
+    del params, batch
+    free(torch)
+    return launches
+
+
+def phase_whisper_train(torch, fa_ops, tl_ops, model, get_config, dev):
+    """whisper-small whole (12 + 12 layers) through ``make_train_step``
+    (``train_steps_phase``): the decoder's 12 flash attentions, its 8
+    adapted projections a layer (self and cross q/k/v/o), the cross wk /
+    wv reading 4 x 1,500 encoder rows and launching no dx; the encoder
+    launches nothing.  Not profiled: the ~35 k small launches of a step
+    (the plain cross-attention tiles) cost the profiler ~75 s of event
+    processing."""
+    cfg = get_config(WHISPER)
+    job = WHISPER_TRAIN
+    want = step_launches(cfg, 1)
+    require(want == {**want, "flash_fwd": 24, "flash_dq": 12,
+                     "flash_dkv": 12, "tri_lora_fwd": 192,
+                     "tri_lora_dx": 69}, f"{WHISPER} step launches {want}")
+    passes = 2 * job["steps"]               # the forward and its recompute
+    rows = {job["batch"] * job["seq"]: 6 * cfg.n_layers * passes,
+            job["batch"] * cfg.enc_frames: 2 * cfg.n_layers * passes}
+    return train_steps_phase(torch, fa_ops, tl_ops, model, cfg, job,
+                             "whisper_train", dev, want_rows=rows,
+                             profiled=False)
+
+
+def prefill_steps_phase(torch, fa_ops, tl_ops, model, cfg, job: dict,
+                        phase: str, dev, profiled: bool) -> dict:
+    """``steps.make_prefill_step`` (flash) on ``cfg`` over prefill_32k's
+    32,768 text tokens at ``job["batch"]`` (with the config's frames or
+    vision prefix): exactly ``step_launches(cfg, 0, 1)`` launches, flash on
+    its 16-byte route, finite (batch, padded vocab) logits, tok/s over
+    every token of the sequence, peak, and with ``profiled`` a profile of
+    one more prefill that must hold one flash forward a layer (their
+    device time per call).  Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+
+    require(job["seq"] == steps.SHAPES["prefill_32k"].seq_len,
+            f"{phase} runs prefill_32k's sequence length")
+    params = random_params(torch, model, cfg, dev, 43)
+    batch = enc_dec_batch(torch, cfg, job["batch"], job["seq"], 43, dev)
+    del batch["labels"]
+    pf = steps.make_prefill_step(cfg, attn_impl="flash")
+    logits, launches, wall, peak = run_counted(torch, fa_ops, tl_ops,
+                                               lambda: pf(params, batch))
+    flash_routes = dict(fa_ops.ROUTES)
+    expected = step_launches(cfg, 0, 1)
+    split, wall2, fwd_us = None, None, []
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pf(params, batch)
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+        split = device_split(prof, wall2 * 1e6, 10,
+                             shares=("flash_fwd", "tri_lora"))
+        fwd_us = [e.time_range.elapsed_us() for e in prof.events()
+                  if getattr(e.device_type, "name", "") == "CUDA"
+                  and "flash_fwd" in e.name]
+        del prof
+    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+    tokens = job["batch"] * (job["seq"] + cfg.vision_patches)
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "enc_layers": cfg.n_enc_layers if cfg.enc_dec else 0,
+          "dtype": cfg.param_dtype, "shape": "prefill_32k",
+          "global_batch": [job["batch"], "of", 32], "seq": job["seq"],
+          "prefix": cfg.vision_patches,
+          "frames": cfg.enc_frames if cfg.enc_dec else 0, "wall_s": wall,
+          "wall_s_profiled": wall2, "tok_per_s": tokens / wall,
+          "peak_mem_gb": peak, "launches": launches,
+          "expected_launches": expected, "flash_routes": flash_routes,
+          "window": cfg.window, "finite": finite, "profile": split,
+          "flash_fwd_device_us": {"calls": len(fwd_us), "mean": sum(
+              fwd_us) / max(len(fwd_us), 1)}})
+    require(launches == expected, f"{phase} launches {launches} != "
+            f"{expected}")
+    require(flash_routes == {"fwd_vec": cfg.n_layers, "fwd_scalar": 0,
+                             "bwd_vec": 0, "bwd_scalar": 0},
+            f"{phase} flash routes {flash_routes}")
+    require(finite and tuple(logits.shape) == (job["batch"],
+                                               cfg.padded_vocab),
+            f"{phase} logits not finite or of the wrong shape")
+    require(not profiled or len(fwd_us) == cfg.n_layers,
+            f"{phase} profile saw {len(fwd_us)} flash forwards")
+    del params, logits, batch
+    free(torch)
+    return launches
+
+
+def phase_whisper_prefill(torch, fa_ops, tl_ops, model, get_config, dev):
+    """whisper-small whole over 32,768 decoder tokens at batch 1 and 1,500
+    frames (``prefill_steps_phase``): 12 flash forwards and 96 tri-LoRA
+    forwards.  Not profiled: cross-attention over 32,768 x 1,500 takes the
+    plain blockwise tiles, whose ~110 k small launches cost the profiler
+    ~130 s of event processing."""
+    cfg = get_config(WHISPER)
+    require(WHISPER_PREFILL["seq"] <= cfg.max_target_positions,
+            "whisper_prefill's positions must fit the learned table")
+    return prefill_steps_phase(torch, fa_ops, tl_ops, model, cfg,
+                               WHISPER_PREFILL, "whisper_prefill", dev,
+                               False)
+
+
+def serve_steps_phase(torch, ops, ref, tl_ops, model, cfg, batch: int,
+                      n_steps: int, phase: str, dev, params=None) -> dict:
+    """``steps.make_serve_step`` at decode_32k's 32,768-token cache (rings
+    of ``cfg.window`` slots where the config has one), every slot filled
+    from a seeded generator (an encoder-decoder's cross K/V from its
+    encoder over random frames), ``n_steps`` steps ending at position
+    32,767, the last the learned position table holds (M-RoPE: (t, t, t)):
+    per step one decode-attention launch a layer on the 16-byte route and
+    the self-attention's tri-LoRA forwards (the cross step takes no
+    adapter); the first step's decode-attention calls held to their plain
+    version in f32 (``held_decode``: elementwise at TOL, per batch row at
+    FLASH_REL_TOL: an output over thousands of slots is about TOL's atol
+    in size), where the plain version over the valid slots one 64-slot
+    tile short must fail the relative hold; finite logits, ms a step and
+    a profile of one more step.  ``params`` (else drawn here) stay the
+    caller's.  Returns one step's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    from repro_torch.launch import steps
+
+    sh = steps.SHAPES["decode_32k"]
+    gen = torch.Generator(device=dev).manual_seed(45)
+    if params is None:
+        params = random_params(torch, model, cfg, dev, 45)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    start = sh.seq_len - n_steps
+    cache = filled_cache(torch, model, cfg, batch, sh.seq_len, start, gen,
+                         dev)
+    if cfg.enc_dec:
+        fill_cross_cache(torch, model, cfg, params["base"], cache,
+                         torch.randn((batch, cfg.enc_frames, cfg.d_model),
+                                     generator=gen, device=dev))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    blk = cache["groups"]["0"]
+    ring = blk["k"].shape[2]
+    kv_gb = sum(blk[k].numel() * blk[k].element_size()
+                for k in ("k", "v")) / 1e9
+    x_gb = sum(blk[k].numel() * blk[k].element_size()
+               for k in ("xk", "xv") if k in blk) / 1e9
+    serve_step = steps.make_serve_step(cfg)
+    toks = torch.as_tensor(np.random.default_rng(45).integers(
+        0, cfg.vocab_size, (batch, 1)), device=dev)
+
+    def batch_at(pos):
+        shape = (batch, 1, 3) if cfg.pos_type == "mrope" else (batch, 1)
+        return {"token": toks, "positions": torch.full(
+            shape, pos, dtype=torch.int32, device=dev)}
+
+    calls, kernel = [], ops.decode_attention
+
+    def recorded(q, k, v, idx):
+        out = kernel(q, k, v, idx)
+        calls.append((q, k, v, idx, out))
+        return out
+    ops.reset_launches()
+    tl_ops.reset_launches()
+    ops.decode_attention = recorded
+    try:
+        logits, cache = serve_step(params, cache, batch_at(start))
+        torch.cuda.synchronize()
+    finally:
+        ops.decode_attention = kernel
+    launches = {**ops.LAUNCHES, **tl_ops.LAUNCHES}
+    routes = {**ops.ROUTES, **{k: v for k, v in tl_ops.ROUTES.items() if v}}
+    errs, rels, bad, tol = [], [], 0, FLASH_REL_TOL["bfloat16"]
+    fault = None
+    for i, (q, k, v, idx, out) in enumerate(calls):
+        e, n, rel, f = held_decode(torch, ref, q, k, v, idx, out,
+                                   fault=i == 0)
+        errs.append(e)
+        rels.append(rel)
+        bad += n + sum(x > tol for x in rel)
+        fault = f or fault
+    n_calls = len(calls)
+    del calls
+    walls = []
+    for i in range(1, n_steps):
+        t0 = time.perf_counter()
+        logits, cache = serve_step(params, cache, batch_at(start + i))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_step(params, cache, batch_at(start + n_steps - 1))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    split = device_split(prof, prof_wall * 1e6, 8,
+                         shares=("decode_attention", "tri_lora"))
+    del prof
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_targets = len(cfg.lora_targets)
+    expected = {"decode_attention": cfg.n_layers, "grouped_gemv": 0,
+                "tri_lora_fwd": cfg.n_layers * n_targets, "tri_lora_dx": 0,
+                "tri_lora_dw": 0, **NO_GROUPED}
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "dtype": cfg.param_dtype, "shape": "decode_32k", "batch": batch,
+          "of_batch": sh.global_batch, "seq_len": sh.seq_len, "ring": ring,
+          "positions": [start, start + n_steps - 1], "kv_cache_gb": kv_gb,
+          "cross_kv_gb": x_gb, "fill_s": fill_s,
+          "launches_per_step": launches, "expected_per_step": expected,
+          "routes": routes, "attention_calls_held": n_calls,
+          "attention_max_abs_err": max(errs),
+          "attention_rel_err": [max(r[0] for r in rels),
+                                max(r[1] for r in rels)],
+          "rel_tol": tol, "n_out_of_tol": bad,
+          "fault_ring_one_tile_short": fault,
+          "wall_ms_per_step": [1e3 * w for w in walls],
+          "profiled_step": split, "finite": finite, "peak_mem_gb": peak})
+    require(launches == expected, f"{phase} launches {launches} != "
+            f"{expected}")
+    require(routes["attn_vec"] == cfg.n_layers and routes["attn_scalar"] == 0,
+            f"{phase} attention routes {routes}")
+    require(n_calls == cfg.n_layers and bad == 0, f"{phase}: {bad} attention "
+            f"failures in {n_calls} calls (max {max(errs)}, relative {rels})")
+    require(fault is not None and fault["rel"] > tol, f"{phase}: the "
+            f"stand-in with the ring one "
+            f"tile short passes the relative hold: {fault}")
+    require(finite, f"{phase} logits not finite")
+    del cache, logits
+    free(torch)
+    return launches
+
+
+def held_decode(torch, ref, q, k, v, idx, out, rows: int = 16,
+                fault: bool = False) -> tuple:
+    """One decode-attention call's output held to its plain version in
+    f32, ``rows`` batch rows at a time (an f32 copy of a whole 32,768-slot
+    ring at batch 128 would not fit beside it): (max abs error, elements
+    outside TOL, (largest row RMS error over row RMS, max error over max
+    |want|), stand-in), as ``compare`` and ``row_rel`` hold a whole call.
+    With ``fault`` the stand-in is the plain version over the valid slots
+    less the oldest 64-slot tile (ring slots 64 and up; the newest index
+    64 lower where the ring has not wrapped), rounded to the output's
+    dtype: {"rel": its largest row RMS error, "n_out_of_tol"}; else
+    None."""
+    err, n_bad, row, w_max, f_row, f_bad = 0.0, 0, 0.0, 0.0, 0.0, 0
+    ring = k.shape[1]
+    for r0 in range(0, q.shape[0], rows):
+        sl = slice(r0, r0 + rows)
+        i = idx if idx.dim() == 0 else idx[sl]
+        want = ref.decode_attention_ref(q[sl].float(), k[sl], v[sl], i)
+        e, n = compare(torch, out[sl], want.to(out.dtype), "bfloat16")
+        err, n_bad = max(err, e), n_bad + n
+        row = max(row, row_rel(torch, out[sl], want)[0])
+        w_max = max(w_max, float(want.abs().max()))
+        if fault:
+            short = ref.decode_attention_ref(
+                q[sl].float(), k[sl, 64:], v[sl, 64:],
+                torch.where(i >= ring, i, i - 64)).to(out.dtype)
+            f_row = max(f_row, row_rel(torch, short, want)[0])
+            f_bad += compare(torch, short, want.to(out.dtype),
+                             "bfloat16")[1]
+            del short
+        del want
+    return (err, n_bad, (row, err / max(w_max, 1e-30)),
+            {"rel": f_row, "n_out_of_tol": f_bad} if fault else None)
+
+
+def phase_whisper_decode(torch, ops, ref, tl_ops, model, get_config, dev):
+    """whisper-small whole at decode_32k, batch 32, the cross cache filled
+    from the encoder (``serve_steps_phase``)."""
+    job = WHISPER_DECODE
+    return serve_steps_phase(torch, ops, ref, tl_ops, model,
+                             get_config(WHISPER), job["batch"], job["steps"],
+                             "whisper_decode", dev)
+
+
+def flash_impls(torch, fa_ops, model, cfg, params, batch, impls) -> dict:
+    """Loss and adapter gradients of ``cfg`` on ``batch`` under each
+    attention backend in ``impls``: {impl: (loss, grads, flash launches,
+    wall s)}."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    res = {}
+    for impl in impls:
+        ad = tree_map(lambda t: t.detach().requires_grad_(True),
+                      params["adapter"])
+        fa_ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(cfg, ad, params["base"], batch,
+                                attn_impl=impl)
+        grads = torch.autograd.grad(loss, tree_leaves(ad))
+        torch.cuda.synchronize()
+        res[impl] = (float(loss.detach()), grads, dict(fa_ops.LAUNCHES),
+                     time.perf_counter() - t0)
+        del loss, ad
+    return res
+
+
+def held_impls(phase: str, res: dict, against: str, cfg) -> dict:
+    """Each backend's loss within 1e-4·|loss| and adapter gradients within
+    1e-3 of each leaf's largest entry of ``against``'s; flash launched
+    forward (again for the checkpointed layers), dq and dk/dv once a layer,
+    the others none."""
+    lr, gr = res[against][0], res[against][1]
+    out = {}
+    for impl, (loss, grads, launches, wall) in res.items():
+        errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(grads, gr, strict=True)]
+        out[impl] = {"loss": loss, "loss_rel_err": abs(loss - lr) / abs(lr),
+                     "grad_max_err_over_max": max(errs), "launches": launches,
+                     "wall_s": wall}
+    emit({"phase": phase, "arch": cfg.name, "dtype": "float32",
+          "layers": cfg.n_layers, "against": against, "impls": out})
+    n = cfg.n_layers
+    for impl, o in out.items():
+        require(o["loss_rel_err"] <= 1e-4, f"{phase}: {impl} loss "
+                f"{o['loss']} vs {against} {lr}")
+        require(o["grad_max_err_over_max"] <= 1e-3, f"{phase}: {impl} "
+                f"adapter gradients differ by {o['grad_max_err_over_max']} "
+                f"of their largest entry")
+        want = ({"flash_fwd": n + recomputed(cfg), "flash_dq": n,
+                 "flash_dkv": n} if impl == "flash" else
+                {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0})
+        require(o["launches"] == want, f"{phase}: {impl} launched "
+                f"{o['launches']}, expected {want}")
+    return out
+
+
+def phase_whisper_oracle(torch, fa_ops, model, get_config, dev) -> None:
+    """whisper-small at full width, 2 + 2 layers, f32: loss and adapter
+    gradients through flash against ``ref`` over 1 x 4096 tokens and the
+    1,500 frames (``held_impls``; under flash the cross-attention takes
+    the blockwise tiles, as in whisper_train, under ref the materialized
+    logits); then with every adapter off zero but
+    the ``xattn`` ones (decode applies none there, as the JAX package's),
+    12 decode steps of 2 sequences from the filled cross cache against the
+    forward's logits at rtol = atol = 2e-3."""
+    import numpy as np
+
+    from repro_torch.tree import tree_map_with_path
+
+    job = WHISPER_ORACLE
+    cfg = get_config(WHISPER).with_overrides(
+        n_layers=job["layers"], n_enc_layers=job["layers"],
+        param_dtype="float32")
+    from repro_torch.models import attention
+
+    require(attention.select_impl(cfg, job["seq"], impl="flash",
+                                  kv_len=cfg.enc_frames) == "blockwise",
+            "whisper_oracle's cross-attention must take the blockwise tiles")
+    params = random_params(torch, model, cfg, dev, 47)
+    batch = enc_dec_batch(torch, cfg, 1, job["seq"], 47, dev)
+    held_impls("whisper_oracle", flash_impls(
+        torch, fa_ops, model, cfg, params, batch, ("flash", "ref")), "ref",
+        cfg)
+    del batch
+    free(torch)
+    params["adapter"] = tree_map_with_path(
+        lambda p, t: torch.zeros_like(t) if "xattn" in p and p[-1] == "B"
+        else t, params["adapter"])
+    b, t = job["dec_batch"], job["dec_steps"]
+    batch = enc_dec_batch(torch, cfg, b, t, 48, dev)
+    with torch.inference_mode():
+        full, _ = model.forward(cfg, params["base"], params["adapter"],
+                                batch, attn_impl="flash")
+        cache = model.init_decode_cache(cfg, b, 16, device=dev)
+        fill_cross_cache(torch, model, cfg, params["base"], cache,
+                         batch["frames"])
+        got = []
+        for i in range(t):
+            lg, cache = model.decode_step(
+                cfg, params["base"], params["adapter"], cache,
+                {"token": batch["tokens"][:, i:i + 1],
+                 "positions": torch.full((b, 1), i, dtype=torch.int32,
+                                         device=dev)})
+            got.append(lg[:, 0])
+    err = (torch.stack(got, 1) - full).abs()
+    n_bad = int((err > 2e-3 + 2e-3 * full.abs()).sum())
+    emit({"phase": "whisper_oracle", "decode": {
+        "arch": cfg.name, "dtype": "float32", "layers": cfg.n_layers,
+        "batch": b, "steps": t, "xattn_adapters": "zero delta",
+        "decode_vs_forward_max_abs_err": float(err.max()),
+        "logits_max_abs": float(full.abs().max()),
+        "n_out_of_tol": n_bad, "tol": "rtol=atol=2e-3",
+        "sample": np.asarray(got[-1][0, :4].cpu()).tolist()}})
+    require(n_bad == 0, f"whisper decode differs from the forward: "
+            f"{float(err.max())}, {n_bad} out of tolerance")
+    del params, batch, full, got, cache
+    free(torch)
+
+
+def phase_vlm_train(torch, fa_ops, tl_ops, model, get_config, dev):
+    """qwen2-vl-72b at full width, VLM_TRAIN's 8 layers, through
+    ``make_train_step`` (``train_steps_phase``): flash at 64 / 8 heads (a
+    GQA group of 8) over 4,352 tokens with q/k/v bias and M-RoPE on
+    Qwen2-VL triplets, the loss over the 4,096 text tokens through the
+    chunked loss (8 chunks of 512 a pass, again in the backward)."""
+    cfg = get_config(cut_depth(get_config, VLM, VLM_TRAIN["layers"]))
+    job = VLM_TRAIN
+    require(job["seq"] * cfg.padded_vocab > model._CE_CHUNK_THRESHOLD,
+            "vlm_train must take the chunked loss")
+    require(cfg.n_heads // cfg.n_kv_heads == 8 and cfg.hd == 128
+            and cfg.mrope_sections == (16, 24, 24),
+            f"{cfg.name}: heads {cfg.n_heads}/{cfg.n_kv_heads}")
+    return train_steps_phase(torch, fa_ops, tl_ops, model, cfg, job,
+                             "vlm_train", dev, ce_tap=True)
+
+
+def phase_vlm_prefill(torch, fa_ops, tl_ops, model, get_config, dev):
+    """qwen2-vl-72b at full width, 2 layers, 1 x (32,768 text + 256
+    patches) (``prefill_steps_phase``, profiled): 2 flash forwards over
+    33,024 tokens and 8 tri-LoRA forwards."""
+    cfg = get_config(cut_depth(get_config, VLM, VLM_PREFILL["layers"]))
+    return prefill_steps_phase(torch, fa_ops, tl_ops, model, cfg,
+                               VLM_PREFILL, "vlm_prefill", dev, True)
+
+
+def phase_vlm_decode(torch, ops, ref, tl_ops, model, get_config, dev):
+    """qwen2-vl-72b at full width, 2 layers, decode_32k at its own batch
+    of 128 (``serve_steps_phase``), positions (t, t, t)."""
+    job = VLM_DECODE
+    cfg = get_config(cut_depth(get_config, VLM, job["layers"]))
+    return serve_steps_phase(torch, ops, ref, tl_ops, model, cfg,
+                             128, job["steps"], "vlm_decode", dev)
+
+
+def phase_vlm_serve(torch, ops, serve, model, random_bank, get_config,
+                    dev) -> dict:
+    """qwen2-vl-72b at full width, 2 layers, bf16, serving through
+    ServeEngine (``serve_job``: positions (t, t, t), every request
+    finishes, both decode kernels every layer of every step on the 16-byte
+    routes); then the f32 oracle at 2 layers (``dense_oracle``):
+    ServeEngine tokens equal serve_naive's request for request."""
+    job = VLM_SERVE
+    arch = cut_depth(get_config, VLM, job["layers"])
+    launches = serve_job(torch, ops, serve, model, random_bank, get_config,
+                         dev, dict({k: v for k, v in job.items()
+                                    if k != "layers"}, arch=arch),
+                         "vlm_serve")
+    dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
+                 VLM, "vlm_serve")
+    free(torch)
+    return launches
+
+
+def phase_vlm_oracle(torch, fa_ops, model, get_config, dev) -> None:
+    """qwen2-vl-72b at full width, 2 layers, f32, one sequence of 256
+    patches and 4,096 text tokens (4,352 = 17 x 256: 'blockwise_cv' takes
+    its hand-written backward) on Qwen2-VL triplets: loss and adapter
+    gradients under flash and blockwise_cv against ref (``held_impls``)."""
+    job = VLM_ORACLE
+    cfg = get_config(VLM).with_overrides(n_layers=job["layers"],
+                                         param_dtype="float32")
+    require((job["seq"] + cfg.vision_patches) % 256 == 0,
+            "vlm_oracle's sequence must be a multiple of 256")
+    params = random_params(torch, model, cfg, dev, 51)
+    batch = enc_dec_batch(torch, cfg, 1, job["seq"], 51, dev)
+    held_impls("vlm_oracle", flash_impls(
+        torch, fa_ops, model, cfg, params, batch,
+        ("flash", "blockwise_cv", "ref")), "ref", cfg)
+    del params, batch
+    free(torch)
+
+
 def np_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
@@ -5426,19 +6055,46 @@ def main() -> int:
               dev)
         rg_decode_launches = timed("rg_decode", phase_rg_decode, torch, ops,
                                    tl_ops, serve, model, get_config, dev)
+        # the seventeenth slice's paths: whisper-small (the encoder-decoder
+        # path) and qwen2-vl-72b (M-RoPE, the vision prefix), with the
+        # 'blockwise_cv' backend in the VLM's oracle
+        free(torch)
+        whisper_launches = timed("whisper_train", phase_whisper_train, torch,
+                                 fa_ops, tl_ops, model, get_config, dev)
+        whisper_row = timed("flash_timing (whisper prefill)",
+                            time_flash_prefill, torch, F, fa_ops, bounds,
+                            dev, "whisper prefill")
+        whisper_prefill = timed("whisper_prefill", phase_whisper_prefill,
+                                torch, fa_ops, tl_ops, model, get_config, dev)
+        whisper_decode = timed("whisper_decode", phase_whisper_decode, torch,
+                               ops, ref, tl_ops, model, get_config, dev)
+        timed("whisper_oracle", phase_whisper_oracle, torch, fa_ops, model,
+              get_config, dev)
+        vlm_launches = timed("vlm_train", phase_vlm_train, torch, fa_ops,
+                             tl_ops, model, get_config, dev)
+        vlm_prefill = timed("vlm_prefill", phase_vlm_prefill, torch, fa_ops,
+                            tl_ops, model, get_config, dev)
+        vlm_decode = timed("vlm_decode", phase_vlm_decode, torch, ops, ref,
+                           tl_ops, model, get_config, dev)
+        vlm_serve = timed("vlm_serve", phase_vlm_serve, torch, ops, serve,
+                          model, random_bank, get_config, dev)
+        timed("vlm_oracle", phase_vlm_oracle, torch, fa_ops, model,
+              get_config, dev)
     except Exception:                       # report, print no result, fail
         traceback.print_exc()
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows += flash_rows + tri_lora_rows + [wkv6_row, prefill_row,
-                                          decode32k_row]
+                                          decode32k_row, whisper_row]
     decode32k_row["note"] = "launches: one decode_32k step (steps_decode)"
     path_launches = {"rwkv prefill": rwkv_launches,
                      "rwkv decode": decode_launches,
                      "h2o train": h2o_launches, "rg train": rg_launches,
                      "prefill 32k": prefill_launches,
-                     decode32k_row["shape"]: decode32k_launches}
+                     decode32k_row["shape"]: decode32k_launches,
+                     "vlm train": vlm_launches,
+                     "whisper prefill": whisper_prefill}
     for r in rows:                    # the launches of the row's own path
         r["launches"] = path_launches.get(r.get("shape"), launches)[
             r.get("launch_key", r["name"])]
@@ -5448,7 +6104,12 @@ def main() -> int:
         "tri_lora_grouped": grouped_err,
         "wkv6": wkv6_err}, "phase_wall_s": PHASE_WALL,
         "path_launches": {"moe train": moe_launches,
-                          "rg decode": rg_decode_launches},
+                          "rg decode": rg_decode_launches,
+                          "whisper train": whisper_launches,
+                          "whisper decode step": whisper_decode,
+                          "vlm prefill": vlm_prefill,
+                          "vlm decode step": vlm_decode,
+                          "vlm serve": vlm_serve},
         "wall_s": time.perf_counter() - START})
     emit({"kernels": [{k: r[k] for k in keys + ("shape", "note") if k in r}
                       for r in rows]})

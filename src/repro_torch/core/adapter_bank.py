@@ -95,7 +95,9 @@ class AdapterBank:
 
     def merged_base(self, base: dict, i: int, scaling: float) -> dict:
         """Paper eqn. 10: W_i = W + s·A_i·C_i·B_i folded into the base
-        params — the naive per-user serving baseline."""
+        params — the naive per-user serving baseline.  Every adapted weight
+        is merged, an encoder-decoder block's ``xattn`` ones too, as in the
+        JAX package."""
         row = self.row(i)
 
         def _merge(b, a):
@@ -200,7 +202,8 @@ def random_bank(cfg, m: int, generator: torch.Generator,
     def block(lead, kind):
         return {mod: {t: bank_leaf(lead, din, dout)
                       for t, (din, dout) in ts.items()}
-                for mod, ts in transformer._adapter_shapes(cfg, kind).items()}
+                for mod, ts in transformer._adapter_shapes(
+                    cfg, kind, cross=cfg.enc_dec).items()}
 
     tree = {"groups": ({str(i): block((q,), kind)
                         for i, kind in enumerate(pattern)} if q else None),

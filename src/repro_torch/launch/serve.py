@@ -8,12 +8,17 @@
       --requests 8 --slots 4 --prompt-len 64 --gen 16  # sliding window
   python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 8 \\
       --prompt-len 32 --gen 32                      # RG-LRU hybrid
+  python -m repro_torch.launch.serve --arch qwen2-vl-72b --reduced \\
+      --users 4 --requests 8 --slots 4              # M-RoPE (t = h = w)
 
 Three inference modes for paper eqn (10)'s per-client adapters:
 
 * :func:`generate` — single-adapter batched greedy decode (adapters stay
   factored; every row shares one adapter tree); attention, RWKV-6 and
   RG-LRU hybrid stacks alike, the recurrent ones carrying their state.
+  M-RoPE configs decode text positions (t, t, t).  An encoder-decoder
+  config decodes against the zero cross K/V of a fresh cache, so its
+  cross-attention term is exactly zero, as in the JAX package.
 * :class:`ServeEngine` — the multi-tenant path (attention stacks only,
   full or sliding-window, dense or MoE, as in the JAX package): a seeded
   stream of requests from DISTINCT users is decoded in one
@@ -60,7 +65,8 @@ def generate(cfg, params: dict, prompts, gen: int, *,
     cache = model.init_decode_cache(cfg, b, p + gen, device=dev)
     out = [prompts[:, i:i + 1] for i in range(p)]
     for t in range(p + gen - 1):
-        pos = torch.full((b, 1), t, dtype=torch.int32, device=dev)
+        pos = torch.full((b, 1, 3) if cfg.pos_type == "mrope" else (b, 1), t,
+                         dtype=torch.int32, device=dev)
         logits, cache = model.decode_step(
             cfg, params["base"], params["adapter"], cache,
             {"token": out[t], "positions": pos})
@@ -102,7 +108,8 @@ def make_requests(bank: AdapterBank, n: int, *, prompt_len: int, gen: int,
 
 def _with_positions(cache: dict, pos: torch.Tensor) -> dict:
     """Install per-slot positions into every cache ``idx`` leaf — (q, B)
-    for stacked layer groups, (B,) for tail blocks."""
+    for stacked layer groups, (B,) for tail blocks; every other leaf (K/V,
+    a cross block's ``xk`` / ``xv``) stays."""
     groups = cache["groups"]
     if groups is not None:
         groups = {k: {**c, "idx": pos.expand(c["k"].shape[0], pos.shape[0])}
@@ -129,8 +136,8 @@ class ServeEngine:
                 f"ServeEngine serves attention stacks only (grouped adapter "
                 f"banks need attention blocks, as in the JAX package); "
                 f"{cfg.name!r} has kinds {sorted(set(cfg.kinds()))}: use "
-                f"generate() (ROADMAP, Queue 1: 'raises kept from the JAX "
-                f"package')")
+                f"generate() (ROADMAP, Queue 1: 'reference limits "
+                f"kept')")
         self.device = resolve_device(device)
         check_on(base, self.device, "base params")
         check_on(bank.tree, self.device, "adapter bank")
@@ -141,9 +148,11 @@ class ServeEngine:
 
     def _step(self, cache, tok, pos, rows):
         cache = _with_positions(cache, pos)
+        positions = (pos[:, None, None].expand(pos.shape[0], 1, 3)
+                     if self.cfg.pos_type == "mrope" else pos[:, None])
         logits, cache = model.decode_step(
             self.cfg, self.base, self._bank_dec, cache,
-            {"token": tok, "positions": pos[:, None]}, adapter_rows=rows)
+            {"token": tok, "positions": positions}, adapter_rows=rows)
         self.steps += 1
         return torch.argmax(logits[:, -1], dim=-1), cache
 

@@ -1,18 +1,22 @@
-"""Attention: GQA params, q/k/v projection, full-sequence self-attention
-with a backend registry, and one-token decode against a ring-buffered KV
-cache.
+"""Attention: GQA params, q/k/v projection, full-sequence self- and
+cross-attention with a backend registry, and one-token decode against a
+ring-buffered KV cache.
 
-PyTorch port of ``repro.models.attention`` (self-attention and decode;
-cross-attention comes with the encoder-decoder family).  Every
-self-attention call resolves its backend through :func:`select_impl`
-(explicit ``impl=`` > ``cfg.attn_impl`` > "auto"), as in the JAX package:
-``"ref"`` is :func:`sdpa`, ``"blockwise"`` the online-softmax
-:func:`blockwise_sdpa`, and ``"flash"`` runs
+PyTorch port of ``repro.models.attention``.  Every self-attention call
+resolves its backend through :func:`select_impl` (explicit ``impl=`` >
+``cfg.attn_impl`` > "auto"), as in the JAX package: ``"ref"`` is
+:func:`sdpa`, ``"blockwise"`` the online-softmax :func:`blockwise_sdpa`,
+``"blockwise_cv"`` the same tiles with a hand-written backward
+(:func:`repro_torch.models.attention_cv.blockwise_sdpa_cv`),
+``"blockwise_hp"`` :func:`blockwise_sdpa` (see :func:`self_attention`), and
+``"flash"`` runs
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention` — the
 hand-written forward and backward kernels on CUDA, their plain version on
-the CPU.  Decode attention runs through
-:func:`repro_torch.kernels.decode_attention.ops.decode_attention` the same
-way.
+the CPU.  Cross-attention (the encoder-decoder family) takes ``"ref"`` or,
+above ``CROSS_TILE_THRESHOLD`` logits, ``"blockwise"``; flash never serves
+it.  Decode attention runs through
+:func:`repro_torch.kernels.decode_attention.ops.decode_attention` on CUDA
+and its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -24,19 +28,26 @@ import torch
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention import ref as decode_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models import layers
+from repro_torch.models import attention_cv, layers
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
+
+#: the q and KV tiles of the 'blockwise_cv' backend, which needs the
+#: sequence to be a multiple of them (the JAX package's 256 and 256)
+CV_TILE = 256
 
 
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
 
-def init_attn(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init_attn(generator: torch.Generator, cfg: ModelConfig, *,
+              cross: bool = False) -> dict:
+    """q/k/v/o weights; a cross-attention block (``cross``) has ``n_heads``
+    K/V heads and no bias or qk-norm, as in the JAX package."""
     d, hd = cfg.d_model, cfg.hd
-    h, k = cfg.n_heads, cfg.n_kv_heads
+    h, k = cfg.n_heads, (cfg.n_heads if cross else cfg.n_kv_heads)
     s = 1.0 / math.sqrt(d)
     dev, dt = generator.device, cfg.dtype
     p = {"wq": layers._normal(generator, (d, h * hd), s, dt),
@@ -44,30 +55,37 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig) -> dict:
          "wv": layers._normal(generator, (d, k * hd), s, dt),
          "wo": layers._normal(generator, (h * hd, d), 1.0 / math.sqrt(h * hd),
                               dt)}
-    if cfg.attn_bias:
+    if cfg.attn_bias and not cross:
         p["bq"] = torch.zeros((h * hd,), dtype=dt, device=dev)
         p["bk"] = torch.zeros((k * hd,), dtype=dt, device=dev)
         p["bv"] = torch.zeros((k * hd,), dtype=dt, device=dev)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = {"scale": torch.zeros((hd,), dtype=dt, device=dev)}
         p["k_norm"] = {"scale": torch.zeros((hd,), dtype=dt, device=dev)}
     return p
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, adapters, *,
+                 kv_from: Optional[torch.Tensor] = None, cross: bool = False,
                  adapter_rows: Optional[torch.Tensor] = None):
-    """Return q (B,S,H,hd), k,v (B,S,K,hd) — rope NOT yet applied."""
+    """Return q (B,S,H,hd), k,v (B,Skv,K,hd) — rope NOT yet applied.  K and
+    V project ``kv_from`` (B,Skv,D) where given (cross-attention: the
+    encoder's output), else x; ``cross`` gives them ``n_heads`` heads and
+    skips the qk-norm."""
     ad = adapters or {}
     sc = cfg.lora_alpha / cfg.lora_rank
     b, s, _ = x.shape
+    kv_x = x if kv_from is None else kv_from
+    skv = kv_x.shape[1]
+    k_heads = cfg.n_heads if cross else cfg.n_kv_heads
     kw = dict(lora_scaling=sc, adapter_rows=adapter_rows)
     q = layers.dense(x, p["wq"], bias=p.get("bq"), adapter=ad.get("wq"),
                      **kw).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = layers.dense(x, p["wk"], bias=p.get("bk"), adapter=ad.get("wk"),
-                     **kw).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = layers.dense(x, p["wv"], bias=p.get("bv"), adapter=ad.get("wv"),
-                     **kw).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    if cfg.qk_norm:
+    k = layers.dense(kv_x, p["wk"], bias=p.get("bk"), adapter=ad.get("wk"),
+                     **kw).reshape(b, skv, k_heads, cfg.hd)
+    v = layers.dense(kv_x, p["wv"], bias=p.get("bv"), adapter=ad.get("wv"),
+                     **kw).reshape(b, skv, k_heads, cfg.hd)
+    if cfg.qk_norm and not cross:
         q = layers.rmsnorm(q, p["q_norm"]["scale"])
         k = layers.rmsnorm(k, p["k_norm"]["scale"])
     return q, k, v
@@ -77,9 +95,8 @@ def _rope(cfg: ModelConfig, x: torch.Tensor, positions) -> torch.Tensor:
     if cfg.pos_type == "rope":
         return layers.apply_rope(x, positions, cfg.rope_theta)
     if cfg.pos_type == "mrope":
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP, Queue 1: 'M-RoPE / the VLM "
-            "path')")
+        return layers.apply_rope(x, positions, cfg.rope_theta,
+                                 sections=cfg.mrope_sections)
     return x  # learned / none: positions handled at the embedding
 
 
@@ -226,9 +243,17 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
                    ) -> torch.Tensor:
     """Causal self-attention of a full sequence x (B,S,D) → (B,S,D).
     ``impl`` (None defers to ``cfg.attn_impl``) resolves through
-    :func:`select_impl`: 'ref', 'blockwise' or 'flash'.  The JAX package's
-    mesh-specific 'blockwise_hp' and custom-VJP 'blockwise_cv' variants are
-    not ported (they resolve to 'ref' up to AUTO_REF_MAX_SEQ).
+    :func:`select_impl`: 'ref', 'blockwise', 'flash', 'blockwise_cv' (the
+    hand-written backward of :mod:`repro_torch.models.attention_cv` when S
+    is a multiple of its 256-token tiles, else 'blockwise') or
+    'blockwise_hp'; the last two resolve to 'ref' up to AUTO_REF_MAX_SEQ,
+    as in the JAX package.  'blockwise_hp' is 'blockwise' after the JAX
+    package's ``_head_parallel``, which under a device mesh with a
+    ``model`` axis expands GQA K/V to the query heads and hints the head
+    dim onto that axis, and without a mesh changes nothing.  The port runs
+    on one device with no mesh, so here it is 'blockwise'; the
+    head-sharding hint waits for the mesh layer (ROADMAP, Queue 1:
+    'launch/mesh.py').
 
     ``adapter_rows`` (B,) switches the q/k/v/o adapters to stacked (m, …)
     factors, sequence ``i`` applying adapter ``adapter_rows[i]``: the
@@ -240,14 +265,38 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     impl = select_impl(cfg, q.shape[1], impl=impl)
     if impl == "flash":
         out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
-    elif impl == "blockwise":
+    elif impl == "blockwise_cv" and q.shape[1] % CV_TILE == 0:
+        out = attention_cv.blockwise_sdpa_cv(q, k, v, True, window, CV_TILE,
+                                             CV_TILE)
+    elif impl in ("blockwise", "blockwise_cv", "blockwise_hp"):
         out = blockwise_sdpa(q, k, v, causal=True, window=window)
-    elif impl == "ref":
-        out = sdpa(q, k, v, causal=True, window=window)
     else:
-        raise NotImplementedError(
-            f"attn_impl={impl!r} beyond {AUTO_REF_MAX_SEQ} tokens is not "
-            f"ported (ROADMAP, Queue 1: 'blockwise_hp / blockwise_cv')")
+        out = sdpa(q, k, v, causal=True, window=window)
+    b, s = x.shape[:2]
+    sc = cfg.lora_alpha / cfg.lora_rank
+    ad = adapters or {}
+    return layers.dense(out.reshape(b, s, -1), p["wo"], adapter=ad.get("wo"),
+                        lora_scaling=sc, adapter_rows=adapter_rows)
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    enc_out: torch.Tensor, adapters=None, *,
+                    impl: Optional[str] = None,
+                    adapter_rows: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Bidirectional attention of the decoder's x (B,S,D) over the
+    encoder's output (B,F,D), with the block's q/k/v/o adapters; 'ref', or
+    'blockwise' above CROSS_TILE_THRESHOLD logits (:func:`select_impl`).
+    ``adapter_rows`` (B,) as in :func:`self_attention`: sequence ``i``'s
+    queries and its own encoder rows both apply adapter
+    ``adapter_rows[i]``."""
+    q, k, v = _project_qkv(cfg, p, x, adapters, kv_from=enc_out, cross=True,
+                           adapter_rows=adapter_rows)
+    impl = select_impl(cfg, q.shape[1], impl=impl, kv_len=k.shape[1])
+    if impl == "blockwise":                     # long decoder seq: tile it
+        out = blockwise_sdpa(q, k, v, causal=False)
+    else:
+        out = sdpa(q, k, v, causal=False)
     b, s = x.shape[:2]
     sc = cfg.lora_alpha / cfg.lora_rank
     ad = adapters or {}

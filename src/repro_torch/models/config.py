@@ -14,8 +14,9 @@ followed by ``rem`` leading-pattern layers.  Kinds:
 - ``rwkv6``  : RWKV-6 "Finch" time-mix + channel-mix (attention-free)
 - ``rglru``  : RG-LRU recurrent block (RecurrentGemma)
 
-``attn`` and ``swa`` (dense or MoE MLP), ``rwkv6`` and ``rglru`` stacks are
-ported so far.
+An ``attn`` block also carries cross-attention in an encoder-decoder
+config (``enc_dec``), whose encoder is a stack of bidirectional ``attn``
+blocks.
 """
 from __future__ import annotations
 

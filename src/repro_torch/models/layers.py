@@ -126,22 +126,48 @@ def init_norm(d: int, norm_type: str, dtype, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings (half-split)
+# rotary position embeddings (RoPE and Qwen2-VL's M-RoPE), half-split
 # ---------------------------------------------------------------------------
+
+def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
 
 def _rope_angles(positions: torch.Tensor, head_dim: int,
                  theta: float) -> torch.Tensor:
     """positions (..., S) -> angles (..., S, head_dim//2), f32."""
+    return positions.float()[..., None] * _inv_freq(head_dim, theta,
+                                                    positions.device)
+
+
+def _mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections) -> torch.Tensor:
+    """M-RoPE: positions (..., S, 3) = (t, h, w) ids; ``sections`` splits the
+    head_dim//2 frequency slots among the three components in that order
+    (arXiv:2409.12191).  Slot j takes the angle of component ``comp[j]``'s
+    position; angles (..., S, head_dim//2), f32."""
     half = head_dim // 2
-    inv_freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                       device=positions.device) / half)
-    return positions.float()[..., None] * inv_freq
+    assert sum(sections) == half, (sections, half)
+    dev = positions.device
+    comp = torch.repeat_interleave(
+        torch.arange(3, device=dev),
+        torch.as_tensor(tuple(sections), device=dev))          # (half,)
+    pos = torch.gather(positions.float(), -1,
+                       comp.expand(*positions.shape[:-1], half))
+    return pos * _inv_freq(head_dim, theta, dev)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S)."""
-    ang = _rope_angles(positions, x.shape[-1], theta)         # (B,S,half)
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               *, sections=None) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S), or (B, S, 3) for M-RoPE with
+    ``sections``."""
+    hd = x.shape[-1]
+    if sections is not None:
+        ang = _mrope_angles(positions, hd, theta, sections)    # (B,S,half)
+    else:
+        ang = _rope_angles(positions, hd, theta)               # (B,S,half)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,6 +1,7 @@
 """Block assembly for attention (full and sliding-window, with a dense or
-a Mixture-of-Experts MLP), RWKV-6 and RG-LRU stacks: init, the
-full-sequence forward (training, prefill) and one-token decode.
+a Mixture-of-Experts MLP, optionally with cross-attention), RWKV-6 and
+RG-LRU stacks: init, the full-sequence forward (training, prefill) and
+one-token decode.
 
 Layer stacking follows the config's ``layer_pattern`` exactly as in the JAX
 package: ``q = n_layers // len(pattern)`` repetitions of the pattern with
@@ -20,6 +21,16 @@ are frozen and take no adapter, and the block's forward returns the
 router's aux loss.  An ``rglru`` block (RecurrentGemma) is
 ``{ln1, rec, ln2, mlp}`` (:mod:`repro_torch.models.rglru`), its adapters on
 the recurrence's ``w_in`` / ``w_out`` whatever ``lora_targets`` says.
+
+The encoder-decoder family (whisper-small) builds its decoder blocks with
+``cross=True``: ``ln_x`` and an ``xattn`` cross-attention over the
+encoder's output after the self-attention, adapted on ``lora_targets``
+like ``attn``; and its encoder as a stack of ``causal=False`` blocks
+(:func:`block_apply`), which always take the plain :func:`attention.sdpa`
+and no adapter.  A cross block's decode cache adds ``xk`` / ``xv``
+(B, enc_frames, n_heads, hd), zeros as the JAX package makes them; decode
+reads them without writing them, and its cross step applies no adapter
+and no bias to ``wq`` / ``wo``, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -38,13 +49,12 @@ ATTN_KINDS = ("attn", "swa")
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in ATTN_KINDS + ("rwkv6", "rglru") or cfg.enc_dec \
+    if kind not in ATTN_KINDS + ("rwkv6", "rglru") \
             or (cfg.is_moe and kind not in ATTN_KINDS):
-        raise NotImplementedError(
-            f"the port so far builds 'attn' and 'swa' blocks (dense or "
-            f"MoE), 'rwkv6' and 'rglru'; {cfg.name!r} needs kind={kind!r} "
-            f"moe={cfg.is_moe} enc_dec={cfg.enc_dec} (ROADMAP, Queue 1: "
-            f"'the encoder-decoder path')")
+        raise ValueError(
+            f"block kinds are 'attn' and 'swa' (dense or MoE), 'rwkv6' and "
+            f"'rglru'; {cfg.name!r} asks for kind={kind!r} "
+            f"moe={cfg.is_moe}")
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -57,7 +67,9 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 # per-block init
 # ---------------------------------------------------------------------------
 
-def _adapter_shapes(cfg: ModelConfig, kind: str) -> dict:
+def _adapter_shapes(cfg: ModelConfig, kind: str, cross: bool = False) -> dict:
+    """{module: {target: (d_in, d_out)}} of a block's tri-LoRA adapters;
+    ``cross`` adds the ``xattn`` targets (all n_heads wide)."""
     _check_kind(cfg, kind)
     d, hd, h, k, f = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     if kind == "rwkv6":
@@ -70,6 +82,10 @@ def _adapter_shapes(cfg: ModelConfig, kind: str) -> dict:
     shapes = {"wq": (d, h * hd), "wk": (d, k * hd),
               "wv": (d, k * hd), "wo": (h * hd, d)}
     out = {"attn": {t: shapes[t] for t in cfg.lora_targets if t in shapes}}
+    if cross:
+        xs = {"wq": (d, h * hd), "wk": (d, h * hd),
+              "wv": (d, h * hd), "wo": (h * hd, d)}
+        out["xattn"] = {t: xs[t] for t in cfg.lora_targets if t in xs}
     if cfg.lora_mlp and not cfg.is_moe:     # the experts stay frozen
         if cfg.mlp_type == "swiglu":
             out["mlp"] = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
@@ -79,15 +95,15 @@ def _adapter_shapes(cfg: ModelConfig, kind: str) -> dict:
 
 
 def init_block_adapters(generator: torch.Generator, cfg: ModelConfig,
-                        kind: str) -> dict:
+                        kind: str, *, cross: bool = False) -> dict:
     return {m: {t: tri_lora.init_adapter(generator, din, dout, cfg.lora_rank,
                                          torch.float32)
                 for t, (din, dout) in ts.items()}
-            for m, ts in _adapter_shapes(cfg, kind).items()}
+            for m, ts in _adapter_shapes(cfg, kind, cross).items()}
 
 
-def init_block(generator: torch.Generator, cfg: ModelConfig,
-               kind: str) -> dict:
+def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str, *,
+               cross: bool = False) -> dict:
     _check_kind(cfg, kind)
     d, nt, dev = cfg.d_model, cfg.norm_type, generator.device
     if kind == "rwkv6":
@@ -104,6 +120,9 @@ def init_block(generator: torch.Generator, cfg: ModelConfig,
     p = {"ln1": layers.init_norm(d, nt, cfg.dtype, dev),
          "attn": attention.init_attn(generator, cfg),
          "ln2": layers.init_norm(d, nt, cfg.dtype, dev)}
+    if cross:
+        p["ln_x"] = layers.init_norm(d, nt, cfg.dtype, dev)
+        p["xattn"] = attention.init_attn(generator, cfg, cross=True)
     if cfg.is_moe:
         p["moe"] = moe.init_moe(generator, cfg)
     else:
@@ -117,10 +136,14 @@ def init_block(generator: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
-                x: torch.Tensor, positions, *, attn_impl=None,
+                x: torch.Tensor, positions, *, enc_out=None,
+                causal: bool = True, attn_impl=None,
                 use_rwkv_kernel: bool = False,
                 adapter_rows: Optional[torch.Tensor] = None) -> tuple:
-    """One pre-norm block over a full sequence; returns (x, aux): the MoE
+    """One pre-norm block over a full sequence; ``causal=False`` is the
+    encoder's bidirectional attention (plain :func:`attention.sdpa` whatever
+    ``attn_impl`` says), and a block with ``xattn`` attends to ``enc_out``
+    after its self-attention.  Returns (x, aux): the MoE
     router's auxiliary loss (a scalar, or with ``adapter_rows`` a (B,)
     vector of each sequence's own term, :func:`moe.moe_mlp`'s ``by_row``),
     0 for the other blocks.  ``use_rwkv_kernel`` runs an rwkv6 block's WKV
@@ -148,11 +171,24 @@ def block_apply(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
         h = layers.norm(x, p["ln2"], nt)
         return x + layers.mlp(h, p["mlp"], cfg.mlp_type), aux
     h = layers.norm(x, p["ln1"], nt)
-    x = x + attention.self_attention(cfg, p["attn"], h, positions,
-                                     ad.get("attn"),
-                                     window=_window(cfg, kind),
-                                     impl=attn_impl,
-                                     adapter_rows=adapter_rows)
+    if causal:
+        x = x + attention.self_attention(cfg, p["attn"], h, positions,
+                                         ad.get("attn"),
+                                         window=_window(cfg, kind),
+                                         impl=attn_impl,
+                                         adapter_rows=adapter_rows)
+    else:                                        # the encoder: bidirectional
+        q, k, v = attention._project_qkv(cfg, p["attn"], h, ad.get("attn"))
+        o = attention.sdpa(q, k, v, causal=False)
+        b, s = h.shape[:2]
+        x = x + layers.dense(o.reshape(b, s, -1), p["attn"]["wo"],
+                             adapter=(ad.get("attn") or {}).get("wo"),
+                             lora_scaling=cfg.lora_alpha / cfg.lora_rank)
+    if "xattn" in p:
+        h = layers.norm(x, p["ln_x"], nt)
+        x = x + attention.cross_attention(cfg, p["xattn"], h, enc_out,
+                                          ad.get("xattn"),
+                                          adapter_rows=adapter_rows)
     h = layers.norm(x, p["ln2"], nt)
     if cfg.is_moe:
         y, aux = moe.moe_mlp(cfg, p["moe"], h,
@@ -178,7 +214,7 @@ def block_decode(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
         raise NotImplementedError(
             f"grouped adapter banks only support attention blocks, as in "
             f"the JAX package; got layer kind {kind!r} (ROADMAP, Queue 1: "
-            f"'raises kept from the JAX package')")
+            f"'reference limits kept')")
     if kind == "rwkv6":
         h = layers.norm(x, p["ln1"], nt)
         y, tm = rwkv.time_mix(cfg, p["tm"], h, cache["tm"], ad.get("tm"))
@@ -197,6 +233,14 @@ def block_decode(cfg: ModelConfig, kind: str, p: dict, ad: Optional[dict],
         cfg, p["attn"], h, cache, positions, ad.get("attn"),
         adapter_rows=adapter_rows)
     x = x + y
+    if "xattn" in p:              # no adapter, no bias, as in the JAX package
+        b = x.shape[0]
+        h = layers.norm(x, p["ln_x"], nt)
+        q = layers.dense(h, p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads,
+                                                      cfg.hd)
+        o = attention.sdpa(q, cache["xk"], cache["xv"], causal=False)
+        x = x + layers.dense(o.reshape(b, 1, -1), p["xattn"]["wo"])
+        new_cache["xk"], new_cache["xv"] = cache["xk"], cache["xv"]
     h = layers.norm(x, p["ln2"], nt)
     if cfg.is_moe:              # one token a group: capacity 1 per expert
         y, _ = moe.moe_mlp(cfg, p["moe"], h)
@@ -228,27 +272,31 @@ def _stacked(n: int, make: Callable[[int], Any]) -> Any:
     return out
 
 
-def init_stack(generator: torch.Generator, cfg: ModelConfig) -> tuple:
+def init_stack(generator: torch.Generator, cfg: ModelConfig, *,
+               cross: bool = False) -> tuple:
     """Returns (groups_params, tail_params) following cfg.stack_plan()."""
     q, pattern, rem = cfg.stack_plan()
-    groups = _stacked(q, lambda _: {str(i): init_block(generator, cfg, kind)
-                                    for i, kind in enumerate(pattern)}) \
-        if q else None
-    tail = tuple(init_block(generator, cfg, kind) for kind in rem)
+    groups = _stacked(q, lambda _: {
+        str(i): init_block(generator, cfg, kind, cross=cross)
+        for i, kind in enumerate(pattern)}) if q else None
+    tail = tuple(init_block(generator, cfg, kind, cross=cross)
+                 for kind in rem)
     return groups, tail
 
 
-def init_stack_adapters(generator: torch.Generator, cfg: ModelConfig) -> tuple:
+def init_stack_adapters(generator: torch.Generator, cfg: ModelConfig, *,
+                        cross: bool = False) -> tuple:
     q, pattern, rem = cfg.stack_plan()
     groups = _stacked(q, lambda _: {
-        str(i): init_block_adapters(generator, cfg, kind)
+        str(i): init_block_adapters(generator, cfg, kind, cross=cross)
         for i, kind in enumerate(pattern)}) if q else None
-    tail = tuple(init_block_adapters(generator, cfg, kind) for kind in rem)
+    tail = tuple(init_block_adapters(generator, cfg, kind, cross=cross)
+                 for kind in rem)
     return groups, tail
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
-                     device) -> tuple:
+                     device, cross: bool = False) -> tuple:
     q, pattern, rem = cfg.stack_plan()
 
     def block_cache(kind):
@@ -257,8 +305,13 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
             return rwkv.init_state(cfg, batch, device=device)
         if kind == "rglru":
             return rglru.init_state(cfg, batch, device=device)
-        return attention.init_kv_cache(cfg, batch, seq_len, device=device,
-                                       window=_window(cfg, kind))
+        c = attention.init_kv_cache(cfg, batch, seq_len, device=device,
+                                    window=_window(cfg, kind))
+        if cross:
+            shape = (batch, cfg.enc_frames, cfg.n_heads, cfg.hd)
+            c["xk"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+            c["xv"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        return c
 
     groups = ({str(i): tree_map(
         lambda t: t.new_zeros((q,) + tuple(t.shape)), block_cache(kind))
@@ -282,7 +335,8 @@ def _at_layer(tree: Any, layer: int) -> Any:
 
 
 def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
-              x: torch.Tensor, positions, *, attn_impl=None,
+              x: torch.Tensor, positions, *, enc_out=None,
+              causal: bool = True, attn_impl=None,
               use_rwkv_kernel: bool = False,
               adapter_rows: Optional[torch.Tensor] = None) -> tuple:
     """Train-time forward through the whole stack.  Returns (x, aux_sum).
@@ -294,6 +348,9 @@ def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
     scanned group in ``jax.checkpoint``: only the group's input is kept
     and its forward runs again in the backward.  The tail blocks are not
     wrapped, and nothing is under ``torch.no_grad`` (eval, prefill).
+    ``enc_out`` (the encoder's output, for blocks with cross-attention)
+    and ``causal`` (False: the encoder's blocks) reach every block, inside
+    the checkpoint too.
 
     With ``adapter_rows`` (B,) the adapter trees are a STACKED client state
     — groups leaves (m, q, …), tail leaves (m, …), the client axis first as
@@ -302,8 +359,8 @@ def run_stack(cfg: ModelConfig, groups_p, tail_p, groups_ad, tail_ad,
     an MoE stack's aux is then the (B,) vector of each sequence's own sum
     over the layers (:func:`block_apply`)."""
     q, pattern, rem = cfg.stack_plan()
-    kw = dict(attn_impl=attn_impl, use_rwkv_kernel=use_rwkv_kernel,
-              adapter_rows=adapter_rows)
+    kw = dict(enc_out=enc_out, causal=causal, attn_impl=attn_impl,
+              use_rwkv_kernel=use_rwkv_kernel, adapter_rows=adapter_rows)
     layer_of = _at if adapter_rows is None else _at_layer
 
     def group(h, aux, layer):

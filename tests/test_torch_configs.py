@@ -18,10 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.models import model as jmodel
 from repro.models.config import get_config as jget_config
 from repro.optim import schedules as jschedules
-from repro_torch import convert
+from repro_torch import configs, convert
 from repro_torch.models import model
 from repro_torch.models.config import get_config, list_configs
 from repro_torch.optim import schedules
@@ -34,6 +35,16 @@ ROOT = Path(__file__).resolve().parent.parent
 
 @pytest.mark.parametrize("name", DENSE)
 def test_config_fields_match_jax(name):
+    assert name in list_configs()
+    assert dataclasses.asdict(get_config(name)) == \
+        dataclasses.asdict(jget_config(name))
+
+
+@pytest.mark.parametrize("name", jconfigs.ASSIGNED)
+def test_every_assigned_config_is_registered_as_in_jax(name):
+    """The registry: the port's ``ASSIGNED`` is the JAX package's, and each
+    name resolves to the JAX config, field for field."""
+    assert configs.ASSIGNED == jconfigs.ASSIGNED
     assert name in list_configs()
     assert dataclasses.asdict(get_config(name)) == \
         dataclasses.asdict(jget_config(name))

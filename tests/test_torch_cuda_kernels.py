@@ -793,6 +793,52 @@ def test_grouped_dense_on_the_card(cuda):
     assert ops.LAUNCHES["grouped_gemv"] == 1
 
 
+def test_enc_dec_adapter_rows_on_the_card_match_each_client_alone(cuda):
+    """whisper-small reduced (2 + 2 layers, f32) on the card, two clients'
+    batches under ``adapter_rows``: every adapted projection, the cross
+    block's (its queries and its own encoder rows) included, runs the
+    grouped tri-LoRA kernels (as many grouped forwards and dx as one
+    client alone runs single ones, no single one), and each client's
+    loss and adapter gradients equal its run alone on the card, within
+    1e-3 of each leaf's largest entry (f32 round-off through the model:
+    the CPU's f32 grouped and single paths part by up to 1.8e-4)."""
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("whisper-small").reduced()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init_params(cfg, g)
+    ads = [tree_map(lambda t: t + 0.05 * torch.randn(
+        t.shape, generator=g, device=cuda), params["adapter"])
+        for _ in range(2)]
+    stacked = tree_map(lambda a, b: torch.stack([a, b]).requires_grad_(True),
+                       *ads)
+    toks = torch.randint(0, cfg.vocab_size, (4, 13), generator=g,
+                         device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "frames": torch.randn((4, cfg.enc_frames, cfg.d_model),
+                                   generator=g, device=cuda)}
+    tl_ops.reset_launches()
+    loss, _ = model.loss_fn(cfg, stacked, params["base"], batch,
+                            adapter_rows=model.client_rows(2, 2, cuda))
+    grads = torch.autograd.grad(loss.sum(), tree_leaves(stacked))
+    grouped = dict(tl_ops.LAUNCHES)
+    for i in range(2):
+        ad = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      ads[i])
+        tl_ops.reset_launches()
+        one, _ = model.loss_fn(cfg, ad, params["base"],
+                               {k: v[2 * i:2 * i + 2]
+                                for k, v in batch.items()})
+        np.testing.assert_allclose(loss[i].item(), one.item(), rtol=1e-5)
+        for a, b in zip(grads, torch.autograd.grad(one, tree_leaves(ad)),
+                        strict=True):
+            err = float((a[i] - b).abs().max())
+            assert err <= 1e-3 * float(b.abs().max()), err
+        single = dict(tl_ops.LAUNCHES)
+    assert grouped["tri_lora_fwd"] == grouped["tri_lora_dx"] == 0
+    assert grouped["tri_lora_fwd_grouped"] == single["tri_lora_fwd"] > 0
+    assert grouped["tri_lora_dx_grouped"] == single["tri_lora_dx"] > 0
+
+
 def test_tri_lora_forward_wgmma_reads_a_strided_view(cuda):
     """x as the model's ``mixed[..., i, :]`` of one (B,T,5,D) buffer: the
     tensor map takes the row stride 5·D, nothing is copied, and the result

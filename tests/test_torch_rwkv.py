@@ -45,7 +45,7 @@ from repro_torch.core.adapter_bank import random_bank
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.launch import serve
-from repro_torch.models import layers, model, rwkv, transformer
+from repro_torch.models import layers, model, rwkv
 from repro_torch.models.config import get_config
 from repro_torch.tree import tree_map
 from torch_threads import one_torch_thread  # noqa: F401
@@ -534,10 +534,6 @@ def test_adapter_rows_and_serve_engine_on_rwkv_raise(rwkv_params):
                            "positions": torch.zeros((2, 1),
                                                     dtype=torch.int32)},
                           adapter_rows=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError,
-                       match="the encoder-decoder path"):
-        transformer.init_block(torch.Generator(),
-                               cfg.with_overrides(enc_dec=True), "attn")
     bank = random_bank(cfg, 2, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="attention stacks only"):
         serve.ServeEngine(cfg, tp["base"], bank, slots=2, device="cpu")

@@ -336,7 +336,9 @@ def test_input_specs_match_jax(modality, shape):
 
 @pytest.mark.parametrize("arch,shape", [("h2o-danube-3-4b", "decode_32k"),
                                         ("qwen2.5-14b", "long_500k"),
-                                        ("rwkv6-1.6b", "decode_32k")])
+                                        ("rwkv6-1.6b", "decode_32k"),
+                                        ("whisper-small", "decode_32k"),
+                                        ("qwen2-vl-72b", "decode_32k")])
 def test_abstract_cache_matches_jax(arch, shape):
     cfg = steps.shape_variant(get_config(arch), shape)
     jcfg = jsteps.shape_variant(jget_config(arch), shape)
@@ -349,6 +351,8 @@ def test_abstract_cache_matches_jax(arch, shape):
     assert sorted(got) == sorted(want)
     if arch == "h2o-danube-3-4b":       # the full 4,096-slot ring
         assert cache["groups"]["0"]["k"].shape == (24, 128, 4096, 8, 120)
+    if arch == "whisper-small":         # the cross K/V of 1,500 frames
+        assert cache["groups"]["0"]["xk"].shape == (12, 128, 1500, 12, 64)
 
 
 def test_steps_default_attn_impl_from_config(monkeypatch):
