@@ -3369,7 +3369,8 @@ def per_round(hist) -> dict:
 def phase_train_host(torch, fa_ops, tl_ops, get_config, dev):
     """``run_federated`` with ``client_store="host"`` on fed-100m at full
     width and depth: 64 clients, 8 a round, celora, int8, eager, once on
-    each store — the same ledgers, loss within 1e-4, accuracies within
+    each store (the device store's run is returned: ``train_shard``'s
+    reference) — the same ledgers, loss within 1e-4, accuracies within
     1e-3, the aggregated C and the head within 5e-4, the same launches
     (the host store fits the 8-client cohort: one grouped launch a
     projection a step, as the device store's all-64 fit), the host
@@ -3467,6 +3468,308 @@ def phase_train_host(torch, fa_ops, tl_ops, get_config, dev):
         resumed["states"], full["states"])),
         "train_host: the resumed states are not bitwise the uninterrupted "
         "run's")
+    return runs["device"]
+
+
+def phase_train_shard(torch, fa_ops, tl_ops, get_config, dev, device_run,
+                      lm_vmap_hist):
+    """The client axis over the ``("clients",)`` mesh
+    (``launch.mesh.make_client_mesh``) at ``train_host``'s job on
+    fed-100m at full width and depth (64 clients, 8 a round, celora, int8):
+    ``run_federated`` with ``client_parallelism="shard"`` (the device
+    store's placement) and with ``client_store="sharded"`` on the eager
+    engine, each bitwise the device store's eager run of ``train_host``
+    (``device_run``, not run again): records, states and launches; then
+    the device and the sharded store on the scan engine (chunks of 2),
+    sharded bitwise device, the scan device run held to the eager one as
+    ``train_scan`` holds scan to eager.  The rounds compute on the run's
+    device whatever d is, so the bitwise holds stand at any d; on one card
+    d = 1 and the shard path is the vmap path.  Then the LM driver at
+    ``lm_train``'s job with ``client_store="sharded"``: its launches, and
+    round 0 bitwise the eager vmap run's (``lm_vmap_hist``)."""
+    from repro_torch.launch import mesh
+    from repro_torch.launch import train
+
+    cfg = get_config("fed-100m")
+    job = TRAIN_HOST
+    d = mesh.make_client_mesh(job["clients"]).size
+    dev_out, dev_launches = device_run[0], device_run[1]
+    steps = job["rounds"] * job["local_steps"]
+    evals = sum(r.evaluated for r in dev_out["history"])
+    expected = grouped_launches(cfg, steps, evals)
+    scan = dict(engine="scan", chunk_rounds=2)
+    cases = {"shard": ("shard", {}),
+             "sharded": ("vmap", {"client_store": "sharded"}),
+             "device scan": ("vmap", scan),
+             "sharded scan": ("vmap", dict(scan, client_store="sharded"))}
+    runs = {}
+    for name, (mode, kw) in cases.items():
+        runs[name] = run_counted(torch, fa_ops, tl_ops, lambda: train_job(
+            torch, cfg, dev, "flash", job, mode, **{**HOST_FED, **kw})[0])
+
+    lm_job = dict(LM_TRAIN, client_parallelism="vmap", client_store="sharded")
+    lm_out, lm_launches, lm_wall, lm_peak = run_counted(
+        torch, fa_ops, tl_ops, lambda: train.run(**lm_job, verbose=False,
+                                                 device=dev))
+    lm_hist = lm_out["history"]
+    lm_expected = step_launches(get_config(lm_job["arch"]),
+                                len(lm_hist) * lm_job["local_steps"],
+                                grouped=True)
+
+    def bitwise(out, ref):
+        same = [a == b for a, b in zip(
+            [{k: v for k, v in vars(r).items() if k not in TIMES}
+             for r in out["history"]],
+            [{k: v for k, v in vars(r).items() if k not in TIMES}
+             for r in ref["history"]])]
+        return (len(same) == len(ref["history"]) and all(same)
+                and all(same_tensors(torch, a, b)
+                        for a, b in zip(out["states"], ref["states"])))
+
+    refs = {"shard": dev_out, "sharded": dev_out,
+            "device scan": dev_out, "sharded scan": runs["device scan"][0]}
+    emit({"phase": "train_shard", "arch": cfg.name, "method": "celora",
+          "attn_impl": "flash", **job, **HOST_FED,
+          "client_mesh_d": d, "device_count": torch.cuda.device_count(),
+          "runs": {name: {
+              "wall_s": wall, "peak_mem_gb": peak, "launches": launches,
+              "bitwise_reference": bitwise(out, refs[name]),
+              **per_round(out["history"]),
+              "train_loss": [r.train_loss for r in out["history"]]}
+              for name, (out, launches, wall, peak) in runs.items()},
+          "expected_launches": expected,
+          "device_eager_launches": dev_launches,
+          "lm": {**lm_job, "wall_s": lm_wall, "peak_mem_gb": lm_peak,
+                 "launches": lm_launches, "expected_launches": lm_expected,
+                 "loss": [r["loss"] for r in lm_hist],
+                 "vmap_loss": [r["loss"] for r in lm_vmap_hist],
+                 "rounds_bitwise": [a["loss"] == b["loss"] for a, b in
+                                    zip(lm_hist, lm_vmap_hist)]}})
+    require(dev_launches == expected,
+            f"train_shard: the device run launched {dev_launches} != "
+            f"{expected}")
+    for name, (out, launches, _, _) in runs.items():
+        require(launches == expected,
+                f"train_shard {name} launches {launches} != {expected}")
+    for name in ("shard", "sharded"):
+        same_records(f"train_shard {name} vs device",
+                     runs[name][0]["history"], dev_out["history"])
+        require(all(same_tensors(torch, a, b) for a, b in zip(
+            runs[name][0]["states"], dev_out["states"])),
+            f"train_shard: the {name} states are not bitwise the device "
+            f"store's")
+    same_records("train_shard sharded scan vs device scan",
+                 runs["sharded scan"][0]["history"],
+                 runs["device scan"][0]["history"])
+    require(all(same_tensors(torch, a, b) for a, b in zip(
+        runs["sharded scan"][0]["states"], runs["device scan"][0]["states"])),
+        "train_shard: the sharded scan states are not bitwise the device "
+        "store's")
+    for a, b in zip(runs["device scan"][0]["history"], dev_out["history"]):
+        require((a.sampled, a.participants, a.uplink_bytes,
+                 a.downlink_bytes) == (b.sampled, b.participants,
+                                       b.uplink_bytes, b.downlink_bytes),
+                f"train_shard scan round {a.round}: the ledgers differ")
+        require(abs(a.train_loss - b.train_loss)
+                <= 1e-3 + 1e-3 * abs(b.train_loss),
+                f"train_shard scan round {a.round}: loss {a.train_loss} vs "
+                f"eager {b.train_loss}")
+        require(max(abs(x - y) for x, y in zip(a.accs, b.accs)) <= 0.05,
+                f"train_shard scan round {a.round}: accs {a.accs} vs "
+                f"{b.accs}")
+    require(lm_launches == lm_expected,
+            f"train_shard lm launches {lm_launches} != {lm_expected}")
+    require(lm_hist[0]["loss"] == lm_vmap_hist[0]["loss"],
+            f"train_shard lm round 0: loss {lm_hist[0]['loss']} vs the vmap "
+            f"run's {lm_vmap_hist[0]['loss']}")
+    for a, b in zip(lm_hist, lm_vmap_hist):
+        require((a["participants"], a["uplink_bytes"], a["downlink_bytes"])
+                == (b["participants"], b["uplink_bytes"],
+                    b["downlink_bytes"]),
+                f"train_shard lm round {a['round']}: the ledgers differ")
+
+
+#: fed_round_step: fed-100m at full width and depth, 2 pods; the timed bf16
+#: micro-round takes 4 sequences of 512 tokens a pod, the f32 oracle 2 of
+#: 256 a pod (its plain reference runs on the CPU)
+FED_ROUND = dict(pods=2, batch=4, seq=512, oracle_batch=2, oracle_seq=256,
+                 lr=1e-3)
+
+
+def phase_fed_round_step(torch, fa_ops, tl_ops, model, get_config, dev):
+    """``steps.make_fed_round_step`` on fed-100m at full width and depth,
+    each of 2 pods one federated client (``FED_ROUND``): one micro-round in
+    bf16 (timed, its peak) and in f32, both through the grouped tri-LoRA
+    and the flash kernels with exact launches.  The f32 round is held to
+    the plain path: the same round with ``attn_impl="ref"`` on the card
+    and the whole round on the CPU (plain tri-LoRA and attention), losses
+    within 1e-3 + 1e-3·|loss| and C̄ within 1e-3 of each leaf's largest
+    entry (``steps_train``'s tolerances).  With W = I the returned C's are
+    the pods' own; the W round's C̄ must equal W·C recomputed in f64 from
+    them (to f32 rounding).  Pod-locality: with W = I, pod 0's adapter,
+    optimizer moments and loss are bitwise the same when pod 1's batch and
+    adapter are replaced.  A one-pod round on pod 0's half of the batch
+    gives pod 0's loss bitwise and its first moments (0.1 × the gradients)
+    within 1e-3 of each leaf's largest entry: cuBLAS orders the frozen
+    projections' sums by the batch's row count, so those gradients part in
+    their last bits, and AdamW's normalized first step turns that into up
+    to 2·lr in near-zero-gradient entries of A and B (reported)."""
+    import numpy as np
+
+    from repro_torch.core import client_batch
+    from repro_torch.launch import mesh, steps
+    from repro_torch.tree import tree_leaves, tree_map
+
+    job = FED_ROUND
+    n = job["pods"]
+    pod_mesh = mesh.make_production_mesh(multi_pod=True)
+    require(pod_mesh.shape["pod"] == n, f"the production mesh has "
+            f"{pod_mesh.shape['pod']} pods, not {n}")
+    one_pod = mesh.Mesh(np.full((1, 1, 1), None, dtype=object),
+                        ("pod", "data", "model"))
+    w_mix = torch.tensor([[0.75, 0.25], [0.4, 0.6]], dtype=torch.float32)
+    out = {}
+
+    def pods(cfg, seed):
+        params = random_params(torch, model, cfg, dev, seed)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        with torch.no_grad():
+            other = moved_adapter(torch, params["adapter"], gen)
+        return params, client_batch.stack_states([params["adapter"], other])
+
+    def payload_gap(got, want) -> float:
+        from repro_torch.core import tri_lora
+        return max(float((a.cpu().double() - b.cpu().double()).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(tree_leaves(tri_lora.tree_payload(got)),
+                                   tree_leaves(tri_lora.tree_payload(want))))
+
+    # ---- bf16, timed
+    cfg16 = get_config("fed-100m").with_overrides(param_dtype="bfloat16")
+    params, ad_p = pods(cfg16, 28)
+    batch = lm_batch(torch, cfg16.vocab_size, n * job["batch"], job["seq"],
+                     28, dev)
+    step = steps.make_fed_round_step(cfg16, pod_mesh, job["lr"],
+                                     attn_impl="flash")
+    os_p = step.optimizer.init(ad_p)
+    step(params, ad_p, os_p, batch, w_mix)            # warm (first launches)
+    (ad16, _, l16), launches16, wall16, peak16 = run_counted(
+        torch, fa_ops, tl_ops, lambda: step(params, ad_p, os_p, batch,
+                                            w_mix))
+    expected = step_launches(cfg16, 1, grouped=True)
+    out["bf16"] = {"losses": l16.tolist(), "wall_s": wall16,
+                   "peak_mem_gb": peak16, "launches": launches16,
+                   "tokens": n * job["batch"] * job["seq"]}
+    del params, ad_p, os_p, ad16
+    free(torch)
+
+    # ---- f32: kernels, then the plain path
+    cfg = get_config("fed-100m")
+    params, ad_p = pods(cfg, 29)
+    batch = lm_batch(torch, cfg.vocab_size, n * job["oracle_batch"],
+                     job["oracle_seq"], 29, dev)
+    runs = {}
+    for name, impl, where, w in (("flash", "flash", dev, w_mix),
+                                 ("flash W=I", "flash", dev, torch.eye(n)),
+                                 ("ref", "ref", dev, w_mix),
+                                 ("cpu", "flash", torch.device("cpu"),
+                                  w_mix)):
+        st = steps.make_fed_round_step(cfg, pod_mesh, job["lr"],
+                                       attn_impl=impl)
+        p = tree_map(lambda t: t.to(where), params)
+        a = tree_map(lambda t: t.to(where), ad_p)
+        b = {k: v.to(where) for k, v in batch.items()}
+        res = run_counted(torch, fa_ops, tl_ops, lambda: st(
+            p, a, st.optimizer.init(a), b, w))
+        runs[name] = res
+    ad_k, _, l_k = runs["flash"][0]
+    ad_i, os_i, l_i = runs["flash W=I"][0]
+    half = job["oracle_batch"]
+    # pod-locality: pod 1's batch rows and adapter replaced
+    other = lm_batch(torch, cfg.vocab_size, half, job["oracle_seq"], 30, dev)
+    batch_x = {k: torch.cat([v[:half], other[k]]) for k, v in batch.items()}
+    gen = torch.Generator(device=dev).manual_seed(31)
+    with torch.no_grad():
+        ad_x = client_batch.stack_states([
+            tree_map(lambda t: t[0], ad_p),
+            moved_adapter(torch, tree_map(lambda t: t[1], ad_p), gen)])
+    st = steps.make_fed_round_step(cfg, pod_mesh, job["lr"],
+                                   attn_impl="flash")
+    ad_ix, os_ix, l_ix = st(params, ad_x, st.optimizer.init(ad_x), batch_x,
+                            torch.eye(n))
+    local = (bool(l_ix[0] == l_i[0]) and all(
+        torch.equal(x[0], y[0]) for x, y in zip(
+            tree_leaves((ad_ix, os_ix["mu"], os_ix["nu"])),
+            tree_leaves((ad_i, os_i["mu"], os_i["nu"])))))
+    # one pod alone on pod 0's rows
+    st1 = steps.make_fed_round_step(cfg, one_pod, job["lr"],
+                                    attn_impl="flash")
+    a0 = tree_map(lambda t: t[:1], ad_p)
+    ad_1, os_1, l_1 = st1(params, a0, st1.optimizer.init(a0),
+                          {k: v[:half] for k, v in batch.items()},
+                          torch.ones((1, 1)))
+    mu_gap = max(float((x[0] - y[0]).abs().max())
+                 / max(float(y[0].abs().max()), 1e-30)
+                 for x, y in zip(tree_leaves(os_i["mu"]),
+                                 tree_leaves(os_1["mu"])))
+
+    from repro_torch.core import tri_lora
+    c_i = [c.double().cpu() for c in
+           tree_leaves(tri_lora.tree_payload(ad_i))]
+    c_k = [c.double().cpu() for c in
+           tree_leaves(tri_lora.tree_payload(ad_k))]
+    w64 = w_mix.double()
+    mix_gap = max(float((ck - torch.einsum("ij,j...->i...", w64, ci))
+                        .abs().max()) / max(float(ci.abs().max()), 1e-30)
+                  for ck, ci in zip(c_k, c_i))
+    pairs = list(zip(
+        [t for ad in tree_leaves(ad_i, is_leaf=tri_lora.is_adapter)
+         for t in (ad["A"], ad["B"])],
+        [t for ad in tree_leaves(ad_1, is_leaf=tri_lora.is_adapter)
+         for t in (ad["A"], ad["B"])]))
+    a_b_bitwise = all(torch.equal(x[0], y[0]) for x, y in pairs)
+    a_b_gap = max(float((x[0] - y[0]).abs().max()) for x, y in pairs)
+    f32 = {name: {"losses": r[0][2].tolist(), "wall_s": r[2],
+                  "launches": r[1]} for name, r in runs.items()}
+    holds = {name: {"loss_gap": max(abs(float(x) - float(y)) for x, y in
+                                    zip(l_k.cpu(), runs[name][0][2].cpu())),
+                    "c_bar_gap_over_max": payload_gap(ad_k,
+                                                      runs[name][0][0])}
+             for name in ("ref", "cpu")}
+    emit({"phase": "fed_round_step", "arch": cfg.name, **job,
+          "mesh": dict(pod_mesh.shape), "bf16": out["bf16"], "f32": f32,
+          "expected_launches": expected, "plain_holds": holds,
+          "c_bar_vs_f64_mix_over_max": mix_gap,
+          "pod0_bitwise_when_pod1_replaced": local,
+          "one_pod": {"a_b_bitwise": a_b_bitwise, "a_b_gap": a_b_gap,
+                      "mu_gap_over_max": mu_gap},
+          "one_pod_loss": float(l_1[0]),
+          "w_identity_pod0_loss": float(l_i[0])})
+    require(launches16 == expected,
+            f"fed_round_step bf16 launches {launches16} != {expected}")
+    require(runs["flash"][1] == expected,
+            f"fed_round_step f32 launches {runs['flash'][1]} != {expected}")
+    require(bool(torch.isfinite(l16).all()) and l16.shape == (n,),
+            f"fed_round_step bf16 losses {l16}")
+    for name, h in holds.items():
+        loss = max(abs(float(x)) for x in runs[name][0][2].cpu())
+        require(h["loss_gap"] <= 1e-3 + 1e-3 * loss,
+                f"fed_round_step f32 flash vs {name}: losses "
+                f"{l_k.tolist()} vs {runs[name][0][2].tolist()}")
+        require(h["c_bar_gap_over_max"] <= 1e-3,
+                f"fed_round_step f32 flash vs {name}: C-bar differs by "
+                f"{h['c_bar_gap_over_max']} of its largest entry")
+    require(mix_gap <= 1e-6, f"fed_round_step: C-bar is not W.C (f64) from "
+            f"the W = I round's C's: {mix_gap}")
+    require(local, "fed_round_step: pod 0's round changed when pod 1's "
+            "batch and adapter were replaced")
+    require(float(l_1[0]) == float(l_i[0]),
+            f"fed_round_step: the one-pod round's loss {float(l_1[0])} is "
+            f"not pod 0's {float(l_i[0])}")
+    require(mu_gap <= 1e-3, f"fed_round_step: the one-pod round's first "
+            f"moments part from pod 0's by {mu_gap} of their largest entry")
+    require(a_b_gap <= 2 * job["lr"], f"fed_round_step: the one-pod round's "
+            f"A / B part from pod 0's by {a_b_gap}, beyond 2·lr")
 
 
 class Killed(Exception):
@@ -5970,8 +6273,8 @@ def main() -> int:
               get_config, dev, vmap_run, storm_hist)
         del vmap_run, storm_hist
         # the host client store and the async engine
-        timed("train_host", phase_train_host, torch, fa_ops, tl_ops,
-              get_config, dev)
+        host_device_run = timed("train_host", phase_train_host, torch,
+                                fa_ops, tl_ops, get_config, dev)
         timed("train_async", phase_train_async, torch, fa_ops, tl_ops,
               get_config, dev)
         # the LM driver (forward and dx, then vectorized) and the backbone
@@ -5987,6 +6290,15 @@ def main() -> int:
               dev, lm_vmap_hist)
         timed("lm_host / lm_async", phase_lm_host_async, torch, fa_ops,
               tl_ops, get_config, dev, lm_vmap_hist)
+        # the eighteenth slice's paths: the client axis over the device mesh
+        # (client_parallelism="shard", client_store="sharded") and the
+        # federated round step over the pod axis
+        timed("train_shard", phase_train_shard, torch, fa_ops, tl_ops,
+              get_config, dev, host_device_run, lm_vmap_hist)
+        del host_device_run
+        timed("fed_round_step", phase_fed_round_step, torch, fa_ops, tl_ops,
+              model, get_config, dev)
+        free(torch)
         launches["tri_lora_dw"] = timed("pretrain", phase_pretrain, torch,
                                         tl_ops, get_config,
                                         dev)["tri_lora_dw"]

@@ -572,7 +572,8 @@ def run_async(*, task, fed, strategy, states: list, loaders: Sequence,
     timeout = float(fed.dispatch_timeout)
     track = robust or timeout > 0
 
-    pstore = client_store.make_store("device", states, parallelism=mode)
+    pstore = client_store.make_store("device", states, parallelism=mode,
+                                     device=dev)
     put = pstore.place
     state_ref = {"stacked": pstore.resident()}
 

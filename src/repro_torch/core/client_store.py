@@ -15,8 +15,12 @@
   all m columns, and a compressed run re-encodes every client's C under
   the round's uniform stream) — never the O(m) adapter and optimizer
   state.
-* ``"sharded"`` (the client axis over a device mesh) is not ported and
-  raises ``NotImplementedError`` (ROADMAP, Queue 1: "launch/mesh.py").
+* ``"sharded"`` — the stacked client axis laid over the 1-D
+  ``("clients",)`` device mesh (:func:`repro_torch.launch.mesh.
+  make_client_mesh`): d row blocks, one per mesh device; cohort gather and
+  scatter run per block (a masked local take and an exact combine, a
+  drop-scatter), and the rounds compute on the run's device (at d = 1, one
+  card, the device store exactly).
 
 Store contract (the JAX package's): ``gather(ids)`` returns the cohort rows
 on the device and ``scatter(ids, rows)`` writes them back, so that
@@ -49,66 +53,151 @@ import torch
 from repro_torch.core import (admission, aggregation, client_batch,
                               compress, faults, sampling)
 from repro_torch.core.similarity import cka
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.tree import tree_leaves, tree_map
 
 STORE_BACKENDS = ("device", "sharded", "host")
 
 
 def make_store(backend: str, states: Sequence[Any], *,
-               parallelism: str = "vmap", device=None):
+               parallelism: str = "vmap", device=None, devices=None):
     """The population store for ``backend`` from m per-client states
-    (``device``: the run's device, which the host store pins for).
-    ``"sharded"`` and ``parallelism="shard"`` (the client axis over a
-    device mesh) are not ported."""
+    (``device``: the run's device, default the states'; ``devices``: the
+    devices the client axis is laid over, default
+    :func:`repro_torch.launch.mesh.run_devices` of the run's device).  The
+    device store honours ``parallelism="shard"``'s placement, as the JAX
+    package's does."""
     if backend not in STORE_BACKENDS:
         raise ValueError(f"client_store={backend!r}; "
                          f"expected one of {STORE_BACKENDS}")
-    if backend == "sharded" or parallelism == "shard":
-        what = ("client_store='sharded'" if backend == "sharded"
-                else "client_parallelism='shard'")
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP, Queue 1: 'launch/mesh.py');"
-            f" the port runs client_store='device' or 'host' with "
-            f"client_parallelism 'loop' or 'vmap'")
+    if backend == "sharded":
+        return ShardedClientStore(states, device=device, devices=devices)
     if backend == "host":
         return HostClientStore(states, device=device)
-    return DeviceClientStore(states)
+    return DeviceClientStore(states, shard=(parallelism == "shard"),
+                             device=device, devices=devices)
 
 
 class DeviceClientStore:
-    """The whole population as one device-resident stacked state.
+    """The whole population as one stacked state on the run's device.
     ``gather`` / ``scatter`` are plain row indexing, so that every store
-    keeps one contract."""
+    keeps one contract.
+
+    ``shard=True`` (``client_parallelism="shard"``) lays the population
+    over the 1-D ``("clients",)`` mesh of
+    :func:`repro_torch.launch.mesh.make_client_mesh`: d row blocks of m/d
+    rows, block i on mesh device i.  The round programs still compute on
+    the run's device: :meth:`resident` is the block itself at d = 1 (one
+    card: the vmap path exactly) and the blocks joined in order at d > 1,
+    and :meth:`adopt` splits an updated population back into its blocks."""
 
     backend = "device"
 
-    def __init__(self, states: Sequence[Any]):
+    def __init__(self, states: Sequence[Any], *, shard: bool = False,
+                 device=None, devices=None):
         self.m = len(states)
-        self._stacked = client_batch.stack_states(states)
+        self.device = torch.device(device if device is not None else
+                                   tree_leaves(states[0])[0].device)
+        stacked = client_batch.stack_states(states)
+        self.mesh = None
+        if shard:
+            self.mesh = mesh_lib.make_client_mesh(
+                self.m, mesh_lib.run_devices(self.device)
+                if devices is None else devices)
+        self.adopt(stacked)
+
+    @property
+    def per_block(self) -> int:
+        return self.m // (1 if self.mesh is None else self.mesh.size)
 
     def resident(self) -> Any:
-        """The stacked population the round updates; hand an updated one
-        back through :meth:`adopt`."""
-        return self._stacked
+        """The stacked population the round updates on the run's device;
+        hand an updated one back through :meth:`adopt`."""
+        if self.mesh is None:
+            return self._stacked
+        return mesh_lib.join_clients(self._blocks, self.device)
 
     def adopt(self, stacked: Any) -> None:
         """Install an updated stacked population as current."""
-        self._stacked = stacked
+        if self.mesh is None:
+            self._stacked = stacked
+        else:
+            self._blocks = mesh_lib.shard_clients(self.mesh, stacked)
 
     def place(self, tree: Any) -> Any:
-        """Lay a client-axis tree out as the population is laid out: the
-        identity (the ``"shard"`` placement is not ported)."""
+        """Lay a client-axis tree out for the round: the identity, since
+        the rounds compute on the run's device."""
         return tree
 
     def gather(self, ids) -> Any:
-        return client_batch.gather_clients(self._stacked, ids)
+        return client_batch.gather_clients(self.resident(), ids)
 
     def scatter(self, ids, values: Any) -> None:
-        self._stacked = client_batch.scatter_clients(self._stacked, ids,
-                                                     values)
+        self.adopt(client_batch.scatter_clients(self.resident(), ids,
+                                                values))
 
     def unstack(self) -> list:
-        return client_batch.unstack_states(self._stacked)
+        return client_batch.unstack_states(self.resident())
+
+
+class ShardedClientStore(DeviceClientStore):
+    """The client axis over the ``("clients",)`` mesh (``client_store=
+    "sharded"``): d row blocks of m/d rows, block i on mesh device i, and
+    the cohort moves per block, as the JAX package's ``shard_map``
+    programs move it:
+
+    * gather — each block takes its LOCAL rows of the id vector through a
+      masked block index and zeros the rows it does not own; the blocks'
+      rows are moved to the run's device and combined in block order.
+      Each row has exactly one owner, so the combine (the JAX package's
+      ``psum``) is exact; it is done as a select of the owner's row, which
+      keeps every bit (a -0.0 too, which a sum with 0.0 would not).
+    * scatter — each block maps the ids it owns to block-local positions
+      and writes only those rows (the JAX package's drop-scatter).
+
+    Ids must be unique (participation plans are sorted unique)."""
+
+    backend = "sharded"
+
+    def __init__(self, states: Sequence[Any], *, device=None, devices=None):
+        super().__init__(states, shard=True, device=device, devices=devices)
+
+    def _owned(self, ids) -> list:
+        """Per block: (its first row, the id vector, the (k,) mask of the
+        ids the block owns), on the host."""
+        idx = torch.as_tensor(np.asarray(ids, np.int64).reshape(-1))
+        per = self.per_block
+        return [(i * per, idx, (idx >= i * per) & (idx < (i + 1) * per))
+                for i in range(len(self._blocks))]
+
+    def gather(self, ids) -> Any:
+        owned = self._owned(ids)
+
+        def one(*blocks):
+            out = None
+            for t, (lo, idx, local) in zip(blocks, owned):
+                rows = t[torch.where(local, idx - lo, 0).to(t.device)]
+                mask = local.to(t.device).reshape(
+                    (-1,) + (1,) * (rows.dim() - 1))
+                rows = torch.where(mask, rows, torch.zeros_like(rows))
+                rows, mask = rows.to(self.device), mask.to(self.device)
+                out = rows if out is None else torch.where(mask, rows, out)
+            return out
+        return tree_map(one, *self._blocks)
+
+    def scatter(self, ids, values: Any) -> None:
+        blocks = []
+        for block, (lo, idx, local) in zip(self._blocks, self._owned(ids)):
+            sel = torch.nonzero(local).reshape(-1)
+            pos = idx[sel] - lo
+
+            def put(t, v, sel=sel, pos=pos):
+                if not len(sel):
+                    return t
+                rows = v[sel.to(v.device)].to(t.device, t.dtype)
+                return t.index_copy(0, pos.to(t.device), rows)
+            blocks.append(tree_map(put, block, values))
+        self._blocks = blocks
 
 
 class HostClientStore:

@@ -186,9 +186,11 @@ def run_scan(*, task, fed, strategy, states: list, loaders: Sequence,
     eval_every = max(1, int(fed.eval_every))
 
     # the scan engine always runs the stacked clients; the store places the
-    # population ("loop" and "vmap" keep it on the device alike)
+    # population ("loop" and "vmap" keep it on the device alike, "shard"
+    # and "sharded" lay it over the client mesh)
     pstore = client_store.make_store(fed.client_store, states,
-                                     parallelism=fed.client_parallelism)
+                                     parallelism=fed.client_parallelism,
+                                     device=dev)
     stacked = pstore.resident()
 
     pstack = sampling.stack_plans(plans, m)

@@ -29,6 +29,11 @@ Client parallelism (``FedConfig.client_parallelism``):
   keeps the unsampled clients' state frozen.  Aggregation, comm and the
   codecs run on the stacked payload.  Both paths consume the same
   per-client data streams, so they agree up to floating-point order.
+* ``"shard"`` — the vmap path with the population laid over the 1-D
+  ``("clients",)`` device mesh (:func:`repro_torch.launch.mesh.
+  make_client_mesh`, the device store's ``shard`` placement); the round
+  computes on the run's device, so at d = 1 (one card) it is the vmap path
+  exactly.
 
 Fault injection and admission control (:mod:`.faults`,
 :mod:`.admission`) run on both paths.  Per round the seeded fault draw
@@ -49,11 +54,9 @@ chunk, a checkpoint at every chunk boundary and ``resume``;
 
 ``client_store="host"`` (:mod:`.client_store`) keeps the population in
 host memory and brings only each round's cohort to the device, on both
-engines; ``engine="async"`` (:mod:`.async_engine`) replaces the round
-barrier by a buffered, staleness-weighted server on a seeded virtual
-clock.  The options whose machinery is not ported yet — ``"shard"``
-clients and the sharded client store — raise ``NotImplementedError``
-naming their ROADMAP item; nothing falls back to another path.
+engines, and ``"sharded"`` lays it over the client mesh in row blocks;
+``engine="async"`` (:mod:`.async_engine`) replaces the round barrier by a
+buffered, staleness-weighted server on a seeded virtual clock.
 
 Uplink codecs (:mod:`.compress`): each communicating client carries an
 error-feedback residual ``ef`` in its state; the round encodes every
@@ -91,10 +94,6 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PARALLELISM_MODES = ("loop", "vmap", "shard")
 ENGINES = ("eager", "scan", "async")
-
-_NOT_PORTED = ("is not ported yet (ROADMAP, Queue 1: '{item}'); the port "
-               "runs {what}")
-
 
 @dataclasses.dataclass
 class FedConfig:
@@ -258,19 +257,11 @@ def data_similarity(task: FedTask, fed: FedConfig, client_train: list,
 # validation
 # ---------------------------------------------------------------------------
 
-def _not_ported(option: str, item: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} " + _NOT_PORTED.format(item=item, what=what))
-
-
 def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
     mode = fed.client_parallelism
     if mode not in PARALLELISM_MODES:
         raise ValueError(f"client_parallelism={mode!r}; "
                          f"expected one of {PARALLELISM_MODES}")
-    if mode == "shard":
-        raise _not_ported("client_parallelism='shard'", "launch/mesh.py",
-                          "client_parallelism='loop' or 'vmap'")
     if fed.sampler not in sampling.SAMPLERS:
         raise ValueError(f"sampler={fed.sampler!r}; "
                          f"expected one of {sampling.SAMPLERS}")
@@ -300,9 +291,6 @@ def _validate(fed: FedConfig, strategy: Strategy, n_train: int) -> None:
     if fed.client_store not in client_store.STORE_BACKENDS:
         raise ValueError(f"client_store={fed.client_store!r}; expected one "
                          f"of {client_store.STORE_BACKENDS}")
-    if fed.client_store == "sharded":
-        raise _not_ported("client_store='sharded'", "launch/mesh.py",
-                          "client_store='device' or 'host'")
     if fed.client_store != "device" and mode == "loop":
         raise ValueError(f"client_store={fed.client_store!r} requires a "
                          f"vectorized client_parallelism ('vmap'/'shard'); "
@@ -742,7 +730,8 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
         # step and one eval call per round; the device store holds the
         # stacked population
         pstore = client_store.make_store(fed.client_store, states,
-                                         parallelism=fed.client_parallelism)
+                                         parallelism=fed.client_parallelism,
+                                         device=dev)
         stacked = pstore.resident()
 
         for rnd in range(fed.rounds):

@@ -46,10 +46,12 @@ def require(cond: bool, what: str) -> None:
 
 
 def on_cuda(*ts: torch.Tensor) -> bool:
-    """False when every tensor lies on the CPU (plain path), True when all
-    lie on one CUDA device; anything else raises."""
+    """False when every tensor lies on the CPU (plain path) or every one on
+    ``meta`` (the plain path traced for shapes only: the dry run), True
+    when all lie on one CUDA device; anything else raises."""
     devs = {t.device for t in ts}
-    if all(d.type == "cpu" for d in devs):
+    if all(d.type == "cpu" for d in devs) or \
+            all(d.type == "meta" for d in devs):
         return False
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"the kernels need all operands on one CUDA device "

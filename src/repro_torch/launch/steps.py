@@ -10,9 +10,9 @@ Three step kinds, one per kind of input shape:
                  ``decode_32k``, ``long_500k``.
 
 The steps run where their params lie (the card, unless the caller built
-them on the CPU); a numpy batch is moved there.  The JAX package's
-``make_fed_round_step`` (one federated client per pod of a device mesh)
-and its pod-stacked helpers wait for the mesh port and raise.
+them on the CPU); a numpy batch is moved there.  ``make_fed_round_step``
+is one federated micro-round with one client per pod of a mesh, and the
+``pod_stacked_*`` helpers give its inputs on ``meta``.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import tri_lora
 from repro_torch.models import layers, model
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, apply_updates
@@ -199,25 +200,75 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
 
 
 # ---------------------------------------------------------------------------
-# the federated round over a device mesh (not ported)
+# the federated round step over the pod axis (the paper's comm pattern)
 # ---------------------------------------------------------------------------
 
-def _mesh_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP, Queue 1: 'launch/mesh.py'); "
-        f"the port's federated rounds run in core.federated.run_federated "
-        f"and launch.train.run")
-
-
-def make_fed_round_step(cfg: ModelConfig, mesh=None, lr: float = 1e-4,
+def make_fed_round_step(cfg: ModelConfig, mesh, lr: float = 1e-4,
                         attn_impl: str | None = None,
                         payload_dtype=None) -> Callable:
-    raise _mesh_not_ported("make_fed_round_step")
+    """One federated "micro-round" with each pod of ``mesh`` one client
+    (``n_pods = mesh.shape["pod"]``): ``fed_round_step(params, adapter_p,
+    opt_state_p, batch, agg_w) -> (adapter_p, opt_state_p, losses (n_pods,))``.
+
+    ``adapter_p`` / ``opt_state_p`` carry a leading pod dim (an
+    ``adamw(stacked=True)`` state).  The global batch splits into n_pods
+    blocks of B/n_pods sequences, pod i's block applying pod i's adapter
+    (``adapter_rows``: one grouped tri-LoRA launch per projection for all
+    pods on the card); one AdamW step each, on the SUM of the per-pod
+    losses, so A / B / the optimizer state stay pod-local.  The only
+    cross-pod term is the personalized combination of the r×r C matrices
+    (paper Alg. 1 lines 4–9): C̄_i = Σ_j W[i,j]·C_j, an f32 einsum over the
+    pod axis, the C payload cast to ``payload_dtype`` first when one is
+    given (the JAX package's all-gathered bf16 wire payload)."""
+    opt = adamw(lr=lr, stacked=True)
+    n_pods = mesh.shape["pod"]
+
+    def fed_round_step(params, adapter_p, opt_state_p, batch, agg_w):
+        base = params["base"]
+        dev = _device(params)
+        batch = _on(batch, dev)
+        rows = model.client_rows(n_pods, batch["tokens"].shape[0] // n_pods,
+                                 dev)
+        ad = tree_map(lambda t: t.detach().requires_grad_(True), adapter_p)
+        losses, _ = model.loss_fn(cfg, ad, base, batch, attn_impl=attn_impl,
+                                  adapter_rows=rows)
+        leaves = tree_leaves(ad)
+        grads = iter(torch.autograd.grad(losses.sum(), leaves))
+        upd, opt_state_p = opt.update(tree_map(lambda _: next(grads), ad),
+                                      opt_state_p, adapter_p)
+        adapter_p = apply_updates(adapter_p, upd)
+
+        # ---- the ONLY cross-pod communication: the C matrices
+        c_all = tri_lora.tree_payload(adapter_p)     # leaves (n_pods, …, r, r)
+        if payload_dtype is not None:
+            c_all = tree_map(lambda c: c.to(payload_dtype), c_all)
+        w = torch.as_tensor(agg_w, dtype=torch.float32, device=dev)
+        c_bar = tree_map(lambda c: torch.einsum("ij,j...->i...", w,
+                                                c.float()), c_all)
+        return (tri_lora.tree_load_payload(adapter_p, c_bar), opt_state_p,
+                losses.detach())
+
+    fed_round_step.optimizer = opt
+    fed_round_step.n_pods = n_pods
+    return fed_round_step
 
 
-def pod_stacked_adapter(cfg: ModelConfig, n_pods: int):
-    raise _mesh_not_ported("pod_stacked_adapter")
+# ---------------------------------------------------------------------------
+# pod-stacked stand-ins for the federated step's inputs
+# ---------------------------------------------------------------------------
+
+def _pod_stacked(tree, n_pods: int):
+    return tree_map(lambda t: _f((n_pods,) + tuple(t.shape), t.dtype)
+                    if isinstance(t, torch.Tensor) else t, tree)
 
 
-def pod_stacked_opt_state(cfg: ModelConfig, n_pods: int, opt=None):
-    raise _mesh_not_ported("pod_stacked_opt_state")
+def pod_stacked_adapter(cfg: ModelConfig, n_pods: int) -> dict:
+    """The adapter on ``meta`` with a leading pod dim (one tri-LoRA set
+    per pod)."""
+    return _pod_stacked(model.abstract_params(cfg)["adapter"], n_pods)
+
+
+def pod_stacked_opt_state(cfg: ModelConfig, n_pods: int, opt) -> dict:
+    """``opt``'s state for :func:`pod_stacked_adapter`, on ``meta``."""
+    return _pod_stacked(opt.init(model.abstract_params(cfg)["adapter"]),
+                        n_pods)

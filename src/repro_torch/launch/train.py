@@ -60,7 +60,11 @@ cohort size it is the eager driver's history:
         --clients 4 --engine async --latency lognormal --buffer-size 2 \
         --staleness-decay 0.5 --device cpu
 
-The sharded client store raises ``NotImplementedError``.
+``client_store="sharded"`` (vmap; eager and scan) lays the stacked
+adapters over the ``("clients",)`` device mesh in d row blocks
+(:class:`repro_torch.core.client_store.ShardedClientStore`); the rounds
+compute on the run's device, so on one card (d = 1) it is the device
+store exactly.
 
 The random draws the JAX package takes from ``jax.random`` — the backbone
 (``key(seed)``), client ``i``'s adapter (``key(seed + i)``), the CKA probes
@@ -83,6 +87,7 @@ from repro_torch.checkpoint import (check_fingerprint, metadata, restore,
                                     save)
 from repro_torch.core import (aggregation, client_batch, client_store,
                               comm, compress, sampling, tri_lora)
+from repro_torch.core.client_store import ShardedClientStore
 from repro_torch.core.fed_engine import chunk_schedule, meta_like
 from repro_torch.core.similarity import cka
 from repro_torch.data import synthetic
@@ -100,8 +105,7 @@ def _validate(clients: int, participation: float, straggler_frac: float,
               method: str, client_parallelism: str, engine: str,
               client_store_name: str, resume: bool,
               latency: tuple) -> None:
-    """The JAX package's checks, in its order; the sharded store (not
-    ported) raises ``NotImplementedError``."""
+    """The JAX package's checks, in its order."""
     if client_parallelism not in ("loop", "vmap"):
         raise ValueError(f"client_parallelism={client_parallelism!r}; "
                          f"expected 'loop' or 'vmap'")
@@ -133,11 +137,6 @@ def _validate(clients: int, participation: float, straggler_frac: float,
         raise ValueError("the LM driver's host-backed store runs eager "
                          "rounds only; use engine='eager' or "
                          "client_store='device'/'sharded'")
-    if client_store_name == "sharded":
-        raise NotImplementedError(
-            "client_store='sharded' is not ported yet (ROADMAP, Queue 1: "
-            "'launch/mesh.py'); the port's LM driver runs the device and "
-            "host stores")
     if resume and engine != "scan":
         raise ValueError("resume requires engine='scan' (the eager driver "
                          "does not write resumable state)")
@@ -309,7 +308,13 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
         check_on(a, dev, "init_adapters")
     vectorized = client_parallelism == "vmap"
     opt = adamw(lr=lr, stacked=vectorized)
-    stacked = (client_batch.stack_states(adapters)
+    pstore = None
+    if vectorized and client_store == "sharded":
+        # the client axis over the device mesh: d row blocks between rounds;
+        # at d = 1 (one card) the resident stack is the block itself
+        pstore = ShardedClientStore(adapters, device=dev)
+    stacked = ((pstore.resident() if pstore is not None
+                else client_batch.stack_states(adapters))
                if vectorized and client_store != "host" else None)
 
     compressed = not codec.is_identity and method in ("celora", "fedavg")
@@ -391,6 +396,9 @@ def run(arch: str = "fed-100m", clients: int = 4, rounds: int = 10,
                 ef=ef if compressed else None, cka_probes=cka_probes,
                 uniforms=([sr_uniforms(rnd, i) for i in range(clients)]
                           if compressed else None))
+            if pstore is not None:
+                pstore.adopt(stacked)
+                stacked = pstore.resident()
         else:
             losses = []
             for i in range(clients):
@@ -896,8 +904,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--client-store", default="device",
                     choices=list(client_store.STORE_BACKENDS),
                     help="population residency: the device-resident stack, "
-                         "or host-resident with a per-round cohort gather "
-                         "and write-back (sharded is not ported)")
+                         "the stack in row blocks over the client mesh "
+                         "(sharded), or host-resident with a per-round "
+                         "cohort gather and write-back")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = run(arch=args.arch, clients=args.clients, rounds=args.rounds,

@@ -250,10 +250,10 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     as in the JAX package.  'blockwise_hp' is 'blockwise' after the JAX
     package's ``_head_parallel``, which under a device mesh with a
     ``model`` axis expands GQA K/V to the query heads and hints the head
-    dim onto that axis, and without a mesh changes nothing.  The port runs
-    on one device with no mesh, so here it is 'blockwise'; the
-    head-sharding hint waits for the mesh layer (ROADMAP, Queue 1:
-    'launch/mesh.py').
+    dim onto that axis, and without a mesh changes nothing.  The port's
+    meshes (:mod:`repro_torch.launch.mesh`) are of one process with no
+    partitioner to read such a hint, so here it is 'blockwise', as the JAX
+    package's is without a mesh (a reference limit kept, ROADMAP).
 
     ``adapter_rows`` (B,) switches the q/k/v/o adapters to stacked (m, …)
     factors, sequence ``i`` applying adapter ``adapter_rows[i]``: the

@@ -151,9 +151,8 @@ def _mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     half = head_dim // 2
     assert sum(sections) == half, (sections, half)
     dev = positions.device
-    comp = torch.repeat_interleave(
-        torch.arange(3, device=dev),
-        torch.as_tensor(tuple(sections), device=dev))          # (half,)
+    comp = torch.tensor([i for i, n in enumerate(sections)
+                         for _ in range(n)], device=dev)       # (half,)
     pos = torch.gather(positions.float(), -1,
                        comp.expand(*positions.shape[:-1], half))
     return pos * _inv_freq(head_dim, theta, dev)

@@ -16,6 +16,7 @@ tree from :func:`init_decode_cache`.
 from __future__ import annotations
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers, transformer
@@ -58,6 +59,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     ag, at = transformer.init_stack_adapters(generator, cfg,
                                              cross=cfg.enc_dec)
     return {"base": base, "adapter": {"groups": ag, "tail": at}}
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on ``meta``: see :func:`abstract_params`."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+class _NoDraws(TorchFunctionMode):
+    """Drops the ``generator`` of every factory call, so that a draw on
+    ``meta`` allocates nothing and consumes no generator state."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        kwargs.pop("generator", None)
+        return func(*args, **kwargs)
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """:func:`init_params`' tree on ``meta``: every leaf's shape and dtype,
+    no allocation and no draw (the dry run's and the pod-stacked helpers'
+    stand-ins, as the JAX package's ``eval_shape``)."""
+    with torch.device("meta"), _NoDraws():
+        return init_params(cfg, _MetaGenerator())
 
 
 def _none_adapters_like(cfg: ModelConfig, has_groups: bool):

@@ -270,9 +270,15 @@ def test_device_store_and_unported_stores():
                     tree_leaves(states[0])):
         torch.testing.assert_close(a, b)
     store.adopt(tree_map(lambda t: t * 2, store.resident()))
+    # the client axis over the mesh (it raised until the mesh layer was
+    # ported): every store holds the device store's stack
     for backend, kw in (("host", {"parallelism": "shard"}), ("sharded", {}),
                         ("device", {"parallelism": "shard"})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            client_store.make_store(backend, states, **kw)
+        other = client_store.make_store(backend, states, **kw)
+        held = (other.population if backend == "host"
+                else other.resident())
+        _close(jclient_batch.stack_states(
+            [jax.tree.map(lambda t: t.numpy(), s) for s in states]), held,
+            0.0)
     with pytest.raises(ValueError):
         client_store.make_store("disk", states)

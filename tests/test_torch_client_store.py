@@ -1,12 +1,12 @@
-"""The port's host client store (``repro_torch.core.client_store``,
-``run_federated`` and the LM driver with ``client_store="host"``) on the
-CPU.
+"""The port's client stores (``repro_torch.core.client_store``,
+``run_federated`` and the LM driver with ``client_store="host"`` and
+``"sharded"``) on the CPU.
 
 * The store contract on both ported backends: ``scatter(ids, gather(ids))``
   is the identity for empty, single, boundary, arbitrary and full id sets,
   a scatter touches the cohort rows only and the next gather sees it,
-  ``unstack`` returns the states, an unknown backend is refused and the
-  sharded one is not ported; a plan's cohort is its sampled set.
+  ``unstack`` returns the states, an unknown backend is refused; a plan's
+  cohort is its sampled set.
 * Against the JAX package's host store (``run_cohort``), with the JAX run's
   draws handed to the port and the JAX package's contract (identical
   sampled / participant / dropped / failed / rejected lists and byte
@@ -15,6 +15,9 @@ CPU.
   package's host and device stores part with S^data on, so the port's
   host store is held to the JAX host store there, and to the port's
   device store with S^data off.)
+* The sharded store (``client_store="sharded"``) on 1, 2 and 4 emulated
+  devices: the contract, and its history bitwise the device store's on
+  both engines.
 * Port against port: host ≡ device on both engines with the codec,
   stragglers and the fault storm; host-store kill and resume on the scan
   engine, bitwise; a checkpoint of the other store refused; the LM
@@ -36,7 +39,7 @@ from repro.data import synthetic as jsynthetic
 from repro.models.config import ModelConfig as JConfig
 from repro_torch import checkpoint, convert
 from repro_torch.core import client_store, federated, sampling
-from repro_torch.launch import train
+from repro_torch.launch import mesh, train
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
 from torch_threads import one_torch_thread  # noqa: F401
@@ -52,7 +55,7 @@ JAX_HOST = dict(FED, method="celora", participation=0.5, uplink_codec="int8",
                 rounds=3, client_store="host")
 STORM = dict(fault_crash=0.15, fault_loss=0.2, fault_corrupt=0.25,
              fault_divergent=0.15, admission="norm")
-STORES = ("device", "host")
+STORES = ("device", "host", "sharded")
 
 
 # ---------------------------------------------------------------------------
@@ -126,12 +129,55 @@ def test_unstack_matches_states(backend):
 
 
 def test_unknown_and_sharded_backends():
+    """An unknown backend is refused; the sharded store and the device
+    store's ``shard`` placement (they raised until the mesh layer was
+    ported) hold the device store's stack, on a one-device mesh of the
+    CPU run's device."""
     with pytest.raises(ValueError, match="client_store"):
         client_store.make_store("disk", _toy_states())
-    with pytest.raises(NotImplementedError, match="launch/mesh.py"):
-        client_store.make_store("sharded", _toy_states())
-    with pytest.raises(NotImplementedError, match="launch/mesh.py"):
-        client_store.make_store("device", _toy_states(), parallelism="shard")
+    want = client_store.make_store("device", _toy_states()).resident()
+    for backend, kw in (("sharded", {}), ("device", {"parallelism": "shard"})):
+        store = client_store.make_store(backend, _toy_states(), **kw)
+        assert store.mesh.shape == {"clients": 1}
+        assert _equal(store.resident(), want)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_client_mesh(_M)        # no CPU mesh by default
+
+
+# ---------------------------------------------------------------------------
+# the sharded store at emulated mesh sizes
+# ---------------------------------------------------------------------------
+
+_MD = 8                                  # divisible by every d below
+#: id sets within one block, across block boundaries, and all rows
+_MD_CASES = {"empty": [], "single": [3], "pair": [0, _MD - 1],
+             "subset": [1, 2, 4, 6], "full": list(range(_MD))}
+
+
+@pytest.mark.parametrize("case", sorted(_MD_CASES))
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_sharded_store_contract(d, case):
+    """On d emulated devices (``[cpu] * d``): d blocks of m/d rows, gather
+    bitwise the device store's, ``scatter(ids, gather(ids))`` the identity,
+    a scatter of changed rows touching those rows only, as the device
+    store's does."""
+    devices = [torch.device("cpu")] * d
+    store = client_store.make_store("sharded", _toy_states(_MD),
+                                    devices=devices)
+    ref = client_store.make_store("device", _toy_states(_MD))
+    assert store.mesh.size == d and len(store._blocks) == d
+    assert all(t.shape[0] == _MD // d for b in store._blocks
+               for t in tree_leaves(b))
+    ids = np.asarray(_MD_CASES[case], np.int64)
+    before = _snapshot(store)
+    assert _equal(store.gather(ids), ref.gather(ids))
+    store.scatter(ids, store.gather(ids))
+    assert _equal(before, _snapshot(store))
+    rows = tree_map(lambda t: t + 1, store.gather(ids))
+    store.scatter(ids, rows)
+    ref.scatter(ids, rows)
+    assert _equal(_snapshot(store), ref.resident())
+    assert _equal(store.gather(ids), rows)
 
 
 def test_host_store_copies_and_stays_on_the_host():
@@ -307,6 +353,29 @@ def _assert_bitwise(a, b):
         la, lb = _paths(sa), _paths(sb)
         assert la.keys() == lb.keys()
         assert all(torch.equal(la[k], lb[k]) for k in la)
+
+
+SHARDED = dict(FED, rounds=3, method="celora", participation=0.5,
+               uplink_codec="int8")
+
+
+@pytest.fixture(scope="module")
+def device_runs(setup):
+    """The device store's runs that the sharded store is held to."""
+    return {engine: _port(setup, SHARDED, engine=engine)
+            for engine in ("eager", "scan")}
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("engine", ["eager", "scan"])
+def test_sharded_matches_device(setup, device_runs, monkeypatch, engine, d):
+    """``client_store="sharded"`` over d emulated devices (the CPU run's
+    device d times): bitwise the device store's run, history and states,
+    on both engines."""
+    monkeypatch.setattr(mesh, "run_devices",
+                        lambda dev: [torch.device(dev)] * d)
+    out = _port(setup, SHARDED, engine=engine, client_store="sharded")
+    _assert_bitwise(out, device_runs[engine])
 
 
 RESUME = dict(FED, method="celora", participation=0.5, uplink_codec="int8",

@@ -175,11 +175,15 @@ def test_wrappers_refuse_mixed_devices():
     with pytest.raises(ValueError, match="CUDA"):
         ops.decode_attention(q, k, k, torch.tensor(0, dtype=torch.int32))
     x = torch.zeros(2, 16, device="meta")
-    w = torch.zeros(16, 8, device="meta")
+    w = torch.zeros(16, 8)                       # on the CPU: mixed
     a, c, b = (torch.zeros(s, device="meta") for s in
                ((1, 16, 2), (1, 2, 2), (1, 2, 8)))
     with pytest.raises(ValueError, match="CUDA"):
         ops.grouped_dense(torch.zeros(2, dtype=torch.int32), x, w, a, c, b)
+    # all on ``meta`` is the plain path traced for shapes (the dry run)
+    y = ops.grouped_dense(torch.zeros(2, dtype=torch.int32), x,
+                          w.to("meta"), a, c, b)
+    assert y.device.type == "meta" and tuple(y.shape) == (2, 8)
 
 
 def test_cpu_path_counts_no_launches():

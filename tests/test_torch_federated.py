@@ -25,6 +25,7 @@ from repro_torch import convert
 from repro_torch.core import federated
 from repro_torch.core.fed_model import FedTask
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_leaves
 from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
@@ -144,31 +145,64 @@ def test_default_draws_train_every_strategy(setup):
         assert (rec.uplink_bytes == 0) == (not up)
 
 
+def _case(i, override, exc):
+    """The case ids of the options' first parametrization, kept stable."""
+    return pytest.param(override, exc, id=f"override{i}-{exc.__name__}")
+
+
 @pytest.mark.parametrize("override,exc", [
-    (dict(client_parallelism="shard"), NotImplementedError),
-    (dict(client_parallelism="pmap"), ValueError),
-    (dict(engine="scan", client_store="sharded"), NotImplementedError),
-    (dict(engine="async", client_parallelism="shard"), NotImplementedError),
-    (dict(client_store="host", client_parallelism="shard"),
-     NotImplementedError),
-    (dict(client_store="sharded"), NotImplementedError),
-    (dict(uplink_codec="fp4"), ValueError),
-    (dict(fault_crash=1.0), ValueError),
-    (dict(fault_corrupt_mode="zero"), ValueError),
-    (dict(admission="norm", method="lora_loc"), ValueError),
-    (dict(eval_every=0), ValueError),
-    (dict(checkpoint_path="x.npz"), ValueError),
-    (dict(participation=0.0), ValueError),
-    (dict(attn_impl="xla"), ValueError),
-    (dict(engine="scan", client_parallelism="shard"), NotImplementedError),
-    (dict(resume=True), ValueError),
-    (dict(engine="scan", dispatch_timeout=1.0), ValueError),
+    _case(0, dict(client_parallelism="shard"), NotImplementedError),
+    _case(1, dict(client_parallelism="pmap"), ValueError),
+    _case(2, dict(engine="scan", client_store="sharded"),
+          NotImplementedError),
+    _case(3, dict(engine="async", client_parallelism="shard"),
+          NotImplementedError),
+    _case(4, dict(client_store="host", client_parallelism="shard"),
+          NotImplementedError),
+    _case(5, dict(client_store="sharded"), NotImplementedError),
+    _case(6, dict(uplink_codec="fp4"), ValueError),
+    _case(7, dict(fault_crash=1.0), ValueError),
+    _case(8, dict(fault_corrupt_mode="zero"), ValueError),
+    _case(9, dict(admission="norm", method="lora_loc"), ValueError),
+    _case(10, dict(eval_every=0), ValueError),
+    _case(11, dict(checkpoint_path="x.npz"), ValueError),
+    _case(12, dict(participation=0.0), ValueError),
+    _case(13, dict(attn_impl="xla"), ValueError),
+    _case(14, dict(engine="scan", client_parallelism="shard"),
+          NotImplementedError),
+    _case(15, dict(resume=True), ValueError),
+    _case(16, dict(engine="scan", dispatch_timeout=1.0), ValueError),
 ])
 def test_unported_options_raise(setup, override, exc):
+    """The JAX package's refusals raise ``ValueError``; the options that
+    raised ``NotImplementedError`` before the mesh layer was ported now
+    run, bitwise their vmap / device-store counterparts."""
     _, task, ctrain, ctest, _ = setup
-    fed = federated.FedConfig(**{**FED, **override})
-    with pytest.raises(exc):
-        federated.run_federated(task, fed, ctrain, ctest, device="cpu")
+
+    def run(ov):
+        fed = federated.FedConfig(**{**FED, **ov})
+        return federated.run_federated(task, fed, ctrain, ctest,
+                                       device="cpu")
+    if exc is ValueError:
+        with pytest.raises(ValueError):
+            run(override)
+        return
+    if "client_store" not in override:
+        override = dict(override, client_parallelism="shard")
+    elif "client_parallelism" not in override:
+        override = dict(override, client_parallelism="vmap")
+    ref = dict(override, client_parallelism="vmap")
+    if ref.get("client_store") == "sharded":
+        ref["client_store"] = "device"
+    out, want = run(override), run(ref)
+    times = ("wall_s", "host_s", "device_s")
+    for a, b in zip(out["history"], want["history"], strict=True):
+        assert ({k: v for k, v in vars(a).items() if k not in times}
+                == {k: v for k, v in vars(b).items() if k not in times})
+    for sa, sb in zip(out["states"], want["states"], strict=True):
+        la, lb = tree_leaves(sa), tree_leaves(sb)
+        assert len(la) == len(lb)
+        assert all(torch.equal(x, y) for x, y in zip(la, lb))
 
 
 def test_fed_config_fields_match_jax():

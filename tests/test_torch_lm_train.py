@@ -29,6 +29,7 @@ from repro_torch import checkpoint, convert
 from repro_torch.core import federated
 from repro_torch.launch import train
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_leaves
 from torch_threads import one_torch_thread  # noqa: F401
 
 RUN = dict(arch="fed-100m", reduced=True, rounds=2, local_steps=2, batch=2,
@@ -118,15 +119,16 @@ def test_lm_driver_matches_jax_loop_path(case, tmp_path):
 
 
 @pytest.mark.parametrize("override,exc", [
-    pytest.param(dict(engine="scan", client_store="sharded"),
-                 NotImplementedError, id="override0"),
+    # the sharded store runs (it raised until the mesh layer was ported):
+    # bitwise the device store, on the eager and the scan engine
+    pytest.param(dict(engine="scan", client_store="sharded"), None,
+                 id="override0"),
     # async and the host store are ported: the JAX package's ValueErrors
     pytest.param(dict(engine="async", client_parallelism="loop"), ValueError,
                  id="override1"),
     pytest.param(dict(client_store="host", client_parallelism="loop"),
                  ValueError, id="override2"),
-    pytest.param(dict(client_store="sharded"), NotImplementedError,
-                 id="override3"),
+    pytest.param(dict(client_store="sharded"), None, id="override3"),
     # resume needs the scan engine's state file: a ValueError, as in JAX
     pytest.param(dict(resume=True), ValueError, id="override4"),
     pytest.param(dict(engine="scan", client_parallelism="loop"),
@@ -135,10 +137,21 @@ def test_lm_driver_matches_jax_loop_path(case, tmp_path):
                  id="override6"),
 ])
 def test_unported_lm_options_raise(override, exc):
-    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
-                       else None):
-        train.run(**{**RUN, "clients": 2, **override}, device="cpu",
-                  verbose=False)
+    def run(ov):
+        return train.run(**{**RUN, "clients": 2, **ov}, device="cpu",
+                         verbose=False)
+    if exc is not None:
+        with pytest.raises(exc):
+            run(override)
+        return
+    out, ref = run(override), run(dict(override, client_store="device"))
+    times = ("wall_s", "host_s", "device_s")
+    for a, b in zip(out["history"], ref["history"], strict=True):
+        assert ({k: v for k, v in a.items() if k not in times}
+                == {k: v for k, v in b.items() if k not in times})
+    for a, b in zip(out["adapters"], ref["adapters"], strict=True):
+        assert all(torch.equal(x, y)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
 def test_cli_trains_on_the_cpu(capsys):

@@ -16,9 +16,13 @@ its chunked loss (``model.loss_fn`` above S·V = 2^28), on the CPU.
 * Prefill and serve steps, ``shape_variant``, ``input_specs`` and
   ``abstract_cache`` against the JAX package's shapes (the mrope and
   enc-dec branches through ``with_overrides``), ``attn_impl=None``
-  deferring to the config, and the mesh factories raising.
+  deferring to the config.
+* The pod-axis federated round step (``make_fed_round_step``, 2 pods, the
+  f32 and the bf16 C payload) against the JAX step, and the pod-stacked
+  stand-ins against the JAX helpers' shapes.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +35,7 @@ from repro.models import model as jmodel
 from repro.models.config import ModelConfig as JConfig
 from repro.models.config import get_config as jget_config
 from repro_torch import convert
+from repro_torch.launch import mesh as pmesh
 from repro_torch.launch import steps
 from repro_torch.models import attention, model
 from repro_torch.models.config import ModelConfig, get_config
@@ -387,5 +392,69 @@ def test_steps_default_attn_impl_from_config(monkeypatch):
                                      "pod_stacked_adapter",
                                      "pod_stacked_opt_state"])
 def test_fed_round_factories_are_not_ported(factory):
-    with pytest.raises(NotImplementedError, match="launch/mesh.py"):
-        getattr(steps, factory)(ModelConfig(**TINY), 2)
+    """The pod-axis factories (they raised until the mesh layer was
+    ported): the step reads its pod count from the mesh, and the
+    pod-stacked stand-ins are on ``meta`` with the JAX helpers' shapes and
+    dtypes (the optimizer's step count is a host int in the port)."""
+    cfg, jcfg = ModelConfig(**TINY), JConfig(**TINY)
+    mesh = pmesh.make_production_mesh(multi_pod=True)
+    step = steps.make_fed_round_step(cfg, mesh)
+    if factory == "make_fed_round_step":
+        assert step.n_pods == 2
+        assert jsteps.make_fed_round_step(
+            jcfg, types.SimpleNamespace(shape={"pod": 2})).n_pods == 2
+        return
+    if factory == "pod_stacked_adapter":
+        got = steps.pod_stacked_adapter(cfg, 2)
+        want = jsteps.pod_stacked_adapter(jcfg, 2)
+    else:
+        got = steps.pod_stacked_opt_state(cfg, 2, step.optimizer)
+        want = jsteps.pod_stacked_opt_state(
+            jcfg, 2, jsteps.make_fed_round_step(
+                jcfg, types.SimpleNamespace(shape={"pod": 2})).optimizer)
+        assert got["step"] == 0 and want["step"].shape == (2,)
+        got, want = dict(got, step=None), dict(want, step=None)
+    leaves = jax.tree.leaves(got)         # dict keys in JAX's order
+    assert all(t.device.type == "meta" for t in leaves)
+    assert [(tuple(t.shape), str(t.dtype).split(".")[-1]) for t in leaves] \
+        == [(tuple(x.shape), str(x.dtype)) for x in jax.tree.leaves(want)]
+
+
+@pytest.fixture(scope="module")
+def fed_inputs(jparams):
+    """Two pods' adapters (pod 1's moved off pod 0's), a batch of 2 × 2
+    sequences and personalized weights W."""
+    rng = np.random.default_rng(7)
+    ad_p = jax.tree.map(lambda a: np.stack([a, (a + 0.05 * rng.standard_normal(
+        a.shape)).astype(a.dtype)]), jparams["adapter"])
+    w = np.asarray([[0.7, 0.3], [0.4, 0.6]], np.float32)
+    return ad_p, _batch(TINY["vocab_size"], 4, 16, seed=3), w
+
+
+@pytest.mark.parametrize("payload", [None, "bfloat16"])
+def test_fed_round_step_matches_jax(jparams, fed_inputs, payload):
+    """``make_fed_round_step`` at 2 pods against the JAX step (run under a
+    one-device ("pod", "data", "model") mesh with a 2-pod stand-in):
+    losses, the pod-stacked adapters (A / B pod-local, C̄ = W·C) and the
+    AdamW moments at f32 2e-5, with the f32 and the bf16 C payload."""
+    ad_p, batch, w = fed_inputs
+    jstep = jsteps.make_fed_round_step(
+        JConfig(**TINY), types.SimpleNamespace(shape={"pod": 2}),
+        payload_dtype=None if payload is None else jnp.bfloat16)
+    with jax.sharding.Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1, 1),
+                           ("pod", "data", "model")):
+        jad, jos, jl = jax.jit(jstep)(jparams, ad_p,
+                                      jax.vmap(jstep.optimizer.init)(ad_p),
+                                      batch, w)
+    step = steps.make_fed_round_step(
+        ModelConfig(**TINY), pmesh.make_production_mesh(multi_pod=True),
+        payload_dtype=None if payload is None else torch.bfloat16)
+    pad = convert.params_from_numpy(ad_p, "cpu")
+    ad, os_, losses = step(convert.params_from_numpy(jparams, "cpu"), pad,
+                           step.optimizer.init(pad), batch, w)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jl), **F32)
+    for got, want in ((ad, jad), (os_["mu"], jos["mu"]),
+                      (os_["nu"], jos["nu"])):
+        for g, j in zip(jax.tree.leaves(got), jax.tree.leaves(want),
+                        strict=True):
+            np.testing.assert_allclose(g.numpy(), np.asarray(j), **F32)

@@ -11,6 +11,8 @@ the CPU.
   package's ``"vmap"`` runs (the JAX draws handed to the port) and against
   the port's ``"loop"`` runs, at ROADMAP's history tolerances: identical
   ledgers, loss within 1e-4, accuracies within 1e-3, states within 5e-4.
+  ``"shard"`` (on the device and the sharded store) against the same JAX
+  vmap runs.
 """
 import dataclasses
 
@@ -283,8 +285,23 @@ def _assert_history_close(ref_hist, out_hist):
 
 @pytest.mark.parametrize("method", list(JAX_RUNS))
 def test_run_federated_vmap_matches_jax_vmap(setup, jax_vmap_runs, method):
+    _against_jax_vmap(setup, jax_vmap_runs, method)
+
+
+@pytest.mark.parametrize("store", ["device", "sharded"])
+@pytest.mark.parametrize("method", list(JAX_RUNS))
+def test_run_federated_shard_matches_jax_vmap(setup, jax_vmap_runs, method,
+                                              store):
+    """``client_parallelism="shard"`` (and the sharded store) against the
+    JAX vmap run: JAX's shard path is its vmap path on one device (its
+    ``test_shard_matches_vmap``), so no JAX shard run is compiled."""
+    _against_jax_vmap(setup, jax_vmap_runs, method,
+                      client_parallelism="shard", client_store=store)
+
+
+def _against_jax_vmap(setup, jax_vmap_runs, method, **over):
     jtask, task, ctrain, ctest = setup
-    kw = _vmap_kw(method)
+    kw = dict(_vmap_kw(method), **over)
     ref_out = jax_vmap_runs[method]
     clients, probes, gmm_init = _draws(jtask)
     extra = {}
@@ -324,16 +341,19 @@ def test_run_federated_vmap_matches_loop(setup, method, kw):
 
 def test_defaults_are_the_references():
     """run_federated and the LM driver default to "vmap", as the JAX
-    package does; "shard" names its ROADMAP item."""
+    package does; the modes are the JAX package's ("shard" runs since the
+    mesh layer was ported: ``test_run_federated_shard_matches_jax_vmap``)
+    and an unknown one is refused before anything runs."""
     assert federated.FedConfig().client_parallelism == \
         jfed.FedConfig().client_parallelism == "vmap"
     import inspect
     assert inspect.signature(train.run).parameters[
         "client_parallelism"].default == inspect.signature(
             jtrain.run).parameters["client_parallelism"].default == "vmap"
+    assert federated.PARALLELISM_MODES == jfed.PARALLELISM_MODES
     fed = dataclasses.replace(federated.FedConfig(**FED),
-                              client_parallelism="shard")
-    with pytest.raises(NotImplementedError, match="'launch/mesh.py'"):
+                              client_parallelism="pmap")
+    with pytest.raises(ValueError, match="client_parallelism"):
         federated.run_federated(None, fed, [None] * M, [], device="cpu")
 
 
