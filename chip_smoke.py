@@ -112,6 +112,15 @@ Phases, one JSON line each (several for the case phases):
                exact launches, the same ledger, checkpoint and falling
                loss, round 0's loss within 1e-3 + 1e-3·|loss| of the loop
                run's (later rounds amplify rounding at this job's lr)
+  train_graph  the train (loop), train_vmap and lm_train (loop) jobs again
+               under ``jit_cache.disable_jit()``, op by op: their default
+               runs, whose fits and evals ran as captured CUDA graphs
+               (``core/jit_cache.py``), bitwise these (every record but the
+               times, the final states, the launches), with graphs
+               captured and one replay per fit and eval call; captured
+               against eager: wall per round, warm-up and capture seconds,
+               peak memory, the entries per cache, and train_profile's
+               idle share on loop and vmap
   pretrain     ``FedTask.create`` with two 8x256 warm-up batches: the
                backbone trains, so every projection runs the dW kernel too
   card_vs_cpu  one loss and its adapter gradients at full width and depth
@@ -361,6 +370,12 @@ Phases, one JSON line each (several for the case phases):
                adapter gradients under flash and blockwise_cv against ref
   flash_timing also times flash at vlm_train's shape (1 x 4352, 64 / 8
                heads of 128, causal, bf16: rows "vlm train")
+Every ``run_federated`` and ``launch.train.run`` job fits and evaluates
+through the cached programs (a CUDA graph a signature, captured at first
+use and replayed); each phase starts with the program caches cleared, and
+``free`` clears them too.  A phase that taps ``loss_fn`` (``moe_train``,
+``rg_train``) runs each job twice, captured and then eager under the taps,
+and holds the two bitwise.
 Every phase's wall seconds follow it on a ``{"phase": "wall"}`` line.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the result line.  Exits non-zero, printing no result, on any failure and
@@ -706,6 +721,10 @@ def random_params(torch, model, cfg, dev, seed: int) -> dict:
 
 
 def free(torch) -> None:
+    """Drop every cached program (its anchors, static buffers and graph
+    memory pool), collect garbage and return cached memory to the card."""
+    from repro_torch.core import jit_cache
+    jit_cache.clear_all()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2465,7 +2484,9 @@ def train_job(torch, cfg, dev, attn_impl: str, job: dict = TRAIN,
               mode: str = "loop", **fed_kw):
     """``run_federated`` (celora, eager engine, client_parallelism
     ``mode``, the FedConfig fields ``fed_kw`` on top) on ``cfg`` with a
-    random backbone; returns (result, wall seconds)."""
+    random backbone; returns (result, wall seconds), the result with the
+    run's ``program_stats`` under ``"programs"``."""
+    from repro_torch.core import jit_cache
     from repro_torch.core.fed_model import FedTask
     from repro_torch.core.federated import FedConfig, run_federated
     from repro_torch.data import synthetic
@@ -2480,10 +2501,12 @@ def train_job(torch, cfg, dev, attn_impl: str, job: dict = TRAIN,
         local_steps=job["local_steps"], batch_size=job["batch"],
         lr=job["lr"], seed=0, client_parallelism=mode,
         attn_impl=attn_impl), **fed_kw})
+    before = dict(jit_cache.STATS)
     t0 = time.perf_counter()
     out = run_federated(task, fed, ctrain, ctest, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    out["programs"] = program_stats(before)
     return out, time.perf_counter() - t0
 
 
@@ -2507,6 +2530,9 @@ def train_profile(torch, cfg, dev, job: dict = TRAIN, clients: int = 1,
     fed = FedConfig(method="lora_loc", n_clients=clients, rounds=1,
                     local_steps=3, batch_size=job["batch"], attn_impl="flash",
                     client_parallelism=mode)
+    # the same run first: the window holds replays of built programs (and
+    # an eager run's warmed allocator), not their capture
+    run_federated(task, fed, ctrain, ctest, device=dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2598,19 +2624,56 @@ def fed_launches(cfg, hist, job: dict, mode: str) -> dict:
     return out
 
 
+#: the default runs (through the captured programs) that train_graph holds
+#: its eager runs to, by job: the result, launches, wall, peak memory and
+#: what the programs did
+GRAPH_RUNS: dict = {}
+
+
+def program_stats(before: dict) -> dict:
+    """What the cached programs did since ``before`` (a copy of
+    ``jit_cache.STATS``): entries built, graphs captured, replays, warm-up
+    and capture seconds; and the entries each program cache holds."""
+    from repro_torch.core import federated, jit_cache
+    from repro_torch.launch import train
+    return {**{k: v - before[k] for k, v in jit_cache.STATS.items()},
+            "entries": {"run_federated fit": len(federated._LOCAL_FIT_CACHE),
+                        "run_federated eval": len(federated._EVAL_CACHE),
+                        "LM fit": len(train._FIT_CACHE)}}
+
+
+def program_counts(torch, start: int, before: dict) -> dict:
+    """``program_stats(before)``, the peak of the memory the caching
+    allocator reserved (graph pools included), and the peak allocation
+    above ``start`` (the bytes allocated when the run began: what earlier
+    phases left alive)."""
+    peak = torch.cuda.max_memory_allocated()
+    return {"programs": program_stats(before),
+            "peak_reserved": torch.cuda.max_memory_reserved() / 1e9,
+            "peak_above_start": (peak - start) / 1e9}
+
+
 def phase_train(torch, fa_ops, tl_ops, get_config, dev):
     """fed-100m at full width and depth through the flash and tri-LoRA
     kernels, then the same job through the plain reference attention on
     the card (its projections still run the tri-LoRA kernels)."""
+    from repro_torch.core import jit_cache
+
     cfg = get_config("fed-100m")
     job = TRAIN
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     fa_ops.reset_launches()                   # counts of the main path only
     tl_ops.reset_launches()
+    before = dict(jit_cache.STATS)
     out, wall = train_job(torch, cfg, dev, "flash")
     launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
     flash_routes = dict(fa_ops.ROUTES)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    GRAPH_RUNS["train"] = dict(out=out, launches=launches, wall=wall,
+                               peak=peak,
+                               **program_counts(torch, start, before))
     hist = out["history"]
     steps = sum(len(r.sampled) for r in hist) * job["local_steps"]
     layers = cfg.n_layers
@@ -2674,15 +2737,23 @@ def phase_train_vmap(torch, fa_ops, tl_ops, get_config, dev, loop_out):
     flash kernels run at batch 32; held to the loop run of the same job
     (``loop_out``, from the train phase) and profiled beside the loop path
     over the same work."""
+    from repro_torch.core import jit_cache
+
     cfg = get_config("fed-100m")
     job = TRAIN
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     fa_ops.reset_launches()                   # counts of the main path only
     tl_ops.reset_launches()
+    before = dict(jit_cache.STATS)
     out, wall = train_job(torch, cfg, dev, "flash", mode="vmap")
     launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
     flash_routes, routes = dict(fa_ops.ROUTES), dict(tl_ops.ROUTES)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    GRAPH_RUNS["train_vmap"] = dict(out=out, launches=launches, wall=wall,
+                                    peak=peak,
+                                    **program_counts(torch, start, before))
     hist = out["history"]
     steps = len(hist) * job["local_steps"]
     layers = cfg.n_layers
@@ -2691,6 +2762,7 @@ def phase_train_vmap(torch, fa_ops, tl_ops, get_config, dev, loop_out):
               * job["batch"] * job["seq"])
     profiles = {mode: train_profile(torch, cfg, dev, job, job["clients"],
                                     mode) for mode in ("loop", "vmap")}
+    GRAPH_RUNS["train_vmap"]["profiles"] = profiles
     emit({"phase": "train_vmap", "arch": cfg.name, "dtype": cfg.param_dtype,
           "method": "celora", "attn_impl": "flash",
           "client_parallelism": "vmap", **job,
@@ -2750,21 +2822,30 @@ def phase_lm_train(torch, fa_ops, tl_ops, get_config, dev,
     round, round 0's loss within 1e-3 + 1e-3·|loss| (see LM_TRAIN).
     Returns (launches, history)."""
     from repro_torch import checkpoint
+    from repro_torch.core import jit_cache
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
 
     job = dict(LM_TRAIN, client_parallelism=mode)
     cfg = get_config(job["arch"])
     path = ROOT / "build" / "chip_smoke" / f"lm_train_{mode}.npz"
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     fa_ops.reset_launches()                   # counts of the main path only
     tl_ops.reset_launches()
+    before = dict(jit_cache.STATS)
     t0 = time.perf_counter()
     out = train.run(**job, ckpt=str(path), verbose=False, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 1e9
+    if mode == "loop":
+        GRAPH_RUNS["lm_train"] = dict(
+            out={k: out[k] for k in ("history", "adapters")},
+            launches=launches, wall=wall, peak=peak,
+            **program_counts(torch, start, before))
     hist = out["history"]
     steps = sum(len(r["participants"]) for r in hist) * job["local_steps"]
     layers = cfg.n_layers
@@ -2829,16 +2910,135 @@ def lm_profile(torch, cfg, out, job, dev) -> dict:
     drawn = [next(batches) for _ in range(3)]
     toks, labs = (torch.as_tensor(np.stack([b[k] for b in drawn]),
                                   device=dev) for k in ("tokens", "labels"))
+    opt = adamw(lr=3e-3)
+    args = (out["cfg"], out["base"], opt, out["adapters"][0], toks, labs)
+    train.local_fit(*args)             # its program built outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        train.local_fit(out["cfg"], out["base"], adamw(lr=3e-3),
-                        out["adapters"][0], toks, labs)
+        train.local_fit(*args)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t1) * 1e6
     return {"window": "train.local_fit, 1 client, 3 steps",
             **device_split(prof, window_us, 12, shares=FLASH_SHARES)}
+
+
+def fit_eval_calls(hist, job: dict, mode: str) -> int:
+    """The fit and eval calls of a ``run_federated`` job: the loop path
+    fits each sampled client and evaluates each client on an eval round,
+    the vmap path makes one of each a round (an eval round)."""
+    evaluated = sum(r.evaluated for r in hist)
+    if mode == "loop":
+        return sum(len(r.sampled) for r in hist) + evaluated * job["clients"]
+    return len(hist) + evaluated
+
+
+def phase_train_graph(torch, fa_ops, tl_ops, get_config, dev):
+    """The default runs of the ``train`` (loop), ``train_vmap`` and
+    ``lm_train`` (loop) jobs went through the captured programs
+    (``core/jit_cache.py``: a CUDA graph a fit or eval signature, replayed
+    with no Python between launches); here the same jobs run under
+    ``jit_cache.disable_jit()``, op by op, and the captured runs are held
+    to them bitwise: every record but the times, the final client states
+    and the launches.  The captured runs must have captured graphs and
+    replayed one for every fit and eval they made.  Reported, captured
+    against eager: wall per round, warm-up and capture seconds, peak
+    memory, the entries each cache held, and the device's idle share over
+    ``train_profile``'s window (lora_loc, 4 clients, 3 steps) on loop and
+    vmap."""
+    from repro_torch.core import jit_cache
+    from repro_torch.launch import train
+
+    cfg = get_config("fed-100m")
+    report, checks = {}, []
+    profiles = GRAPH_RUNS["train_vmap"]["profiles"]
+    for name, mode in (("train", "loop"), ("train_vmap", "vmap")):
+        g = GRAPH_RUNS.pop(name)
+        free(torch)
+        start = torch.cuda.memory_allocated()
+        with jit_cache.disable_jit():
+            eager, launches, wall, peak = run_counted(
+                torch, fa_ops, tl_ops, lambda: train_job(
+                    torch, cfg, dev, "flash", mode=mode)[0])
+        reserved = torch.cuda.max_memory_reserved() / 1e9
+        above = peak - start / 1e9
+        hist, ref = g["out"]["history"], eager["history"]
+        calls = fit_eval_calls(hist, TRAIN, mode)
+        states = all(same_tensors(torch, a, b) for a, b in
+                     zip(g["out"]["states"], eager["states"]))
+        report[name] = {
+            "captured": {"wall_s": g["wall"], "peak_mem_gb": g["peak"],
+                         "peak_reserved_gb": g["peak_reserved"],
+                         "peak_above_start_gb": g["peak_above_start"],
+                         "round_wall_s": [r.wall_s for r in hist],
+                         "programs": g["programs"],
+                         "fit_and_eval_calls": calls},
+            "eager": {"wall_s": wall, "peak_mem_gb": peak,
+                      "peak_reserved_gb": reserved,
+                      "peak_above_start_gb": above,
+                      "round_wall_s": [r.wall_s for r in ref]},
+            "states_bitwise": states, "launches_equal": g["launches"]
+            == launches}
+        checks += [
+            (fed_records(hist) == fed_records(ref), f"train_graph {name}: "
+             f"the captured run's records are not bitwise the eager run's"),
+            (states, f"train_graph {name}: the captured run's final states "
+             f"are not bitwise the eager run's"),
+            (g["launches"] == launches, f"train_graph {name}: launches "
+             f"{g['launches']} captured, {launches} eager"),
+            (g["programs"]["graphs"] > 0
+             and g["programs"]["replays"] == calls,
+             f"train_graph {name}: {g['programs']} for {calls} fit and "
+             f"eval calls")]
+        del g, eager
+    g = GRAPH_RUNS.pop("lm_train")
+    free(torch)
+    start = torch.cuda.memory_allocated()
+    with jit_cache.disable_jit():
+        eager, launches, wall, peak = run_counted(
+            torch, fa_ops, tl_ops, lambda: train.run(
+                **dict(LM_TRAIN, client_parallelism="loop"), verbose=False,
+                device=dev))
+    reserved = torch.cuda.max_memory_reserved() / 1e9
+    above = peak - start / 1e9
+    hist, ref = g["out"]["history"], eager["history"]
+    calls = sum(len(r["participants"]) for r in hist)
+    states = same_tensors(torch, g["out"]["adapters"], eager["adapters"])
+    report["lm_train"] = {
+        "captured": {"wall_s": g["wall"], "peak_mem_gb": g["peak"],
+                     "peak_reserved_gb": g["peak_reserved"],
+                     "peak_above_start_gb": g["peak_above_start"],
+                     "round_wall_s": [r["wall_s"] for r in hist],
+                     "programs": g["programs"], "fit_calls": calls},
+        "eager": {"wall_s": wall, "peak_mem_gb": peak,
+                  "peak_reserved_gb": reserved,
+                  "peak_above_start_gb": above,
+                  "round_wall_s": [r["wall_s"] for r in ref]},
+        "states_bitwise": states, "launches_equal": g["launches"] == launches}
+    del g
+    free(torch)
+    # train_vmap's profile windows ran the captured programs; the same
+    # windows eager
+    with jit_cache.disable_jit():
+        eager_profiles = {mode: train_profile(torch, cfg, dev, TRAIN,
+                                              TRAIN["clients"], mode)
+                          for mode in ("loop", "vmap")}
+    emit({"phase": "train_graph", "arch": cfg.name, **report,
+          "profiles": {"captured": profiles, "eager": eager_profiles}})
+    for cond, what in checks:
+        require(cond, what)
+    require(lm_records(hist) == lm_records(ref),
+            "train_graph lm_train: the captured run's records are not "
+            "bitwise the eager run's")
+    require(states, "train_graph lm_train: the captured run's adapters are "
+            "not bitwise the eager run's")
+    require(report["lm_train"]["launches_equal"],
+            f"train_graph lm_train: launches differ from the eager run's "
+            f"{launches}")
+    programs = report["lm_train"]["captured"]["programs"]
+    require(programs["graphs"] > 0 and programs["replays"] == calls,
+            f"train_graph lm_train: {programs} for {calls} fit calls")
 
 
 # ---------------------------------------------------------------------------
@@ -3052,7 +3252,7 @@ def phase_train_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_run,
     launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
     flash_routes, routes = dict(fa_ops.ROUTES), dict(tl_ops.ROUTES)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    hist = out["history"]
+    hist, programs = out["history"], out["programs"]
     steps = len(hist) * job["local_steps"]
     tokens = (sum(len(r.sampled) for r in hist) * job["local_steps"]
               * job["batch"] * job["seq"])
@@ -3115,7 +3315,7 @@ def phase_train_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_run,
           "wall_s": wall, "trained_tokens": tokens,
           "trained_tok_per_s": tokens / wall, "peak_mem_gb": peak,
           "launches": launches, "routes": routes,
-          "flash_routes": flash_routes,
+          "flash_routes": flash_routes, "programs": programs,
           "vmap": {"wall_s": vmap_run["wall_s"],
                    "round_wall_s": [r.wall_s for r in vmap_run["history"]],
                    "trained_tok_per_s": vmap_run["trained_tok_per_s"],
@@ -3347,6 +3547,17 @@ def held_to(what: str, torch, out, ref, states: bool = True) -> None:
                 f"{what}: states differ: {gaps}")
 
 
+def fed_records(hist) -> list:
+    """``run_federated``'s RoundRecords as dicts without their times."""
+    return [{k: v for k, v in vars(r).items() if k not in TIMES}
+            for r in hist]
+
+
+def lm_records(hist) -> list:
+    """The LM driver's history rows without their times."""
+    return [{k: v for k, v in r.items() if k not in TIMES} for r in hist]
+
+
 def run_counted(torch, fa_ops, tl_ops, fn):
     """``fn()`` with every kernel count set to 0 just before it; returns
     (result, launches, wall seconds, peak GB)."""
@@ -3429,7 +3640,8 @@ def phase_train_host(torch, fa_ops, tl_ops, get_config, dev):
                                                device_bytes),
               **per_round(out["history"]),
               "train_loss": [r.train_loss for r in out["history"]],
-              "sampled": [r.sampled for r in out["history"]]}
+              "sampled": [r.sampled for r in out["history"]],
+              "programs": out["programs"]}
               for store, (out, launches, wall, peak) in runs.items()},
           "expected_launches": expected,
           "state_gaps": gaps,
@@ -3839,12 +4051,14 @@ def phase_train_async(torch, fa_ops, tl_ops, get_config, dev):
                                            for r in eager["history"]],
                     "train_loss": [r.train_loss for r in limit["history"]],
                     "staleness": limit["staleness_mean"],
-                    "fit_groups": limit["fit_groups"]},
+                    "fit_groups": limit["fit_groups"],
+                    "programs": limit["programs"]},
           "storm": {**ASYNC_STORM, "wall_s": wall, "peak_mem_gb": peak,
                     "flush_wall_s": [r.wall_s for r in hist],
                     "sim_times": a["sim_times"],
                     "staleness": a["staleness_mean"],
                     "fit_groups": a["fit_groups"], "launches": launches,
+                    "programs": a["programs"],
                     "expected_launches": expected,
                     "train_loss": [r.train_loss for r in hist],
                     "participants": [r.participants for r in hist],
@@ -4232,8 +4446,7 @@ def phase_h2o_train(torch, fa_ops, tl_ops, get_config, dev) -> dict:
         out_launches = out_launches or launches
         losses[mode] = hist[0]["loss"]
         del out
-        gc.collect()
-        torch.cuda.empty_cache()
+        free(torch)
     require(abs(losses["loop"] - losses["vmap"])
             <= 1e-3 + 1e-3 * abs(losses["vmap"]),
             f"h2o_train round 0: loop loss {losses['loop']} vs vmap "
@@ -4429,9 +4642,14 @@ def lm_job_phase(torch, fa_ops, tl_ops, model, get_config, dev, job: dict,
     peak memory; round 0's loss within 1e-3 + 1e-3·|loss| across the two
     and each client's aux (the loss_fn calls' metrics, ``LossTap``) too;
     with ``route_tap`` the share of routed picks dropped at capacity.
-    Returns the vmap run's launches and each run's per-client aux."""
+    Each run goes through the captured fit programs; the taps read every
+    ``loss_fn`` call, which a replay does not make, so each mode runs
+    again eagerly (``jit_cache.disable_jit``) under the taps, and the
+    captured run must be bitwise that run (records but the times, and
+    launches).  Returns the vmap run's launches."""
     import numpy as np
 
+    from repro_torch.core import jit_cache
     from repro_torch.launch import train
 
     cfg = get_config(arch)
@@ -4443,14 +4661,25 @@ def lm_job_phase(torch, fa_ops, tl_ops, model, get_config, dev, job: dict,
         steps = job["rounds"] * job["local_steps"] * (
             job["clients"] if mode == "loop" else 1)
         expected = step_launches(cfg, steps, grouped=mode == "vmap")
-        with LossTap(model) as lt, RouteTap(torch) as rt:
-            out, launches, wall, peak = run_counted(
-                torch, fa_ops, tl_ops, lambda: train.run(
-                    arch=arch, **run_kw, client_parallelism=mode,
-                    verbose=False, device=dev))
-            flash_routes = dict(fa_ops.ROUTES)
-            tri_routes = dict(tl_ops.ROUTES)
+
+        def run():
+            return train.run(arch=arch, **run_kw, client_parallelism=mode,
+                             verbose=False, device=dev)
+        out, launches, wall, peak = run_counted(torch, fa_ops, tl_ops, run)
+        flash_routes = dict(fa_ops.ROUTES)
+        tri_routes = dict(tl_ops.ROUTES)
         hist = out["history"]
+        del out
+        free(torch)
+        # the taps read every loss_fn call, which a replay of the captured
+        # fit does not make: the same run again, eager, under the taps,
+        # and the captured run held to it bitwise
+        with jit_cache.disable_jit(), LossTap(model) as lt, \
+                RouteTap(torch) as rt:
+            out, eager_launches, _, _ = run_counted(torch, fa_ops, tl_ops,
+                                                    run)
+        bitwise = (lm_records(hist) == lm_records(out["history"])
+                   and eager_launches == launches)
         aux = ([a for c in lt.calls for a in c["aux"]] if mode == "loop"
                else lt.calls[0]["aux"])
         tokens = job["rounds"] * job["local_steps"] * job["clients"] * \
@@ -4471,7 +4700,12 @@ def lm_job_phase(torch, fa_ops, tl_ops, model, get_config, dev, job: dict,
               "trained_tok_per_s": tokens / round_wall,
               "peak_mem_gb": peak, "launches": launches,
               "expected_launches": expected, "flash_routes": flash_routes,
-              "tri_lora_routes": tri_routes})
+              "tri_lora_routes": tri_routes,
+              "eager": {"rounds_detail": out["history"],
+                        "launches": eager_launches,
+                        "bitwise_the_captured_run": bitwise}})
+        require(bitwise, f"{phase} {mode}: the captured run is not bitwise "
+                f"the eager run (records, launches)")
         require(launches == expected,
                 f"{phase} {mode} launches {launches} != {expected}")
         require(flash_routes["fwd_scalar"] == 0
@@ -6174,10 +6408,19 @@ def wall_line(name: str, t0: float) -> None:
 
 def timed(name: str, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall seconds kept in PHASE_WALL and printed
-    on a line of their own."""
+    on a line of their own, and what the cached programs did in it on a
+    ``{"phase": "programs"}`` line.  The programs an earlier phase cached
+    are dropped first (their graph pools and anchored backbones would sit
+    in this phase's memory)."""
+    from repro_torch.core import jit_cache
+    jit_cache.clear_all()
+    before = dict(jit_cache.STATS)
     t0 = time.perf_counter()
     out = fn(*args, **kw)
     wall_line(name, t0)
+    stats = program_stats(before)
+    if stats["programs"]:
+        emit({"phase": "programs", "name": name, **stats})
     return out
 
 
@@ -6283,6 +6526,9 @@ def main() -> int:
                             tl_ops, get_config, dev)
         launches.update(tri_lora_fwd=lm["tri_lora_fwd"],
                         tri_lora_dx=lm["tri_lora_dx"])
+        # the captured programs of the three runs above against eager runs
+        timed("train_graph", phase_train_graph, torch, fa_ops, tl_ops,
+              get_config, dev)
         _, lm_vmap_hist = timed("lm_train (vmap)", phase_lm_train, torch,
                                 fa_ops, tl_ops, get_config, dev, "vmap",
                                 lm_hist)

@@ -26,11 +26,13 @@ and drives it over CHUNKS of rounds with exactly one host sync per chunk:
   the eval cadence is the host-known round index.
 
 In the JAX package the round is one traced ``round_step`` under
-``lax.scan``; here it is the same ops launched eagerly (the grouped
-tri-LoRA and flash kernels on a card), with no CUDA graph, so the engine
-runs the eager vmap path's kernels and saves its host syncs, not its
-launches.  ``core/jit_cache.py`` has no counterpart: there is no compiled
-program to cache.
+``lax.scan``; here the round's local fit and eval are the programs
+``run_federated`` hands over (on a card, CUDA graphs cached in
+``core/jit_cache.py`` and replayed: the grouped tri-LoRA and flash
+kernels with no Python between launches), and the rest of the round is
+launched eagerly, so the engine saves the eager vmap path's host syncs;
+the whole chunk is not one program yet (the JAX package's
+``_SCAN_CACHE``).
 
 Equivalence contract (the JAX package's, tests/test_fed_engine.py): the
 same ``FedConfig`` (minus ``engine``) reproduces the eager history — loss

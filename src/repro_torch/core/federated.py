@@ -81,8 +81,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import (admission, aggregation, client_batch,
-                              client_store, comm, compress, faults, sampling,
-                              tri_lora)
+                              client_store, comm, compress, faults,
+                              jit_cache, sampling, tri_lora)
 from repro_torch.core.baselines import Strategy, get_strategy
 from repro_torch.core.fed_model import FedTask
 from repro_torch.core.similarity import cka, gmm, ot
@@ -91,6 +91,15 @@ from repro_torch.device import check_on, resolve_device
 from repro_torch.models import attention
 from repro_torch.optim import adamw, apply_updates
 from repro_torch.tree import tree_leaves, tree_map
+
+# Program caches keyed on the task's parameter OBJECTS (strong references
+# + identity re-check, see repro_torch.core.jit_cache) — a bare id() key
+# could silently serve a stale program for a different task after GC hands
+# the id to a new object, and a plain dict grows without bound.  On a card
+# each entry is a captured CUDA graph holding its static buffers and memory
+# pool, so the bound is smaller than the JAX package's 16.
+_LOCAL_FIT_CACHE = jit_cache.JitCache(maxsize=8)
+_EVAL_CACHE = jit_cache.JitCache(maxsize=8)
 
 PARALLELISM_MODES = ("loop", "vmap", "shard")
 ENGINES = ("eager", "scan", "async")
@@ -352,6 +361,10 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
         raise ValueError(f"attn_impl={impl!r}; "
                          f"expected one of {attention.IMPLS}")
     fed = dataclasses.replace(fed, attn_impl=impl)
+    # the programs are anchored on the caller's backbone and config (impl
+    # rides in their key): the override below makes a new config object
+    # every call, which would never hit
+    anchors = (task.base, task.cfg)
     if task.cfg.attn_impl != impl:
         task = task._replace(cfg=task.cfg.with_overrides(attn_impl=impl))
 
@@ -473,6 +486,21 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
         w = (labs >= 0).float()
         correct = (torch.argmax(logits, -1) == labs).float() * w
         return correct.sum(-1) / w.sum(-1).clamp_min(1.0)
+
+    # the programs of the fit and the eval, cached across run_federated
+    # calls on the task (a CUDA graph a signature on a card; the function
+    # itself on the CPU): every engine and store gets them from engine_kw
+    mode = fed.client_parallelism
+    fit_key = (strategy.name, fed.lr, fed.local_steps, fed.batch_size,
+               fed.pfedme_eta, mode, impl)
+    local_fit = jit_cache.jit(_LOCAL_FIT_CACHE, anchors, fit_key + ("one",),
+                              local_fit)
+    local_fit_stacked = jit_cache.jit(_LOCAL_FIT_CACHE, anchors,
+                                      fit_key + ("stacked",),
+                                      local_fit_stacked)
+    eval_stacked = jit_cache.jit(_EVAL_CACHE, anchors,
+                                 (strategy.name, pad_to, mode, impl),
+                                 eval_stacked)
 
     def eval_acc(trainable: dict, toks: torch.Tensor,
                  labs: torch.Tensor) -> list:

@@ -75,6 +75,7 @@ from generators seeded the same way, or ready-made from the caller
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import time
 import warnings
@@ -86,7 +87,7 @@ import torch
 from repro_torch.checkpoint import (check_fingerprint, metadata, restore,
                                     save)
 from repro_torch.core import (aggregation, client_batch, client_store,
-                              comm, compress, sampling, tri_lora)
+                              comm, compress, jit_cache, sampling, tri_lora)
 from repro_torch.core.client_store import ShardedClientStore
 from repro_torch.core.fed_engine import chunk_schedule, meta_like
 from repro_torch.core.similarity import cka
@@ -148,12 +149,41 @@ def _validate(clients: int, participation: float, straggler_frac: float,
                          f"got {straggler_frac}")
 
 
+# The LM driver's fit programs (the JAX package jits them per run): on a
+# card a CUDA graph a signature, anchored on the backbone and its config,
+# keyed on the path and the optimizer (its step's scalars are baked into
+# the graph); a graph holds device memory, so the bound is small.
+_FIT_CACHE = jit_cache.JitCache(maxsize=4)
+
+
 def local_fit(cfg, base: dict, opt, adapter: dict, toks: torch.Tensor,
               labs: torch.Tensor):
     """One client's local fit: an AdamW step (a fresh optimizer state, as
     in the JAX package) per (B, S) batch of the stacked ``toks`` /
     ``labs``, the causal-LM loss on the frozen ``base``.  Returns the
-    adapter and each step's loss."""
+    adapter and each step's loss.  Runs the cached program
+    (:mod:`repro_torch.core.jit_cache`)."""
+    return jit_cache.jit(_FIT_CACHE, (base, cfg), ("one", opt),
+                         functools.partial(_local_fit, cfg, base, opt))(
+        adapter, toks, labs)
+
+
+def local_fit_stacked(cfg, base: dict, opt, stacked: dict,
+                      toks: torch.Tensor, labs: torch.Tensor):
+    """All clients' :func:`local_fit` as one batch: ``stacked`` adapters
+    (leaves (m, …)), ``toks`` / ``labs`` (m, steps, B, S), ``opt`` an
+    ``adamw(stacked=True)``.  Each step folds the m batches into one of
+    m·B sequences and differentiates the SUM of the m per-client losses,
+    so each client gets exactly its own gradient.  Returns the adapters
+    and each client's step losses (m, steps).  Runs the cached program."""
+    return jit_cache.jit(_FIT_CACHE, (base, cfg), ("stacked", opt),
+                         functools.partial(_local_fit_stacked, cfg, base,
+                                           opt))(stacked, toks, labs)
+
+
+def _local_fit(cfg, base: dict, opt, adapter: dict, toks: torch.Tensor,
+               labs: torch.Tensor):
+    """The body of :func:`local_fit`."""
     state = opt.init(adapter)
     losses = []
     for step in range(toks.shape[0]):
@@ -169,14 +199,9 @@ def local_fit(cfg, base: dict, opt, adapter: dict, toks: torch.Tensor,
     return adapter, torch.stack(losses)
 
 
-def local_fit_stacked(cfg, base: dict, opt, stacked: dict,
-                      toks: torch.Tensor, labs: torch.Tensor):
-    """All clients' :func:`local_fit` as one batch: ``stacked`` adapters
-    (leaves (m, …)), ``toks`` / ``labs`` (m, steps, B, S), ``opt`` an
-    ``adamw(stacked=True)``.  Each step folds the m batches into one of
-    m·B sequences and differentiates the SUM of the m per-client losses,
-    so each client gets exactly its own gradient.  Returns the adapters
-    and each client's step losses (m, steps)."""
+def _local_fit_stacked(cfg, base: dict, opt, stacked: dict,
+                       toks: torch.Tensor, labs: torch.Tensor):
+    """The body of :func:`local_fit_stacked`."""
     m, b = toks.shape[0], toks.shape[2]
     rows = model.client_rows(m, b, toks.device)
     state = opt.init(stacked)

@@ -116,9 +116,10 @@ def encode(cfg: ModelConfig, base: dict, frames: torch.Tensor) -> torch.Tensor:
 def client_rows(m: int, b: int, device) -> torch.Tensor:
     """The ``adapter_rows`` of m clients' batches of b sequences folded
     client-major into one batch of m·b: (m·b,) int32, client i's rows
-    i·b … i·b + b − 1."""
-    return torch.arange(m, dtype=torch.int32, device=device).repeat_interleave(
-        b)
+    i·b … i·b + b − 1.  Built by expanding an arange: no host sync, so it
+    can be captured in a CUDA graph."""
+    return torch.arange(m, dtype=torch.int32, device=device)[:, None].expand(
+        m, b).reshape(-1)
 
 
 def forward_hidden(cfg: ModelConfig, base: dict, adapter: dict, batch: dict,

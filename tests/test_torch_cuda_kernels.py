@@ -1160,3 +1160,51 @@ def test_rwkv_forward_on_the_card_matches_plain_and_counts_launches(cuda,
                                     {"tokens": toks.cpu()},
                                     use_rwkv_kernel=True)
             assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+def test_graphed_fit_is_bitwise_the_eager_fit(cuda):
+    """The LM driver's vectorized fit (fed-100m reduced, f32, flash, 2
+    clients × 2 steps of 2×64) as a captured CUDA graph: two calls (the
+    first captures the graph, each replays it) give bit for bit what the
+    eager fit gives under ``disable_jit``, the flash and tri-LoRA launch
+    counts are twice the eager fit's, and a capture of a host sync
+    raises, leaving the card usable."""
+    from repro_torch.core import client_batch, jit_cache
+    from repro_torch.launch import train as lm
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("fed-100m").reduced().with_overrides(attn_impl="flash")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    base = model.init_params(cfg, g)["base"]
+    stacked = client_batch.stack_states([tree_map(
+        lambda t: t + 0.05 * torch.randn(t.shape, generator=g, device=cuda),
+        model.init_params(cfg, g)["adapter"]) for _ in range(2)])
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 2, 65), generator=g,
+                         device=cuda)
+    opt = adamw(lr=1e-2, stacked=True)
+    args = (cfg, base, opt, stacked, toks[..., :-1], toks[..., 1:])
+
+    def counts():
+        return {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
+    jit_cache.clear_all()
+    jit_cache.reset_stats()
+    fa_ops.reset_launches()
+    tl_ops.reset_launches()
+    with jit_cache.disable_jit():
+        want = lm.local_fit_stacked(*args)
+    eager = counts()
+    assert eager["flash_fwd"] > 0 and eager["tri_lora_fwd_grouped"] > 0
+    fa_ops.reset_launches()
+    tl_ops.reset_launches()
+    got = [lm.local_fit_stacked(*args) for _ in range(2)]
+    assert jit_cache.STATS["graphs"] == 1 and len(lm._FIT_CACHE) == 1
+    assert jit_cache.STATS["replays"] == 2
+    assert counts() == {k: 2 * v for k, v in eager.items()}
+    for out in got:
+        for a, b in zip(tree_leaves(out), tree_leaves(want), strict=True):
+            assert torch.equal(a, b)
+    with pytest.raises(RuntimeError):
+        jit_cache.GraphProgram(lambda x: x * x.sum().item(),
+                               (torch.ones(4, device=cuda),))
+    assert torch.ones(3, device=cuda).sum().item() == 3.0
+    jit_cache.clear_all()
