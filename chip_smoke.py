@@ -59,8 +59,17 @@ Phases, one JSON line each (several for the case phases):
                random weights): 16 requests from 8 users through 8 slots;
                every request must finish and every step must launch both
                kernels, all on their 16-byte routes
-  profile      device time by kernel and device idle share over a few steps,
-               and the decode kernels' shares of it
+  profile      device time by kernel and device idle share over a few steps
+               (the engine's captured decode program), and the decode
+               kernels' shares of it
+  decode_graph the serve job again under ``jit_cache.disable_jit()`` (every
+               step op by op) against its default run, whose every step
+               replayed the engine's captured decode program with the K/V
+               donated: the same tokens, launches and steps, one replay a
+               step; step ms, warm-up / capture seconds and peaks captured
+               against eager, and the profile's idle share eager beside
+               captured.  h2o_serve, rwkv_decode and rg_decode emit the same
+               ``decode_graph`` line for their jobs (``generate`` there)
   oracle       the same width in f32 at 2 layers: ServeEngine tokens must
                equal the merged-weights serve_naive tokens request for
                request
@@ -144,8 +153,10 @@ Phases, one JSON line each (several for the case phases):
                path's logits, and a profile window with the tri-LoRA and
                wkv6 kernels' shares of device time
   rwkv_decode  serve.generate at full width and depth: 8 prompts of 32
-               tokens and 32 new ones, 96 tri-LoRA forward launches on the
-               wgmma route and 0 wkv6 launches every step
+               tokens and 32 new ones through the captured decode program,
+               twice, and under disable_jit with every step counted (96
+               tri-LoRA forward launches on the wgmma route and 0 wkv6
+               launches a step): the same tokens (``decode_graph``)
   rwkv_oracle  the same width in f32 at 2 layers (B=2, T=200): card vs CPU
                logits within 1e-4 of the largest, token-by-token decode on
                the card vs the forward at 2e-3
@@ -170,8 +181,9 @@ Phases, one JSON line each (several for the case phases):
                0.5 with int8 and the norm gate killed after 2 (the
                checkpoint verifies) and resumed, history and states
                bitwise the uninterrupted run's; the synchronizing calls of
-               2 rounds in one chunk equal to 4 rounds in one chunk
-               (``torch.cuda.set_sync_debug_mode("warn")``); wall per
+               2 rounds in one chunk equal to 4 rounds in one chunk in the
+               run's own code (``torch.cuda.set_sync_debug_mode("warn")``;
+               each run's one chunk program syncs inside torch); wall per
                round, host_s, device_s, tokens/s and peak memory beside the
                eager vmap run's
   train_host   (after train_scan) ``run_federated`` with
@@ -203,6 +215,14 @@ Phases, one JSON line each (several for the case phases):
                launches, the int8 ledger, round 0's loss within 1e-3 +
                1e-3·|loss| of the eager vmap run's, a falling loss, killed
                after 2 rounds and resumed, bitwise
+  scan_graph   (after lm_scan) train_scan's main job and lm_scan's
+               uninterrupted run again under ``jit_cache.disable_jit()``
+               (every chunk op by op) against their default runs, whose
+               every chunk replayed one captured CUDA graph with the carry
+               donated: records, states and launches bitwise, one replay a
+               chunk, the same synchronizing calls besides the builds';
+               round wall, warm-up / capture seconds and peaks captured
+               against eager
   lm_host / lm_async  (after lm_scan) ``launch.train.run`` on lm_train's
                job for 2 rounds with client_store="host", then with
                engine="async" at the zero-staleness limit: exact grouped
@@ -278,7 +298,12 @@ Phases, one JSON line each (several for the case phases):
                call of one step held to its plain version on its recorded
                operands (elementwise and, per batch row, relatively at
                FLASH_REL_TOL; the ring one 64-slot tile short must fail
-               that), wall and device time a step; long_500k (the
+               that); the next 3 steps eagerly, then from the same cache
+               state through the step as a cached program with the cache
+               donated: logits bitwise, one replay a step, no copy of the
+               cache, the peak above the start within a quarter of the
+               cache of the eager steps'; wall and device time a step,
+               captured and eager; long_500k (the
                variant is h2o itself) at batch 1 from position 524,287
   bank_serve   ``run_federated`` on fed-100m (celora, 4 clients, 2 rounds,
                scan engine) on the device and on the host store, each
@@ -324,9 +349,12 @@ Phases, one JSON line each (several for the case phases):
                loss and adapter gradients through flash at hd 256 against
                attn_impl="blockwise" (1e-4·|loss|, 1e-3 of the largest)
   rg_decode    ``serve.generate`` on recurrentgemma-2b at full depth, bf16:
-               8 prompts of 32 tokens and 32 new ones, 8 decode-attention
-               launches (hd 256) and 68 tri-LoRA forwards a step, ms a
-               step; then 3 layers in f32, 2 x 64 tokens: decode against
+               8 prompts of 32 tokens and 32 new ones through the captured
+               decode program and eagerly, as rwkv_decode (the RG-LRU state
+               a result copied back into the donated cache), 8
+               decode-attention launches (hd 256) and 68 tri-LoRA forwards
+               a step, ms a step; then 3 layers in f32, 2 x 64 tokens:
+               decode against
                the forward's logits at rtol = atol = 2e-3
   whisper_train  ``steps.make_train_step`` on whisper-small whole (12 + 12
                layers, bf16, f32 adapters, flash): 4 x 4096 decoder tokens
@@ -347,8 +375,9 @@ Phases, one JSON line each (several for the case phases):
                cut; 38.7 GB of rings, 1.8 GB of cross K/V filled from the
                encoder): 12 decode-attention and 48 tri-LoRA launches a
                step, every attention call of the first step held to its
-               plain version (the ring one tile short must fail that), ms
-               a step
+               plain version (the ring one tile short must fail that), the
+               donated program held to the eager steps as in steps_decode,
+               ms a step
   whisper_oracle  whole width, 2 + 2 layers, f32: flash (cross-attention
                on the blockwise tiles) against ref over 1 x 4096 (loss
                1e-4·|loss|, gradients 1e-3 of the largest);
@@ -372,8 +401,10 @@ Phases, one JSON line each (several for the case phases):
                heads of 128, causal, bf16: rows "vlm train")
 Every ``run_federated`` and ``launch.train.run`` job fits and evaluates
 through the cached programs (a CUDA graph a signature, captured at first
-use and replayed); each phase starts with the program caches cleared, and
-``free`` clears them too.  A phase that taps ``loss_fn`` (``moe_train``,
+use and replayed), every scan-engine chunk is one program with the carry
+donated, and every ``ServeEngine`` / ``generate`` decode step one with
+the KV cache donated; each phase starts with the program caches cleared,
+and ``free`` clears them too.  A phase that taps ``loss_fn`` (``moe_train``,
 ``rg_train``) runs each job twice, captured and then eager under the taps,
 and holds the two bitwise.
 Every phase's wall seconds follow it on a ``{"phase": "wall"}`` line.
@@ -2156,23 +2187,51 @@ def phase_rwkv_prefill(torch, wkv_ops, wkv_ref, tl_ops, model, get_config,
     return launches, params
 
 
-def phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, params,
-                      dev):
-    """``serve.generate`` at full width and depth, bf16: 8 prompts of 32
-    tokens and 32 new ones.  Every decode step must launch exactly 96
-    tri-LoRA forward kernels and no wkv6 kernel (decode runs the one-step
-    recurrence)."""
-    import numpy as np
-
-    cfg = get_config("rwkv6-1.6b")
-    job = RWKV_DECODE
-    prompts = np.random.default_rng(17).integers(
-        0, cfg.vocab_size, (job["batch"], job["prompt_len"]))
-    per_step, step_ms = [], []
-    decode_step = serve.model.decode_step
+def generate_graph(torch, serve, cfg, params, prompts, gen: int, counters,
+                   dev, job: str) -> dict:
+    """``serve.generate`` on ``prompts`` through its cached decode program
+    (the main path: the cache donated, one replay a step), then once more
+    (the same graph replays on the cache the program holds, zeroed: no
+    leaf copied in, and its peak above its start stays under its two live
+    logits' bytes plus half a cache, so no second cache is ever alive),
+    then under
+    ``disable_jit`` with ``model.decode_step`` wrapped to count and time
+    every step; held by ``decode_graph`` (the three token tensors equal).
+    ``counters`` are the launch counters to read (each reset first).
+    Returns the captured run (its ``launches``, ``out``; ``ms_per_step``
+    from the second call) and the eager run's ``per_step`` launches and
+    ``step_ms``."""
+    from repro_torch.core import jit_cache
+    from repro_torch.tree import tree_leaves
 
     def counts():
-        return {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES, **tl_ops.ROUTES}
+        return {k: v for c in counters for k, v in c.items()}
+
+    def reset():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    def timed_generate():
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        before = dict(jit_cache.STATS)
+        t0 = time.perf_counter()
+        out = serve.generate(cfg, params, prompts, gen, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        return {"out": out, "wall": wall, "launches": counts(),
+                "steps": prompts.shape[1] + gen - 1, "step_ms": [],
+                "programs": program_stats(before), "peak": peak / 1e9,
+                "peak_above_start": (peak - start) / 1e9}
+
+    got = timed_generate()
+    again = timed_generate()
+    per_step, step_ms = [], []
+    decode_step = serve.model.decode_step
 
     def counted(*args, **kw):
         before = counts()
@@ -2183,17 +2242,62 @@ def phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, params,
         per_step.append({k: v - before[k] for k, v in counts().items()})
         return out
 
-    wkv_ops.reset_launches()                  # counts of the main path only
-    tl_ops.reset_launches()
     serve.model.decode_step = counted
     try:
-        t0 = time.perf_counter()
-        out = serve.generate(cfg, params, prompts, job["gen"], device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with jit_cache.disable_jit():
+            eager = timed_generate()
     finally:
         serve.model.decode_step = decode_step
-    launches = {**wkv_ops.LAUNCHES, **tl_ops.LAUNCHES}
+    eager["step_ms"] = step_ms
+    decode_graph(job, got, eager, torch.equal(got["out"], eager["out"])
+                 and torch.equal(again["out"], eager["out"]))
+    require(again["programs"]["graphs"] == 0
+            and again["programs"]["replays"] == again["steps"]
+            and again["programs"]["donated_in"] == 0
+            and again["launches"] == got["launches"],
+            f"{job}: a second generate call did {again['programs']} with "
+            f"launches {again['launches']} (one replay a step, no capture, "
+            f"no cache copied in)")
+    cache_gb = sum(t.numel() * t.element_size() for t in tree_leaves(
+        serve.model.init_decode_cache(cfg, prompts.shape[0],
+                                      prompts.shape[1] + gen,
+                                      device="meta"))) / 1e9
+    # a step's replay clones its logits while the last step's are alive
+    logits_gb = 2 * prompts.shape[0] * cfg.padded_vocab * 4 / 1e9
+    emit({"phase": "decode_graph", "job": f"{job} second call",
+          "cache_gb": cache_gb, "two_logits_gb": logits_gb,
+          "peak_above_start_gb": {"first": got["peak_above_start"],
+                                  "second": again["peak_above_start"]}})
+    require(again["peak_above_start"] < logits_gb + 0.5 * cache_gb,
+            f"{job}: the second generate call's peak rose "
+            f"{again['peak_above_start']} GB above its start; two logits "
+            f"take {logits_gb} GB, a cache {cache_gb} GB")
+    return {**got, "ms_per_step": 1e3 * again["wall"] / again["steps"],
+            "second_wall_s": again["wall"], "eager_wall_s": eager["wall"],
+            "per_step": per_step, "eager_step_ms": step_ms}
+
+
+def phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, params,
+                      dev):
+    """``serve.generate`` at full width and depth, bf16: 8 prompts of 32
+    tokens and 32 new ones, through the captured decode program (the
+    recurrent state a result copied back into the donated cache), held to
+    the eager run (``generate_graph``).  Every decode step must launch
+    exactly 96 tri-LoRA forward kernels and no wkv6 kernel (decode runs
+    the one-step recurrence)."""
+    import numpy as np
+
+    cfg = get_config("rwkv6-1.6b")
+    job = RWKV_DECODE
+    prompts = np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (job["batch"], job["prompt_len"]))
+    run = generate_graph(torch, serve, cfg, params, prompts, job["gen"],
+                         [wkv_ops.LAUNCHES, tl_ops.LAUNCHES, tl_ops.ROUTES],
+                         dev, "rwkv_decode")
+    out, wall, per_step = run["out"], run["wall"], run["per_step"]
+    step_ms = run["eager_step_ms"]
+    launches = {k: run["launches"][k] for k in (*wkv_ops.LAUNCHES,
+                                                *tl_ops.LAUNCHES)}
     steps = len(per_step)
     want_step = {"wkv6": 0, "tri_lora_fwd": 4 * cfg.n_layers,
                  "tri_lora_dx": 0, "tri_lora_dw": 0,
@@ -2202,10 +2306,12 @@ def phase_rwkv_decode(torch, wkv_ops, tl_ops, serve, get_config, params,
     srt = sorted(step_ms)
     emit({"phase": "rwkv_decode", "arch": cfg.name, **job, "steps": steps,
           "out_shape": list(out.shape), "wall_s": wall,
-          "ms_per_step": 1e3 * wall / steps, "step_ms_p50": srt[steps // 2],
-          "step_ms_p95": srt[int(0.95 * (steps - 1))],
-          "first_step_ms": step_ms[0],
-          "tok_per_s": job["batch"] * job["gen"] / wall,
+          "ms_per_step": run["ms_per_step"],
+          "eager_ms_per_step": 1e3 * run["eager_wall_s"] / steps,
+          "eager_step_ms_p50": srt[steps // 2],
+          "eager_step_ms_p95": srt[int(0.95 * (steps - 1))],
+          "programs": run["programs"],
+          "tok_per_s": job["batch"] * job["gen"] / run["second_wall_s"],
           "launches": launches, "launches_per_step": want_step,
           "sample": out[0, -8:].tolist()})
     require(tuple(out.shape) == (job["batch"], job["prompt_len"] + job["gen"])
@@ -2301,8 +2407,86 @@ def serve_engine(torch, serve, model, random_bank, get_config, dev):
     return cfg, params, bank, eng, init_s
 
 
+def engine_run(torch, ops, eng, reqs) -> dict:
+    """``eng.run(reqs)`` with every decode kernel count set to 0 just
+    before it and each step timed (the engine reads the tokens back every
+    step anyway): the tokens, launches, routes, steps, wall, step ms, what
+    the cached programs did (``program_stats``) and the peak allocation,
+    also above the start."""
+    from repro_torch.core import jit_cache
+    step_ms = []
+    step = eng._step
+
+    def timed_step(*args):
+        t = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    eng._step = timed_step
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                      # counts of the main path only
+    before = dict(jit_cache.STATS)
+    t0 = time.perf_counter()
+    try:
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+    finally:
+        eng._step = step
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    srt = sorted(step_ms)
+    return {"done": done, "launches": dict(ops.LAUNCHES),
+            "routes": dict(ops.ROUTES), "steps": eng.steps, "wall": wall,
+            "step_ms": step_ms, "p50": srt[len(srt) // 2],
+            "p95": srt[int(0.95 * (len(srt) - 1))],
+            "programs": program_stats(before), "peak": peak / 1e9,
+            "peak_above_start": (peak - start) / 1e9}
+
+
+def decode_graph(job: str, got: dict, want: dict, same_tokens: bool) -> None:
+    """The decode_graph check of one job: its default run ``got`` (every
+    step one replay of its captured decode program) against the same job
+    under ``disable_jit`` (``want``, op by op): the same tokens, launches
+    and steps, a graph captured and one replay a step, none eager.
+    Emits one ``decode_graph`` line: step ms, warm-up and capture seconds
+    and peaks, captured against eager."""
+    def side(r):
+        return {"steps": r["steps"], "wall_s": r["wall"],
+                "ms_per_step": 1e3 * r["wall"] / r["steps"],
+                "step_ms_p50": r.get("p50"), "step_ms_p95": r.get("p95"),
+                "first_step_ms": (r["step_ms"] or [None])[0],
+                "graphs": r["programs"]["graphs"],
+                "replays": r["programs"]["replays"],
+                "warmup_s": r["programs"]["warmup_s"],
+                "capture_s": r["programs"]["capture_s"],
+                "peak_mem_gb": r["peak"],
+                "peak_above_start_gb": r["peak_above_start"]}
+    emit({"phase": "decode_graph", "job": job, "tokens_identical": same_tokens,
+          "launches_equal": got["launches"] == want["launches"],
+          "launches": got["launches"], "captured": side(got),
+          "eager": side(want)})
+    require(same_tokens, f"decode_graph {job}: the captured run's tokens "
+            f"differ from the eager run's")
+    require(got["launches"] == want["launches"],
+            f"decode_graph {job}: launches {got['launches']} captured, "
+            f"{want['launches']} eager")
+    require(got["steps"] == want["steps"] > 0
+            and got["programs"]["graphs"] >= 1
+            and got["programs"]["replays"] == got["steps"]
+            and want["programs"]["graphs"] == want["programs"]["replays"]
+            == 0,
+            f"decode_graph {job}: {got['steps']} steps with "
+            f"{got['programs']} captured, {want['steps']} with "
+            f"{want['programs']} eager (one replay a step)")
+
+
 def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
-    """LLaMA-7B at full width and depth, bf16, random weights."""
+    """LLaMA-7B at full width and depth, bf16, random weights: every step
+    replays the engine's captured decode program, the K/V donated."""
     cfg, params, bank, eng, init_s = serve_engine(torch, serve, model,
                                                   random_bank, get_config,
                                                   dev)
@@ -2310,27 +2494,11 @@ def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
     n_weights = sum(t.numel() for t in tree_leaves(params["base"]))
     reqs = serve.make_requests(bank, 16, prompt_len=128, gen=32,
                                vocab=cfg.vocab_size, seed=0)
-    step_ms = []
-    step = eng._step
-
-    def timed_step(*args):                    # the engine syncs each step
-        t = time.perf_counter()               # anyway (it reads the tokens)
-        out = step(*args)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t))
-        return out
-
-    eng._step = timed_step
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()                      # counts of the main path only
-    t0 = time.perf_counter()
-    done = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    run = engine_run(torch, ops, eng, reqs)
+    GRAPH_RUNS["serve"] = dict(run, reqs=reqs)
+    done, wall, step_ms = run["done"], run["wall"], run["step_ms"]
     srt = sorted(step_ms)
-    launches = dict(ops.LAUNCHES)
-    routes = dict(ops.ROUTES)
-    steps = eng.steps
+    launches, routes, steps = run["launches"], run["routes"], run["steps"]
     n_layers, n_targets = cfg.n_layers, len(cfg.lora_targets)
     lens = sorted({len(v) for v in done.values()})
     new_tokens = sum(r.gen for r in reqs)
@@ -2349,7 +2517,7 @@ def phase_serve(torch, ops, serve, model, random_bank, get_config, dev):
           "launches": launches, "routes": routes,
           "expected_launches": {"grouped_gemv": n_targets * n_layers * steps,
                                 "decode_attention": n_layers * steps},
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "programs": run["programs"], "peak_mem_gb": run["peak"]})
     require(len(done) == len(reqs) and lens == [160],
             f"serve finished {len(done)}/{len(reqs)} requests, lengths {lens}")
     require(launches["grouped_gemv"] == n_targets * n_layers * steps
@@ -2408,34 +2576,65 @@ SERVE_SHARES = ("grouped_gemv_kernel", "grouped_gemv_combine_kernel",
                 "decode_attention_kernel")
 
 
-def phase_profile(torch, state, dev) -> dict:
-    """Device time by kernel over 3 steps of the serve engine with all 8
-    slots active at position 120, and the device's idle share; emitted
-    and returned."""
+def profile_steps(torch, cfg, eng, dev) -> dict:
+    """Device time by kernel over 3 steps of ``eng`` with all 8 slots
+    active at position 120 (after 2 warm steps, which build the engine's
+    program), and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, params, bank, eng = state[:4]
     from repro_torch.models import model
     cache = model.init_decode_cache(cfg, 8, 160, device=dev)
     tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
     rows = torch.arange(8, dtype=torch.int32, device=dev)
     with torch.inference_mode():
         for p in range(118, 120):             # warm
-            eng._step(cache, tok, torch.full((8,), p, dtype=torch.int32,
-                                             device=dev), rows)
+            _, cache = eng._step(cache, tok, torch.full(
+                (8,), p, dtype=torch.int32, device=dev), rows)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for p in range(120, 123):
-                eng._step(cache, tok, torch.full((8,), p, dtype=torch.int32,
-                                                 device=dev), rows)
+                _, cache = eng._step(cache, tok, torch.full(
+                    (8,), p, dtype=torch.int32, device=dev), rows)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+    return device_split(prof, wall_us, 14, SERVE_SHARES)
+
+
+def phase_profile(torch, state, dev) -> dict:
+    """``profile_steps`` of the serve engine (its captured program);
+    emitted and returned."""
+    cfg, params, bank, eng = state[:4]
     line = {"phase": "profile", "steps": 3,
-            **device_split(prof, wall_us, 14, SERVE_SHARES)}
+            **profile_steps(torch, cfg, eng, dev)}
     emit(line)
+    GRAPH_RUNS["serve"]["profile"] = line
     return line
+
+
+def phase_decode_graph(torch, ops, serve, state, dev) -> None:
+    """The serve job again under ``jit_cache.disable_jit()`` (a fresh
+    engine on the same weights and bank, every step op by op) against its
+    default run (``decode_graph``), and ``profile_steps`` eager beside the
+    profile phase's captured steps.  h2o_serve, rwkv_decode and rg_decode
+    hold their jobs the same way."""
+    from repro_torch.core import jit_cache
+
+    cfg, params, bank, _ = state
+    g = GRAPH_RUNS.pop("serve")
+    reqs = g["reqs"]
+    eng = serve.ServeEngine(cfg, params["base"], bank, slots=8, max_len=160,
+                            device=dev)
+    with jit_cache.disable_jit():
+        eager = engine_run(torch, ops, eng, reqs)
+        eager_profile = profile_steps(torch, cfg, eng, dev)
+    emit({"phase": "decode_graph", "job": "serve profile",
+          "captured": {k: v for k, v in g["profile"].items() if k != "top"},
+          "eager": {k: v for k, v in eager_profile.items() if k != "top"}})
+    decode_graph("serve", g, eager, sorted(g["done"]) == sorted(
+        eager["done"]) and all(np_equal(g["done"][r.rid],
+                                        eager["done"][r.rid]) for r in reqs))
 
 
 def phase_oracle(torch, ops, serve, random_bank, get_config, model, dev):
@@ -2634,12 +2833,14 @@ def program_stats(before: dict) -> dict:
     """What the cached programs did since ``before`` (a copy of
     ``jit_cache.STATS``): entries built, graphs captured, replays, warm-up
     and capture seconds; and the entries each program cache holds."""
-    from repro_torch.core import federated, jit_cache
-    from repro_torch.launch import train
+    from repro_torch.core import fed_engine, federated, jit_cache
+    from repro_torch.launch import serve, train
     return {**{k: v - before[k] for k, v in jit_cache.STATS.items()},
             "entries": {"run_federated fit": len(federated._LOCAL_FIT_CACHE),
                         "run_federated eval": len(federated._EVAL_CACHE),
-                        "LM fit": len(train._FIT_CACHE)}}
+                        "LM fit": len(train._FIT_CACHE),
+                        "scan chunk": len(fed_engine._SCAN_CACHE),
+                        "generate step": len(serve._DECODE_CACHE)}}
 
 
 def program_counts(torch, start: int, before: dict) -> dict:
@@ -3202,20 +3403,38 @@ def same_tensors(torch, a, b) -> bool:
 
 def sync_sites(torch, fn):
     """The synchronizing CUDA calls ``fn()`` makes, from the warnings of
-    ``torch.cuda.set_sync_debug_mode("warn")``, counted by the Python line
-    that made each (a ``collections.Counter``)."""
+    ``torch.cuda.set_sync_debug_mode("warn")``, counted by the innermost
+    Python line outside torch that led to each (a ``collections.Counter``):
+    a sync made inside one of torch's helpers (a stream's ``synchronize``,
+    a graph capture, the pinned-memory cache) counts at the line of the
+    port, or of this script, that called the helper.  Only the warning of
+    a sync counts, not the notice that the first ``set_sync_debug_mode``
+    of a process gives."""
     import collections
+    import os
+    import sys
     import warnings
-    with warnings.catch_warnings(record=True) as caught:
+    skip = (str(Path(torch.__file__).parent) + os.sep, warnings.__file__)
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        f = sys._getframe(1)
+        while f is not None and f.f_code.co_filename.startswith(skip):
+            f = f.f_back
+        sites[f"{Path(f.f_code.co_filename).name}:{f.f_lineno}"
+              if f is not None else f"{Path(filename).name}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = hook
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
-                               for w in caught
-                               if "synchroniz" in str(w.message))
+    return sites
 
 
 def scan_times(hist) -> dict:
@@ -3235,7 +3454,8 @@ def phase_train_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_run,
     killed after 2 (the checkpoint verifies) and resumed: history and
     states bitwise the uninterrupted run's; (d) the same job at 2 rounds
     in one chunk and at 4 in one chunk make the same number of
-    synchronizing calls."""
+    synchronizing calls (each run's one chunk-program build included).  The
+    main run's sync sites and results are kept for ``scan_graph``."""
     import numpy as np
 
     from repro_torch import checkpoint
@@ -3244,15 +3464,24 @@ def phase_train_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_run,
     job = TRAIN
     layers = cfg.n_layers
     t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fa_ops.reset_launches()                   # counts of the main path only
     tl_ops.reset_launches()
-    out, wall = train_job(torch, cfg, dev, "flash", job, "vmap",
-                          engine="scan", chunk_rounds=2)
+    ran = {}
+    main_sites = sync_sites(torch, lambda: ran.update(zip(
+        ("out", "wall"), train_job(torch, cfg, dev, "flash", job, "vmap",
+                                   engine="scan", chunk_rounds=2))))
+    out, wall = ran["out"], ran["wall"]
     launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
     flash_routes, routes = dict(fa_ops.ROUTES), dict(tl_ops.ROUTES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     hist, programs = out["history"], out["programs"]
+    GRAPH_RUNS["train_scan"] = dict(
+        out=out, launches=launches, wall=wall, peak=peak, sites=main_sites,
+        peak_above_start=peak - start / 1e9,
+        peak_reserved=torch.cuda.max_memory_reserved() / 1e9)
     steps = len(hist) * job["local_steps"]
     tokens = (sum(len(r.sampled) for r in hist) * job["local_steps"]
               * job["batch"] * job["seq"])
@@ -3333,6 +3562,8 @@ def phase_train_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_run,
                      "rejected": [r.rejected for r in full["history"]],
                      "checkpoint_meta": meta, "states_equal": states_equal},
           "syncs": syncs, "sync_sites": dict(sites[4]),
+          "build_sync_sites": {r: dict(program_sites(c)[0])
+                               for r, c in sites.items()},
           "warmup_syncs": sum(warm.values()),
           "warmup_extra_sites": dict(warm - sites[2]),
           "eager_vmap_syncs_2_rounds": eager_syncs,
@@ -3397,15 +3628,26 @@ def phase_lm_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_hist):
     path = ROOT / "build" / "chip_smoke" / "lm_scan.npz"
     if path.exists():
         path.unlink()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fa_ops.reset_launches()                   # counts of the main path only
     tl_ops.reset_launches()
+    from repro_torch.core import jit_cache
+    before = dict(jit_cache.STATS)
+    ran = {}
     t0 = time.perf_counter()
-    full = train.run(**job, verbose=False, device=dev)
+    main_sites = sync_sites(torch, lambda: ran.update(
+        full=train.run(**job, verbose=False, device=dev)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    full = ran["full"]
     launches = {**fa_ops.LAUNCHES, **tl_ops.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 1e9
+    GRAPH_RUNS["lm_scan"] = dict(
+        out=full, launches=launches, wall=wall, peak=peak, sites=main_sites,
+        programs=program_stats(before), peak_above_start=peak - start / 1e9,
+        peak_reserved=torch.cuda.max_memory_reserved() / 1e9)
     hist = full["history"]
     layers = cfg.n_layers
     steps = len(hist) * job["local_steps"]
@@ -3462,6 +3704,114 @@ def phase_lm_scan(torch, fa_ops, tl_ops, get_config, dev, vmap_hist):
                 f"run's")
     require(adapters_equal, "lm_scan: the resumed adapters are not bitwise "
             "the uninterrupted run's")
+
+
+def warmup_site() -> str:
+    """The line of ``core/jit_cache.py`` that ends a build's warm-up (its
+    side stream's ``synchronize``, once a build), as a ``sync_sites``
+    key."""
+    from repro_torch.core import jit_cache
+    lines = Path(jit_cache.__file__).read_text().splitlines()
+    (n,) = [i + 1 for i, ln in enumerate(lines)
+            if ln.strip() == "side.synchronize()"]
+    return f"jit_cache.py:{n}"
+
+
+def program_sites(sites) -> tuple:
+    """A ``sync_sites`` count split into the syncs made in
+    ``core/jit_cache.py`` (the programs' builds) and the rest."""
+    import collections
+    build = collections.Counter({k: v for k, v in sites.items()
+                                 if k.startswith("jit_cache.py:")})
+    return build, sites - build
+
+
+def phase_scan_graph(torch, fa_ops, tl_ops, get_config, dev):
+    """The train_scan phase's main job (train_vmap's job on the scan engine
+    in chunks of 2: an odd last chunk) and lm_scan's uninterrupted run
+    (4 rounds in chunks of 2) again under ``jit_cache.disable_jit()``,
+    every chunk op by op, against their default runs, whose every chunk
+    replayed one captured CUDA graph (``fed_engine._SCAN_CACHE`` / the LM
+    run's own chunk programs, the carry donated): every record but the
+    times, the final states and the launches bitwise; graphs captured and
+    one replay a chunk; the same synchronizing calls at every site but the
+    builds' (``program_sites``), and exactly one at the end of each build's
+    warm-up, none elsewhere in ``core/jit_cache.py``.  Reported, captured against eager: round wall,
+    warm-up and capture seconds, peak memory (above each run's start: one
+    chunk's graph holds about one round's peak, as the allocator reuses
+    blocks within a capture) and the builds' syncs."""
+    from repro_torch.core import jit_cache
+    from repro_torch.launch import train
+
+    cfg = get_config("fed-100m")
+    report, checks = {}, []
+    jobs = (("train_scan", lambda: train_job(
+                torch, cfg, dev, "flash", TRAIN, "vmap", engine="scan",
+                chunk_rounds=2)[0],
+             lambda out: fed_records(out["history"]),
+             lambda out: out["states"], -(-TRAIN["rounds"] // 2)),
+            ("lm_scan", lambda: train.run(**LM_SCAN, verbose=False,
+                                          device=dev),
+             lambda out: lm_records(out["history"]),
+             lambda out: out["adapters"], -(-LM_SCAN["rounds"]
+                                            // LM_SCAN["chunk_rounds"])))
+    for name, run, records, states_of, chunks in jobs:
+        g = GRAPH_RUNS.pop(name)
+        free(torch)
+        start = torch.cuda.memory_allocated()
+        ran = {}
+        with jit_cache.disable_jit():
+            sites = sync_sites(torch, lambda: ran.update(run=run_counted(
+                torch, fa_ops, tl_ops, run)))
+        eager, launches, wall, peak = ran["run"]
+        if "programs" not in g:
+            g["programs"] = g["out"]["programs"]
+        build, rest = program_sites(g["sites"])
+        _, eager_rest = program_sites(sites)
+        warm_site = warmup_site()
+        graphs = g["programs"]["graphs"]
+        builds_ok = build == {warm_site: graphs}
+        states = all(same_tensors(torch, a, b) for a, b in
+                     zip(states_of(g["out"]), states_of(eager)))
+        walls = [r["wall_s"] if isinstance(r, dict) else r.wall_s
+                 for r in g["out"]["history"]]
+        eager_walls = [r["wall_s"] if isinstance(r, dict) else r.wall_s
+                       for r in eager["history"]]
+        report[name] = {
+            "captured": {"wall_s": g["wall"], "round_wall_s": walls,
+                         "peak_mem_gb": g["peak"],
+                         "peak_above_start_gb": g["peak_above_start"],
+                         "peak_reserved_gb": g["peak_reserved"],
+                         "programs": g["programs"],
+                         "syncs": sum(rest.values()),
+                         "build_syncs": dict(build)},
+            "eager": {"wall_s": wall, "round_wall_s": eager_walls,
+                      "peak_mem_gb": peak,
+                      "peak_above_start_gb": peak - start / 1e9,
+                      "peak_reserved_gb":
+                          torch.cuda.max_memory_reserved() / 1e9,
+                      "syncs": sum(eager_rest.values())},
+            "chunks": chunks, "states_bitwise": states,
+            "launches_equal": g["launches"] == launches}
+        checks += [
+            (records(g["out"]) == records(eager), f"scan_graph {name}: the "
+             f"captured run's records are not bitwise the eager run's"),
+            (states, f"scan_graph {name}: the captured run's final states "
+             f"are not bitwise the eager run's"),
+            (g["launches"] == launches, f"scan_graph {name}: launches "
+             f"{g['launches']} captured, {launches} eager"),
+            (g["programs"]["graphs"] > 0
+             and g["programs"]["replays"] == chunks,
+             f"scan_graph {name}: {g['programs']} for {chunks} chunks"),
+            (rest == eager_rest and builds_ok, f"scan_graph {name}: "
+             f"synchronizing calls {dict(rest)} captured, besides the "
+             f"builds' {dict(build)} ({graphs} graphs; warm-up "
+             f"{warm_site}); {dict(eager_rest)} "
+             f"eager")]
+        del g, eager
+    emit({"phase": "scan_graph", "arch": cfg.name, **report})
+    for cond, what in checks:
+        require(cond, what)
 
 
 # ---------------------------------------------------------------------------
@@ -4250,13 +4600,16 @@ def phase_dense_configs(torch, ops, serve, model, random_bank, get_config,
 
 
 def serve_job(torch, ops, serve, model, random_bank, get_config, dev,
-              job: dict, phase: str) -> dict:
+              job: dict, phase: str, graph: bool = False) -> dict:
     """``job["arch"]`` at full width and depth (its own dtype, random
     weights) serving ``job["requests"]`` requests from ``job["users"]``
     users through a ServeEngine of ``job["slots"]`` slots: every request
     finishes, every step launches both decode kernels on every layer, all
-    on their 16-byte routes.  Emits one ``phase`` line, frees the model and
+    on their 16-byte routes.  With ``graph`` the job runs again under
+    ``disable_jit`` and is held to the default (captured) run
+    (``decode_graph``).  Emits one ``phase`` line, frees the model and
     returns the launches."""
+    from repro_torch.core import jit_cache
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(job["arch"])
@@ -4275,12 +4628,9 @@ def serve_job(torch, ops, serve, model, random_bank, get_config, dev,
     reqs = serve.make_requests(bank, job["requests"],
                                prompt_len=job["prompt_len"], gen=job["gen"],
                                vocab=cfg.vocab_size, seed=0)
-    ops.reset_launches()                      # counts of this path only
-    t0 = time.perf_counter()
-    done = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, routes, steps = dict(ops.LAUNCHES), dict(ops.ROUTES), eng.steps
+    run = engine_run(torch, ops, eng, reqs)
+    done, wall = run["done"], run["wall"]
+    launches, routes, steps = run["launches"], run["routes"], run["steps"]
     lens = sorted({len(v) for v in done.values()})
     n_targets = len(cfg.lora_targets)
     expected = {"grouped_gemv": n_targets * cfg.n_layers * steps,
@@ -4298,7 +4648,7 @@ def serve_job(torch, ops, serve, model, random_bank, get_config, dev,
         "wall_s": wall, "ms_per_step": 1e3 * wall / steps,
         "tok_per_s": sum(r.gen for r in reqs) / wall, "launches": launches,
         "expected_launches": expected, "routes": routes,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}})
+        "programs": run["programs"], "peak_mem_gb": run["peak"]}})
     require(len(done) == len(reqs) and lens == [max_len],
             f"{cfg.name} finished {len(done)}/{len(reqs)} requests, lengths "
             f"{lens}")
@@ -4309,9 +4659,16 @@ def serve_job(torch, ops, serve, model, random_bank, get_config, dev,
             f"{cfg.name}: the serve path left the 16-byte routes: {routes}")
     require(all(bool(((v >= 0) & (v < cfg.vocab_size)).all())
                 for v in done.values()), "token ids out of range")
-    del eng, params, bank, done
-    gc.collect()
-    torch.cuda.empty_cache()
+    if graph:
+        eng = serve.ServeEngine(cfg, params["base"], bank,
+                                slots=job["slots"], max_len=max_len,
+                                device=dev)
+        with jit_cache.disable_jit():
+            eager = engine_run(torch, ops, eng, reqs)
+        decode_graph(phase, run, eager, all(
+            np_equal(done[r.rid], eager["done"][r.rid]) for r in reqs))
+    del eng, params, bank, done, run
+    free(torch)
     return launches
 
 
@@ -4355,6 +4712,8 @@ def dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
     require(engine_launches["grouped_gemv"] > 0
             and engine_launches["decode_attention"] > 0,
             f"{cfg.name}: the oracle's engine launched {engine_launches}")
+    del eng, params, bank, got, want
+    free(torch)            # the decode programs anchor the merged weights
 
 
 # ---------------------------------------------------------------------------
@@ -4508,7 +4867,7 @@ def phase_h2o_serve(torch, ops, serve, model, random_bank, get_config,
     oracle at full width, 2 layers: ServeEngine tokens equal serve_naive's
     request for request."""
     serve_job(torch, ops, serve, model, random_bank, get_config, dev,
-              H2O_SERVE, "h2o_serve")
+              H2O_SERVE, "h2o_serve", graph=True)
     dense_oracle(torch, ops, serve, random_bank, get_config, model, dev,
                  H2O, "h2o_serve")
     gc.collect()
@@ -4922,33 +5281,13 @@ def phase_rg_decode(torch, ops, tl_ops, serve, model, get_config,
     params = random_params(torch, model, cfg, dev, 25)
     prompts = np.random.default_rng(25).integers(
         0, cfg.vocab_size, (job["batch"], job["prompt_len"]))
-    per_step, step_ms = [], []
-    decode_step = serve.model.decode_step
-
-    def counts():
-        return {**ops.LAUNCHES, **tl_ops.LAUNCHES}
-
-    def counted(*args, **kw):
-        before = counts()
-        t = time.perf_counter()
-        out = decode_step(*args, **kw)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t))
-        per_step.append({k: v - before[k] for k, v in counts().items()})
-        return out
-
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()                      # counts of the main path only
-    tl_ops.reset_launches()
-    serve.model.decode_step = counted
-    try:
-        t0 = time.perf_counter()
-        out = serve.generate(cfg, params, prompts, job["gen"], device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        serve.model.decode_step = decode_step
-    launches = {**ops.LAUNCHES, **tl_ops.LAUNCHES}
+    run = generate_graph(torch, serve, cfg, params, prompts, job["gen"],
+                         [ops.LAUNCHES, tl_ops.LAUNCHES], dev,
+                         "rg_decode generate")
+    out, wall, per_step = run["out"], run["wall"], run["per_step"]
+    step_ms = run["eager_step_ms"]
+    launches = dict(run["launches"])
+    routes = {"tri_lora": dict(tl_ops.ROUTES), "attn": dict(ops.ROUTES)}
     steps = len(per_step)
     n_swa = cfg.kinds().count("swa")
     adapted = sum(adapted_per_layer(cfg, k) for k in cfg.kinds())
@@ -4959,14 +5298,16 @@ def phase_rg_decode(torch, ops, tl_ops, serve, model, get_config,
     emit({"phase": "rg_decode", "arch": cfg.name, **job, "steps": steps,
           "layers": cfg.n_layers, "swa_layers": n_swa, "head_dim": cfg.hd,
           "out_shape": list(out.shape), "wall_s": wall,
-          "ms_per_step": 1e3 * wall / steps, "step_ms_p50": srt[steps // 2],
-          "step_ms_p95": srt[int(0.95 * (steps - 1))],
-          "first_step_ms": step_ms[0],
-          "tok_per_s": job["batch"] * job["gen"] / wall,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "ms_per_step": run["ms_per_step"],
+          "eager_ms_per_step": 1e3 * run["eager_wall_s"] / steps,
+          "eager_step_ms_p50": srt[steps // 2],
+          "eager_step_ms_p95": srt[int(0.95 * (steps - 1))],
+          "programs": run["programs"],
+          "tok_per_s": job["batch"] * job["gen"] / run["second_wall_s"],
+          "peak_mem_gb": run["peak"],
           "launches": launches, "launches_per_step": want_step,
-          "tri_lora_routes": dict(tl_ops.ROUTES),
-          "attn_routes": dict(ops.ROUTES),
+          "tri_lora_routes": routes["tri_lora"],
+          "attn_routes": routes["attn"],
           "sample": out[0, -8:].tolist()})
     require(tuple(out.shape) == (job["batch"], job["prompt_len"] + job["gen"])
             and steps == job["prompt_len"] + job["gen"] - 1,
@@ -4974,8 +5315,8 @@ def phase_rg_decode(torch, ops, tl_ops, serve, model, get_config,
     odd = [p for p in per_step if p != want_step]
     require(not odd, f"decode steps launched {odd[:3]} (each step must "
             f"launch {want_step})")
-    require(ops.ROUTES["attn_scalar"] == 0, f"rg_decode attention left the "
-            f"16-byte route: {ops.ROUTES}")
+    require(routes["attn"]["attn_scalar"] == 0, f"rg_decode attention left "
+            f"the 16-byte route: {routes['attn']}")
     require(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
             "token ids out of range")
     del params, out
@@ -6022,6 +6363,39 @@ def phase_whisper_prefill(torch, fa_ops, tl_ops, model, get_config, dev):
                                False)
 
 
+def ring_slots(torch, cache, positions) -> list:
+    """The ring slots of ``positions`` in every K/V leaf of ``cache`` and
+    every integer leaf (the ring indices), saved: (leaf, slots or None,
+    copy) rows for ``restore_slots``."""
+    saved = []
+
+    def visit(tree, name=None):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                visit(v, k)
+        elif isinstance(tree, (tuple, list)):
+            for v in tree:
+                visit(v, name)
+        elif tree is not None and not tree.is_floating_point():
+            saved.append((tree, None, tree.clone()))
+        elif tree is not None and name in ("k", "v"):
+            ring = tree.shape[-3]
+            slots = torch.tensor([p % ring for p in positions],
+                                 device=tree.device)
+            saved.append((tree, slots,
+                          tree.index_select(tree.dim() - 3, slots)))
+    visit(cache)
+    return saved
+
+
+def restore_slots(saved) -> None:
+    for t, slots, copy in saved:
+        if slots is None:
+            t.copy_(copy)
+        else:
+            t.index_copy_(t.dim() - 3, slots, copy)
+
+
 def serve_steps_phase(torch, ops, ref, tl_ops, model, cfg, batch: int,
                       n_steps: int, phase: str, dev, params=None) -> dict:
     """``steps.make_serve_step`` at decode_32k's 32,768-token cache (rings
@@ -6035,13 +6409,23 @@ def serve_steps_phase(torch, ops, ref, tl_ops, model, cfg, batch: int,
     version in f32 (``held_decode``: elementwise at TOL, per batch row at
     FLASH_REL_TOL: an output over thousands of slots is about TOL's atol
     in size), where the plain version over the valid slots one 64-slot
-    tile short must fail the relative hold; finite logits, ms a step and
-    a profile of one more step.  ``params`` (else drawn here) stay the
-    caller's.  Returns one step's launches."""
+    tile short must fail the relative hold.  The steps after the first run
+    eagerly, then again from the same cache state (the slots they wrote
+    restored) through the step as a cached program with the cache
+    donated (``jit_cache.jit``; the JAX dry run's ``donate_argnums=(1,)``,
+    the params bound): logits bitwise the eager steps', one replay a step,
+    no donated copy, and the peak above the start within a quarter of the
+    cache of the eager steps' (no second cache).  Finite logits, ms a step
+    captured and eager, and a profile of one more step each way.
+    ``params`` (else drawn here) stay the caller's.  Returns one step's
+    launches."""
+    import functools
+
     from torch.profiler import ProfilerActivity, profile
 
     import numpy as np
 
+    from repro_torch.core import jit_cache
     from repro_torch.launch import steps
 
     sh = steps.SHAPES["decode_32k"]
@@ -6101,23 +6485,57 @@ def serve_steps_phase(torch, ops, ref, tl_ops, model, cfg, batch: int,
         fault = f or fault
     n_calls = len(calls)
     del calls
-    walls = []
-    for i in range(1, n_steps):
-        t0 = time.perf_counter()
-        logits, cache = serve_step(params, cache, batch_at(start + i))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve_step(params, cache, batch_at(start + n_steps - 1))
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    split = device_split(prof, prof_wall * 1e6, 8,
-                         shares=("decode_attention", "tri_lora"))
-    del prof
     peak = torch.cuda.max_memory_allocated() / 1e9
+    positions = list(range(start + 1, start + n_steps))
+    saved = ring_slots(torch, cache, positions)
+
+    def run_steps(step):
+        """The steps after the first through ``step``, from ``cache``:
+        (logits, wall seconds, peak GB above the start)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs, walls, c = [], [], cache
+        for pos in positions:
+            t0 = time.perf_counter()
+            lg, c = step(c, batch_at(pos))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            outs.append(lg)
+        return outs, walls, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    eager_logits, walls, eager_above = run_steps(
+        lambda c, b: serve_step(params, c, b))
+    restore_slots(saved)
+    del saved
+    programs = jit_cache.JitCache(maxsize=1)
+    program = jit_cache.jit(
+        programs, (params["base"], params["adapter"], cfg), ("serve_step",),
+        functools.partial(serve_step, params), donate_argnums=(0,))
+    ops.reset_launches()
+    tl_ops.reset_launches()
+    before = dict(jit_cache.STATS)
+    graph_logits, graph_walls, graph_above = run_steps(program)
+    graph_programs = program_stats(before)
+    graph_launches = {**ops.LAUNCHES, **tl_ops.LAUNCHES}
+    logits_equal = all(torch.equal(a, b) for a, b in zip(graph_logits,
+                                                         eager_logits))
+    logits = graph_logits[-1]
+    del graph_logits, eager_logits
+    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+    splits = {}
+    for name, step in (("captured", program),
+                       ("eager", lambda c, b: serve_step(params, c, b))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(cache, batch_at(start + n_steps - 1))
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        splits[name] = device_split(prof, prof_wall * 1e6, 8,
+                                    shares=("decode_attention", "tri_lora"))
+        del prof
+    split = splits["captured"]
     n_targets = len(cfg.lora_targets)
     expected = {"decode_attention": cfg.n_layers, "grouped_gemv": 0,
                 "tri_lora_fwd": cfg.n_layers * n_targets, "tri_lora_dx": 0,
@@ -6134,8 +6552,14 @@ def serve_steps_phase(torch, ops, ref, tl_ops, model, cfg, batch: int,
                                 max(r[1] for r in rels)],
           "rel_tol": tol, "n_out_of_tol": bad,
           "fault_ring_one_tile_short": fault,
-          "wall_ms_per_step": [1e3 * w for w in walls],
-          "profiled_step": split, "finite": finite, "peak_mem_gb": peak})
+          "wall_ms_per_step": [1e3 * w for w in graph_walls],
+          "eager_wall_ms_per_step": [1e3 * w for w in walls],
+          "logits_bitwise_eager": logits_equal, "programs": graph_programs,
+          "graph_launches": graph_launches,
+          "peak_above_start_gb": {"captured": graph_above,
+                                  "eager": eager_above},
+          "profiled_step": split, "profiled_step_eager": splits["eager"],
+          "finite": finite, "peak_mem_gb": peak})
     require(launches == expected, f"{phase} launches {launches} != "
             f"{expected}")
     require(routes["attn_vec"] == cfg.n_layers and routes["attn_scalar"] == 0,
@@ -6146,7 +6570,20 @@ def serve_steps_phase(torch, ops, ref, tl_ops, model, cfg, batch: int,
             f"stand-in with the ring one "
             f"tile short passes the relative hold: {fault}")
     require(finite, f"{phase} logits not finite")
-    del cache, logits
+    require(logits_equal, f"{phase}: the captured steps' logits are not "
+            f"bitwise the eager steps'")
+    require(graph_launches == {k: v * len(positions)
+                               for k, v in expected.items()},
+            f"{phase}: the captured steps launched {graph_launches}")
+    require(graph_programs["graphs"] == 1
+            and graph_programs["replays"] == len(positions)
+            and graph_programs["donated_in"] == 0,
+            f"{phase}: {graph_programs} over {len(positions)} steps (one "
+            f"capture, one replay a step, the cache never copied)")
+    require(graph_above - eager_above < 0.25 * (kv_gb + x_gb),
+            f"{phase}: the captured steps peaked {graph_above:.2f} GB above "
+            f"the start, the eager ones {eager_above:.2f}: a second cache?")
+    del cache, logits, program, programs
     free(torch)
     return launches
 
@@ -6492,6 +6929,9 @@ def main() -> int:
         launches, state = timed("serve", phase_serve, torch, ops, serve,
                                 model, random_bank, get_config, dev)
         timed("profile", phase_profile, torch, state, dev)
+        # the captured decode program against the eager step
+        timed("decode_graph", phase_decode_graph, torch, ops, serve, state,
+              dev)
         del state
         gc.collect()          # the timed engine sits in a reference cycle
         torch.cuda.empty_cache()
@@ -6534,6 +6974,10 @@ def main() -> int:
                                 lm_hist)
         timed("lm_scan", phase_lm_scan, torch, fa_ops, tl_ops, get_config,
               dev, lm_vmap_hist)
+        # the captured chunk programs of train_scan and lm_scan against
+        # eager chunks
+        timed("scan_graph", phase_scan_graph, torch, fa_ops, tl_ops,
+              get_config, dev)
         timed("lm_host / lm_async", phase_lm_host_async, torch, fa_ops,
               tl_ops, get_config, dev, lm_vmap_hist)
         # the eighteenth slice's paths: the client axis over the device mesh

@@ -32,6 +32,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import jit_cache
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -284,11 +285,14 @@ def release(old: Any, new: Any) -> int:
     factor) or a view of one: those storages are kept.  A storage that a
     numpy array still views (a CPU tensor read by ``.numpy()``, as a
     checkpoint save reads it) cannot be resized: its tensors are made to
-    raise all the same, and the bytes go with the array.  Returns the
-    number of storages freed."""
+    raise all the same, and the bytes go with the array.  A storage that a
+    live program replays into (:func:`.jit_cache.static_storages`: a
+    donated carry is the chunk program's buffer) is kept as it is.
+    Returns the number of storages freed."""
     keep = {t.untyped_storage().data_ptr() for t in tree_leaves(new)
             if isinstance(t, torch.Tensor)
             and not isinstance(t, ReleasedTensor)}
+    keep |= jit_cache.static_storages()
     freed = 0
     for t in tree_leaves(old):
         if not isinstance(t, torch.Tensor) or isinstance(t, ReleasedTensor):

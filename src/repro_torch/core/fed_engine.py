@@ -25,14 +25,26 @@ and drives it over CHUNKS of rounds with exactly one host sync per chunk:
   constants reckoned on meta tensors (:func:`.comm.per_client_comm`), and
   the eval cadence is the host-known round index.
 
-In the JAX package the round is one traced ``round_step`` under
-``lax.scan``; here the round's local fit and eval are the programs
-``run_federated`` hands over (on a card, CUDA graphs cached in
-``core/jit_cache.py`` and replayed: the grouped tri-LoRA and flash
-kernels with no Python between launches), and the rest of the round is
-launched eagerly, so the engine saves the eager vmap path's host syncs;
-the whole chunk is not one program yet (the JAX package's
-``_SCAN_CACHE``).
+In the JAX package the chunk is one jitted ``lax.scan`` of ``round_step``;
+here it is one cached program too (:mod:`.jit_cache`, ``_SCAN_CACHE``): on
+a card ONE CUDA GRAPH A CHUNK, every round's fit, select, uplink, S^model
+refresh, aggregation, install and eval captured together and replayed
+with no Python between launches (the fit and eval programs that
+``run_federated`` hands over run plain inside the capture).  Its inputs
+are the chunk's batches, plan and fault rows and codec uniforms, and the
+run's constants (test stacks, S^data, CKA probes, sample counts); it
+returns the carry and the chunk's (loss, accuracies, accepts) rows, read
+back once.  With ``scan_donate`` the carry is donated: the graph writes
+the new carry over the old one in place.  The cache key is the JAX
+package's, plus the chunk length (the odd last chunk is a program of its
+own, as JAX retraces by shape) and the chunk's eval-cadence pattern (the
+port's cadence is the host's round index, where JAX takes a ``lax.cond``):
+with ``eval_every=1`` a run builds one program per chunk length, and the
+cache grows to hold every pattern a run meets, so none is captured twice
+(each holds a graph's memory pool: a cadence prime to the chunk length
+costs up to chunk + 2 of them).  On the
+CPU the program is the chunk function itself, so a captured chunk is the
+eager chunk, op for op.
 
 Equivalence contract (the JAX package's, tests/test_fed_engine.py): the
 same ``FedConfig`` (minus ``engine``) reproduces the eager history — loss
@@ -53,6 +65,7 @@ carry's storage after each chunk (:func:`.client_batch.release`);
 """
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 from typing import Callable, Optional, Sequence
@@ -62,10 +75,14 @@ import torch
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import (admission, aggregation, client_batch,
-                              client_store, compress, faults, sampling,
-                              tri_lora)
+                              client_store, compress, faults, jit_cache,
+                              sampling, tri_lora)
 from repro_torch.core.similarity import cka
 from repro_torch.tree import tree_map
+
+# The chunk programs, anchored on the task's backbone and config: a CUDA
+# graph a (key, chunk length, cadence pattern) on a card
+_SCAN_CACHE = jit_cache.JitCache(maxsize=8)
 
 # Checkpoints written before fault injection and admission existed carry
 # none of these knobs; they were written by the fault-free runtime, which
@@ -172,13 +189,15 @@ def run_scan(*, task, fed, strategy, states: list, loaders: Sequence,
              s_data: Optional[torch.Tensor],
              test_toks: torch.Tensor, test_labs: torch.Tensor,
              cka_probes: Optional[torch.Tensor],
-             sr_uniforms: Optional[Callable], device,
+             sr_uniforms: Optional[Callable], device, anchors: tuple,
              verbose: bool = False) -> dict:
     """The scan-engine body of ``run_federated`` (module docstring), called
     after its shared setup: ``local_fit(trainable, w_ref, toks, labs) →
     (trainable, (m,) losses)`` over the stacked state, ``eval_acc(
     trainable, test_toks, test_labs) → (m,)`` accuracies as a tensor,
-    ``sr_uniforms(round, client)`` the codec's uniform source.  Returns
+    ``sr_uniforms(round, client)`` the codec's uniform source,
+    ``anchors`` what the chunk programs are cached on (``run_federated``'s
+    fit and eval anchors: its caller's backbone and config).  Returns
     ``run_federated``'s result dict."""
     from repro_torch.core.federated import RoundRecord   # late: a cycle
 
@@ -283,10 +302,12 @@ def run_scan(*, task, fed, strategy, states: list, loaders: Sequence,
                                        device=dev))
     carry = (stacked, s_model, accs0, adm_state)
 
-    def round_step(carry, toks, labs, x: dict, u, rnd: int):
+    def round_step(carry, toks, labs, x: dict, u, consts: dict,
+                   do_eval: bool):
         """One round on the device: no read-back, every input a device
         tensor (``x``: this round's rows of the chunk's masks and ids,
-        ``u``: the codec's uniforms per payload leaf)."""
+        ``u``: the codec's uniforms per payload leaf, ``consts``: the
+        run's constants); ``do_eval`` is the round's cadence."""
         stacked, s_model, prev_accs, adm_state = carry
         smask, pmask = x["smask"], x["pmask"]
         tr, losses = local_fit(strategy.trainable(stacked),
@@ -339,13 +360,13 @@ def run_scan(*, task, fed, strategy, states: list, loaders: Sequence,
         agg_mask = accept if robust and communicates else pmask
         weights = None
         if personalized:
-            sims = [s_data] if use_data else []
+            sims = [consts["s_data"]] if use_data else []
             if use_model:
                 cs = cka.stacked_cs(
                     served if compressed or robust
                     else tri_lora.tree_payload(stacked["adapter"]))
                 refreshed = cka.refresh_rows_inline(s_model, cs, x["ids"],
-                                                    cka_probes)
+                                                    consts["probes"])
                 if robust:
                     # refresh only ACCEPTED rows: a pair touching a sampled
                     # client whose upload was not accepted keeps its entry
@@ -362,7 +383,8 @@ def run_scan(*, task, fed, strategy, states: list, loaders: Sequence,
             # rejected or undelivered rows may hold NaN/Inf: their weight
             # is 0, but 0 x NaN still poisons the mix
             served = faults.zero_rows(served, accept)
-        down = strategy.server_stacked(served, sample_counts=counts,
+        down = strategy.server_stacked(served,
+                                       sample_counts=consts["counts"],
                                        weights=weights,
                                        participants=agg_mask)
         if down is not None:
@@ -371,14 +393,48 @@ def run_scan(*, task, fed, strategy, states: list, loaders: Sequence,
 
         # the cadence is the host's round index: off-cadence rounds carry
         # the last evaluated accuracies
-        if rnd % eval_every == 0 or rnd == fed.rounds - 1:
-            accs = eval_acc(strategy.trainable(stacked), test_toks,
-                            test_labs)
+        if do_eval:
+            accs = eval_acc(strategy.trainable(stacked), consts["test_toks"],
+                            consts["test_labs"])
         else:
             accs = prev_accs
         sm = smask.to(losses.dtype)
         loss = torch.sum(losses * sm) / torch.clamp_min(torch.sum(sm), 1.0)
         return (stacked, s_model, accs, adm_state), (loss, accs, accept)
+
+    def chunk_fn(evals: tuple, carry, toks, labs, x: dict, u, consts: dict):
+        """The chunk program: ``round_step`` for each round of the chunk
+        (``evals``: which rounds evaluate) → (carry, (rounds, 1 + 2m)
+        rows of loss, accuracies and accepts)."""
+        ys = []
+        for j, do_eval in enumerate(evals):
+            carry, y = round_step(carry, toks[j], labs[j],
+                                  {k: v[j] for k, v in x.items()},
+                                  [l[j] for l in u] if u else None, consts,
+                                  do_eval)
+            ys.append(y)
+        return carry, torch.cat(
+            [torch.stack([y[0] for y in ys])[:, None].float(),
+             torch.stack([y[1] for y in ys]).float(),
+             torch.stack([y[2] for y in ys]).float()], dim=1)
+
+    # the JAX package's key: what shapes the traced program and is not a
+    # tensor input (the seed is not: the codec's uniforms are inputs here;
+    # nor is scan_donate: jit keys on the donated arguments itself)
+    scan_key = ("scan", strategy.name, fed.lr, fed.local_steps,
+                fed.batch_size, fed.pfedme_eta, fed.self_weight, use_data,
+                use_model, fed.client_parallelism, fed.attn_impl,
+                fed.uplink_codec, fed.fault_crash, fed.fault_loss,
+                fed.fault_corrupt, fed.fault_corrupt_mode,
+                fed.fault_divergent, fed.fault_divergent_scale,
+                fed.admission, fed.admission_norm_mult,
+                fed.admission_window)
+    consts = {"counts": counts, "test_toks": test_toks,
+              "test_labs": test_labs, "s_data": s_data if use_data else None,
+              "probes": cka_probes if use_model else None}
+
+    def evaluates(rnd: int) -> bool:
+        return rnd % eval_every == 0 or rnd == fed.rounds - 1
 
     rows_np = {"smask": pstack.sampled_mask, "pmask": pstack.participant_mask,
                "ids": pstack.sampled_ids, **(fstack or {})}
@@ -402,21 +458,19 @@ def run_scan(*, task, fed, strategy, states: list, loaders: Sequence,
 
     def dispatch(carry, batches, c0, c1):
         toks, labs, u = client_batch.to_device(batches, dev)
+        # each chunk's rows copied out of the run's arrays: a slice's
+        # offset would change the program's signature from chunk to chunk
         x = client_batch.to_device(
-            {k: client_batch.host_tensor(v[c0:c1], dev)
+            {k: client_batch.host_tensor(v[c0:c1].copy(), dev)
              for k, v in rows_np.items()}, dev)
-        ys = []
-        for j in range(c1 - c0):
-            carry, y = round_step(carry, toks[j], labs[j],
-                                  {k: v[j] for k, v in x.items()},
-                                  [l[j] for l in u] if u else None, c0 + j)
-            ys.append(y)
+        evals = tuple(evaluates(r) for r in range(c0, c1))
+        run_chunk = jit_cache.jit(
+            _SCAN_CACHE, anchors, scan_key + (c1 - c0, evals),
+            functools.partial(chunk_fn, evals),
+            donate_argnums=(0,) if fed.scan_donate else ())
+        carry, rows = run_chunk(carry, toks, labs, x, u, consts)
         # the chunk's ONE host sync: loss, accuracies and accept rows
-        out = torch.cat([torch.stack([y[0] for y in ys])[:, None].float(),
-                         torch.stack([y[1] for y in ys]).float(),
-                         torch.stack([y[2] for y in ys]).float()],
-                        dim=1).cpu().numpy()
-        return carry, out
+        return carry, rows.cpu().numpy()
 
     def on_chunk(carry, c0, c1, out, host_s, device_s, wall_s):
         n = c1 - c0
@@ -437,10 +491,20 @@ def run_scan(*, task, fed, strategy, states: list, loaders: Sequence,
                   f"acc {float(np.mean(hist_accs[-1])):.3f} "
                   f"({wall_s:.2f}s/round)")
 
+    schedule = chunk_schedule(start, fed.rounds, chunk)
+    # the cache holds every (length, cadence) program the run replays: an
+    # eval_every prime to the chunk length meets up to chunk + 1 patterns
+    # besides the last chunk's, and an LRU smaller than that would capture
+    # again on almost every chunk
+    patterns = {(c1 - c0, tuple(evaluates(r) for r in range(c0, c1)))
+                for c0, c1 in schedule}
+    _SCAN_CACHE.maxsize = max(_SCAN_CACHE.maxsize, len(patterns))
     carry = client_batch.drive_chunks(
-        carry, chunk_schedule(start, fed.rounds, chunk), produce, dispatch,
+        carry, schedule, produce, dispatch,
         on_chunk, donate=fed.scan_donate, prefetch=fed.scan_prefetch)
-    pstore.adopt(carry[0])
+    # a donated carry is the chunk program's buffer: the states returned
+    # get storage of their own before another run replays into it
+    pstore.adopt(jit_cache.unshared(carry[0]))
 
     def n_up(rnd: int) -> int:
         # robust runs price the uploads that left a device (a crashed
@@ -463,7 +527,7 @@ def run_scan(*, task, fed, strategy, states: list, loaders: Sequence,
             dropped=plans[rnd].dropped.tolist(),
             uplink_elems=per_e * n_up(rnd),
             host_s=hist_host[rnd], device_s=hist_dev[rnd],
-            evaluated=(rnd % eval_every == 0 or rnd == fed.rounds - 1),
+            evaluated=evaluates(rnd),
             rejected=(np.nonzero(delivered_np[rnd] & ~hist_accept[rnd])[0]
                       .tolist() if robust and communicates else []),
             failed=(np.nonzero(pstack.participant_mask[rnd]

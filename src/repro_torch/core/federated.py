@@ -539,7 +539,7 @@ def run_federated(task: FedTask, fed: FedConfig, client_train: list,
         return async_engine.run_async(**engine_kw)
     if fed.engine == "scan":
         from repro_torch.core import fed_engine
-        return fed_engine.run_scan(**engine_kw)
+        return fed_engine.run_scan(**engine_kw, anchors=anchors)
 
     s_model_prev: list = [None]
 

@@ -31,7 +31,31 @@ autograd and cuBLAS state), and the capture, in ``thread_local`` mode (a
 data-prefetch thread may allocate pinned memory meanwhile).  A call
 copies its inputs into those buffers,
 replays the graph and returns clones of the static outputs, which the next
-replay overwrites.  A replay runs no Python, so the kernel wrappers'
+replay overwrites.
+
+Donated arguments (``donate_argnums``, as in ``jax.jit``): the static
+buffer of a donated tensor leaf is the caller's own tensor, as passed when
+the program was built.  The warm-up and the capture read it and write it
+in place (so a function may write a donated argument in place only where
+running it twice on the same inputs gives the result of one run, as the
+decode step's K/V write does: the same value to the same slot), and the
+graph ends by copying the function's result for that argument into it.
+That result is the element of the function's result (a tuple or a list)
+with the argument's tree and leaf shapes and dtypes; it is returned as the
+buffers themselves, in the argument's tree, not as clones.  A later call
+that passes the very same tensor copies nothing; one that passes another
+tensor of the signature has it copied in once, and the caller treats a
+donated argument as consumed, as in JAX.  So a decode step's KV cache or
+a scan chunk's carry is never duplicated.  Neither
+:func:`repro_torch.core.client_batch.release` nor anything else frees a
+live program's static buffers (:func:`static_storages`); :func:`unshared`
+gives a result back its own storage before a program's next call reuses
+it.  A caller that would allocate a new donated argument for a call asks
+:func:`held` for the buffers a live program keeps and resets them
+instead, so a second call at the same shapes neither holds two copies nor
+captures again.  Under a warm-up or a capture every function from :func:`jit` runs
+plain, as under :func:`disable_jit`: a program is never replayed inside
+another's capture.  A replay runs no Python, so the kernel wrappers'
 launch counters (``LAUNCHES`` / ``ROUTES`` in ``kernels/*/ops.py``) would
 stop: a program leaves the warm-up and the capture uncounted and adds the
 counts of the capture on every replay, so they stay exact.  On the CPU the
@@ -50,6 +74,7 @@ cache is cleared (:meth:`JitCache.clear`, :func:`clear_all`).
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -59,12 +84,15 @@ import torch
 
 #: what the programs did since the last :func:`reset_stats`: entries built
 #: (``programs``, the CPU's plain entries included), graphs captured, graph
-#: replays, and the seconds spent in warm-up calls and in captures
+#: replays, the seconds spent in warm-up calls and in captures, and the
+#: donated leaves a call had to copy in (another tensor than the buffer)
 STATS = {"programs": 0, "graphs": 0, "replays": 0, "warmup_s": 0.0,
-         "capture_s": 0.0}
+         "capture_s": 0.0, "donated_in": 0}
 
 _CACHES: "weakref.WeakSet[JitCache]" = weakref.WeakSet()
+_PROGRAMS: "weakref.WeakSet[GraphProgram]" = weakref.WeakSet()
 _DISABLED = [0]
+_BUILDING = threading.local()         # this thread's depth of program builds
 _SIDE: dict = {}
 _LEAVES = (torch.Tensor, type(None), bool, int, float, str)
 
@@ -119,7 +147,7 @@ def clear_all() -> None:
 
 def reset_stats() -> None:
     STATS.update(programs=0, graphs=0, replays=0, warmup_s=0.0,
-                 capture_s=0.0)
+                 capture_s=0.0, donated_in=0)
 
 
 @contextlib.contextmanager
@@ -135,6 +163,21 @@ def disable_jit() -> Iterator[None]:
 
 def jit_disabled() -> bool:
     return _DISABLED[0] > 0
+
+
+def _building() -> int:
+    return getattr(_BUILDING, "depth", 0)
+
+
+@contextlib.contextmanager
+def _build_scope() -> Iterator[None]:
+    """A program's warm-up and capture: the functions from :func:`jit`
+    that it calls run plain on this thread."""
+    _BUILDING.depth = _building() + 1
+    try:
+        yield
+    finally:
+        _BUILDING.depth -= 1
 
 
 # --------------------------------------------------------------- the trees
@@ -192,6 +235,53 @@ def _device(args: tuple) -> torch.device:
     return devs.pop() if devs else torch.device("cpu")
 
 
+def _paths(tree: Any, prefix: tuple = ()) -> dict:
+    """{path: leaf} of a tree, a path naming each dict key and sequence
+    index on the way down (dict order does not matter)."""
+    if type(tree) is dict:
+        out: dict = {}
+        for k, v in tree.items():
+            out.update(_paths(v, prefix + (("key", k),)))
+        return out
+    if type(tree) in (tuple, list):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_paths(v, prefix + (("at", i),)))
+        return out
+    return {prefix: tree}
+
+
+def _same_kind(a: Any, b: Any) -> bool:
+    """Leaf ``b`` can be written into leaf ``a``: tensors of one shape and
+    dtype, or equal constants."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.shape == b.shape and a.dtype == b.dtype)
+    return type(a) is type(b) and a == b
+
+
+def _result_of(arg: Any, out: Any, argnum: int) -> int:
+    """The index of the element of ``out`` that is the function's result
+    for donated argument ``arg``: the one element with its paths and its
+    leaves' shapes and dtypes."""
+    if type(out) not in (tuple, list):
+        raise TypeError(f"a program with donated arguments returns a tuple "
+                        f"or a list; got {type(out).__name__}")
+    want = _paths(arg)
+    hits = [j for j, o in enumerate(out)
+            if _paths(o).keys() == want.keys()
+            and all(_same_kind(want[k], v) for k, v in _paths(o).items())]
+    if len(hits) != 1:
+        raise ValueError(f"donated argument {argnum}: {len(hits)} elements "
+                         f"of the result have its tree, shapes and dtypes "
+                         f"(need exactly one)")
+    return hits[0]
+
+
+def _overlaps(t: torch.Tensor) -> bool:
+    return any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape))
+
+
 # ---------------------------------------------------------- launch counts
 
 def _counters() -> list:
@@ -215,7 +305,7 @@ def _static_like(t: torch.Tensor) -> torch.Tensor:
     """A buffer for input ``t``: its shape and strides, and its base
     address's offset modulo 16 bytes, so the kernels take the routes
     they take on ``t`` itself."""
-    if any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape)):
+    if _overlaps(t):
         raise ValueError(f"an input of shape {tuple(t.shape)} with strides "
                          f"{t.stride()} overlaps itself: a program cannot "
                          f"copy it into a static buffer")
@@ -237,35 +327,64 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 
 class GraphProgram:
     """``fn`` captured as a CUDA graph for the signature of ``args``
-    (built here: warm-up, capture); calling it replays the graph."""
+    (built here: warm-up, capture); calling it replays the graph.  The
+    arguments ``donate_argnums`` are donated (module docstring)."""
 
-    def __init__(self, fn: Callable, args: tuple):
+    def __init__(self, fn: Callable, args: tuple,
+                 donate_argnums: Sequence[int] = ()):
         self._sig = signature(args)
+        donate = tuple(sorted(set(donate_argnums)))
+        if any(not 0 <= i < len(args) for i in donate):
+            raise ValueError(f"donate_argnums {donate_argnums} out of range "
+                             f"for {len(args)} arguments")
         leaves: list = []
-        self._spec = _flatten(args, leaves)
-        self._static = [_static_like(x) if isinstance(x, torch.Tensor)
-                        else x for x in leaves]
-        for s, x in zip(self._static, leaves):
-            if isinstance(x, torch.Tensor):
+        specs, owner = [], []
+        for i, a in enumerate(args):
+            n = len(leaves)
+            specs.append(_flatten(a, leaves))
+            owner += [i] * (len(leaves) - n)
+        self._spec = ("tuple", tuple(specs))
+        # a donated tensor leaf's buffer is the caller's tensor itself
+        self._given = [i in donate and isinstance(x, torch.Tensor)
+                       for i, x in zip(owner, leaves)]
+        for x, given in zip(leaves, self._given):
+            if given and _overlaps(x):
+                raise ValueError(f"a donated input of shape "
+                                 f"{tuple(x.shape)} with strides "
+                                 f"{x.stride()} overlaps itself: a program "
+                                 f"cannot write it in place")
+        self._static = [x if given else _static_like(x)
+                        if isinstance(x, torch.Tensor) else x
+                        for x, given in zip(leaves, self._given)]
+        for s, x, given in zip(self._static, leaves, self._given):
+            if isinstance(x, torch.Tensor) and not given:
                 s.copy_(x)
         static_args = _unflatten(self._spec, iter(self._static))
+        self._donated = {i: static_args[i] for i in donate}
         device = _device(args)
         counters = _counters()
         before = [dict(c) for c in counters]
         t0 = time.perf_counter()
         try:
-            side = _side_stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                fn(*static_args)
-            side.synchronize()
-            _restore(counters, before)
-            t1 = time.perf_counter()
-            STATS["warmup_s"] += t1 - t0
-            self._graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self._graph,
-                                  capture_error_mode="thread_local"):
-                out = fn(*static_args)
+            with _build_scope():
+                side = _side_stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    warm = fn(*static_args)
+                side.synchronize()
+                # where each donated argument's result sits (checked here,
+                # before the capture)
+                results = {i: _result_of(static_args[i], warm, i)
+                           for i in donate}
+                del warm
+                _restore(counters, before)
+                t1 = time.perf_counter()
+                STATS["warmup_s"] += t1 - t0
+                self._graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self._graph,
+                                      capture_error_mode="thread_local"):
+                    out = fn(*static_args)
+                    out = self._write_back(static_args, out, results)
             self._deltas = [{k: v - b.get(k, 0) for k, v in c.items()
                              if v != b.get(k, 0)}
                             for c, b in zip(counters, before)]
@@ -273,8 +392,40 @@ class GraphProgram:
             _restore(counters, before)
         self._out: list = []
         self._out_spec = _flatten(out, self._out)
+        given = {id(s) for s, g in zip(self._static, self._given) if g}
+        self._alias = [isinstance(o, torch.Tensor) and id(o) in given
+                       for o in self._out]
+        _PROGRAMS.add(self)
         STATS["graphs"] += 1
         STATS["capture_s"] += time.perf_counter() - t1
+
+    @staticmethod
+    def _write_back(static_args: tuple, out: Any, results: dict) -> Any:
+        """Inside the capture: copy the result for each donated argument
+        into its buffers (a leaf that already is its buffer needs none)
+        and put the buffers, in the argument's tree, in its place."""
+        if not results:
+            return out
+        pairs = []
+        for i, j in results.items():
+            want, got = _paths(static_args[i]), _paths(out[j])
+            pairs += [(want[k], got[k]) for k in want
+                      if isinstance(want[k], torch.Tensor)]
+        mine = {d.untyped_storage().data_ptr() for d, _ in pairs}
+
+        def same(a, b):
+            return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                    and a.stride() == b.stride())
+        # a result that reads some donated buffer is cloned first: the
+        # copies below may overwrite what it reads
+        pairs = [(d, o.clone() if o.untyped_storage().data_ptr() in mine
+                  else o) for d, o in pairs if not same(d, o)]
+        for d, o in pairs:
+            d.copy_(o)
+        ret = list(out)
+        for i, j in results.items():
+            ret[j] = static_args[i]
+        return type(out)(ret)
 
     def __call__(self, *args: Any) -> Any:
         if signature(args) != self._sig:
@@ -282,38 +433,93 @@ class GraphProgram:
                              "program was captured for")
         leaves: list = []
         _flatten(args, leaves)
-        for s, x in zip(self._static, leaves):
-            if isinstance(x, torch.Tensor):
+        for s, x, given in zip(self._static, leaves, self._given):
+            if not isinstance(x, torch.Tensor):
+                continue
+            if not given:
                 s.copy_(x)
+            elif x.data_ptr() != s.data_ptr():
+                s.copy_(x)                # another tensor: copied in once
+                STATS["donated_in"] += 1
         self._graph.replay()
         for c, d in zip(_counters(), self._deltas):
             for k, v in d.items():
                 c[k] = c.get(k, 0) + v
         STATS["replays"] += 1
         return _unflatten(self._out_spec, iter(
-            o.clone() if isinstance(o, torch.Tensor) else o
-            for o in self._out))
+            o if alias else o.clone() if isinstance(o, torch.Tensor) else o
+            for o, alias in zip(self._out, self._alias)))
 
 
-def program(fn: Callable, args: tuple) -> Callable:
+def static_storages() -> set:
+    """The base addresses of the storages that live programs' static
+    buffers lie in (donated ones included): memory a graph replays into."""
+    return {s.untyped_storage().data_ptr() for p in list(_PROGRAMS)
+            for s in p._static if isinstance(s, torch.Tensor)}
+
+
+def unshared(tree: Any) -> Any:
+    """``tree`` with every tensor that lies in a live program's static
+    buffer replaced by a clone: a result the caller keeps past the
+    program's next call (which may copy another donated argument in)."""
+    held = static_storages()
+    if not held:
+        return tree
+    leaves: list = []
+    spec = _flatten(tree, leaves)
+    return _unflatten(spec, iter(
+        x.clone() if isinstance(x, torch.Tensor)
+        and x.untyped_storage().data_ptr() in held else x for x in leaves))
+
+
+def program(fn: Callable, args: tuple,
+            donate_argnums: Sequence[int] = ()) -> Callable:
     """``fn`` as a program for the signature of ``args``: a captured CUDA
     graph when they lie on a CUDA device, ``fn`` itself on the CPU."""
-    prog = GraphProgram(fn, args) if _device(args).type == "cuda" else fn
+    prog = (GraphProgram(fn, args, donate_argnums)
+            if _device(args).type == "cuda" else fn)
     STATS["programs"] += 1
     return prog
 
 
+def held(cache: JitCache, anchors: Sequence[Any], key: Hashable,
+         argnum: int, like: Any) -> Any:
+    """The buffers that a live program of ``jit(cache, anchors, key, fn,
+    donate_argnums)`` holds for its donated argument ``argnum``, in their
+    tree, where they have the tree, shapes and dtypes of ``like`` (which
+    may lie on ``meta``); None if no such program lives, under
+    :func:`disable_jit` and inside a build.  A caller passes them back,
+    reset to the value it needs, instead of a new tensor: one copy of the
+    argument, and the program's own signature."""
+    if jit_disabled() or _building():
+        return None
+    ids = tuple(id(a) for a in anchors)
+    want = _paths(like)
+    for (kid, tail), (prog, kept) in reversed(cache._entries.items()):
+        if (kid != ids or not isinstance(prog, GraphProgram)
+                or tail[:1] != (key,) or argnum not in tail[1]
+                or not all(k is a for k, a in zip(kept, anchors))):
+            continue
+        got = _paths(prog._donated[argnum])
+        if got.keys() == want.keys() and all(
+                _same_kind(want[k], v) for k, v in got.items()):
+            return prog._donated[argnum]
+    return None
+
+
 def jit(cache: JitCache, anchors: Sequence[Any], key: Hashable,
-        fn: Callable) -> Callable:
+        fn: Callable, donate_argnums: Sequence[int] = ()) -> Callable:
     """``fn`` through ``cache``: each call runs the program built for
-    (``anchors``, ``key``, the arguments' :func:`signature`), building it
-    on a miss; under :func:`disable_jit`, ``fn`` itself."""
+    (``anchors``, ``key``, ``donate_argnums``, the arguments'
+    :func:`signature`), building it on a miss; under :func:`disable_jit`
+    or inside another program's warm-up or capture, ``fn`` itself."""
     anchors = tuple(anchors)
+    donate = tuple(sorted(set(donate_argnums)))
 
     def call(*args: Any) -> Any:
-        if jit_disabled():
+        if jit_disabled() or _building():
             return fn(*args)
-        prog = cache.get_or_build(anchors, (key, signature(args)),
-                                  lambda: program(fn, args))
+        prog = cache.get_or_build(anchors, (key, donate, signature(args)),
+                                  lambda: program(fn, args, donate))
         return prog(*args)
     return call

@@ -33,21 +33,62 @@ Three inference modes for paper eqn (10)'s per-client adapters:
 
 Every entry point runs on ``device="cuda"`` unless the caller asks for the
 CPU, and raises when asked for a card that is not there.
+
+The decode step is a cached program (:mod:`repro_torch.core.jit_cache`,
+the JAX package's jitted step): on a card one CUDA graph a signature,
+replayed each step, with the KV cache donated, so the graph writes the
+caller's cache in place and never copies it.  :func:`generate`'s program
+is cached in ``_DECODE_CACHE``, anchored on ``(params["base"],
+params["adapter"], cfg)``; each :class:`ServeEngine` owns its program,
+which goes with the engine.  A program keeps its cache after the call
+(until it is evicted or cleared); a second call at the same shapes zeroes
+that cache in place and replays the same graph, so only one cache is ever
+alive per program.  On the CPU the program is the step itself.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import jit_cache
 from repro_torch.core.adapter_bank import AdapterBank, random_bank
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models import model, transformer
 from repro_torch.models.config import get_config
+from repro_torch.tree import tree_leaves
+
+
+#: :func:`generate`'s decode-step programs; each holds its donated cache,
+#: so few
+_DECODE_CACHE = jit_cache.JitCache(maxsize=4)
+
+
+def _fresh_cache(programs: jit_cache.JitCache, anchors: tuple, key,
+                 make, dev: torch.device) -> dict:
+    """A decode cache as ``make(device)`` builds it (all zeros, as
+    :func:`model.init_decode_cache` makes them): the one a live program
+    of ``key`` holds, zeroed in place, where there is one (no second cache,
+    no copy, no new capture); else a new one."""
+    kept = jit_cache.held(programs, anchors, key, 0, make("meta"))
+    if kept is None:
+        return make(dev)
+    for t in tree_leaves(kept):
+        t.zero_()
+    return kept
+
+
+def _generate_step(cfg, base: dict, adapter: dict, cache: dict,
+                   token: torch.Tensor, positions: torch.Tensor):
+    """:func:`generate`'s program: one token through ``model.decode_step``
+    → (logits (B, 1, V), cache)."""
+    return model.decode_step(cfg, base, adapter, cache,
+                             {"token": token, "positions": positions})
 
 
 @torch.inference_mode()
@@ -55,21 +96,30 @@ def generate(cfg, params: dict, prompts, gen: int, *,
              device="cuda") -> torch.Tensor:
     """Greedy decode.  prompts: (B, P) int.  Returns (B, P+gen) int32 tokens
     on ``device``.  The prompt is fed one token per step, as in the JAX
-    package."""
+    package; each step is one call of the cached decode program, the cache
+    donated."""
     dev = resolve_device(device)
     check_on(params, dev, "params")
     if not isinstance(prompts, torch.Tensor):
         prompts = torch.from_numpy(np.asarray(prompts))
     prompts = prompts.to(device=dev, dtype=torch.int32)
     b, p = prompts.shape
-    cache = model.init_decode_cache(cfg, b, p + gen, device=dev)
-    out = [prompts[:, i:i + 1] for i in range(p)]
+    anchors = (params["base"], params["adapter"], cfg)
+    step = jit_cache.jit(
+        _DECODE_CACHE, anchors, ("generate",),
+        functools.partial(_generate_step, cfg, params["base"],
+                          params["adapter"]), donate_argnums=(0,))
+    cache = _fresh_cache(
+        _DECODE_CACHE, anchors, ("generate",),
+        lambda d: model.init_decode_cache(cfg, b, p + gen, device=d), dev)
+    # each prompt column as a (B, 1) tensor of its own: one signature for
+    # every step's token
+    out = [prompts[:, i:i + 1].clone(memory_format=torch.contiguous_format)
+           for i in range(p)]
     for t in range(p + gen - 1):
         pos = torch.full((b, 1, 3) if cfg.pos_type == "mrope" else (b, 1), t,
                          dtype=torch.int32, device=dev)
-        logits, cache = model.decode_step(
-            cfg, params["base"], params["adapter"], cache,
-            {"token": out[t], "positions": pos})
+        logits, cache = step(cache, out[t], pos)
         if t >= p - 1 and t + 1 >= len(out):
             # first maximal index on ties, as jnp.argmax
             out.append(torch.argmax(logits[:, -1], dim=-1,
@@ -118,6 +168,31 @@ def _with_positions(cache: dict, pos: torch.Tensor) -> dict:
     return {"groups": groups, "tail": tail}
 
 
+def _kv(cache: dict) -> dict:
+    """``cache`` without its ``idx`` leaves: the buffers the engine's step
+    writes in place (its positions come from the slots each step)."""
+    def strip(c):
+        return {k: v for k, v in c.items() if k != "idx"}
+    groups = cache["groups"]
+    return {"groups": None if groups is None
+            else {k: strip(c) for k, c in groups.items()},
+            "tail": tuple(strip(c) for c in cache["tail"])}
+
+
+def _engine_step(cfg, base: dict, bank_dec: dict, kv: dict,
+                 tok: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor):
+    """:class:`ServeEngine`'s program: one token for every slot, each
+    through its own bank row, at its own ring position → (next tokens
+    (B,), the K/V written in place)."""
+    cache = _with_positions(kv, pos)
+    positions = (pos[:, None, None].expand(pos.shape[0], 1, 3)
+                 if cfg.pos_type == "mrope" else pos[:, None])
+    logits, cache = model.decode_step(
+        cfg, base, bank_dec, cache, {"token": tok, "positions": positions},
+        adapter_rows=rows)
+    return torch.argmax(logits[:, -1], dim=-1), _kv(cache)
+
+
 class ServeEngine:
     """Continuous-batching decode over a stacked adapter bank.
 
@@ -126,7 +201,8 @@ class ServeEngine:
     ring position (ragged ``idx``).  Idle slots carry row/pos -1 — the
     masked-slot sentinel of the kernels.  Greedy decode only: the point is
     token-exact equivalence to the per-user oracle.  ``steps`` counts the
-    decode steps taken.
+    decode steps taken.  Each step is one call of the engine's own decode
+    program, the K/V donated; the program and its K/V go with the engine.
     """
 
     def __init__(self, cfg, base: dict, bank: AdapterBank, *, slots: int = 8,
@@ -144,17 +220,17 @@ class ServeEngine:
         self.cfg, self.base, self.bank = cfg, base, bank
         self.slots, self.max_len = slots, max_len
         self._bank_dec = bank.decode_tree()
+        self._programs = jit_cache.JitCache(maxsize=1)
+        self._program = jit_cache.jit(
+            self._programs, (), ("engine",),
+            functools.partial(_engine_step, cfg, base, self._bank_dec),
+            donate_argnums=(0,))
         self.steps = 0
 
     def _step(self, cache, tok, pos, rows):
-        cache = _with_positions(cache, pos)
-        positions = (pos[:, None, None].expand(pos.shape[0], 1, 3)
-                     if self.cfg.pos_type == "mrope" else pos[:, None])
-        logits, cache = model.decode_step(
-            self.cfg, self.base, self._bank_dec, cache,
-            {"token": tok, "positions": positions}, adapter_rows=rows)
-        self.steps += 1
-        return torch.argmax(logits[:, -1], dim=-1), cache
+        """One decode step: (next tokens (B,), the cache's K/V without
+        its ``idx`` leaves, which the next step takes as its cache)."""
+        return self._program(_kv(cache), tok, pos, rows)
 
     @torch.inference_mode()
     def run(self, requests: Sequence[Request],
@@ -167,8 +243,11 @@ class ServeEngine:
                                  f"> max_len={self.max_len}")
         dev = self.device
         queue = list(requests)
-        cache = model.init_decode_cache(self.cfg, self.slots, self.max_len,
-                                        device=dev)
+        cache = _fresh_cache(
+            self._programs, (), ("engine",),
+            lambda d: _kv(model.init_decode_cache(self.cfg, self.slots,
+                                                  self.max_len, device=d)),
+            dev)
         active: List[Optional[Request]] = [None] * self.slots
         emitted: Dict[int, List[int]] = {}
         pos = np.full((self.slots,), -1, np.int32)
@@ -189,6 +268,7 @@ class ServeEngine:
                 cache, torch.from_numpy(tok[:, None].copy()).to(dev),
                 torch.from_numpy(pos.copy()).to(dev),
                 torch.from_numpy(rows.copy()).to(dev))
+            self.steps += 1
             nxt = nxt.cpu().numpy()
             for s in range(self.slots):
                 r = active[s]

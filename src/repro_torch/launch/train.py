@@ -727,8 +727,12 @@ def _run_scan_lm(*, cfg, base: dict, opt, stacked: dict, draw_np, plans,
     client's local fit as one batch, the select, the uplink with the
     residual ``ef`` in the carry, the server step, the masked install —
     no read-back inside a chunk; the chunk's losses come back in one sync.
-    With ``ckpt`` the stacked adapters, ``ef`` and the history are saved
-    at every chunk boundary; ``resume`` restores them, draws past the
+    Each chunk is one cached program (on a card one CUDA graph a chunk
+    length, the JAX package's ``run_chunk``), the carry donated with
+    ``donate``; the programs are the run's own (they read its probes and
+    its optimizer) and go with it.  With
+    ``ckpt`` the stacked adapters, ``ef`` and the history are saved at
+    every chunk boundary; ``resume`` restores them, draws past the
     completed rounds and continues.  Returns (history, adapters)."""
     dev = torch.device(device)
     chunk = max(1, int(chunk_rounds))
@@ -805,6 +809,21 @@ def _run_scan_lm(*, cfg, base: dict, opt, stacked: dict, draw_np, plans,
                                                            1.0)
         return (stk, ef), loss
 
+    def chunk_fn(carry, toks, labs, smask, pmask, u):
+        """The chunk program (a run's own: it reads the run's probes):
+        ``round_step`` for each of the chunk's rounds → (carry, (rounds,)
+        losses)."""
+        losses = []
+        for j in range(toks.shape[0]):
+            carry, loss = round_step(carry, toks[j], labs[j], smask[j],
+                                     pmask[j], [l[j] for l in u] if u
+                                     else None)
+            losses.append(loss)
+        return carry, torch.stack(losses)
+
+    chunk_programs = jit_cache.JitCache(maxsize=2)   # a chunk and the tail
+    run_chunk = jit_cache.jit(chunk_programs, (), "scan", chunk_fn,
+                              donate_argnums=(0,) if donate else ())
     next_round = [start]
 
     def produce(n_rounds: int):
@@ -832,13 +851,8 @@ def _run_scan_lm(*, cfg, base: dict, opt, stacked: dict, draw_np, plans,
         smask, pmask = client_batch.to_device(
             [client_batch.host_tensor(a[c0:c1], dev)
              for a in (pstack.sampled_mask, pstack.participant_mask)], dev)
-        losses = []
-        for j in range(c1 - c0):
-            carry, loss = round_step(carry, toks[j], labs[j], smask[j],
-                                     pmask[j], [l[j] for l in u] if u
-                                     else None)
-            losses.append(loss)
-        return carry, torch.stack(losses).cpu().numpy()  # the one sync
+        carry, losses = run_chunk(carry, toks, labs, smask, pmask, u)
+        return carry, losses.cpu().numpy()  # the one sync
 
     def on_chunk(carry, c0, c1, losses, host_s, device_s, wall_s):
         hist_loss.extend(float(v) for v in losses)
@@ -867,6 +881,7 @@ def _run_scan_lm(*, cfg, base: dict, opt, stacked: dict, draw_np, plans,
                 "wall_s": hist_wall[rnd],
                 "host_s": hist_host[rnd], "device_s": hist_dev[rnd]}
                for rnd in range(rounds)]
+    chunk_programs.clear()                 # the run's graphs go with it
     return history, client_batch.unstack_states(carry[0])
 
 

@@ -151,8 +151,14 @@ def _mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     half = head_dim // 2
     assert sum(sections) == half, (sections, half)
     dev = positions.device
-    comp = torch.tensor([i for i, n in enumerate(sections)
-                         for _ in range(n)], device=dev)       # (half,)
+    # comp[j] = the number of section ends at or below slot j, built on the
+    # device (no host-to-device copy: the decode step runs as a CUDA graph)
+    slots = torch.arange(half, device=dev)
+    comp = torch.zeros(half, dtype=torch.int64, device=dev)    # (half,)
+    end = 0
+    for n in sections[:-1]:
+        end += n
+        comp = comp + (slots >= end)
     pos = torch.gather(positions.float(), -1,
                        comp.expand(*positions.shape[:-1], half))
     return pos * _inv_freq(head_dim, theta, dev)

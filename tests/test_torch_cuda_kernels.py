@@ -1208,3 +1208,105 @@ def test_graphed_fit_is_bitwise_the_eager_fit(cuda):
                                (torch.ones(4, device=cuda),))
     assert torch.ones(3, device=cuda).sum().item() == 3.0
     jit_cache.clear_all()
+
+
+@pytest.mark.parametrize("arch", ["fed-100m", "qwen2-vl-72b", "rwkv6-1.6b",
+                                  "recurrentgemma-2b"])
+def test_graphed_generate_is_bitwise_the_eager_generate(cuda, arch):
+    """``serve.generate`` at reduced size (bf16 where the config is) through
+    its captured decode program, the cache donated (M-RoPE, the RWKV-6 and
+    RG-LRU states copied back into it): twice, the same tokens as under
+    ``disable_jit``, one capture, one replay a step, the same launches,
+    and the second call runs on the cache the program holds, zeroed (no
+    leaf copied in)."""
+    from repro_torch.core import jit_cache
+    cfg = get_config(arch).reduced()
+    params = model.init_params(cfg, torch.Generator(device=cuda).manual_seed(3))
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 6))
+
+    def counts():
+        return {**ops.LAUNCHES, **tl_ops.LAUNCHES, **wkv_ops.LAUNCHES}
+    jit_cache.clear_all()
+    ops.reset_launches()
+    tl_ops.reset_launches()
+    wkv_ops.reset_launches()
+    with jit_cache.disable_jit():
+        want = serve.generate(cfg, params, prompts, 5, device=cuda)
+    eager = counts()
+    jit_cache.reset_stats()
+    ops.reset_launches()
+    tl_ops.reset_launches()
+    wkv_ops.reset_launches()
+    got = [serve.generate(cfg, params, prompts, 5, device=cuda)
+           for _ in range(2)]
+    steps = 6 + 5 - 1
+    assert jit_cache.STATS["graphs"] == 1
+    assert jit_cache.STATS["replays"] == 2 * steps
+    assert jit_cache.STATS["donated_in"] == 0
+    assert counts() == {k: 2 * v for k, v in eager.items()}
+    for out in got:
+        assert torch.equal(out, want)
+    jit_cache.clear_all()
+
+
+def test_graphed_engine_and_scan_are_bitwise_eager(cuda):
+    """``ServeEngine`` (fed-100m reduced, a random bank) and a
+    ``run_federated`` scan run (tiny, int8, the norm gate, chunks of 2 over
+    3 rounds, the carry donated) through their captured programs against
+    their runs under ``disable_jit``: the same tokens, history and states,
+    one replay a step or chunk, and the donated carry's buffers survive
+    the chunks' releases.  The engine runs twice: the second run replays
+    its one graph on the K/V it holds, zeroed (no capture, no copy)."""
+    from repro_torch.core import federated, jit_cache
+    from repro_torch.core.fed_model import FedTask
+    from repro_torch.data import synthetic
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("fed-100m").reduced()
+    g = torch.Generator(device=cuda).manual_seed(4)
+    base = model.init_params(cfg, g)["base"]
+    bank = random_bank(cfg, 3, g)
+    reqs = serve.make_requests(bank, 5, prompt_len=4, gen=3,
+                               vocab=cfg.vocab_size, seed=4)
+    jit_cache.clear_all()
+    with jit_cache.disable_jit():
+        eng = serve.ServeEngine(cfg, base, bank, slots=2, max_len=7,
+                                device=cuda)
+        want = eng.run(reqs)
+    jit_cache.reset_stats()
+    eng2 = serve.ServeEngine(cfg, base, bank, slots=2, max_len=7,
+                             device=cuda)
+    got = [eng2.run(reqs) for _ in range(2)]
+    assert eng2.steps == 2 * eng.steps
+    assert jit_cache.STATS["replays"] == eng2.steps
+    assert jit_cache.STATS["graphs"] == 1
+    assert jit_cache.STATS["donated_in"] == 0
+    for done in got:
+        for r in reqs:
+            assert np.array_equal(done[r.rid], want[r.rid])
+
+    tiny = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                       vocab_size=256, rope_theta=1e4,
+                       layer_pattern=("attn",), param_dtype="float32",
+                       lora_rank=4)
+    data = synthetic.make_federated_classification(0, 4, 24, 8, 16, 256, 2,
+                                                   drift=0.8)[:2]
+    task = FedTask.create(torch.Generator(device=cuda).manual_seed(0), tiny,
+                          2)
+    fed = federated.FedConfig(method="celora", n_clients=4, rounds=3,
+                              local_steps=1, batch_size=4, lr=1e-2, seed=0,
+                              feature_samples=16, cka_probes=8, gmm_iters=3,
+                              uplink_codec="int8", admission="norm",
+                              engine="scan", chunk_rounds=2)
+    jit_cache.reset_stats()
+    out = federated.run_federated(task, fed, *data, device=cuda)
+    assert jit_cache.STATS["replays"] == 2
+    with jit_cache.disable_jit():
+        ref = federated.run_federated(task, fed, *data, device=cuda)
+    for a, b in zip(out["history"], ref["history"]):
+        assert (a.train_loss, a.accs, a.rejected) == \
+            (b.train_loss, b.accs, b.rejected)
+    for sa, sb in zip(out["states"], ref["states"]):
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(sa),
+                                                     tree_leaves(sb)))
+    jit_cache.clear_all()

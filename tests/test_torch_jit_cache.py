@@ -4,10 +4,13 @@ Its ``JitCache`` against the JAX package's (``repro.core.jit_cache``) on
 the same scripted calls; ``run_federated`` and the LM driver getting their
 fit and eval through ``JitCache``s anchored on the task's backbone and
 config; a run under ``disable_jit`` against the cached run; and the CUDA
-graph program's launch accounting, static buffers and clones, driven
-through a stand-in for ``torch.cuda``'s graph API (the real capture runs
-on the card: ``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``'s
-``train_graph``).  On the CPU a program is the function itself, so the
+graph program's launch accounting, static buffers and clones, and its
+donated arguments (the caller's tensors as buffers, copied in only when
+another tensor comes, returned aliased, kept by ``client_batch.release``)
+and nested programs, driven through a stand-in for ``torch.cuda``'s graph
+API (the real capture runs on the card: ``tests/test_torch_cuda_kernels.py``
+and ``chip_smoke.py``'s ``train_graph``, ``decode_graph`` and
+``scan_graph``).  On the CPU a program is the function itself, so the
 runs are compared bitwise.
 """
 import contextlib
@@ -18,12 +21,14 @@ import pytest
 import torch
 
 from repro.core.jit_cache import JitCache as JJitCache
-from repro_torch.core import federated, jit_cache
+from repro_torch.core import client_batch, federated, jit_cache
 from repro_torch.core.fed_model import FedTask
 from repro_torch.core.jit_cache import JitCache
 from repro_torch.data import synthetic
 from repro_torch.kernels.tri_lora import ops as tl_ops
-from repro_torch.launch import train
+from repro_torch.core.adapter_bank import random_bank
+from repro_torch.launch import serve, train
+from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves
 from torch_threads import one_torch_thread  # noqa: F401
@@ -321,3 +326,196 @@ def test_a_failed_capture_raises_and_counts_nothing(fake_graphs):
         cache.get_or_build((cache,), (), lambda: jit_cache.GraphProgram(
             fn, (torch.ones(2),)))
     assert len(cache) == 0 and tl_ops.LAUNCHES["tri_lora_dx"] == 0
+
+
+# ------------------------------------------------ donated arguments
+
+def _carry_fn(calls: list):
+    """A chunk-like program: the carry's ``w`` advances by ``x``, its
+    ``frozen`` leaf comes back as it went in, and ``x * 2`` is a plain
+    result."""
+    def fn(carry, x):
+        calls.append(1)
+        tl_ops.LAUNCHES["tri_lora_fwd"] += 1
+        return ({"frozen": carry["frozen"], "w": carry["w"] + x},
+                x * 2)
+    return fn
+
+
+def _carry():
+    return {"w": torch.ones(4), "frozen": torch.arange(3.0)}
+
+
+def test_donated_leaves_are_the_callers_tensors(fake_graphs):
+    """The static buffer of a donated leaf is the caller's tensor (a
+    non-donated one gets a buffer of its own); the capture ends by copying
+    the result for the argument into it (the stand-in graph runs the
+    capture's copies once, on the CPU)."""
+    carry, x = _carry(), torch.arange(4.0)
+    w0 = carry["w"].data_ptr()
+    prog = jit_cache.GraphProgram(_carry_fn([]), (carry, x),
+                                  donate_argnums=(0,))
+    static = {id(t) for t in prog._static}
+    assert id(carry["w"]) in static and id(carry["frozen"]) in static
+    assert id(x) not in static
+    assert carry["w"].data_ptr() == w0
+    assert torch.equal(carry["w"], torch.tensor([1.0, 2.0, 3.0, 4.0]))
+    assert torch.equal(carry["frozen"], torch.arange(3.0))
+
+
+def test_a_call_with_the_buffer_copies_nothing_and_another_is_copied_in(
+        fake_graphs):
+    calls = []
+    carry, x = _carry(), torch.arange(4.0)
+    prog = jit_cache.GraphProgram(_carry_fn(calls), (carry, x),
+                                  donate_argnums=(0,))
+    jit_cache.reset_stats()
+    out, _ = prog(carry, x)
+    assert jit_cache.STATS["donated_in"] == 0 and len(calls) == 2
+    out, _ = prog(out, x)                     # the returned buffers again
+    assert jit_cache.STATS["donated_in"] == 0
+    other = {"w": torch.full((4,), 9.0), "frozen": carry["frozen"]}
+    out, _ = prog(other, x)
+    assert jit_cache.STATS["donated_in"] == 1   # w only: frozen is the same
+    assert torch.equal(carry["w"], torch.full((4,), 9.0))
+    assert out["w"].data_ptr() == carry["w"].data_ptr() != \
+        other["w"].data_ptr()
+    assert jit_cache.STATS["replays"] == 3
+    assert tl_ops.LAUNCHES["tri_lora_fwd"] == 3
+
+
+def test_donated_results_are_aliased_and_the_others_cloned(fake_graphs):
+    carry, x = _carry(), torch.arange(4.0)
+    prog = jit_cache.GraphProgram(_carry_fn([]), (carry, x),
+                                  donate_argnums=(0,))
+    (a, ya), (b, yb) = prog(carry, x), prog(carry, x)
+    for out in (a, b):
+        assert list(out) == ["w", "frozen"]          # the argument's tree
+        assert out["w"] is carry["w"] and out["frozen"] is carry["frozen"]
+    assert ya.data_ptr() != yb.data_ptr()
+    assert ya.data_ptr() not in {o.data_ptr() for o in prog._out}
+    assert torch.equal(ya, x * 2)
+
+
+def test_a_donated_argument_needs_one_matching_result(fake_graphs):
+    carry, x = _carry(), torch.arange(4.0)
+    with pytest.raises(ValueError, match="donated argument 0"):
+        jit_cache.GraphProgram(lambda c, y: (y, y), (carry, x),
+                               donate_argnums=(0,))
+    with pytest.raises(TypeError, match="tuple or a list"):
+        jit_cache.GraphProgram(lambda c, y: c, (carry, x),
+                               donate_argnums=(0,))
+    with pytest.raises(ValueError, match="overlaps"):
+        jit_cache.GraphProgram(lambda c: (c,), (torch.zeros(3).expand(2, 3),),
+                               donate_argnums=(0,))
+
+
+def test_a_jit_function_inside_a_capture_runs_plain(fake_graphs):
+    """The warm-up and the capture call the inner jit function plain: no
+    entry, no program; outside a build it is cached as usual."""
+    inner_cache = JitCache(maxsize=2)
+    seen = []
+
+    def inner_fn(x):
+        seen.append(1)
+        return x + 1
+    inner = jit_cache.jit(inner_cache, (inner_cache,), "inner", inner_fn)
+    jit_cache.reset_stats()
+    prog = jit_cache.GraphProgram(lambda x: inner(x) * 2, (torch.ones(3),))
+    assert len(seen) == 2 and len(inner_cache) == 0
+    assert jit_cache.STATS["programs"] == 0
+    prog(torch.ones(3))
+    assert len(seen) == 2
+    inner(torch.ones(3))
+    assert len(inner_cache) == 1 and jit_cache.STATS["programs"] == 1
+
+
+def test_release_keeps_a_programs_buffers(fake_graphs):
+    """A donated carry is the program's static buffer: releasing it as an
+    old carry frees nothing and leaves it usable; once the program is gone
+    the same release frees it."""
+    carry, x = _carry(), torch.arange(4.0)
+    prog = jit_cache.GraphProgram(_carry_fn([]), (carry, x),
+                                  donate_argnums=(0,))
+    new = {"w": torch.zeros(4), "frozen": torch.zeros(3)}
+    assert client_batch.release(carry, new) == 0
+    assert not isinstance(carry["w"], client_batch.ReleasedTensor)
+    assert carry["w"].untyped_storage().nbytes() == 16
+    prog(carry, x)
+    kept = jit_cache.unshared(carry)
+    assert kept["w"].data_ptr() != carry["w"].data_ptr()
+    assert torch.equal(kept["w"], carry["w"])
+    del prog
+    gc.collect()
+    assert jit_cache.unshared(carry)["w"] is carry["w"]
+    assert client_batch.release(carry, new) == 2
+    with pytest.raises(RuntimeError, match="released"):
+        carry["w"] + 1
+
+
+def test_a_second_decode_call_reuses_the_held_cache(fake_graphs,
+                                                    monkeypatch):
+    """``generate`` and ``ServeEngine.run`` called twice at the same shapes
+    through graph programs (the stand-in): the second call zeroes and
+    passes back the cache its program holds (``jit_cache.held``), so no
+    second cache is allocated (``init_decode_cache`` runs on ``meta``
+    only), none is copied in, and nothing is captured again; the engine's
+    program is its own, not in ``serve._DECODE_CACHE``."""
+    monkeypatch.setattr(jit_cache, "program",
+                        lambda fn, args, donate_argnums=():
+                        jit_cache.GraphProgram(fn, args, donate_argnums))
+    made, init = [], model.init_decode_cache
+
+    def recorded(cfg, batch, seq_len, *, device):
+        made.append(str(device))
+        return init(cfg, batch, seq_len, device=device)
+    monkeypatch.setattr(model, "init_decode_cache", recorded)
+    cfg = ModelConfig(**TINY)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init_params(cfg, gen)
+    prompts = np.arange(6, dtype=np.int32).reshape(2, 3)
+    jit_cache.clear_all()
+    jit_cache.reset_stats()
+    serve.generate(cfg, params, prompts, 2, device="cpu")
+    held = jit_cache.held(serve._DECODE_CACHE,
+                          (params["base"], params["adapter"], cfg),
+                          ("generate",), 0,
+                          init(cfg, 2, 5, device="meta"))
+    assert made == ["meta", "cpu"] and held is not None
+    assert jit_cache.STATS["graphs"] == 1
+    held_ptrs = [t.data_ptr() for t in tree_leaves(held)]
+    with torch.inference_mode():    # the next call must start from zeros
+        for t in tree_leaves(held):
+            t.fill_(7)
+    seen = []
+    step = jit_cache.GraphProgram.__call__
+
+    def call(prog, *args):
+        seen.append([t.data_ptr() for t in tree_leaves(args[0])])
+        assert all(not t.any() for t in tree_leaves(args[0]))
+        return step(prog, *args)
+    monkeypatch.setattr(jit_cache.GraphProgram, "__call__", call)
+    serve.generate(cfg, params, prompts, 2, device="cpu")
+    assert made == ["meta", "cpu", "meta"] and seen[0] == held_ptrs
+    assert jit_cache.STATS["graphs"] == 1
+    assert jit_cache.STATS["donated_in"] == 0
+    with jit_cache.disable_jit():
+        assert jit_cache.held(serve._DECODE_CACHE,
+                              (params["base"], params["adapter"], cfg),
+                              ("generate",), 0,
+                              init(cfg, 2, 5, device="meta")) is None
+
+    monkeypatch.setattr(jit_cache.GraphProgram, "__call__", step)
+    bank = random_bank(cfg, 2, gen)
+    reqs = serve.make_requests(bank, 3, prompt_len=2, gen=1,
+                               vocab=cfg.vocab_size, seed=0)
+    eng = serve.ServeEngine(cfg, params["base"], bank, slots=2, max_len=3,
+                            device="cpu")
+    made.clear()
+    eng.run(reqs)
+    eng.run(reqs)
+    assert made == ["meta", "cpu", "meta"]
+    assert len(eng._programs) == 1 and len(serve._DECODE_CACHE) == 1
+    assert jit_cache.STATS["graphs"] == 2
+    assert jit_cache.STATS["donated_in"] == 0
+    jit_cache.clear_all()

@@ -3,8 +3,8 @@
 (celora, int8, 2 clients, 2 rounds in chunks of 1, its draws handed to the
 port) with the JAX package's contract — identical participant and byte
 ledgers, loss within 1e-4, adapters within 5e-4 — then kill-and-resume
-bitwise against the uninterrupted run, the fingerprint's refusal, and the
-CLI."""
+bitwise against the uninterrupted run, the fingerprint's refusal, the
+chunk program bitwise against round-by-round dispatch, and the CLI."""
 import os
 
 import jax
@@ -19,6 +19,7 @@ from repro.launch import train as jtrain
 from repro.models import model as jmodel
 from repro.models.config import get_config as jget_config
 from repro_torch import checkpoint, convert
+from repro_torch.core import jit_cache
 from repro_torch.launch import train
 from repro_torch.tree import tree_leaves
 from torch_threads import one_torch_thread  # noqa: F401
@@ -120,6 +121,31 @@ def test_lm_kill_and_resume_is_bitwise(tmp_path):
     with pytest.raises(ValueError, match="different run configuration"):
         train.run(**dict(PORT, seed=6), ckpt=path, resume=True,
                   device="cpu", verbose=False)
+
+
+def test_chunk_program_equals_round_by_round_dispatch(monkeypatch):
+    """The chunk program (on the CPU the chunk function) against the
+    rounds dispatched one by one, plain (chunks of one round under
+    ``disable_jit``): bitwise; a run builds one program a chunk length,
+    and a program's returned adapters are the run's own."""
+    jit_cache.clear_all()
+    built, program = [], jit_cache.program
+
+    def counted(fn, args, donate_argnums=()):
+        built.append(getattr(fn, "__name__", ""))
+        return program(fn, args, donate_argnums)
+    monkeypatch.setattr(jit_cache, "program", counted)
+    out = train.run(**dict(PORT, chunk_rounds=2), device="cpu",
+                    verbose=False)
+    assert built.count("chunk_fn") == 2         # chunks of 2 and of 1
+    with jit_cache.disable_jit():
+        ref = train.run(**dict(PORT, chunk_rounds=1), device="cpu",
+                        verbose=False)
+    assert _strip(out["history"]) == _strip(ref["history"])
+    for a, b in zip(out["adapters"], ref["adapters"]):
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b)))
+    jit_cache.clear_all()
 
 
 def test_cli_scan_engine_on_the_cpu(capsys, tmp_path):

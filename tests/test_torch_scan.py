@@ -18,11 +18,13 @@ loss within 1e-4, accuracies within 1e-3, states within 5e-4:
 * (iii) ``pfedme_lora`` with stragglers (prox plus FedAvg).
 
 The three JAX runs share two compiled chunk programs ((i) and (ii) differ
-only in ``rounds``).  Port against port, bitwise: chunk sizes,
-donate/prefetch, a repeated donated run, kill-and-resume, the released
-carry; then the scan engine against the port's eager vmap path, the chunk
-feeders against the JAX package's numpy, and the ChunkPrefetcher contract
-(tests/test_pipeline.py mirrored).
+only in ``rounds``).  Port against port, bitwise: chunk sizes, the chunk
+program against round-by-round dispatch (one program a chunk length and
+cadence pattern), donate/prefetch, a repeated donated run,
+kill-and-resume, the released carry; then the scan engine against the
+port's eager vmap path, the chunk feeders against the JAX package's
+numpy, and the ChunkPrefetcher contract (tests/test_pipeline.py
+mirrored).
 """
 import collections
 import dataclasses
@@ -48,7 +50,8 @@ from repro.data import synthetic as jsynthetic
 from repro.data.pipeline import Loader as JLoader
 from repro.models.config import ModelConfig as JConfig
 from repro_torch import checkpoint, convert
-from repro_torch.core import client_batch, fed_engine, federated, sampling
+from repro_torch.core import (client_batch, fed_engine, federated,
+                              jit_cache, sampling)
 from repro_torch.data.pipeline import Loader
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves
@@ -270,6 +273,49 @@ def test_donate_and_prefetch_are_bitwise_alike(setup, donate, prefetch):
     ref = _port_memo(setup, "port chunk 2", chunk_rounds=2)
     _assert_bitwise(ref, _port(setup, PORT, scan_donate=donate,
                                scan_prefetch=prefetch))
+
+
+@pytest.mark.parametrize("rounds,every,programs", [(3, 1, 2), (5, 3, 3)],
+                         ids=["every_round", "every_3rd"])
+def test_chunk_program_equals_round_by_round_dispatch(setup, rounds, every,
+                                                      programs):
+    """The chunk program (on the CPU the chunk function) against the
+    rounds dispatched one by one, plain (chunks of one round under
+    ``disable_jit``): bitwise.  A run in chunks of 2 builds one program a
+    (chunk length, cadence pattern): 3 rounds evaluating every round, (T,
+    T) and (T); 5 rounds evaluating every 3rd and the last, (T, F), (F, T)
+    and (T)."""
+    kw = dict(PORT, rounds=rounds, eval_every=every, local_steps=1)
+    jit_cache.clear_all()
+    out = _port(setup, kw, chunk_rounds=2)
+    assert len(fed_engine._SCAN_CACHE) == programs
+    with jit_cache.disable_jit():
+        ref = _port(setup, kw, chunk_rounds=1)
+    _assert_bitwise(ref, out)
+    jit_cache.clear_all()
+
+
+def test_the_cache_holds_every_cadence_pattern_of_a_run(setup,
+                                                        monkeypatch):
+    """A run whose cadence patterns outnumber ``_SCAN_CACHE``'s size (9
+    rounds in chunks of 2, evaluating every 3rd: (T, F), (F, T), (F, F),
+    (T, F) again and (T)) grows the cache to hold them all: four programs,
+    none built twice, and a second run builds nothing."""
+    kw = dict(PORT, rounds=9, eval_every=3, local_steps=1)
+    jit_cache.clear_all()
+    monkeypatch.setattr(fed_engine, "_SCAN_CACHE",
+                        jit_cache.JitCache(maxsize=2))
+    built, program = [], jit_cache.program
+
+    def counted(fn, args, donate_argnums=()):
+        built.append(getattr(getattr(fn, "func", fn), "__name__", ""))
+        return program(fn, args, donate_argnums)
+    monkeypatch.setattr(jit_cache, "program", counted)
+    _port(setup, kw, chunk_rounds=2)
+    assert built.count("chunk_fn") == len(fed_engine._SCAN_CACHE) == 4
+    _port(setup, kw, chunk_rounds=2)
+    assert built.count("chunk_fn") == 4
+    jit_cache.clear_all()
 
 
 def test_loop_parallelism_runs_the_same_stacked_round(setup):

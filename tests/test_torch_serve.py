@@ -4,8 +4,9 @@ The contract: on the same params, adapter bank and request stream (drawn
 by the JAX package and moved across with ``repro_torch.convert``), the
 port's ``ServeEngine`` emits token-for-token what the JAX ``ServeEngine``
 emits, and what the port's own merged-weights ``serve_naive`` emits.  Also:
-the request stream is the same numpy stream, and the port imports neither
-``jax`` nor the JAX package.
+the decode programs (``generate``'s and the engine's) emit what the plain
+step emits, the request stream is the same numpy stream, and the port
+imports neither ``jax`` nor the JAX package.
 """
 import os
 import re
@@ -24,6 +25,7 @@ from repro.launch import serve as jserve
 from repro.models import model as jmodel
 from repro.models.config import ModelConfig as JConfig
 from repro_torch import convert
+from repro_torch.core import jit_cache
 from repro_torch.core.adapter_bank import random_bank
 from repro_torch.launch import serve
 from repro_torch.models.config import ModelConfig
@@ -84,6 +86,47 @@ def test_generate_matches_jax(both):
     want = np.asarray(jserve.generate(jcfg, jp, jax.numpy.asarray(prompts), 5))
     got = serve.generate(tcfg, tparams, prompts, 5, device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_decode_programs_equal_the_plain_step(both):
+    """``generate`` and ``ServeEngine`` through their cached decode
+    programs (on the CPU the step itself) give the tokens of the plain
+    step under ``disable_jit``; ``generate`` builds one program for all of
+    its steps (the prompt columns and the new tokens share a signature) and
+    a second call at the same shapes none; ``ServeEngine.steps`` counts
+    every step taken."""
+    (jcfg, jp, jbank), (tcfg, tbase, tbank) = both
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    prompts = np.random.default_rng(6).integers(
+        0, TINY["vocab_size"], (3, 5)).astype(np.int32)
+    jit_cache.clear_all()
+    got = serve.generate(tcfg, tparams, prompts, 4, device="cpu")
+    assert len(serve._DECODE_CACHE) == 1
+    built = jit_cache.STATS["programs"]
+    again = serve.generate(tcfg, tparams, prompts, 4, device="cpu")
+    assert jit_cache.STATS["programs"] == built
+    with jit_cache.disable_jit():
+        plain = serve.generate(tcfg, tparams, prompts, 4, device="cpu")
+    assert torch.equal(got, plain) and torch.equal(again, plain)
+
+    reqs = jserve.make_requests(jbank, 6, prompt_len=3, gen=4,
+                                vocab=TINY["vocab_size"], seed=2)
+    eng = serve.ServeEngine(tcfg, tbase, tbank, slots=4, max_len=7,
+                            device="cpu")
+    taken = []
+    step = eng._step
+
+    def counted(*args):
+        taken.append(1)
+        return step(*args)
+    eng._step = counted
+    done = eng.run(reqs)
+    assert eng.steps == len(taken) > 0
+    with jit_cache.disable_jit():
+        plain = serve.ServeEngine(tcfg, tbase, tbank, slots=4, max_len=7,
+                                  device="cpu").run(reqs)
+    _same(reqs, done, plain, "engine program vs plain engine step")
+    jit_cache.clear_all()
 
 
 def test_make_requests_is_the_same_stream(both):
